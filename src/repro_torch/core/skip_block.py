@@ -1,0 +1,179 @@
+"""Skip-aware submodule composition, masked mode: router → fused norm ×
+submodule → gate/residual epilogue (paper Fig. 1 / Alg. 1).
+
+Counterpart of the JAX package's ``core/skip_block.py`` on its fused path
+(``use_kernels=True, fuse_linear=True``): the router and the norm's
+reduction share one pass over x (the router-stats kernel) where no Σy²
+carry exists yet; every later block takes its norm statistics from the
+previous block's fused epilogue (``stats['res_sq']``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kv_reuse, routing
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+Stats = Dict[str, torch.Tensor]
+
+
+def _router_and_stats(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      routed: bool,
+                      carried_sq: Optional[torch.Tensor] = None):
+    """(router logits or None, mean(x²)).  With ``carried_sq`` the norm
+    reduction is free and only the router product touches x."""
+    if carried_sq is not None:
+        logits = routing.router_logits(p["router"], x) if routed else None
+        return logits, carried_sq
+    if routed:
+        return kops.fused_router_rmsnorm_stats(x, p["router"]["w"],
+                                               p["router"]["b"])
+    return None, layers.norm_stats(x)
+
+
+def _gate(logits, shape, routed: bool, device):
+    if not routed:
+        ones = torch.ones(shape, dtype=torch.float32, device=device)
+        return ones, ones
+    return routing.gate_from_logits(logits)
+
+
+def _routed_stats(p_keep, gate, routed: bool, cfg: ModelConfig,
+                  device) -> Stats:
+    if routed:
+        return routing.router_stats(p_keep, gate, cfg)
+    return {"keep_frac": torch.ones((), device=device),
+            "router_loss": torch.zeros((), device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+def routed_attention(p: Params, x: torch.Tensor,
+                     view: Optional[kv_reuse.KVPair],
+                     positions: torch.Tensor, cfg: ModelConfig, *,
+                     window: int = 0,
+                     carried_sq: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, kv_reuse.KVPair, Stats]:
+    """x: [B, T, D].  Returns (x + routed_attn(x), new KV view, stats with
+    ``attn_gate`` [B, T] and the Σy²/D carry ``res_sq``)."""
+    B, T, D = x.shape
+    routed = cfg.skip.enabled and cfg.skip.route_attention
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits, (B, T), routed, x.device)
+    inner = p["inner"]
+    q, k, v = attn_mod.project_qkv(inner, x, positions, cfg, norm=p["norm"],
+                                   stats=nstats)
+    if routed and cfg.skip.kv_reuse:
+        view = kv_reuse.merge_view(view, k, v, gate)
+    else:
+        view = kv_reuse.init_view(k, v)
+    o = attn_mod.attention_core(q, view[0], view[1], q_positions=positions,
+                                cfg=cfg, window=window)
+    x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
+                                       gate_mul=gate if routed else None,
+                                       emit_sq=True)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    stats["attn_gate"] = gate
+    stats["res_sq"] = sq / D
+    return x, view, stats
+
+
+def routed_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               carried_sq: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Stats]:
+    """Dense GLU MLP on the fused pipeline, masked routing."""
+    B, T, D = x.shape
+    routed = cfg.skip.enabled and cfg.skip.route_mlp
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits, (B, T), routed, x.device)
+    x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
+                                   stats=nstats, residual=x,
+                                   gate_mul=gate if routed else None,
+                                   emit_sq=True)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    stats["res_sq"] = sq / D
+    return x, stats
+
+
+# ---------------------------------------------------------------------------
+# Decode (one new token per sequence, per-layer dense KV cache)
+# ---------------------------------------------------------------------------
+
+def _decode_output_epilogue(inner: Params, o: torch.Tensor, x: torch.Tensor,
+                            gate: torch.Tensor, routed: bool,
+                            cfg: ModelConfig, stats: Stats) -> torch.Tensor:
+    """(o·Wo)·gate + x in one kernel; the Σy²/D carry goes to
+    ``stats['res_sq']``.  x: [B, 1, D]; gate: [B]."""
+    x, sq = attn_mod.output_proj_fused(
+        inner, o, cfg, residual=x,
+        gate_mul=gate[:, None] if routed else None, emit_sq=True)
+    stats["res_sq"] = sq / x.shape[-1]
+    return x
+
+
+def _row_update(cache: torch.Tensor, new: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+    """Write one entry per batch row at its own time index, in place.
+    cache: [B, Tmax, ...]; new: [B, 1, ...]; t: [B]."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, t.long()] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def routed_attention_decode(p: Params, x: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            t: torch.Tensor,
+                            kv_prev: Optional[kv_reuse.KVPair],
+                            positions: torch.Tensor, cfg: ModelConfig, *,
+                            window: int = 0,
+                            carried_sq: Optional[torch.Tensor] = None):
+    """One decode step.  x: [B, 1, D]; k/v_cache: [B, Tmax, Hkv, dh],
+    updated IN PLACE at row t (the JAX engine donates its cache; here the
+    write is the same buffer); t: [B] int32.  Returns (x, k_cache, v_cache,
+    the carried single-token view, stats)."""
+    B = x.shape[0]
+    routed = cfg.skip.enabled and cfg.skip.route_attention
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits[:, 0] if logits is not None else None, (B,),
+                         routed, x.device)
+    inner = p["inner"]
+    q, k_new, v_new = attn_mod.project_qkv(inner, x, positions, cfg,
+                                           norm=p["norm"], stats=nstats)
+    if routed and cfg.skip.kv_reuse:
+        k_t, v_t = kv_reuse.merge_token_view(kv_prev, k_new, v_new, gate)
+    else:
+        k_t, v_t = k_new, v_new
+    _row_update(k_cache, k_t, t)
+    _row_update(v_cache, v_t, t)
+    o = attn_mod.attention_core(q, k_cache, v_cache, q_positions=positions,
+                                cfg=cfg, window=window, kv_valid_len=t + 1)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    x = _decode_output_epilogue(inner, o, x, gate, routed, cfg, stats)
+    stats["attn_gate"] = gate
+    return x, k_cache, v_cache, (k_t, v_t), stats
+
+
+def routed_mlp_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      carried_sq: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Stats]:
+    """Decode-time MLP routing is the masked path with T = 1."""
+    B, _, D = x.shape
+    routed = cfg.skip.enabled and cfg.skip.route_mlp
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits[:, 0] if logits is not None else None, (B,),
+                         routed, x.device)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
+                                   stats=nstats, residual=x,
+                                   gate_mul=gate[:, None] if routed else None,
+                                   emit_sq=True)
+    stats["res_sq"] = sq / D
+    return x, stats

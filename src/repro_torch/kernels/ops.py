@@ -1,0 +1,104 @@
+"""Public wrappers around the port's kernels (counterpart of the JAX
+package's ``kernels/ops.py``).
+
+Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
+kernel's plain version, a CUDA tensor takes the kernel, which raises if its
+build or launch fails.  There is no fallback and no switch.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_linear as fl
+from repro_torch.kernels import fused_router_rmsnorm as frr
+
+
+def kernel_launches() -> dict:
+    """Launch counts of every kernel wrapper, by kernel name."""
+    return {"router_stats": frr.launches, "fused_linear": fl.launches,
+            "flash_attention": fa.launches}
+
+
+def reset_kernel_launches() -> None:
+    frr.launches = fl.launches = fa.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _pack_heads(q, k, v, q_positions, kv_valid_len):
+    """The reference's packed layout: q [B·Hkv, G·Tq, dh], k/v
+    [B·Hkv, Tk, dh], positions [B·Hkv, G·Tq], kv_len [B·Hkv, 1], meta."""
+    B, Tq, Hq, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qp, kp, vp = fa.pack_qkv(q, k, v)
+    pos, kv_len = fa.pack_positions(q_positions, kv_valid_len, B, Hkv, G, Tk)
+    return qp, kp, vp, pos, kv_len[:, None], (B, Tq, Hq, Hkv, G, dh)
+
+
+def flash_attention(q, k, v, *, q_positions, causal: bool = True,
+                    window: int = 0, kv_valid_len=None,
+                    softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,Tq,Hq,dh]; k/v: [B,Tk,Hkv,dh] -> [B,Tq,Hq,dh]."""
+    B, Tq, Hq, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    pos, kv_len = fa.pack_positions(q_positions, kv_valid_len, B, Hkv,
+                                    Hq // Hkv, Tk)
+    return fa.flash_attention(q, k, v, pos, kv_len, causal=causal,
+                              window=window, scale=scale)
+
+
+def decode_attention(q, k, v, *, q_positions, window: int = 0,
+                     kv_valid_len=None,
+                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token decode: q [B,1,Hq,dh] against a [B,Tk,Hkv,dh] cache."""
+    return flash_attention(q, k, v, q_positions=q_positions, causal=True,
+                           window=window, kv_valid_len=kv_valid_len,
+                           softmax_scale=softmax_scale)
+
+
+# ---------------------------------------------------------------------------
+# Fused router + RMSNorm statistics, fused linear pipeline
+# ---------------------------------------------------------------------------
+
+def fused_router_rmsnorm_stats(x: torch.Tensor, w: torch.Tensor,
+                               b: torch.Tensor):
+    """x: [B, T, D] -> (router logits [B, T, 2] f32, mean_sq [B, T] f32)."""
+    B, T, D = x.shape
+    logits, ms = frr.router_stats(x.reshape(B * T, D), w)
+    return logits.reshape(B, T, 2) + b, ms.reshape(B, T)
+
+
+def fused_linear(params, x: torch.Tensor, *, mean_sq=None, gamma=None,
+                 eps: float = 1e-5, glu: bool = False, act=None,
+                 residual=None, gate_mul=None, emit_sq: bool = False):
+    """Fused linear pipeline over a dense linear param dict {"w"}.
+
+    x: [..., K]; ``mean_sq`` [...] + ``gamma`` [K] fuse the RMSNorm
+    elementwise phase; ``glu``/``act`` apply the GLU epilogue over a widened
+    [gate|up] weight; ``gate_mul`` [...] and ``residual`` [..., F] fuse the
+    routed-residual write; with ``emit_sq`` the second return is Σy² per row
+    (f32).  Returns (out [..., F], Σy² [...] or None)."""
+    if "w" not in params:
+        raise NotImplementedError(
+            "the port's fused linear takes dense weights only (int4-BFP "
+            "weights are not ported yet)")
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    out, sq = fl.fused_linear(
+        x.reshape(-1, K), params["w"],
+        mean_sq=None if mean_sq is None else mean_sq.reshape(-1),
+        gamma=gamma, eps=eps, glu=glu, act=act,
+        residual=None if residual is None
+        else residual.reshape(-1, residual.shape[-1]),
+        gate_mul=None if gate_mul is None else gate_mul.reshape(-1),
+        emit_sq=emit_sq)
+    out = out.reshape(*lead, out.shape[-1])
+    return out, (None if sq is None else sq.reshape(*lead))

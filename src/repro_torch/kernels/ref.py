@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the port's kernels (mirrors of the JAX package's
+``kernels/ref.py`` oracles).
+
+The kernel wrappers take these for CPU tensors; ``chip_smoke.py`` holds each
+CUDA kernel against them on the card.  They repeat the kernels' arithmetic in
+fp32 and are no yardstick of speed.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1.0e30
+
+
+def act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+    """Epilogue activation (the JAX package's ``fused_linear._act``; the
+    port's slice uses SwiGLU only)."""
+    if name is None:
+        return y
+    if name == "silu":
+        return F.silu(y)
+    raise ValueError(f"unsupported epilogue activation {name!r}")
+
+
+def router_stats_ref(x: torch.Tensor, w: torch.Tensor):
+    """x: [T, D]; w: [D, 2] -> (logits f32 [T, 2], mean_sq f32 [T])."""
+    xf = x.float()
+    return xf @ w.float(), (xf * xf).mean(dim=-1)
+
+
+def fused_linear_ref(x, w, *, mean_sq=None, gamma=None, eps: float = 1e-5,
+                     glu: bool = False, act_name=None, residual=None,
+                     gate_mul=None, emit_sq: bool = False):
+    """Dense branch of the fused linear pipeline: RMSNorm prologue from the
+    injected ``mean_sq``, exact fp32 matmul, GLU / activation, gate
+    multiplier, residual add, Σy² of the written rows (fp32, pre-cast).
+    x: [M, K]; w: [K, N] -> (out [M, F] in x's dtype, Σy² [M] f32 or None)."""
+    xf = x.float()
+    if mean_sq is not None:
+        xf = xf * torch.rsqrt(mean_sq.float()[:, None] + eps) * gamma.float()
+    y = xf @ w.float()
+    if glu:
+        f = y.shape[-1] // 2
+        y = act(y[:, :f], act_name) * y[:, f:]
+    else:
+        y = act(y, act_name)
+    if gate_mul is not None:
+        y = y * gate_mul.float()[:, None]
+    if residual is not None:
+        y = y + residual.float()
+    sq = (y * y).sum(dim=-1) if emit_sq else None
+    return y.to(x.dtype), sq
+
+
+def flash_attention_packed_ref(q, k, v, q_pos, kv_len, *, causal: bool = True,
+                               window: int = 0, scale: float):
+    """Packed-layout attention: q [BH, R, dh]; k/v [BH, Tk, dh];
+    q_pos int [BH, R] (-1 = pad); kv_len int [BH].  Rows with no valid key
+    come out as zeros."""
+    Tk = k.shape[1]
+    s = torch.einsum("brd,bkd->brk", q.float() * scale, k.float())
+    kv_pos = torch.arange(Tk, device=q.device)
+    qp = q_pos[:, :, None]
+    mask = kv_pos[None, None, :] < kv_len[:, None, None]
+    if causal:
+        mask = mask & (kv_pos[None, None, :] <= qp)
+    if window:
+        mask = mask & (kv_pos[None, None, :] > qp - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1, keepdim=True), p, torch.zeros_like(p))
+    return torch.einsum("brk,bkd->brd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, q_positions, causal: bool = True,
+                        window: int = 0, kv_valid_len=None,
+                        softmax_scale: Optional[float] = None):
+    """Dense GQA attention oracle.  q: [B,Tq,Hq,dh]; k/v: [B,Tk,Hkv,dh]."""
+    B, Tq, Hq, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, Tq, Hkv, G, dh).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    kv_pos = torch.arange(Tk, device=q.device)
+    qp = q_positions[:, :, None]
+    mask = torch.ones((B, Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kv_pos[None, None, :] <= qp)
+    if window:
+        mask = mask & (kv_pos[None, None, :] > qp - window)
+    if kv_valid_len is not None:
+        mask = mask & (kv_pos[None, None, :] < kv_valid_len[:, None, None])
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None, None, :, None], p,
+                    torch.zeros_like(p))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Tq, Hq, dh).to(q.dtype)

@@ -1,0 +1,178 @@
+"""LanguageModel: init / prefill / decode step over the layer stack, with
+SkipGPT routing and cross-layer KV reuse threaded through every layer.
+
+Counterpart of the JAX package's ``models/model.py`` (inference entry
+points).  Parameters are a nested dict named after the reference's pytree
+paths, except that the scan-stacked ``stack.stage0`` / ``stack.stages``
+leaves become one list ``blocks`` of per-layer dicts (``bridge.py`` maps
+path to path).  ``LanguageModel`` owns them as ``nn.Module`` parameters.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers, transformer
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device: ``cuda`` unless the caller asks for the
+    CPU.  Asking for CUDA where there is none raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
+                           "available (pass device='cpu' to run the plain "
+                           "versions on the CPU)")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Dict:
+    """Parameters with the reference's shapes and distributions, drawn from
+    ``generator`` and built directly on ``device``."""
+    transformer.check_supported(cfg)
+    p = {"embed": layers.embedding_init(generator, cfg, device),
+         "blocks": [transformer.block_init(generator, cfg, device)
+                    for _ in range(cfg.num_layers)],
+         "final_norm": layers.norm_init(cfg.d_model, cfg, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.linear_init(generator, cfg.d_model,
+                                          cfg.vocab_size, cfg, device,
+                                          scale=0.02)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+def _pad_cache_to(cache: List[Dict], T: int, pad_to: int) -> List[Dict]:
+    """Grow each layer's [B, T, Hkv, dh] KV view to pad_to (decode room)."""
+    out = []
+    for ce in cache:
+        grown = {}
+        for name, kv in ce.items():
+            g = torch.zeros((kv.shape[0], pad_to) + tuple(kv.shape[2:]),
+                            dtype=kv.dtype, device=kv.device)
+            g[:, :T] = kv
+            grown[name] = g
+        out.append(grown)
+    return out
+
+
+def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+            pad_to: Optional[int] = None
+            ) -> Tuple[torch.Tensor, List[Dict], Dict]:
+    """tokens [B, T] -> (last-position logits [B, V], per-layer cache
+    [{"k", "v"}: [B, pad_to or T, Hkv, dh]], stats)."""
+    transformer.check_supported(cfg)
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, T)
+    x = layers.embed(params["embed"], tokens)
+    x, stats, cache, sq = transformer.stack_forward(params["blocks"], x,
+                                                    positions, cfg)
+    x = layers.norm_apply(params["final_norm"], x[:, -1:], cfg,
+                          stats=sq[:, -1:])
+    logits = layers.unembed(params["embed"], params.get("lm_head"), x,
+                            cfg)[:, 0]
+    if pad_to is not None and pad_to > T:
+        cache = _pad_cache_to(cache, T, pad_to)
+    return logits, cache, stats
+
+
+def decode_step(params: Dict, cache: List[Dict], tokens: torch.Tensor,
+                t, cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict], Dict]:
+    """One token per sequence.  tokens [B, 1]; t: [B] or scalar position
+    (lock-step).  The caches are updated IN PLACE (the JAX engine donates
+    them).  Returns (logits [B, V], cache, stats) with ``attn_gate`` [L, B]."""
+    transformer.check_supported(cfg)
+    B = tokens.shape[0]
+    t = torch.as_tensor(t, dtype=torch.int32, device=tokens.device)
+    t = t.reshape(-1).expand(B).contiguous()
+    pos = t[:, None]
+    x = layers.embed(params["embed"], tokens)
+    x, cache, stats, sq = transformer.stack_decode(params["blocks"], cache, x,
+                                                   t, pos, cfg)
+    x = layers.norm_apply(params["final_norm"], x, cfg, stats=sq)
+    logits = layers.unembed(params["embed"], params.get("lm_head"), x, cfg)
+    return logits[:, 0], cache, stats
+
+
+# ---------------------------------------------------------------------------
+# nn.Module owner
+# ---------------------------------------------------------------------------
+
+class _Tree(nn.Module):
+    """Registers a nested dict/list of tensors as frozen parameters whose
+    names are the dict paths ("blocks.3.mixer.router.w")."""
+
+    def __init__(self, tree):
+        super().__init__()
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(str(k), nn.Parameter(
+                    v, requires_grad=False))
+            else:
+                self.add_module(str(k), _Tree(v))
+
+    def as_tree(self, like):
+        items = like.items() if isinstance(like, dict) else enumerate(like)
+        out = {k: (getattr(self, str(k)) if isinstance(v, torch.Tensor)
+                   else getattr(self, str(k)).as_tree(v)) for k, v in items}
+        return out if isinstance(like, dict) else [out[i]
+                                                    for i in range(len(like))]
+
+
+class LanguageModel(nn.Module):
+    """The model's parameters plus its inference entry points.
+
+    ``params`` (a nested dict, e.g. from ``bridge.from_reference``) is moved
+    to ``device``; without it ``init_params`` draws them there from a
+    ``torch.Generator`` seeded with ``seed``.  ``device`` defaults to
+    ``cuda`` and raises where CUDA is missing."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 device="cuda", seed: int = 0):
+        super().__init__()
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            params = init_params(cfg, gen, self.device)
+        else:
+            params = _to_device(params, self.device)
+        self._layout = params
+        self.tree = _Tree(params)
+
+    def params(self) -> Dict:
+        """The parameters as the nested dict the layer functions take."""
+        return self.tree.as_tree(self._layout)
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, pad_to: Optional[int] = None):
+        return prefill(self.params(), tokens.to(self.device), self.cfg,
+                       pad_to=pad_to)
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens: torch.Tensor, t):
+        return decode_step(self.params(), cache, tokens.to(self.device), t,
+                           self.cfg)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)

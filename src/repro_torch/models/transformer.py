@@ -1,0 +1,107 @@
+"""Layer stack: a Python loop over per-layer blocks (the reference's
+``lax.scan`` over ``stack.stages``), global-attention blocks only.
+
+Counterpart of ``stage_forward`` / ``stage_decode`` in the JAX package's
+``models/transformer.py``.  Each block is {"mixer": routed attention,
+"ffn": routed GLU MLP}; the KV view and the Σy²/D carry thread from block
+to block exactly as they thread through the reference's stages.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.core import routing, skip_block
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The slice runs dense, all-global-attention RMSNorm stacks."""
+    if any(cfg.block_kind(i) != ATTN for i in range(cfg.num_layers)):
+        raise NotImplementedError("only global-attention stacks are ported")
+    if cfg.num_experts or cfg.moe_every:
+        raise NotImplementedError("MoE layers are not ported yet")
+    if cfg.frontend != "token":
+        raise NotImplementedError("only token frontends are ported")
+    if not cfg.d_ff:
+        raise NotImplementedError("blocks without an MLP are not ported")
+    if cfg.skip.mode != "masked":
+        raise NotImplementedError("gather-mode routing is not ported yet")
+    if cfg.kv_cache_layout != "bthd":
+        raise NotImplementedError("the port's decode cache is bthd only")
+
+
+def block_init(gen, cfg: ModelConfig, device) -> Params:
+    """One layer's parameters, keyed as the reference's ``pos{k}`` leaves."""
+    def routed(inner):
+        return {"router": routing.router_init(gen, cfg, device),
+                "norm": layers.norm_init(cfg.d_model, cfg, device),
+                "inner": inner}
+    return {"mixer": routed(attn_mod.attention_init(gen, cfg, device)),
+            "ffn": routed(layers.mlp_init(gen, cfg, device))}
+
+
+def _zero_stats(device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"router_loss": z, "keep_frac_sum": z, "n_routed": z}
+
+
+def _acc_stats(acc: Dict, s: Dict, routed_kind: bool) -> Dict:
+    acc = dict(acc)
+    acc["router_loss"] = acc["router_loss"] + s["router_loss"]
+    if routed_kind:
+        acc["keep_frac_sum"] = acc["keep_frac_sum"] + s["keep_frac"]
+        acc["n_routed"] = acc["n_routed"] + 1.0
+    return acc
+
+
+def stack_forward(blocks: List[Params], x: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict, List[Dict],
+                             Optional[torch.Tensor]]:
+    """Prefill over every block.  Returns (x, stats with ``attn_gate``
+    [L, B, T], per-layer cache [{"k", "v"}], the final Σy²/D carry)."""
+    stats = _zero_stats(x.device)
+    cache: List[Dict] = []
+    gates: List[torch.Tensor] = []
+    view, sq = None, None
+    for bp in blocks:
+        x, view, s = skip_block.routed_attention(
+            bp["mixer"], x, view, positions, cfg, carried_sq=sq)
+        sq = s.pop("res_sq")
+        gates.append(s["attn_gate"])
+        stats = _acc_stats(stats, s, cfg.skip.route_attention)
+        cache.append({"k": view[0], "v": view[1]})
+        x, s = skip_block.routed_mlp(bp["ffn"], x, cfg, carried_sq=sq)
+        sq = s.pop("res_sq")
+        stats = _acc_stats(stats, s, cfg.skip.route_mlp)
+    stats["attn_gate"] = torch.stack(gates)
+    return x, stats, cache, sq
+
+
+def stack_decode(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
+                 t: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, List[Dict], Dict,
+                            Optional[torch.Tensor]]:
+    """One token per sequence over every block; the caches are updated in
+    place.  Returns (x, cache, stats with ``attn_gate`` [L, B], the final
+    Σy²/D carry)."""
+    stats = _zero_stats(x.device)
+    gates: List[torch.Tensor] = []
+    kv_prev, sq = None, None
+    for bp, ce in zip(blocks, cache):
+        x, ce["k"], ce["v"], kv_prev, s = skip_block.routed_attention_decode(
+            bp["mixer"], x, ce["k"], ce["v"], t, kv_prev, positions, cfg,
+            carried_sq=sq)
+        sq = s.pop("res_sq")
+        gates.append(s["attn_gate"])
+        stats = _acc_stats(stats, s, cfg.skip.route_attention)
+        x, s = skip_block.routed_mlp_decode(bp["ffn"], x, cfg, carried_sq=sq)
+        sq = s.pop("res_sq")
+        stats = _acc_stats(stats, s, cfg.skip.route_mlp)
+    stats["attn_gate"] = torch.stack(gates)
+    return x, cache, stats, sq
