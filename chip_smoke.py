@@ -7,15 +7,25 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   1. device   — the card (``nvidia-smi`` name and power limit, printed raw too);
   2. build    — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
-                the llama2-7b main-path shapes, in bf16 and fp32, with times;
-                then at ragged shapes off the tile multiples (not timed);
+                the llama2-7b main-path shapes, with times and bounds
+                (router, fused linear and flash in bf16 and fp32; paged
+                attention in bf16, int8 and int4 pages over a 512-token
+                history of a keep-0.5 gate log); then ragged shapes off the
+                tile multiples, empty paged histories included (not timed);
   4. parity   — llama2-7b smoke in fp32 through the port on cuda (kernels)
-                and on cpu (plain versions): gates, logits, tokens;
+                and on cpu (plain versions): gates, logits, tokens of the
+                lock-step engine, of teacher-forced paged decode steps and
+                of the continuous engine over the paged store;
   5. serve    — full-width llama2-7b in bf16 (random seeded weights, neutral
                 router bias) served by ``ServeEngine.generate``: batch 4 x
-                prompt 512 + 32 new tokens, greedy; every kernel's launch
-                count over that run must be > 0.
-Then the ``kernels`` summary line, and last the contract line
+                prompt 512 + 32 new tokens, greedy; exact launch counts;
+  6. continuous — the same weights served by ``ContinuousBatchingEngine``
+                (4 slots, max_len 544, 8 requests of 128-512 prompt tokens +
+                32 greedy tokens) three times: dense pool, paged bf16 pages,
+                paged int8 pages; exact launch counts per prefill and per
+                decode step, page conservation, finite logits.
+Then the ``kernels`` summary line (``launches`` summed over the main-path
+runs of phases 5 and 6, each counted from 0), and last the contract line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -48,11 +58,13 @@ TPU_KERNELS = {
     "router_stats": "src/repro/kernels/fused_router_rmsnorm.py:55",
     "fused_linear": "src/repro/kernels/fused_linear.py:135",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    "paged_attention": "src/repro/kernels/paged_attention.py:99",
 }
 SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
     "fused_linear": "src/repro_torch/kernels/csrc/fused_linear.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 
 
@@ -262,6 +274,107 @@ def check_flash(torch, dev, timer, cfg):
     return shapes
 
 
+def paged_history(torch, np, dev, cfg, kv_dtypes, B=4, T=512, ps=16,
+                  J=1024, layer=16, keep=0.5):
+    """B slots' T-token entry streams in one store per payload type, packed
+    by the port's own ``pack_prefill`` from a keep-0.5 gate log over every
+    layer (random K/V rows), block tables over a shuffled pool of B·J pages,
+    and the effective positions of a middle layer from the port's history
+    functions.  Returns (stores, block_table [B, J], eff_pos [B, J·ps],
+    fill per slot)."""
+    from repro_torch.kvcache import history, paged
+    L, Hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(15)
+    rng = np.random.default_rng(15)
+    P = B * J
+    bt = torch.as_tensor(rng.permutation(P).reshape(B, J).astype(np.int32),
+                         device=dev)
+    stores = {kd: paged.init_store(cfg, P, ps, kv_dtype=kd, device=dev)
+              for kd in kv_dtypes}
+    fill = []
+    for b in range(B):
+        gates = (torch.rand((L, T), generator=g, device=dev) < keep).float()
+        cache = [{n: torch.randn((1, T, Hkv, dh), generator=g,
+                                 device=dev).to(torch.bfloat16)
+                  for n in ("k", "v")} for _ in range(L)]
+        for kd, st in stores.items():
+            paged.pack_prefill(st, cache, gates, T, bt[b], cfg, kv_dtype=kd)
+        fill.append(int(history.fresh_mask(gates, True).sum()))
+        del cache
+    view = paged.gather_view(stores[kv_dtypes[0]], bt, with_kv=False)
+    E = J * ps
+    in_fill = (torch.arange(E, device=dev)[None]
+               < torch.tensor(fill, device=dev)[:, None])
+    eff = history.effective_positions(view["pos"], view["l0"], view["l1"],
+                                      in_fill, layer)
+    return stores, bt, eff, fill
+
+
+def check_paged(torch, np, dev, timer, cfg, B=4, T=512, ps=16, J=1024,
+                layer=16):
+    """Paged decode attention at the full-width decode shape: B 4, 32 heads,
+    dh 128, page 16, a 1024-page walk over 512-token histories, in bf16,
+    int8 and int4 pages."""
+    from repro_torch.kernels import paged_attention as pa, ref
+    Hq, dh, Hkv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
+    kinds = (None, "int8", "int4")
+    stores, bt, eff, fill = paged_history(torch, np, dev, cfg, kinds, B=B,
+                                          T=T, ps=ps, J=J, layer=layer)
+    g = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+    q = torch.randn((B, 1, Hq, dh), generator=g, device=dev).to(bf)
+    kt = torch.randn((B, 1, Hkv, dh), generator=g, device=dev).to(bf)
+    vt = torch.randn((B, 1, Hkv, dh), generator=g, device=dev).to(bf)
+    qpos = torch.full((B, 1), T, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(dh)
+    hist_rows = int((eff <= T).sum().item())
+    require(hist_rows == B * T, f"layer {layer} admits {hist_rows} entries, "
+            f"not one per token ({B * T})")
+    shapes = []
+    for kd in kinds:
+        st = stores[kd]
+        kw = {} if kd is None else {"k_scales": st["k_scales"],
+                                    "v_scales": st["v_scales"]}
+        pages = (st["k_pages"], st["v_pages"], bt, eff)
+        errs = {}
+        for dt, tol in ((bf, TOL_BF16), (torch.float32, TOL_F32)):
+            if kd is None and dt != bf:
+                continue            # native pages are bf16: q must match
+            a = (q.to(dt), *pages, kt.to(dt), vt.to(dt))
+            out = pa.paged_attention_cuda(*a, qpos, scale=scale,
+                                          kv_dtype=kd, **kw)
+            ro = ref.paged_attention_ref(*a, q_positions=qpos,
+                                         softmax_scale=scale, kv_dtype=kd,
+                                         **kw)
+            torch.cuda.synchronize()
+            e, m = max_err(torch, out, ro)
+            require(e <= tol * m, f"paged {kd} {dt}: {e} > {tol}·{m}")
+            errs[str(dt).split(".")[-1]] = {"max_abs_err": e, "max_ref": m}
+            del out, ro
+        a = (q, *pages, kt, vt)
+        ms_k = timer(lambda: pa.paged_attention_cuda(
+            *a, qpos, scale=scale, kv_dtype=kd, **kw))
+        ms_p = timer(lambda: ref.paged_attention_ref(
+            *a, q_positions=qpos, softmax_scale=scale, kv_dtype=kd, **kw))
+        row = {None: 2 * dh, "int8": dh, "int4": dh // 2}[kd] + (
+            4 if kd else 0)                     # payload + f32 scale
+        rows = hist_rows + B                    # + the in-flight tokens
+        nbytes = (hist_rows * Hkv * 2 * row + B * Hkv * dh * 2 * 2
+                  + B * J * ps * 4 + B * J * 4 + 2 * B * Hq * dh * 2 + B * 4)
+        b, by = bound_ms(nbytes, 4.0 * rows * Hq * dh)
+        shapes.append({
+            "shape": f"paged {kd or 'bf16'} B={B} H={Hq} dh={dh} ps={ps} "
+                     f"J={J} T={T} layer={layer}",
+            "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+            "bound_ms": b, "bound_by": by, "bytes": nbytes,
+            "admitted_rows": rows, "entries_walked": B * J * ps,
+            "fill": fill, "tpu_walk_bytes": B * J * ps * Hkv * 2 * row,
+            "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 {TOL_F32}·max|ref|",
+            "errors": errs})
+    del stores
+    return shapes
+
+
 def check_ragged(torch, dev):
     """Shapes off the main path's tile multiples (ragged M, K, F, Tq, Tk,
     G > 1, a window), against the plain versions, not timed."""
@@ -318,8 +431,52 @@ def check_ragged(torch, dev):
             ro = fa.flash_attention_plain(q, k, v, pos, kv_len, window=window,
                                           scale=s)
             note("flash_attention", *max_err(torch, out, ro), tol)
+        for B, Hkv, G, dh, ps, J, empty in ((3, 2, 2, 64, 16, 5, False),
+                                            (2, 1, 4, 32, 8, 7, False),
+                                            (2, 2, 4, 64, 4, 3, True),
+                                            (1, 3, 1, 32, 5, 9, False)):
+            for kd in (None, "int8", "int4"):
+                note("paged_attention", *ragged_paged(
+                    torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty), tol)
     torch.cuda.synchronize()
     return {"phase": "ragged", "max_err_over_max_ref": worst}
+
+
+def ragged_paged(torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty,
+                 P=64, qp=20):
+    """One paged-attention call off the main shapes against its plain
+    version: random pages, block tables and effective positions (40 %
+    masked), or an empty history (all MASKED_POS, all-zero block table)."""
+    from repro_torch.kernels import paged_attention as pa, ref
+    from repro_torch.kvcache import history, paged
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)   # noqa
+    q, kt, vt = rnd(B, 1, G * Hkv, dh), rnd(B, 1, Hkv, dh), rnd(B, 1, Hkv, dh)
+    kp, vp = rnd(P, ps, Hkv, dh), rnd(P, ps, Hkv, dh)
+    kw = {}
+    if kd is None:
+        kp, vp = kp.to(dt), vp.to(dt)
+    else:
+        kp, vp, ks, vs = paged.quantize_entries(kp, vp, kd)
+        kw = {"k_scales": ks, "v_scales": vs}
+    E = J * ps
+    if empty:
+        bt = torch.zeros((B, J), dtype=torch.int32, device=dev)
+        eff = torch.full((B, E), history.MASKED_POS, dtype=torch.int32,
+                         device=dev)
+    else:
+        bt = torch.randint(0, P, (B, J), generator=g, device=dev,
+                           dtype=torch.int32)
+        eff = torch.randint(0, qp, (B, E), generator=g, device=dev,
+                            dtype=torch.int32)
+        eff[torch.rand((B, E), generator=g, device=dev) < 0.4] = \
+            history.MASKED_POS
+    qpos = torch.full((B, 1), qp, dtype=torch.int32, device=dev)
+    a = (q.to(dt), kp, vp, bt, eff, kt.to(dt), vt.to(dt))
+    s = 1.0 / math.sqrt(dh)
+    out = pa.paged_attention_cuda(*a, qpos, scale=s, kv_dtype=kd, **kw)
+    ro = ref.paged_attention_ref(*a, q_positions=qpos, softmax_scale=s,
+                                 kv_dtype=kd, **kw)
+    return max_err(torch, out, ro)
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +494,55 @@ def _forced_run(model, toks, forced):
         logits.append(lg.float().cpu())
         gates.append(st["attn_gate"].cpu())
     return logits, gates
+
+
+def _forced_paged(model, prompts, forced):
+    """Prefill each prompt into a paged store (the port's pack_prefill),
+    then teacher-forced paged decode steps.  Returns (logits, gate logs)."""
+    import torch
+    from repro_torch.kvcache import paged
+    cfg, dev = model.cfg, model.device
+    nA, S = cfg.num_layers, len(prompts)
+    store = paged.init_store(cfg, 32, 8, device=dev)
+    alloc = paged.PageAllocator(32, 8, S, slot_entry_capacity=64 * nA)
+    logits, gates = [], []
+    for i, p in enumerate(prompts):
+        lg, cache, st = model.prefill(torch.as_tensor(p[None]))
+        g = st["attn_gate"][:, 0]
+        gates.append(g.cpu())
+        logits.append(lg.float().cpu())
+        n = paged.prefill_entry_count(g.cpu().numpy(), len(p), True)
+        require(alloc.ensure(i, n + nA), "parity store too small")
+        paged.pack_prefill(store, cache, g, len(p),
+                           torch.as_tensor(alloc.block_table[i], device=dev),
+                           cfg)
+        alloc.append(i, n, nA * len(p))
+    t = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    for s in range(forced.shape[1]):
+        for i in range(S):
+            require(alloc.ensure(i, int(alloc.fill[i]) + nA),
+                    "parity store too small")
+        lg, store, st = model.paged_decode_step(
+            store, forced[:, s:s + 1], t, torch.as_tensor(alloc.block_table),
+            torch.as_tensor(alloc.fill))
+        g = st["attn_gate"].cpu()
+        gates.append(g)
+        logits.append(lg.float().cpu())
+        for i in range(S):
+            alloc.append(i, int(1 + g[1:, i].sum()), nA)
+        t = t + 1
+    return logits, gates
+
+
+def _paged_engine(model, prompts, new):
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, max_slots=2, max_len=48,
+                                   kv_mode="paged", page_size=8)
+    uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    out = eng.run()
+    eng.allocator.check_conservation()
+    require(eng.allocator.free_pages == eng.num_pages, "pages leaked")
+    return [out["results"][u] for u in uids], out["stats"]
 
 
 def parity(torch, np, dev):
@@ -389,34 +595,80 @@ def parity(torch, np, dev):
     require(oc["stats"].kv_saved_fraction == og["stats"].kv_saved_fraction,
             "kv_saved_fraction differs between cpu and cuda")
     gates = torch.cat([g.flatten() for g in gc])
+    lock_margin = min(margins)
+
+    # the paged path: teacher-forced paged decode steps, then the
+    # continuous engine over the paged store, mixed prompt lengths
+    ppr = [rng.integers(0, cfg.vocab_size, (n,)) for n in (9, 16, 5, 21)]
+    pforced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 3)))
+    margins.clear()
+    routing.gate_from_logits = recording
+    try:
+        plc, pgc = _forced_paged(m_cpu, ppr[:2], pforced)
+        rc, sc = _paged_engine(m_cpu, ppr, 6)
+    finally:
+        routing.gate_from_logits = orig
+    require(min(margins) >= MIN_MARGIN,
+            f"paged gate margin {min(margins)} < {MIN_MARGIN}")
+    plg, pgg = _forced_paged(m_gpu, ppr[:2], pforced)
+    for a, b in zip(pgc, pgg):
+        require(torch.equal(a, b), "paged gate log differs (cpu/cuda)")
+    pworst = 0.0
+    for a, b in zip(plc, plg):
+        d = (a - b).abs().max().item() / a.abs().max().item()
+        pworst = max(pworst, d)
+        require(d <= TOL_LOGITS, f"paged logits differ: {d} > {TOL_LOGITS}")
+        require(torch.equal(a.argmax(-1), b.argmax(-1)),
+                "paged greedy tokens differ between cpu and cuda")
+    rg, sg = _paged_engine(m_gpu, ppr, 6)
+    for a, b in zip(rc, rg):
+        require(np.array_equal(a.tokens, b.tokens)
+                and (a.kv_stored, a.kv_dense) == (b.kv_stored, b.kv_dense),
+                "paged engine tokens or gate accounting differ (cpu/cuda)")
+    for f in ("kv_entries_stored", "kv_entries_dense", "history_hit_rate",
+              "history_hits_per_layer", "pages_peak", "attn_keep_frac"):
+        require(getattr(sc, f) == getattr(sg, f),
+                f"paged engine {f} differs between cpu and cuda")
     return {"phase": "parity", "config": cfg.name, "dtype": cfg.dtype,
             "gates_identical": True, "logits_max_rel_diff": worst,
             "tol": TOL_LOGITS, "greedy_tokens_identical": True,
             "serve_tokens_identical": True,
-            "min_gate_margin": min(margins),
+            "min_gate_margin": lock_margin,
             "gate_ones_frac": gates.mean().item(),
-            "kv_saved_fraction": og["stats"].kv_saved_fraction}
+            "kv_saved_fraction": og["stats"].kv_saved_fraction,
+            "paged_gates_identical": True,
+            "paged_min_gate_margin": min(margins),
+            "paged_logits_max_rel_diff": pworst,
+            "paged_engine_tokens_identical": True,
+            "paged_kv_entries_saved_fraction": sg.kv_entries_saved_fraction,
+            "paged_history_hit_rate": sg.history_hit_rate}
 
 
 # ---------------------------------------------------------------------------
 # Phase 5: full-width llama2-7b served by the lock-step engine
 # ---------------------------------------------------------------------------
 
-def serve_full_width(torch, np, dev):
+def full_width_model(torch, dev):
+    """llama2-7b at its published widths in bf16, seed-0 random weights,
+    router biases zeroed so routing really skips."""
     from repro_torch.configs import get_config
     from repro_torch.core.routing import neutral_router_bias
-    from repro_torch.kernels import ops
     from repro_torch.models.model import LanguageModel
-    from repro_torch.serve.engine import ServeEngine
     cfg = get_config("llama2-7b")
-    B, T0, new = 4, 512, 32
-    torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     model = LanguageModel(cfg, device=dev, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=dev)
     torch.cuda.synchronize(dev)
-    init_s = time.perf_counter() - t
+    return model, time.perf_counter() - t
+
+
+def serve_full_width(torch, np, dev, model, init_s):
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    cfg = model.cfg
+    B, T0, new = 4, 512, 32
+    torch.cuda.reset_peak_memory_stats(dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T0))
     eng = ServeEngine(model, max_len=T0 + new)
 
@@ -426,7 +678,7 @@ def serve_full_width(torch, np, dev):
     s = out["stats"]
     L = cfg.num_layers
     expected = {"router_stats": 1 + new, "fused_linear": 4 * L * (1 + new),
-                "flash_attention": L * (1 + new)}
+                "flash_attention": L * (1 + new), "paged_attention": 0}
     require(launches == expected,
             f"kernel launches {launches} != expected {expected}")
     require(0.0 < s.attn_keep_frac < 1.0,
@@ -449,6 +701,121 @@ def serve_full_width(torch, np, dev):
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
             "launches": launches, "logits_finite": finite,
             "sample_tokens": out["tokens"][0, :8].tolist()}, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: full-width llama2-7b served by the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+def continuous_full_width(torch, np, dev, model):
+    """8 requests (prompts of 128-512 tokens, seeded; 32 greedy tokens each)
+    over 4 slots, max_len 544, in the dense pool, paged bf16 pages and
+    paged int8 pages.  Every logits tensor the engine samples from is
+    checked finite on the device (no extra host sync)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kvcache import paged
+    from repro_torch.serve import engine as eng_mod
+    cfg = model.cfg
+    L, S, max_len, ps, new, n_req = cfg.num_layers, 4, 544, 16, 32, 8
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 513, n_req)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in lens]
+    dense_bytes = (S * max_len * L * 2 * cfg.num_kv_heads
+                   * cfg.resolved_head_dim * 2)
+    finite = {}
+    orig = eng_mod.sample
+
+    def checked(logits, generator=None, temperature=0.0):
+        finite["all"] = finite["all"] & torch.isfinite(logits).all()
+        return orig(logits, generator, temperature)
+
+    runs, tokens, total = [], {}, {}
+    eng_mod.sample = checked
+    try:
+        for label, kv_mode, kd in (("dense", "dense", None),
+                                   ("paged_bf16", "paged", None),
+                                   ("paged_int8", "paged", "int8")):
+            eng = eng_mod.ContinuousBatchingEngine(
+                model, max_slots=S, max_len=max_len, kv_mode=kv_mode,
+                page_size=ps, kv_dtype=kd)
+            uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            finite["all"] = torch.ones((), dtype=torch.bool, device=dev)
+            ops.reset_kernel_launches()
+            t = time.perf_counter()
+            out = eng.run()
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            launches = ops.kernel_launches()
+            s = out["stats"]
+            n_pf, n_st = s.prefill_chunks, s.decode_dispatches
+            fwd = n_pf + n_st
+            expected = {"router_stats": fwd, "fused_linear": 4 * L * fwd,
+                        "flash_attention": L * fwd, "paged_attention": 0}
+            if kv_mode == "paged":
+                expected.update(flash_attention=L * n_pf,
+                                paged_attention=L * n_st)
+            require(launches == expected, f"{label}: kernel launches "
+                    f"{launches} != expected {expected}")
+            res = [out["results"][u] for u in uids]
+            require(s.requests_completed == n_req and all(
+                r.finish_reason == "length" and r.decode_tokens == new
+                for r in res), f"{label}: not every request completed")
+            require(bool(finite["all"].item()),
+                    f"{label}: non-finite logits")
+            rec = {"run": label, "prefill_s": s.prefill_s,
+                   "prefill_tokens": s.prefill_tokens,
+                   "prefills": n_pf, "decode_steps": n_st,
+                   "decode_s": s.decode_s,
+                   "decode_tok_per_s": s.decode_tok_per_s,
+                   "decode_steps_per_s": n_st / s.decode_s,
+                   "wall_s": wall, "attn_keep_frac": s.attn_keep_frac,
+                   "kv_saved_fraction": s.kv_saved_fraction,
+                   "max_memory_allocated":
+                       torch.cuda.max_memory_allocated(dev),
+                   "dense_pool_bytes": dense_bytes, "launches": launches}
+            if kv_mode == "paged":
+                alloc = eng.allocator
+                alloc.check_conservation()
+                require(alloc.free_pages == eng.num_pages
+                        and alloc.stats.pages_in_use == 0,
+                        f"{label}: pages in use at the end")
+                require(0.0 < s.kv_entries_saved_fraction < 1.0,
+                        f"{label}: kv_entries_saved_fraction "
+                        f"{s.kv_entries_saved_fraction}")
+                page_bytes = ps * paged.entry_bytes(cfg, kd)
+                rec.update(pages_peak=s.pages_peak,
+                           pages_total=s.pages_total, page_bytes=page_bytes,
+                           peak_page_bytes=s.pages_peak * page_bytes,
+                           peak_over_dense=s.pages_peak * page_bytes
+                           / dense_bytes,
+                           kv_entries_saved_fraction=
+                           s.kv_entries_saved_fraction,
+                           history_hit_rate=s.history_hit_rate,
+                           preemptions=s.preemptions)
+            tokens[label] = np.concatenate([r.tokens for r in res])
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            runs.append(rec)
+            del eng, out
+    finally:
+        eng_mod.sample = orig
+    # bf16 sums in another order flip near-tie gates and argmaxes of the
+    # random model: the share of equal tokens and, per request, the index
+    # of the first token that differs from the dense run (new = none)
+    same, first = {}, {}
+    for label in ("paged_bf16", "paged_int8"):
+        eq = (tokens[label] == tokens["dense"]).reshape(n_req, new)
+        same[label] = float(eq.mean())
+        first[label] = [int(np.argmin(r)) if not r.all() else new
+                        for r in eq]
+    return {"phase": "continuous", "config": cfg.name, "dtype": cfg.dtype,
+            "slots": S, "max_len": max_len, "page_size": ps,
+            "prompt_lens": lens.tolist(), "new_tokens": new, "runs": runs,
+            "tokens_identical_to_dense": same,
+            "first_divergence": first}, total
 
 
 def main() -> int:
@@ -494,13 +861,19 @@ def main() -> int:
     timer = Timer(torch, dev)
     per_kernel = {"router_stats": check_router(torch, dev, timer, cfg),
                   "fused_linear": check_fused_linear(torch, dev, timer, cfg),
-                  "flash_attention": check_flash(torch, dev, timer, cfg)}
+                  "flash_attention": check_flash(torch, dev, timer, cfg),
+                  "paged_attention": check_paged(torch, np, dev, timer, cfg)}
     emit({"phase": "kernels", "shapes": per_kernel})
     emit(check_ragged(torch, dev))
 
     emit(parity(torch, np, dev))
-    serve, launches = serve_full_width(torch, np, dev)
+    model, init_s = full_width_model(torch, dev)
+    serve, launches = serve_full_width(torch, np, dev, model, init_s)
     emit(serve)
+    cont, cont_launches = continuous_full_width(torch, np, dev, model)
+    emit(cont)
+    for k, v in cont_launches.items():
+        launches[k] += v
 
     kernels = []
     for name, shapes in per_kernel.items():

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kvcache.paged import pool_leaf
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -87,6 +88,21 @@ def to_reference(params: Dict, cfg: ModelConfig) -> Dict:
            "final_norm": _map(params["final_norm"], tensor_to_numpy)}
     if "lm_head" in params:
         out["lm_head"] = _map(params["lm_head"], tensor_to_numpy)
+    return out
+
+
+def store_from_numpy(store: Dict[str, np.ndarray], device="cpu"
+                     ) -> Dict[str, torch.Tensor]:
+    """A paged KV store dict (numpy leaves, e.g. ``np.asarray`` of each leaf
+    of the JAX package's ``kvcache.paged`` store) -> the port's store, bit
+    for bit, each pool leaf allocated with the drop row the port's scatters
+    need (``kvcache.paged.pool_leaf``)."""
+    out = {}
+    for name, a in store.items():
+        t = tensor_from_numpy(a, device)
+        leaf = pool_leaf(t.shape, t.dtype, device)
+        leaf.copy_(t)
+        out[name] = leaf
     return out
 
 

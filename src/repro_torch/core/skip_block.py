@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_reuse, routing
 from repro_torch.kernels import ops as kops
+from repro_torch.kvcache import history
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
@@ -177,3 +178,50 @@ def routed_mlp_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                    emit_sq=True)
     stats["res_sq"] = sq / D
     return x, stats
+
+
+def routed_attention_decode_paged(p: Params, x: torch.Tensor,
+                                  kv_prev: Optional[kv_reuse.KVPair],
+                                  positions: torch.Tensor, cfg: ModelConfig,
+                                  *, paged: Dict, layer: int,
+                                  carried_sq: Optional[torch.Tensor] = None):
+    """One decode step against the paged entry stream (paper §4.4).
+
+    Past tokens' KV lives in the shared store-once stream; ``paged`` holds
+    the step's gathered metadata view (``pos``/``l0``/``l1``/``in_fill``)
+    and the store's pages, block table and scales.  This layer selects its
+    valid entries by effective position (``kvcache/history.py``).  The
+    current token's view ``(k_t, v_t)`` rides along explicitly — it is
+    committed to the stream only at the end of the step — and is returned
+    for the caller's commit buffer.  ``layer``: this layer's index over the
+    attention stack; ``positions`` [B, 1] the token's positions.  Returns
+    (x, (k_t, v_t), stats)."""
+    B = x.shape[0]
+    routed = cfg.skip.enabled and cfg.skip.route_attention
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits[:, 0] if logits is not None else None, (B,),
+                         routed, x.device)
+    inner = p["inner"]
+    q, k_new, v_new = attn_mod.project_qkv(inner, x, positions, cfg,
+                                           norm=p["norm"], stats=nstats)
+    if routed and cfg.skip.kv_reuse:
+        k_t, v_t = kv_reuse.merge_token_view(kv_prev, k_new, v_new, gate)
+    else:
+        k_t, v_t = k_new, v_new
+    eff_pos = history.effective_positions(
+        paged["pos"], paged["l0"], paged["l1"], paged["in_fill"], layer)
+    # a quantized store carries scale pages; the payload's head dim says
+    # int8 (full) or nibble-packed int4 (halved)
+    kv_dtype = None
+    if "k_scales" in paged:
+        kv_dtype = ("int8" if paged["k_pages"].shape[-1] == q.shape[-1]
+                    else "int4")
+    o = kops.paged_decode_attention(
+        q, paged["k_pages"], paged["v_pages"], paged["block_table"],
+        eff_pos, k_t, v_t, q_positions=positions,
+        k_scales=paged.get("k_scales"), v_scales=paged.get("v_scales"),
+        kv_dtype=kv_dtype)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    x = _decode_output_epilogue(inner, o, x, gate, routed, cfg, stats)
+    stats["attn_gate"] = gate
+    return x, (k_t, v_t), stats

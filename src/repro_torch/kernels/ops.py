@@ -15,16 +15,17 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import fused_router_rmsnorm as frr
+from repro_torch.kernels import paged_attention as pa
 
 
 def kernel_launches() -> dict:
     """Launch counts of every kernel wrapper, by kernel name."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
-            "flash_attention": fa.launches}
+            "flash_attention": fa.launches, "paged_attention": pa.launches}
 
 
 def reset_kernel_launches() -> None:
-    frr.launches = fl.launches = fa.launches = 0
+    frr.launches = fl.launches = fa.launches = pa.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +63,26 @@ def decode_attention(q, k, v, *, q_positions, window: int = 0,
     return flash_attention(q, k, v, q_positions=q_positions, causal=True,
                            window=window, kv_valid_len=kv_valid_len,
                            softmax_scale=softmax_scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, eff_pos,
+                           k_tok, v_tok, *, q_positions,
+                           softmax_scale: Optional[float] = None,
+                           k_scales=None, v_scales=None, kv_dtype=None
+                           ) -> torch.Tensor:
+    """Single-token decode against the paged KV store, the in-flight
+    token's (k_tok, v_tok) folded in.
+
+    q: [B, 1, Hq, dh]; k/v pages: [P, ps, Hkv, dh] (int8 codes when
+    ``kv_dtype`` is set, dh/2 wide for int4, with ``k_scales``/``v_scales``
+    [P, ps, Hkv]); block_table: [B, J]; eff_pos: [B, J·ps];
+    k_tok/v_tok: [B, 1, Hkv, dh] (full precision); q_positions: [B, 1]."""
+    dh = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    return pa.paged_attention(q, k_pages, v_pages, block_table, eff_pos,
+                              k_tok, v_tok, q_positions, scale=scale,
+                              k_scales=k_scales, v_scales=v_scales,
+                              kv_dtype=kv_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -101,3 +101,54 @@ def flash_attention_ref(q, k, v, *, q_positions, causal: bool = True,
                     torch.zeros_like(p))
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Tq, Hq, dh).to(q.dtype)
+
+
+def _dequant_pages_ref(pages: torch.Tensor, scales: torch.Tensor,
+                       kv_dtype: str) -> torch.Tensor:
+    """Exact dequant of int8/int4 page payloads (mirrors
+    ``kvcache.paged.dequantize_entries`` without importing it).  In int4,
+    byte d holds dim d (low nibble) and dim d + dh/2 (high nibble)."""
+    if kv_dtype == "int4":
+        c = pages.to(torch.int32)
+        pages = torch.cat([((c & 0x0F) ^ 8) - 8,
+                           (((c >> 4) & 0x0F) ^ 8) - 8], dim=-1)
+    return pages.float() * scales[..., None].float()
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_table, eff_pos, k_tok,
+                        v_tok, *, q_positions,
+                        softmax_scale: Optional[float] = None,
+                        k_scales=None, v_scales=None, kv_dtype=None):
+    """Paged decode attention: a dense gather of each slot's page chain plus
+    the in-flight token, masked by effective position.
+
+    q: [B, 1, Hq, dh]; k/v pages: [P, ps, Hkv, dh] (int8 codes, dh/2 wide
+    for int4, with ``k_scales``/``v_scales`` [P, ps, Hkv] when
+    ``kv_dtype`` is set: the whole pool is dequantized up front);
+    block_table: [B, J]; eff_pos: [B, J·ps] (MASKED = int32 max);
+    k_tok/v_tok: [B, 1, Hkv, dh]; q_positions: [B, 1] -> [B, 1, Hq, dh]."""
+    B, _, Hq, dh = q.shape
+    Hkv = k_pages.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
+    G = Hq // Hkv
+    if kv_dtype is not None:
+        k_pages = _dequant_pages_ref(k_pages, k_scales, kv_dtype)
+        v_pages = _dequant_pages_ref(v_pages, v_scales, kv_dtype)
+
+    def chain(pages):
+        flat = pages[block_table.reshape(-1).long()]      # [B·J, ps, Hkv, dh]
+        return flat.reshape(B, -1, Hkv, dh)
+
+    k = torch.cat([chain(k_pages), k_tok.to(k_pages.dtype)], 1)
+    v = torch.cat([chain(v_pages), v_tok.to(v_pages.dtype)], 1)
+    qp = q_positions.to(torch.int32)
+    pos = torch.cat([eff_pos.to(torch.int32), qp], dim=1)   # [B, E+1]
+    qg = q.reshape(B, 1, Hkv, G, dh).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    mask = pos[:, None, :] <= qp[..., None]                 # [B, 1, E+1]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None, None, :, None], p,
+                    torch.zeros_like(p))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, 1, Hq, dh).to(q.dtype)

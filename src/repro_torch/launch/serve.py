@@ -1,18 +1,23 @@
-"""Serving launcher of the port: lock-step batched generation.
+"""Serving launcher of the port: lock-step batched generation, or continuous
+batching over the dense slot pool or the paged §4.4 KV store.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --batch 4 --prompt-len 512 --new-tokens 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu                                 # plain versions
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --smoke --device cpu --continuous --paged-kv --kv-dtype int8
 
-Weights are random, drawn from seed 0 on the chosen device.
+Weights are random, drawn from seed 0 on the chosen device.  With
+``--continuous`` the engine serves 2·batch requests of mixed prompt lengths
+(prompt_len/4 to prompt_len) over ``--batch`` slots.
 """
 import argparse
 
 import numpy as np
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -21,21 +26,73 @@ def main() -> None:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over a --batch-slot KV pool "
+                         "(mixed prompt lengths)")
+    ap.add_argument("--paged-kv", action="store_true",
+                    help="paged KV store + history buffer instead of the "
+                         "dense slot pool")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="paged pool size (default: the dense pool's worst "
+                         "case)")
+    ap.add_argument("--kv-dtype", default=None, choices=("int8", "int4"),
+                    help="quantize paged-KV page payloads (per-entry pow2 "
+                         "scales; requires --paged-kv)")
+    args = ap.parse_args(argv)
+    if args.paged_kv and not args.continuous:
+        raise SystemExit("--paged-kv requires --continuous")
+    if (args.kv_dtype or args.num_pages) and not args.paged_kv:
+        raise SystemExit("--kv-dtype/--num-pages require --paged-kv")
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import LanguageModel
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.config import (EngineConfig, KVConfig,
+                                          SchedulingConfig)
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     model = LanguageModel(cfg, device=args.device, seed=0)
     rng = np.random.default_rng(0)
+    max_len = args.prompt_len + args.new_tokens
+    if args.continuous:
+        eng = ContinuousBatchingEngine(model, config=EngineConfig(
+            kv=KVConfig(kv_mode="paged" if args.paged_kv else "dense",
+                        page_size=args.page_size, num_pages=args.num_pages,
+                        kv_dtype=args.kv_dtype),
+            scheduling=SchedulingConfig(max_slots=args.batch,
+                                        max_len=max_len),
+            temperature=args.temperature))
+        for _ in range(2 * args.batch):
+            ln = int(rng.integers(max(args.prompt_len // 4, 1),
+                                  args.prompt_len + 1))
+            eng.submit(rng.integers(0, cfg.vocab_size, (ln,),
+                                    dtype=np.int32),
+                       max_new_tokens=args.new_tokens)
+        out = eng.run()
+        s = out["stats"]
+        print(f"prefill: {s.prefill_tokens} tok in {s.prefill_s:.2f}s | "
+              f"decode: {s.decode_tok_per_s:.1f} tok/s | "
+              f"requests: {s.requests_completed} | "
+              f"KV storage saved≈{s.kv_saved_fraction:.1%} (measured)")
+        if s.kv_mode == "paged":
+            print(f"paged KV: peak {s.pages_peak}/{s.pages_total} pages "
+                  f"(×{s.page_size} entries) | live entry saving "
+                  f"{s.kv_entries_saved_fraction:.1%} | history hit rate "
+                  f"{s.history_hit_rate:.1%} | preemptions "
+                  f"{s.preemptions}")
+        if args.kv_dtype:
+            print(f"quantized KV: {args.kv_dtype} page payloads "
+                  "(pow2 per-entry scales)")
+        for uid, r in sorted(out["results"].items()):
+            print(f"  req {uid}: T0={r.prompt_len} +{r.decode_tokens} "
+                  f"TTFT {r.ttft_s*1e3:.1f}ms ({r.finish_reason})")
+        return
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len), dtype=np.int32)
-    eng = ServeEngine(model, max_len=args.prompt_len + args.new_tokens,
-                      temperature=args.temperature)
+    eng = ServeEngine(model, max_len=max_len, temperature=args.temperature)
     out = eng.generate(prompts, args.new_tokens)
     s = out["stats"]
     print(f"prefill: {s.prefill_tokens} tok in {s.prefill_s:.2f}s | "

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kvcache import paged as paged_mod
 from repro_torch.models import layers, transformer
 
 
@@ -68,10 +69,15 @@ def _pad_cache_to(cache: List[Dict], T: int, pad_to: int) -> List[Dict]:
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-            pad_to: Optional[int] = None
+            pad_to: Optional[int] = None,
+            last_index: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict], Dict]:
     """tokens [B, T] -> (last-position logits [B, V], per-layer cache
-    [{"k", "v"}: [B, pad_to or T, Hkv, dh]], stats)."""
+    [{"k", "v"}: [B, pad_to or T, Hkv, dh]], stats).
+
+    ``last_index``: optional [B] index of each sequence's final *real*
+    token — bucketed prefill right-pads prompts to a shared length, and the
+    next-token logits must come from the real last position."""
     transformer.check_supported(cfg)
     B, T = tokens.shape
     positions = torch.arange(T, dtype=torch.int32,
@@ -79,8 +85,13 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     x = layers.embed(params["embed"], tokens)
     x, stats, cache, sq = transformer.stack_forward(params["blocks"], x,
                                                     positions, cfg)
-    x = layers.norm_apply(params["final_norm"], x[:, -1:], cfg,
-                          stats=sq[:, -1:])
+    if last_index is None:
+        xl, sql = x[:, -1:], sq[:, -1:]
+    else:
+        rows = torch.arange(B, device=x.device)
+        idx = torch.as_tensor(last_index, device=x.device).long()
+        xl, sql = x[rows, idx][:, None], sq[rows, idx][:, None]
+    x = layers.norm_apply(params["final_norm"], xl, cfg, stats=sql)
     logits = layers.unembed(params["embed"], params.get("lm_head"), x,
                             cfg)[:, 0]
     if pad_to is not None and pad_to > T:
@@ -104,6 +115,55 @@ def decode_step(params: Dict, cache: List[Dict], tokens: torch.Tensor,
     x = layers.norm_apply(params["final_norm"], x, cfg, stats=sq)
     logits = layers.unembed(params["embed"], params.get("lm_head"), x, cfg)
     return logits[:, 0], cache, stats
+
+
+def paged_decode_step(params: Dict, store: Dict, tokens: torch.Tensor,
+                      t, block_table: torch.Tensor, fill: torch.Tensor,
+                      cfg: ModelConfig,
+                      commit_mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict, Dict]:
+    """One token for every slot against the paged KV store.
+
+    The dense-pool twin of ``decode_step``: past tokens' KV lives in the
+    shared store-once entry stream (``kvcache/paged.py``).  ``block_table``
+    [B, J] and ``fill`` [B] come from the host-side ``PageAllocator``, which
+    has guaranteed page capacity for this step's ≤ n_attn_layers appends.
+    Slots with ``fill == 0`` are inactive: they decode garbage but commit
+    nothing; ``commit_mask`` [B] overrides that default.  The store is
+    updated IN PLACE.  Returns (logits [B, V], store, stats) with
+    ``attn_gate`` [L, B]."""
+    transformer.check_supported(cfg)      # every supported stack can page
+    B = tokens.shape[0]
+    dev = tokens.device
+    t = torch.as_tensor(t, dtype=torch.int32, device=dev)
+    t = t.reshape(-1).expand(B).contiguous()
+    pos = t[:, None]
+    block_table = block_table.to(device=dev, dtype=torch.int32)
+    fill = fill.to(device=dev, dtype=torch.int32)
+    x = layers.embed(params["embed"], tokens)
+
+    # resolve the page chains' metadata once per step (the store is frozen
+    # until the end-of-step commit; the kernel walks the pages itself)
+    kv_dtype = paged_mod.infer_kv_dtype(store, cfg)
+    ctx = paged_mod.gather_view(store, block_table, with_kv=False)
+    E = ctx["pos"].shape[1]
+    ctx["in_fill"] = (torch.arange(E, device=dev)[None, :]
+                      < fill[:, None])
+    ctx["k_pages"], ctx["v_pages"] = store["k_pages"], store["v_pages"]
+    ctx["block_table"] = block_table
+    if kv_dtype is not None:
+        ctx["k_scales"], ctx["v_scales"] = store["k_scales"], store["v_scales"]
+
+    x, (buf_k, buf_v), stats, sq = transformer.stack_decode_paged(
+        params["blocks"], x, pos, cfg, ctx)
+    if commit_mask is None:
+        commit_mask = fill > 0
+    paged_mod.commit_decode(store, buf_k, buf_v, stats["attn_gate"], t,
+                            block_table, fill, commit_mask.to(dev), cfg,
+                            kv_dtype=kv_dtype)
+    x = layers.norm_apply(params["final_norm"], x, cfg, stats=sq)
+    logits = layers.unembed(params["embed"], params.get("lm_head"), x, cfg)
+    return logits[:, 0], store, stats
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +220,22 @@ class LanguageModel(nn.Module):
         return self.tree.as_tree(self._layout)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, pad_to: Optional[int] = None):
+    def prefill(self, tokens: torch.Tensor, pad_to: Optional[int] = None,
+                last_index=None):
         return prefill(self.params(), tokens.to(self.device), self.cfg,
-                       pad_to=pad_to)
+                       pad_to=pad_to, last_index=last_index)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, t):
         return decode_step(self.params(), cache, tokens.to(self.device), t,
                            self.cfg)
+
+    @torch.no_grad()
+    def paged_decode_step(self, store, tokens: torch.Tensor, t,
+                          block_table, fill, commit_mask=None):
+        return paged_decode_step(self.params(), store,
+                                 tokens.to(self.device), t, block_table,
+                                 fill, self.cfg, commit_mask=commit_mask)
 
 
 def _to_device(tree, device):

@@ -105,3 +105,36 @@ def stack_decode(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
         stats = _acc_stats(stats, s, cfg.skip.route_mlp)
     stats["attn_gate"] = torch.stack(gates)
     return x, cache, stats, sq
+
+
+def stack_decode_paged(blocks: List[Params], x: torch.Tensor,
+                       positions: torch.Tensor, cfg: ModelConfig,
+                       paged: Dict
+                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                      torch.Tensor],
+                                  Dict, Optional[torch.Tensor]]:
+    """One token per sequence over every block against the paged KV store
+    (counterpart of ``stage_decode_paged`` over all stages).  Reads resolve
+    through the shared entry stream in ``paged``; writes are collected into
+    per-layer token views the caller commits once per step.  Returns (x,
+    the commit buffers (k, v) [L, B, Hkv, dh], stats with ``attn_gate``
+    [L, B], the final Σy²/D carry)."""
+    stats = _zero_stats(x.device)
+    gates: List[torch.Tensor] = []
+    k_toks: List[torch.Tensor] = []
+    v_toks: List[torch.Tensor] = []
+    kv_prev, sq = None, None
+    for layer, bp in enumerate(blocks):
+        x, kv_prev, s = skip_block.routed_attention_decode_paged(
+            bp["mixer"], x, kv_prev, positions, cfg,
+            paged=paged, layer=layer, carried_sq=sq)
+        sq = s.pop("res_sq")
+        gates.append(s.pop("attn_gate"))
+        k_toks.append(kv_prev[0][:, 0])
+        v_toks.append(kv_prev[1][:, 0])
+        stats = _acc_stats(stats, s, cfg.skip.route_attention)
+        x, s = skip_block.routed_mlp_decode(bp["ffn"], x, cfg, carried_sq=sq)
+        sq = s.pop("res_sq")
+        stats = _acc_stats(stats, s, cfg.skip.route_mlp)
+    stats["attn_gate"] = torch.stack(gates)
+    return x, (torch.stack(k_toks), torch.stack(v_toks)), stats, sq

@@ -1,9 +1,18 @@
-"""Lock-step serving engine: prefill, then autoregressive decode with
-dynamic routing and cross-layer KV reuse, with the KV-storage saving
-*measured* from the per-step execution-gate log.
+"""Serving engines: prefill, then autoregressive decode with dynamic
+routing and cross-layer KV reuse, with the KV-storage saving *measured*
+from the per-step execution-gate log.
 
-Counterpart of ``ServeEngine`` in the JAX package's ``serve/engine.py``;
-the continuous-batching engine is not ported yet.
+Counterpart of the JAX package's ``serve/engine.py``:
+
+``ServeEngine``
+    Lock-step batch: one fixed batch, every sequence at the same position.
+
+``ContinuousBatchingEngine``
+    Slot-based continuous batching with single-step decode and monolithic
+    (length-bucketed) prefill, over either KV mode: the dense slot pool
+    (``max_slots × max_len`` rows per layer, allocated once) or the paged
+    §4.4 entry stream (``kvcache/paged.py``) with alloc-on-demand pages,
+    proactive headroom and preemption of the youngest resident.
 """
 from __future__ import annotations
 
@@ -16,34 +25,113 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_reuse
+from repro_torch.kvcache import history as history_mod
+from repro_torch.kvcache import paged as paged_mod
+from repro_torch.models import layers
 from repro_torch.models.model import LanguageModel
+from repro_torch.serve.config import EngineConfig
+from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
+                                      PageExhausted)
 from repro_torch.serve.sampling import sample
+from repro_torch.serve.scheduler import (ActiveRequest, PrefillChunk,
+                                         Request, Scheduler, default_buckets)
 
 
 @dataclasses.dataclass
 class ServeStats:
-    """The fields ``ServeEngine.generate`` fills (names as in the
-    reference).  Times are host wall seconds around work that ends in a
+    """Engine statistics for one ``generate()`` or ``run()`` (names as in
+    the reference).  Times are host wall seconds around work that ends in a
     device synchronize.
 
-      prefill_tokens    — prompt tokens prefilled.
+      prefill_tokens    — prompt tokens prefilled (padding excluded).
       decode_tokens     — tokens emitted (the first, from prefill, included).
-      prefill_s / decode_s — wall time of the prefill / the decode loop.
+      prefill_s / decode_s — wall time of prefill work / decode steps.
+      prefill_chunks    — prefill work units (one per prompt: monolithic).
+      interleaved_steps — iterations in which a prefill ran while requests
+                          were resident.
       attn_keep_frac    — mean decode-time keep rate over routed submodules.
-      kv_saved_fraction — measured compact-KV storage saving over the decode
-                          gate log; ``kv_saved_analytic`` is the
-                          configured-keep-rate estimate."""
+      kv_saved_fraction — measured compact-KV storage saving over the gate
+                          log; ``kv_saved_analytic`` is the configured-
+                          keep-rate estimate.
+      requests_completed / decode_dispatches — finished requests / decode
+                          steps run (continuous engine).
+
+    Paged mode (``kv_mode == "paged"``): page pool geometry, the live
+    footprint's peak ``pages_peak``, ``preemptions``, the entry-stream write
+    counters (``kv_entries_stored`` vs the per-layer-dense baseline
+    ``kv_entries_dense``) and the history-buffer hit rates measured from
+    the gate log."""
     prefill_tokens: int = 0
     decode_tokens: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    prefill_chunks: int = 0
+    interleaved_steps: int = 0
     attn_keep_frac: float = 1.0
     kv_saved_fraction: float = 0.0
     kv_saved_analytic: float = 0.0
+    requests_completed: int = 0
+    decode_dispatches: int = 0
+    # -- paged-KV engine mode (kv_mode == "paged") -------------------------
+    kv_mode: str = "dense"
+    page_size: int = 0
+    pages_total: int = 0
+    pages_peak: int = 0                   # peak pages in use (live footprint)
+    preemptions: int = 0                  # OOM-safe mid-decode evictions
+    kv_entries_stored: int = 0            # live compact-store writes
+    kv_entries_dense: int = 0             # per-layer-dense baseline writes
+    history_hit_rate: float = 0.0         # reads served by the history buf
+    history_hits_per_layer: List[float] = dataclasses.field(
+        default_factory=list)
 
     @property
     def decode_tok_per_s(self) -> float:
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
+
+    @property
+    def kv_entries_saved_fraction(self) -> float:
+        """Live storage saving of the paged history buffer."""
+        if not self.kv_entries_dense:
+            return 0.0
+        return 1.0 - self.kv_entries_stored / self.kv_entries_dense
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """Per-request outcome.
+
+      tokens        — generated token ids, stop token (if hit) included.
+      ttft_s        — wall seconds from ``run()`` start to the first token.
+      decode_s      — wall seconds inside decode steps this request took
+                      part in.
+      finish_reason — "length" (budget), "stop" (stop token) or "max_len".
+      kv_stored / kv_dense — measured compact-store entries vs the
+                      per-layer-dense baseline over the whole request.
+      max_decode_stall_s — longest gap between two consecutive emissions."""
+    uid: int
+    tokens: np.ndarray
+    prompt_len: int
+    ttft_s: float
+    decode_s: float
+    finish_reason: str
+    kv_stored: int = 0
+    kv_dense: int = 0
+    max_decode_stall_s: float = 0.0
+
+    @property
+    def decode_tokens(self) -> int:
+        return int(self.tokens.shape[0])
+
+    @property
+    def decode_tok_per_s(self) -> float:
+        n = self.decode_tokens - 1       # first token is prefill's
+        return n / self.decode_s if self.decode_s > 0 and n > 0 else 0.0
+
+    @property
+    def kv_saved_fraction(self) -> float:
+        if self.kv_dense == 0:
+            return 0.0
+        return 1.0 - self.kv_stored / self.kv_dense
 
 
 def analytic_kv_saved(cfg: ModelConfig) -> float:
@@ -131,3 +219,490 @@ class ServeEngine:
         stats.kv_saved_fraction = _measured_saved_fraction(gates_per_step, cfg)
         stats.kv_saved_analytic = analytic_kv_saved(cfg)
         return {"tokens": out, "stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# Slot-pool plumbing
+# ---------------------------------------------------------------------------
+
+def init_pool(cfg: ModelConfig, max_slots: int, max_len: int,
+              device) -> List[Dict[str, torch.Tensor]]:
+    """The continuous engine's dense KV pool: per layer {"k", "v"}
+    [max_slots, max_len, Hkv, dh] zeros, allocated once."""
+    shape = (max_slots, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = layers.torch_dtype(cfg)
+    return [{"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def pool_insert(pool: List[Dict], cache: List[Dict], slot: int
+                ) -> List[Dict]:
+    """Copy a single-request prefill cache (batch 1, padded to max_len) into
+    row ``slot`` of the pool, in place."""
+    for pe, ce in zip(pool, cache):
+        for name in ("k", "v"):
+            pe[name][slot].copy_(ce[name][0])
+    return pool
+
+
+def _to_host(tok: torch.Tensor, gates: torch.Tensor):
+    """One device-to-host transfer for a step's tokens and gate log (token
+    ids are exact in float32).  Returns (int64 tokens, float32 gates)."""
+    n = tok.numel()
+    flat = torch.cat([tok.reshape(-1).float(),
+                      gates.reshape(-1).float()]).cpu().numpy()
+    return flat[:n].astype(np.int64), flat[n:].reshape(tuple(gates.shape))
+
+
+def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
+    """Levers of the reference engine this port does not serve yet, each
+    with the ROADMAP queue 1 item that will port it."""
+    sch, rob, obs = config.scheduling, config.robustness, config.obs
+    chunk = cfg.prefill_chunk if sch.prefill_chunk is None \
+        else sch.prefill_chunk
+    steps = cfg.decode_steps_per_dispatch if sch.decode_steps is None \
+        else sch.decode_steps
+    out = []
+    if chunk:
+        out.append("prefill_chunk > 0 (item 9)")
+    if steps > 1:
+        out.append("decode_steps > 1 (item 9)")
+    if config.spec.spec_k or config.spec.draft_keep is not None:
+        out.append("spec_k / draft_keep (item 11)")
+    if config.kv.prefix_cache:
+        out.append("prefix_cache (item 10)")
+    if rob.faults is not None or rob.watchdog is not None:
+        out.append("faults / watchdog (item 12)")
+    if rob.snapshot_dir is not None:
+        out.append("snapshots (item 12)")
+    if rob.max_queue_depth is not None or rob.max_queue_delay_s is not None:
+        out.append("load shedding (item 12)")
+    if rob.max_preemptions is not None:
+        out.append("max_preemptions (item 12)")
+    if sch.step_tokens is not None:
+        out.append("step_tokens (item 9)")
+    if obs.trace:
+        out.append("trace (item 12)")
+    if obs.mesh is not None or obs.sharding_policy is not None:
+        out.append("mesh / sharding_policy (item 14)")
+    return out
+
+
+@dataclasses.dataclass
+class _RunState:
+    """Host-side state of one ``run()``."""
+    stats: ServeStats
+    results: Dict[int, RequestResult]
+    t_run: float
+    generator: torch.Generator
+    keep_acc: float = 0.0
+    keep_n: float = 0.0
+    hist: Optional[history_mod.HistoryAccounting] = None
+
+
+class ContinuousBatchingEngine:
+    """Continuous batching over a fixed slot pool (per-sequence positions).
+
+    Requests are admitted into free slots, prefilled monolithically
+    (right-padded to a length bucket, logits taken at the real last
+    token), decoded concurrently — each sequence at its own position — one
+    ragged decode step per iteration, and evicted on stop token, length or
+    ``max_len``.  ``kv_mode="paged"`` keeps the KV in the §4.4 entry stream:
+    before each step every resident is guaranteed one step of page headroom
+    (the youngest resident is preempted and requeued when the free list
+    runs dry), admission is gated on genuinely spare pages, and each step's
+    fresh entries and history-buffer hits are accounted from its gate log.
+    One host sync per step reads the tokens and the gate log.
+
+    ``model`` is a ``LanguageModel`` (its stack is pageable and bucketable:
+    ``transformer.check_supported``); its device is the engine's.  Pass an
+    ``EngineConfig`` or its flat kwargs (``max_slots``, ``max_len``,
+    ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
+    ``temperature``, ``prefill_buckets``).  The reference's
+    other levers raise ``ConfigError`` naming the ROADMAP item that will
+    port them.  Sampling at ``temperature > 0`` draws from the
+    ``torch.Generator`` given to ``run``."""
+
+    def __init__(self, model: LanguageModel,
+                 config: Optional[EngineConfig] = None, **kwargs):
+        if kwargs:
+            if config is not None:
+                raise ConfigError(
+                    "pass either config=EngineConfig(...) or flat kwargs, "
+                    f"not both (got {sorted(kwargs)})")
+            config = EngineConfig.from_kwargs(**kwargs)
+        elif config is None:
+            config = EngineConfig()
+        cfg = model.cfg
+        missing = _unported(config, cfg)
+        if missing:
+            raise ConfigError("not ported to repro_torch yet (ROADMAP queue "
+                              "1): " + "; ".join(missing))
+        self.config = config
+        self.model = model
+        self.cfg = cfg
+        self.device = model.device
+        kvc, sch = config.kv, config.scheduling
+        self.max_slots, self.max_len = sch.max_slots, sch.max_len
+        self.temperature = config.temperature
+        self.kv_mode = kvc.kv_mode
+        self.scheduler = Scheduler(
+            self.max_slots, self.max_len,
+            buckets=sch.prefill_buckets or default_buckets(self.max_len))
+        self.kv_dtype = kvc.kv_dtype
+        if self.kv_mode == "paged":
+            self.n_attn = paged_mod.num_attention_layers(cfg)
+            self.page_size = kvc.page_size
+            # default pool: the dense pool's worst case (every token fresh
+            # at every layer); alloc-on-demand keeps the live footprint far
+            # below it — size it down to see backpressure
+            cap = self.max_len * self.n_attn
+            self.num_pages = (kvc.num_pages if kvc.num_pages is not None
+                              else self.max_slots * -(-cap // self.page_size))
+            self.allocator = paged_mod.PageAllocator(
+                self.num_pages, self.page_size, self.max_slots,
+                slot_entry_capacity=cap)
+        self._uid = 0
+
+    # -- submission ----------------------------------------------------------
+    def submit(self, tokens: np.ndarray, max_new_tokens: int,
+               stop_token: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue one prompt; returns its uid.  Raises ``AdmissionRejected``
+        when the request can never be served (empty prompt, no decode
+        headroom, paged worst-case KV over the pool)."""
+        if deadline_s is not None:
+            raise ConfigError("deadline_s is not ported to repro_torch yet "
+                              "(ROADMAP queue 1 item 12)")
+        uid = self._uid
+        self._uid += 1
+        req = Request(uid=uid, tokens=np.asarray(tokens, np.int32),
+                      max_new_tokens=max_new_tokens, stop_token=stop_token)
+        if self.kv_mode == "paged":
+            # cover both the lifetime worst case and the admission gate's
+            # requirement (prompt + one step of headroom): a request
+            # _can_place can never pass would park the queue forever
+            worst = max(self._worst_case_entries(req),
+                        (req.prompt_len + 1) * self.n_attn)
+            if self.allocator.pages_for(worst) > self.num_pages:
+                raise AdmissionRejected(
+                    f"request {uid}: worst-case KV ({worst} entries) "
+                    f"exceeds the page pool ({self.num_pages} pages × "
+                    f"{self.page_size}) — OOM-safe admission impossible",
+                    reason="kv_worst_case", uid=uid)
+        self.scheduler.submit(req)
+        return uid
+
+    # -- paged-mode memory policy ------------------------------------------
+    def _worst_case_entries(self, req: Request) -> int:
+        """Every stored token fresh at every attention layer (the last
+        generated token is emitted but never fed)."""
+        toks = min(self.max_len, req.prompt_len + req.max_new_tokens - 1)
+        return toks * self.n_attn
+
+    def _can_place(self, req: Request) -> bool:
+        """Admission gate: free pages for the prompt's worst-case entries
+        plus one decode step of headroom (the residents' next-step headroom
+        is reserved before admission, so the free list is genuinely
+        spare)."""
+        need = req.prompt_len * self.n_attn + self.n_attn
+        pages = self.allocator.pages_for(need)
+        if pages > self.allocator.pages_per_slot:
+            return False
+        return pages <= self.allocator.free_pages
+
+    # -- main loop ---------------------------------------------------------
+    @torch.no_grad()
+    def run(self, generator: Optional[torch.Generator] = None
+            ) -> Dict[str, object]:
+        """Drain the queue.  Returns {"results": {uid: RequestResult},
+        "stats": ServeStats}."""
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        paged = self.kv_mode == "paged"
+        if paged:
+            stats = ServeStats(kv_mode="paged", page_size=self.page_size,
+                               pages_total=self.num_pages)
+            hist = history_mod.HistoryAccounting(
+                self.n_attn, self.max_slots,
+                paged_mod.reuse_enabled(self.cfg))
+        else:
+            stats, hist = ServeStats(), None
+        rs = _RunState(stats=stats, results={}, t_run=perf_counter(),
+                       generator=generator, hist=hist)
+        if paged:
+            self._run_paged(rs)
+        else:
+            self._run_dense(rs)
+        return self._finalize(rs)
+
+    def _tensor(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _prefill(self, rs: _RunState, req: Request, pad_to=None):
+        """Bucketed monolithic prefill of one prompt with the first token
+        sampled.  Returns (token, host gate log [L, Tb], cache)."""
+        padded, last = self.scheduler.pad_prompt(req.tokens)
+        logits, cache, pstats = self.model.prefill(
+            self._tensor(padded[None]), pad_to=pad_to,
+            last_index=self._tensor([last]))
+        tok = sample(logits, rs.generator, self.temperature)
+        tok, gates = _to_host(tok, pstats["attn_gate"][:, 0])
+        return int(tok[0]), gates, cache
+
+    def _feed(self):
+        """This step's (tokens [S, 1], positions [S]); free slots feed
+        token 0 at position 0 (their outputs are discarded)."""
+        feed = np.zeros((self.max_slots, 1), np.int64)
+        pos = np.zeros((self.max_slots,), np.int32)
+        for slot, st in self.scheduler.active.items():
+            feed[slot, 0] = st.next_token
+            pos[slot] = st.pos
+        return self._tensor(feed), self._tensor(pos, torch.int32)
+
+    def _run_dense(self, rs: _RunState) -> None:
+        """Fixed ``max_slots × max_len`` pool.  Per iteration: every
+        placeable queued request prefills (monolithic), then one ragged
+        decode step over the pool."""
+        sched, cfg = self.scheduler, self.cfg
+        L = max(len(cfg.attention_layers), 1)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
+        while sched.has_work():
+            pre_active = bool(sched.active)
+            did_prefill = False
+            while True:
+                plan = sched.plan_step()
+                if plan.prefill is None:
+                    break
+                work = plan.prefill
+                t0 = perf_counter()
+                tok, gates, cache = self._prefill(rs, work.req,
+                                                  pad_to=self.max_len)
+                pool_insert(pool, cache, work.slot)
+                del cache
+                self._finish_prefill(rs, work, tok, t0, gates)
+                did_prefill = True
+            if did_prefill and pre_active:
+                rs.stats.interleaved_steps += 1
+            if not sched.active:
+                continue
+            feed, pos = self._feed()
+            t0 = perf_counter()
+            logits, pool, dstats = self.model.decode_step(pool, feed, pos)
+            tok = sample(logits, rs.generator, self.temperature)
+            toks, gates = _to_host(tok, dstats["attn_gate"])
+            self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, L)
+
+    def _run_paged(self, rs: _RunState) -> None:
+        """Paged-pool mode.  Per iteration: (1) proactively guarantee one
+        decode step of page headroom for every resident, preempting the
+        youngest resident if the free list runs dry, so the step can never
+        run out of pages; (2) one ``plan_step`` plan, admission gated on
+        spare pages by ``_can_place``, at most one prefill; (3) one ragged
+        decode step over all slots, the walk bounded to a power-of-two
+        bucket of the live chains; (4) append the measured fresh entries
+        and the history-buffer accounting from the step's gate log."""
+        sched, alloc, cfg = self.scheduler, self.allocator, self.cfg
+        nA = self.n_attn
+        reuse = paged_mod.reuse_enabled(cfg)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        store = paged_mod.init_store(cfg, self.num_pages, self.page_size,
+                                     kv_dtype=self.kv_dtype,
+                                     device=self.device)
+        while sched.has_work():
+            for slot in sorted(sched.active):
+                if slot not in sched.active:      # preempted below
+                    continue
+                while not alloc.ensure(slot, int(alloc.fill[slot]) + nA):
+                    if not self._preempt_youngest(rs, exclude=slot):
+                        raise PageExhausted(
+                            f"page pool exhausted with a single resident "
+                            f"request (slot {slot}) — submit() should have "
+                            "rejected it", slot=slot,
+                            free_pages=alloc.free_pages,
+                            pages_total=self.num_pages)
+            pre_active = bool(sched.active)
+            plan = sched.plan_step(can_place=self._can_place)
+            if plan.prefill is not None:
+                self._prefill_paged(rs, plan.prefill, store, reuse)
+                if pre_active:
+                    rs.stats.interleaved_steps += 1
+            if not sched.active:
+                continue
+            feed, pos = self._feed()
+            # bound the walk to the live chains; power-of-two buckets keep
+            # the number of distinct walk widths logarithmic
+            j_live = max(1, alloc.max_chain_pages())
+            j_step = min(1 << (j_live - 1).bit_length(), alloc.pages_per_slot)
+            t0 = perf_counter()
+            logits, store, dstats = self.model.paged_decode_step(
+                store, feed, pos,
+                self._tensor(alloc.block_table[:, :j_step], torch.int32),
+                self._tensor(alloc.fill, torch.int32))
+            tok = sample(logits, rs.generator, self.temperature)
+            toks, gates = _to_host(tok, dstats["attn_gate"])
+            for slot in sched.active:
+                g = gates[:, slot]
+                fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
+                alloc.append(slot, fresh_n, nA)
+                rs.hist.on_decode_step(slot, g)
+            self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, nA)
+
+    def _prefill_paged(self, rs: _RunState, work: PrefillChunk, store,
+                       reuse: bool) -> None:
+        """Prefill one prompt at its bucketed length, reserve pages for its
+        measured entries plus one decode step, and pack them."""
+        alloc, nA, slot = self.allocator, self.n_attn, work.slot
+        T0 = work.req.prompt_len
+        t0 = perf_counter()
+        tok, gates, cache = self._prefill(rs, work.req)
+        n_ent = paged_mod.prefill_entry_count(gates, T0, reuse)
+        if not alloc.ensure(slot, n_ent + nA):
+            raise PageExhausted(
+                "page reservation failed after a successful _can_place "
+                "worst-case check — allocator bug", slot=slot,
+                free_pages=alloc.free_pages, pages_total=self.num_pages)
+        paged_mod.pack_prefill(
+            store, cache, self._tensor(gates, torch.float32), T0,
+            self._tensor(alloc.block_table[slot], torch.int32), self.cfg,
+            kv_dtype=self.kv_dtype)
+        del cache
+        alloc.append(slot, n_ent, nA * T0)
+        rs.hist.on_prefill(slot, gates, T0)
+        self._finish_prefill(rs, work, tok, t0, gates)
+
+    # -- bookkeeping shared by both KV modes -------------------------------
+    def _finish_prefill(self, rs: _RunState, work: PrefillChunk, tok: int,
+                        t0: float, gates: np.ndarray) -> None:
+        """Activate a request whose prefill (first token included) just
+        completed; finish it at once when that token already ends it."""
+        now = perf_counter()
+        st = rs.stats
+        st.prefill_chunks += 1
+        st.prefill_s += now - t0
+        st.prefill_tokens += work.req.prompt_len
+        st.decode_tokens += 1
+        self.scheduler.prefill_advance(work)
+        act = ActiveRequest(req=work.req, slot=work.slot,
+                            pos=work.req.prompt_len, next_token=tok,
+                            out_tokens=[tok], submit_s=rs.t_run,
+                            first_token_s=now, last_emit_s=now)
+        act.pf_gates = gates
+        self.scheduler.activate(act)
+        req = work.req
+        if req.stop_token is not None and tok == req.stop_token:
+            self._finish(rs, work.slot, "stop")
+        elif req.max_new_tokens <= 1:
+            self._finish(rs, work.slot, "length")
+
+    def _bookkeep(self, rs: _RunState, toks: np.ndarray, gates: np.ndarray,
+                  step_s: float, measure: bool, n_layers: int) -> None:
+        """Post-decode bookkeeping for every resident."""
+        rs.stats.decode_s += step_s
+        rs.stats.decode_dispatches += 1
+        for slot in list(self.scheduler.active):
+            st = self.scheduler.active[slot]
+            g = gates[:, slot]
+            rs.keep_acc += float(g.sum())
+            rs.keep_n += n_layers
+            reason = self._advance_slot(rs, st, int(toks[slot]), g, step_s,
+                                        measure, n_layers)
+            if reason:
+                self._finish(rs, slot, reason)
+
+    def _advance_slot(self, rs: _RunState, st: ActiveRequest, tok: int,
+                      g: np.ndarray, step_s: float, measure: bool,
+                      n_layers: int) -> Optional[str]:
+        """One resident's post-step state (the fed token's KV was just
+        written at st.pos).  Returns the finish reason or None."""
+        st.decode_s += step_s
+        now = perf_counter()
+        st.max_stall_s = max(st.max_stall_s, now - st.last_emit_s)
+        st.last_emit_s = now
+        st.kv_dense += n_layers
+        st.kv_stored += 1 + int(g[1:].sum()) if measure else n_layers
+        st.pos += 1
+        st.out_tokens.append(tok)
+        st.next_token = tok
+        rs.stats.decode_tokens += 1
+        if st.req.stop_token is not None and tok == st.req.stop_token:
+            return "stop"
+        if len(st.out_tokens) >= st.req.max_new_tokens:
+            return "length"
+        if st.pos >= self.max_len:
+            return "max_len"
+        return None
+
+    def _account_prefill(self, st: ActiveRequest) -> None:
+        """Fold the prompt-phase gate log into the request's measured
+        KV-storage accounting (layer 0 dense + executed layers)."""
+        if st.pf_gates is None:
+            return
+        T0 = st.req.prompt_len
+        L = max(len(self.cfg.attention_layers), 1)
+        if self.cfg.skip.enabled and self.cfg.skip.kv_reuse:
+            g = np.asarray(st.pf_gates, np.float32)[:, :T0]
+            stored = T0 + int((g[1:] > 0.5).sum())
+        else:
+            stored = L * T0
+        st.kv_dense += L * T0
+        st.kv_stored += stored
+        st.pf_gates = None
+
+    def _finish(self, rs: _RunState, slot: int, reason: str) -> None:
+        """Evict ``slot``'s request and record its result (paged mode also
+        returns its pages and clears its history accounting)."""
+        st = self.scheduler.release(slot)
+        self._account_prefill(st)
+        if self.kv_mode == "paged":
+            self.allocator.release(slot)
+            rs.hist.on_release(slot)
+        st.finish_reason = reason
+        rs.results[st.req.uid] = RequestResult(
+            uid=st.req.uid, tokens=np.asarray(st.out_tokens, np.int32),
+            prompt_len=st.req.prompt_len,
+            ttft_s=st.first_token_s - st.submit_s, decode_s=st.decode_s,
+            finish_reason=reason, kv_stored=st.kv_stored,
+            kv_dense=st.kv_dense, max_decode_stall_s=st.max_stall_s)
+        rs.stats.requests_completed += 1
+
+    def _preempt_youngest(self, rs: _RunState, exclude: int) -> bool:
+        """OOM backpressure (paged mode): evict the youngest resident by
+        original submission time (≠ ``exclude``) and requeue it at its
+        age-ordered position; it re-prefills from scratch when pages free
+        up.  (Monolithic prefill completes within its iteration, so no
+        prefill is ever in flight here.)  Returns False when there is no
+        victim."""
+        sched = self.scheduler
+        victims = [s for s in sched.active if s != exclude]
+        if not victims:
+            return False
+        slot = max(victims, key=lambda s: sched.active[s].req.submit_s)
+        st = sched.release(slot)
+        self.allocator.release(slot)
+        rs.hist.on_release(slot)
+        rs.stats.preemptions += 1
+        st.req.preempt_count += 1
+        sched.requeue(st.req)
+        return True
+
+    def _finalize(self, rs: _RunState) -> Dict[str, object]:
+        stats, results = rs.stats, rs.results
+        stats.attn_keep_frac = (rs.keep_acc / rs.keep_n if rs.keep_n
+                                else 1.0)
+        tot_dense = sum(r.kv_dense for r in results.values())
+        tot_stored = sum(r.kv_stored for r in results.values())
+        stats.kv_saved_fraction = (1.0 - tot_stored / tot_dense
+                                   if tot_dense else 0.0)
+        stats.kv_saved_analytic = analytic_kv_saved(self.cfg)
+        if self.kv_mode == "paged":
+            alloc = self.allocator
+            stats.pages_peak = alloc.stats.pages_peak
+            stats.kv_entries_stored = alloc.stats.entries_appended
+            stats.kv_entries_dense = alloc.stats.entries_dense
+            stats.history_hit_rate = rs.hist.hit_rate
+            stats.history_hits_per_layer = rs.hist.per_layer_hit_rate
+        return {"results": results, "stats": stats}
