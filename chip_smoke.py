@@ -22,8 +22,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   6. continuous — the same weights served by ``ContinuousBatchingEngine``
                 (4 slots, max_len 544, 8 requests of 128-512 prompt tokens +
                 32 greedy tokens) three times: dense pool, paged bf16 pages,
-                paged int8 pages; exact launch counts per prefill and per
-                decode step, page conservation, finite logits.
+                paged int8 pages; then 4 requests of 16-token prompts in
+                paged bf16 pages, in the default pool and in one too small
+                for all four (it must preempt; tokens unchanged); exact
+                launch counts per prefill and per decode step, page
+                conservation, finite logits;
+  7. witness  — the same weights upcast to fp32: the continuous engine in the
+                dense pool and in fp32 pages gives identical tokens on 4
+                phase-6 requests; teacher-forced dense and paged decode in
+                fp32 agree (gates, logits), and bf16 paged flips no more
+                gates against fp32 than bf16 dense does (within 2x + 1 %).
 Then the ``kernels`` summary line (``launches`` summed over the main-path
 runs of phases 5 and 6, each counted from 0), and last the contract line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -496,15 +504,17 @@ def _forced_run(model, toks, forced):
     return logits, gates
 
 
-def _forced_paged(model, prompts, forced):
+def _forced_paged(model, prompts, forced, ps=8, num_pages=32,
+                  cap_tokens=64):
     """Prefill each prompt into a paged store (the port's pack_prefill),
     then teacher-forced paged decode steps.  Returns (logits, gate logs)."""
     import torch
     from repro_torch.kvcache import paged
     cfg, dev = model.cfg, model.device
     nA, S = cfg.num_layers, len(prompts)
-    store = paged.init_store(cfg, 32, 8, device=dev)
-    alloc = paged.PageAllocator(32, 8, S, slot_entry_capacity=64 * nA)
+    store = paged.init_store(cfg, num_pages, ps, device=dev)
+    alloc = paged.PageAllocator(num_pages, ps, S,
+                                slot_entry_capacity=cap_tokens * nA)
     logits, gates = [], []
     for i, p in enumerate(prompts):
         lg, cache, st = model.prefill(torch.as_tensor(p[None]))
@@ -707,115 +717,279 @@ def serve_full_width(torch, np, dev, model, init_s):
 # Phase 6: full-width llama2-7b served by the continuous-batching engine
 # ---------------------------------------------------------------------------
 
+SLOTS, MAX_LEN, PAGE = 4, 544, 16
+
+
+class FiniteLogits:
+    """Wraps the engine's sampler so every logits tensor it samples from is
+    checked finite on the device (no extra host sync)."""
+
+    def __init__(self, torch, dev):
+        from repro_torch.serve import engine
+        self.torch, self.dev, self.engine = torch, dev, engine
+        self.orig = engine.sample
+
+    def __enter__(self):
+        def checked(logits, generator=None, temperature=0.0):
+            self.all = self.all & self.torch.isfinite(logits).all()
+            return self.orig(logits, generator, temperature)
+        self.engine.sample = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.sample = self.orig
+
+    def reset(self):
+        self.all = self.torch.ones((), dtype=self.torch.bool, device=self.dev)
+
+
+def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
+    """One ContinuousBatchingEngine run (4 slots, max_len 544, page 16) with
+    exact launch counts, every request completed, finite logits and, paged,
+    page conservation with no page in use at the end.  Returns (record,
+    per-request tokens, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kvcache import paged
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    cfg, L = model.cfg, model.cfg.num_layers
+    eng = ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                                   page_size=PAGE, **kw)
+    uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    finite.reset()
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    launches = ops.kernel_launches()
+    s = out["stats"]
+    n_pf, n_st = s.prefill_chunks, s.decode_dispatches
+    fwd = n_pf + n_st
+    expected = {"router_stats": fwd, "fused_linear": 4 * L * fwd,
+                "flash_attention": L * fwd, "paged_attention": 0}
+    if eng.kv_mode == "paged":
+        expected.update(flash_attention=L * n_pf, paged_attention=L * n_st)
+    require(launches == expected, f"{label}: kernel launches "
+            f"{launches} != expected {expected}")
+    res = [out["results"][u] for u in uids]
+    require(s.requests_completed == len(prompts) and all(
+        r.finish_reason == "length" and r.decode_tokens == new
+        for r in res), f"{label}: not every request completed")
+    require(bool(finite.all.item()), f"{label}: non-finite logits")
+    esize = torch.empty((), dtype=layers.torch_dtype(cfg)).element_size()
+    dense_bytes = (SLOTS * MAX_LEN * L * 2 * cfg.num_kv_heads
+                   * cfg.resolved_head_dim * esize)
+    # decode_tokens counts each request's first token, which prefill made
+    rec = {"run": label, "dtype": cfg.dtype, "requests": len(prompts),
+           "prefill_s": s.prefill_s, "prefill_tokens": s.prefill_tokens,
+           "prefills": n_pf, "decode_steps": n_st, "decode_s": s.decode_s,
+           "decode_tok_per_s": s.decode_tok_per_s,
+           "decode_only_tok_per_s": (s.decode_tokens - n_pf) / s.decode_s,
+           "decode_steps_per_s": n_st / s.decode_s,
+           "wall_s": wall, "attn_keep_frac": s.attn_keep_frac,
+           "kv_saved_fraction": s.kv_saved_fraction,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "dense_pool_bytes": dense_bytes, "launches": launches}
+    if eng.kv_mode == "paged":
+        alloc = eng.allocator
+        alloc.check_conservation()
+        require(alloc.free_pages == eng.num_pages
+                and alloc.stats.pages_in_use == 0,
+                f"{label}: pages in use at the end")
+        require(0.0 < s.kv_entries_saved_fraction < 1.0,
+                f"{label}: kv_entries_saved_fraction "
+                f"{s.kv_entries_saved_fraction}")
+        page_bytes = PAGE * paged.entry_bytes(cfg, kw.get("kv_dtype"))
+        rec.update(pages_peak=s.pages_peak, pages_total=s.pages_total,
+                   page_bytes=page_bytes,
+                   peak_page_bytes=s.pages_peak * page_bytes,
+                   peak_over_dense=s.pages_peak * page_bytes / dense_bytes,
+                   kv_entries_saved_fraction=s.kv_entries_saved_fraction,
+                   history_hit_rate=s.history_hit_rate,
+                   preemptions=s.preemptions)
+    return rec, [r.tokens for r in res], launches
+
+
+def token_agreement(np, a, b):
+    """Share of equal tokens over requests, and per request the index of
+    the first token that differs (len = none)."""
+    eq = [x == y for x, y in zip(a, b)]
+    return (float(np.concatenate(eq).mean()),
+            [int(np.argmin(e)) if not e.all() else len(e) for e in eq])
+
+
 def continuous_full_width(torch, np, dev, model):
     """8 requests (prompts of 128-512 tokens, seeded; 32 greedy tokens each)
     over 4 slots, max_len 544, in the dense pool, paged bf16 pages and
-    paged int8 pages.  Every logits tensor the engine samples from is
-    checked finite on the device (no extra host sync)."""
-    from repro_torch.kernels import ops
+    paged int8 pages; then 4 short requests in paged bf16 pages twice, in
+    the default pool and in one too small for all four residents, where
+    preemption must leave every token unchanged."""
     from repro_torch.kvcache import paged
-    from repro_torch.serve import engine as eng_mod
-    cfg = model.cfg
-    L, S, max_len, ps, new, n_req = cfg.num_layers, 4, 544, 16, 32, 8
+    cfg, new = model.cfg, 32
     rng = np.random.default_rng(0)
-    lens = rng.integers(128, 513, n_req)
+    lens = rng.integers(128, 513, 8)
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in lens]
-    dense_bytes = (S * max_len * L * 2 * cfg.num_kv_heads
-                   * cfg.resolved_head_dim * 2)
-    finite = {}
-    orig = eng_mod.sample
-
-    def checked(logits, generator=None, temperature=0.0):
-        finite["all"] = finite["all"] & torch.isfinite(logits).all()
-        return orig(logits, generator, temperature)
-
     runs, tokens, total = [], {}, {}
-    eng_mod.sample = checked
-    try:
-        for label, kv_mode, kd in (("dense", "dense", None),
-                                   ("paged_bf16", "paged", None),
-                                   ("paged_int8", "paged", "int8")):
-            eng = eng_mod.ContinuousBatchingEngine(
-                model, max_slots=S, max_len=max_len, kv_mode=kv_mode,
-                page_size=ps, kv_dtype=kd)
-            uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            finite["all"] = torch.ones((), dtype=torch.bool, device=dev)
-            ops.reset_kernel_launches()
-            t = time.perf_counter()
-            out = eng.run()
-            torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t
-            launches = ops.kernel_launches()
-            s = out["stats"]
-            n_pf, n_st = s.prefill_chunks, s.decode_dispatches
-            fwd = n_pf + n_st
-            expected = {"router_stats": fwd, "fused_linear": 4 * L * fwd,
-                        "flash_attention": L * fwd, "paged_attention": 0}
-            if kv_mode == "paged":
-                expected.update(flash_attention=L * n_pf,
-                                paged_attention=L * n_st)
-            require(launches == expected, f"{label}: kernel launches "
-                    f"{launches} != expected {expected}")
-            res = [out["results"][u] for u in uids]
-            require(s.requests_completed == n_req and all(
-                r.finish_reason == "length" and r.decode_tokens == new
-                for r in res), f"{label}: not every request completed")
-            require(bool(finite["all"].item()),
-                    f"{label}: non-finite logits")
-            rec = {"run": label, "prefill_s": s.prefill_s,
-                   "prefill_tokens": s.prefill_tokens,
-                   "prefills": n_pf, "decode_steps": n_st,
-                   "decode_s": s.decode_s,
-                   "decode_tok_per_s": s.decode_tok_per_s,
-                   "decode_steps_per_s": n_st / s.decode_s,
-                   "wall_s": wall, "attn_keep_frac": s.attn_keep_frac,
-                   "kv_saved_fraction": s.kv_saved_fraction,
-                   "max_memory_allocated":
-                       torch.cuda.max_memory_allocated(dev),
-                   "dense_pool_bytes": dense_bytes, "launches": launches}
-            if kv_mode == "paged":
-                alloc = eng.allocator
-                alloc.check_conservation()
-                require(alloc.free_pages == eng.num_pages
-                        and alloc.stats.pages_in_use == 0,
-                        f"{label}: pages in use at the end")
-                require(0.0 < s.kv_entries_saved_fraction < 1.0,
-                        f"{label}: kv_entries_saved_fraction "
-                        f"{s.kv_entries_saved_fraction}")
-                page_bytes = ps * paged.entry_bytes(cfg, kd)
-                rec.update(pages_peak=s.pages_peak,
-                           pages_total=s.pages_total, page_bytes=page_bytes,
-                           peak_page_bytes=s.pages_peak * page_bytes,
-                           peak_over_dense=s.pages_peak * page_bytes
-                           / dense_bytes,
-                           kv_entries_saved_fraction=
-                           s.kv_entries_saved_fraction,
-                           history_hit_rate=s.history_hit_rate,
-                           preemptions=s.preemptions)
-            tokens[label] = np.concatenate([r.tokens for r in res])
+    # the tight pool holds 10/7 of one request's worst case (every token
+    # fresh at every layer); four residents at keep ≈ 0.5 need about twice
+    # that (4 × (1 + 31 · 0.5) / 32 ≈ 2.06) before their 32 tokens are done
+    short = [rng.integers(0, cfg.vocab_size, (16,)).astype(np.int32)
+             for _ in range(4)]
+    worst = -(-(16 + new - 1) * cfg.num_layers // PAGE)
+    with FiniteLogits(torch, dev) as finite:
+        for label, plist, kw in (
+                ("dense", prompts, dict(kv_mode="dense")),
+                ("paged_bf16", prompts, dict(kv_mode="paged")),
+                ("paged_int8", prompts, dict(kv_mode="paged",
+                                             kv_dtype="int8")),
+                ("short_paged_bf16", short, dict(kv_mode="paged")),
+                ("short_paged_bf16_tight", short,
+                 dict(kv_mode="paged", num_pages=worst * 10 // 7))):
+            rec, toks, launches = serve_continuous(
+                torch, dev, model, finite, label, plist, new, **kw)
+            tokens[label] = toks
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
             runs.append(rec)
-            del eng, out
-    finally:
-        eng_mod.sample = orig
+    require(runs[3]["preemptions"] == 0 and runs[4]["preemptions"] >= 1,
+            f"preemptions {runs[3]['preemptions']} (default pool), "
+            f"{runs[4]['preemptions']} (tight pool): want 0 and >= 1")
+    require(all(np.array_equal(a, b) for a, b in zip(
+        tokens["short_paged_bf16"], tokens["short_paged_bf16_tight"])),
+        "preemption changed the tokens of a request")
     # bf16 sums in another order flip near-tie gates and argmaxes of the
-    # random model: the share of equal tokens and, per request, the index
-    # of the first token that differs from the dense run (new = none)
+    # random model (phase 7 holds this against fp32): the share of equal
+    # tokens and, per request, the first index that differs (32 = none)
     same, first = {}, {}
     for label in ("paged_bf16", "paged_int8"):
-        eq = (tokens[label] == tokens["dense"]).reshape(n_req, new)
-        same[label] = float(eq.mean())
-        first[label] = [int(np.argmin(r)) if not r.all() else new
-                        for r in eq]
+        same[label], first[label] = token_agreement(
+            np, tokens[label], tokens["dense"])
     return {"phase": "continuous", "config": cfg.name, "dtype": cfg.dtype,
-            "slots": S, "max_len": max_len, "page_size": ps,
+            "slots": SLOTS, "max_len": MAX_LEN, "page_size": PAGE,
             "prompt_lens": lens.tolist(), "new_tokens": new, "runs": runs,
             "tokens_identical_to_dense": same,
-            "first_divergence": first}, total
+            "first_divergence": first,
+            "preempted_tokens_identical": True}, total, prompts, tokens
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the bf16 divergence of paged from dense, held against fp32
+# ---------------------------------------------------------------------------
+
+def _upcast(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_upcast(torch, v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _forced_distance(torch, ref, other):
+    """Teacher-forced run ``other`` against ``ref`` (both as _forced_run
+    returns them): the share of gate decisions that differ (prefill, decode
+    steps), the largest logits difference over max|ref|, and the share of
+    equal argmaxes."""
+    (rl, rg), (ol, og) = ref, other
+    rel = max((a - b).abs().max().item() / a.abs().max().item()
+              for a, b in zip(rl, ol))
+    agree = sum((a.argmax(-1) == b.argmax(-1)).sum().item()
+                for a, b in zip(rl, ol)) / sum(a.shape[0] for a in rl)
+    dec = (torch.cat([g.flatten() for g in rg[1:]])
+           != torch.cat([g.flatten() for g in og[1:]])).float().mean().item()
+    pf = (rg[0] != og[0]).float().mean().item()
+    return {"gate_mismatch_prefill": pf, "gate_mismatch_decode": dec,
+            "logits_max_rel_diff": rel, "argmax_agree": agree}
+
+
+def _forced_paged_aligned(model, prompts, forced):
+    """_forced_paged at full width with its prefill outputs stacked as
+    _forced_run returns them (equal prompt lengths)."""
+    import torch
+    S, T, steps = len(prompts), len(prompts[0]), forced.shape[1]
+    per_slot = -(-(T + steps + 1) * model.cfg.num_layers // PAGE)
+    logits, gates = _forced_paged(model, prompts, forced, ps=PAGE,
+                                  num_pages=S * per_slot,
+                                  cap_tokens=T + steps + 1)
+    return ([torch.cat(logits[:S])] + logits[S:],
+            [torch.stack(gates[:S], 1)] + gates[S:])
+
+
+def witness(torch, np, dev, model, prompts, bf16_tokens):
+    """The same weights in fp32 (the bf16 weights upcast, so only the
+    arithmetic differs): the continuous engine in the dense pool and in
+    fp32 pages on the first 4 phase-6 requests must give identical tokens;
+    teacher-forced decode steps (2 prompts × 256 tokens, 16 forced tokens)
+    of the dense and the paged path in fp32 must give identical gates and
+    logits within 1e-4·max; and the bf16 paged path may flip at most twice
+    (+ 1 %) as many decode gates against fp32 as the bf16 dense path does."""
+    from repro_torch.core import routing
+    from repro_torch.models.model import LanguageModel
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    m32 = LanguageModel(cfg32, _upcast(torch, model.params()), device=dev)
+    new, reqs = 32, prompts[:SLOTS]
+    runs, tokens = [], {}
+    with FiniteLogits(torch, dev) as finite:
+        for label, kw in (("fp32_dense", dict(kv_mode="dense")),
+                          ("fp32_paged", dict(kv_mode="paged"))):
+            rec, toks, _ = serve_continuous(torch, dev, m32, finite, label,
+                                            reqs, new, **kw)
+            runs.append(rec)
+            tokens[label] = toks
+    require(all(np.array_equal(a, b) for a, b in zip(
+        tokens["fp32_dense"], tokens["fp32_paged"])),
+        "fp32 paged tokens differ from fp32 dense at full width")
+    agree = {run: token_agreement(np, bf16_tokens[run][:SLOTS],
+                                  tokens["fp32_dense"])
+             for run in ("dense", "paged_bf16", "paged_int8")}
+
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, 256)),
+                           device=dev)
+    forced = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, 16)),
+                             device=dev)
+    margins = []
+    orig = routing.gate_from_logits
+
+    def recording(logits):
+        margins.append((logits[..., 1] - logits[..., 0]).abs().min().item())
+        return orig(logits)
+
+    routing.gate_from_logits = recording
+    try:
+        ref = _forced_run(m32, toks, forced)
+    finally:
+        routing.gate_from_logits = orig
+    dist = {"fp32_paged": _forced_distance(
+        torch, ref, _forced_paged_aligned(m32, list(toks), forced))}
+    del m32
+    torch.cuda.empty_cache()
+    dist["bf16_dense"] = _forced_distance(
+        torch, ref, _forced_run(model, toks, forced))
+    dist["bf16_paged"] = _forced_distance(
+        torch, ref, _forced_paged_aligned(model, list(toks), forced))
+    fp = dist["fp32_paged"]
+    require(fp["gate_mismatch_prefill"] == 0.0
+            and fp["gate_mismatch_decode"] == 0.0,
+            f"fp32 paged gates differ from fp32 dense: {fp}")
+    require(fp["logits_max_rel_diff"] <= TOL_LOGITS and fp["argmax_agree"]
+            == 1.0, f"fp32 paged logits differ from fp32 dense: {fp}")
+    # a paged-only fault at bf16 (a wrong row, scale or cast) would flip
+    # far more gates than bf16 rounding does on the dense path
+    bd, bp = dist["bf16_dense"], dist["bf16_paged"]
+    require(bp["gate_mismatch_decode"]
+            <= 2 * bd["gate_mismatch_decode"] + 0.01,
+            f"bf16 paged stands farther from fp32 than bf16 dense: {dist}")
+    return {"phase": "witness", "config": cfg32.name, "requests": len(reqs),
+            "new_tokens": new, "runs": runs,
+            "fp32_paged_tokens_identical_to_fp32_dense": True,
+            "phase6_tokens_vs_fp32_dense": agree,
+            "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
+                       "min_gate_margin_fp32": min(margins),
+                       "vs_fp32_dense": dist}}
 
 
 def main() -> int:
@@ -870,10 +1044,12 @@ def main() -> int:
     model, init_s = full_width_model(torch, dev)
     serve, launches = serve_full_width(torch, np, dev, model, init_s)
     emit(serve)
-    cont, cont_launches = continuous_full_width(torch, np, dev, model)
+    cont, cont_launches, prompts, tokens = continuous_full_width(
+        torch, np, dev, model)
     emit(cont)
     for k, v in cont_launches.items():
         launches[k] += v
+    emit(witness(torch, np, dev, model, prompts, tokens))
 
     kernels = []
     for name, shapes in per_kernel.items():

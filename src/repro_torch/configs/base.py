@@ -136,9 +136,9 @@ class ModelConfig:
     # *between* resident decode steps so a long prompt cannot stall every
     # decode slot (head-of-line blocking).  0 = monolithic prefill — the
     # parity default; token output is identical either way.  Requires an
-    # all-global-attention stack with masked-mode routing
-    # (``serve.scheduler.can_chunk_prefill``); the engine's
-    # ``prefill_chunk=`` argument overrides this per-deployment.
+    # all-global-attention stack with masked-mode routing; the engine's
+    # ``prefill_chunk=`` argument overrides this per-deployment.  The
+    # port's engine does not serve it yet and raises ``ConfigError``.
     prefill_chunk: int = 0
     # Device-resident multi-step decode for the continuous-batching engine:
     # N decode iterations (step + sampling + stop/length detection +

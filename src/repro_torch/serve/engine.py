@@ -585,7 +585,6 @@ class ContinuousBatchingEngine:
         st.prefill_s += now - t0
         st.prefill_tokens += work.req.prompt_len
         st.decode_tokens += 1
-        self.scheduler.prefill_advance(work)
         act = ActiveRequest(req=work.req, slot=work.slot,
                             pos=work.req.prompt_len, next_token=tok,
                             out_tokens=[tok], submit_s=rs.t_run,
@@ -685,7 +684,6 @@ class ContinuousBatchingEngine:
         self.allocator.release(slot)
         rs.hist.on_release(slot)
         rs.stats.preemptions += 1
-        st.req.preempt_count += 1
         sched.requeue(st.req)
         return True
 

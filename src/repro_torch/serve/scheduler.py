@@ -1,6 +1,6 @@
-"""Request scheduler for the continuous-batching serve engine (a copy of
-the JAX package's ``serve/scheduler.py``, which cannot be imported without
-JAX).
+"""Request scheduler for the continuous-batching serve engine (after the
+JAX package's ``serve/scheduler.py``, which cannot be imported without
+JAX; its chunked-prefill planner waits for the port of chunked prefill).
 
 The scheduler is the software realization of SkipOPU's dynamically
 allocated compute: a fixed pool of KV-cache *slots* (the on-chip KV
@@ -17,20 +17,7 @@ instead of once per prompt length (the port keeps the buckets, so its
 prefill shapes are the reference's).  Bucketing is
 exact for masked-mode global-attention stacks — pads sit *after* the real
 tokens, so causal masking keeps every real position byte-identical — and
-is disabled (exact-length prefill) for stacks where padding perturbs
-state (SSM scans, ring-buffer local attention, gather-mode routing whose
-static capacity depends on T).
-
-Chunked prefill (``prefill_chunk > 0``): instead of prefilling a prompt
-monolithically — which stalls every resident decode slot for the whole
-prompt (head-of-line blocking) — the prompt is split into fixed-size
-chunks that ``plan_step()`` schedules *between* decode steps: each
-engine iteration advances the one in-flight prefill by at most one chunk
-while every resident still decodes, so no slot ever waits more than one
-chunk's worth of work for its next token.  This is the scheduler-level
-analogue of the paper's latency-hiding claim: prefill (the "reduction"
-of a new request into cache state) is interleaved with adjacent decode
-work instead of serializing in front of it.
+those are the only stacks the port serves (``transformer.check_supported``).
 """
 from __future__ import annotations
 
@@ -41,7 +28,6 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.serve.errors import AdmissionRejected
 
 
@@ -57,26 +43,16 @@ class Request:
                        sampled from the prefill logits.
       stop_token     — optional token id that ends generation early (it
                        is still emitted as the last output token).
-      submit_s       — ``perf_counter`` stamp set by ``Scheduler.submit``
-                       (feeds the engine's queue-wait histogram, and is the
-                       request's *age* for preemption-victim ordering —
+      submit_s       — ``perf_counter`` stamp set by ``Scheduler.submit``:
+                       the request's *age* for preemption-victim ordering,
                        preserved across requeues, so a preempted request
-                       never loses its FIFO seniority).
-      deadline_s     — optional wall-clock budget measured from submit;
-                       past it the engine finishes the request with
-                       ``finish_reason == "deadline"`` and releases its
-                       resources at the next step/epoch boundary.
-      preempt_count  — times this request has been preempted (OOM victim
-                       or aborted in-flight prefill); against the
-                       engine's ``max_preemptions`` retry budget.
+                       never loses its FIFO seniority.
     """
     uid: int
     tokens: np.ndarray               # [T0] int32 prompt
     max_new_tokens: int
     stop_token: Optional[int] = None
     submit_s: float = 0.0
-    deadline_s: Optional[float] = None
-    preempt_count: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -123,121 +99,42 @@ def default_buckets(max_len: int, lo: int = 16) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def can_bucket(cfg: ModelConfig) -> bool:
-    """Padding-exactness condition (see module docstring)."""
-    all_global = all(k == ATTN for k in cfg.layer_pattern)
-    gather = cfg.skip.enabled and cfg.skip.mode == "gather"
-    return all_global and not gather
-
-
-def can_chunk_prefill(cfg: ModelConfig) -> bool:
-    """Chunk-exactness condition: chunked prefill must be *resumable* (the
-    cached prefix fully determines the next chunk's state) and the final
-    chunk's right-padding must be inert.  Both hold exactly for the
-    bucketable stacks — all-global attention with masked-mode routing:
-    the per-layer KV views in the cache are the complete cross-layer
-    reuse state, and pads sit after the real tokens where causal masking
-    kills them.  Ring-buffer windows and SSM scans carry state that
-    cannot be split at arbitrary offsets, and gather-mode routing's
-    static capacity depends on the prefill extent, so those stacks
-    require monolithic (exact-length) prefill."""
-    return can_bucket(cfg)
-
-
-def can_speculate(cfg: ModelConfig) -> bool:
-    """Self-speculative decoding exactness condition: the draft/verify
-    window reuses the chunked-prefill stack pass (``model.verify_chunk``
-    is ``prefill_chunk``'s all-columns sibling), so the chunk-exactness
-    condition must hold, and the dense verify path overwrites the pool's
-    window rows with a time-axis ``dynamic_update_slice`` that assumes
-    the ``bthd`` cache layout (head-major pools would need a transposed
-    write the chunk stack does not emit)."""
-    return can_chunk_prefill(cfg) and cfg.kv_cache_layout == "bthd"
-
-
 @dataclasses.dataclass
 class PrefillChunk:
-    """One unit of prefill work handed to the engine by ``plan_step``.
-
-    With chunking off this is the whole prompt (``is_first and is_last``);
-    with ``prefill_chunk > 0`` it is one C-token slice (the final slice
-    may be shorter — the engine right-pads it to C and masks)."""
+    """One unit of prefill work handed to the engine by ``plan_step``: the
+    whole prompt of a request just admitted into ``slot``."""
     req: Request
     slot: int
-    start: int                       # token offset of this chunk
-    tokens: np.ndarray               # [c] real tokens (c <= prefill_chunk)
-    is_first: bool
-    is_last: bool
 
 
 @dataclasses.dataclass
 class StepPlan:
     """One engine iteration's worth of work: every resident decode slot
-    plus at most one prefill chunk (the scheduler-level interleaving that
-    removes prefill head-of-line blocking).
-
-    ``decode_steps`` is the iteration's *epoch length*: with the fused
-    device-resident decode loop (``decode_steps_per_dispatch > 1``) each
-    resident slot decodes up to N tokens per dispatch, so one plan covers
-    an N-step epoch and each decode slot costs N budget tokens."""
+    plus at most one prefill."""
     decode_slots: List[int]
     prefill: Optional[PrefillChunk]
-    decode_steps: int = 1
-
-    @property
-    def tokens(self) -> int:
-        """Tokens this step computes (the planner's budget currency)."""
-        n = len(self.decode_slots) * self.decode_steps
-        return n + (len(self.prefill.tokens) if self.prefill else 0)
-
-
-@dataclasses.dataclass
-class _InflightPrefill:
-    """Host-side progress of the one prompt currently being prefilled."""
-    req: Request
-    slot: int
-    done: int = 0                    # tokens already prefilled
-    deferred: int = 0                # consecutive budget deferrals
-    # warm-prefix admission: tokens adopted from a shared prefix-cache
-    # record (``done`` starts here — those tokens never prefill).  0 on
-    # a cold admission.
-    warm: int = 0
 
 
 class Scheduler:
-    """FIFO queue + slot free-list + prefill length-bucketing + the
-    chunked-prefill step planner.
+    """FIFO queue + slot free-list + prefill length-bucketing.
 
-    The engine drives one iteration as: (optional paged-memory headroom
-    pass) → ``plan_step()`` → execute the returned prefill chunk, if any
-    → one ragged decode step over the resident slots.  ``plan_step``
-    owns admission: it pops the FIFO head into a free slot (gated on the
-    engine's ``can_place`` memory predicate) and then metes the prompt
-    out one chunk per call, so decode steps run *between* chunks.
+    The engine drives one iteration as: (paged-memory headroom pass) →
+    ``plan_step()`` → prefill the returned prompt, if any, and activate
+    it → one ragged decode step over the resident slots.  ``plan_step``
+    owns admission: it pops the FIFO head into a free slot, gated on the
+    engine's ``can_place`` memory predicate.
     """
 
     def __init__(self, max_slots: int, max_len: int,
-                 buckets: Optional[Sequence[int]] = None,
-                 prefill_chunk: int = 0):
+                 buckets: Optional[Sequence[int]] = None):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
-        if prefill_chunk < 0:
-            raise ValueError("prefill_chunk must be >= 0 (0 = monolithic)")
         self.max_slots = max_slots
         self.max_len = max_len
         self.buckets = tuple(sorted(buckets)) if buckets else None
-        self.prefill_chunk = prefill_chunk
         self.queue: Deque[Request] = deque()
         self._free: List[int] = list(range(max_slots - 1, -1, -1))
         self.active: Dict[int, ActiveRequest] = {}
-        self._prefilling: Optional[_InflightPrefill] = None
-        # optional warm-prefix hook, set by the paged engine when its
-        # prefix cache is on: ``prefix_probe(request, slot) -> int``
-        # returns the number of prompt tokens a published prefix already
-        # covers (0 = cold).  ``plan_step`` starts the in-flight prefill
-        # at that offset, so only the cold suffix is ever chunked or
-        # charged against the token budget.
-        self.prefix_probe = None
 
     # -- queue -------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -252,112 +149,27 @@ class Scheduler:
         req.submit_s = perf_counter()
         self.queue.append(req)
 
-    def remove_queued(self, uid: int) -> Optional[Request]:
-        """Remove (and return) a still-queued request — the cheap half of
-        cooperative cancellation; returns None when ``uid`` is not in the
-        queue (already admitted, finished, or unknown)."""
-        for i, req in enumerate(self.queue):
-            if req.uid == uid:
-                del self.queue[i]
-                return req
-        return None
-
     @property
     def free_slots(self) -> int:
         return len(self._free)
 
     def has_work(self) -> bool:
-        return bool(self.queue or self.active or self._prefilling)
+        return bool(self.queue or self.active)
 
     # -- step planning ------------------------------------------------------
-    def plan_step(self, can_place=None,
-                  token_budget: Optional[int] = None,
-                  decode_steps: int = 1) -> StepPlan:
-        """Plan one engine iteration.
-
-        Admission: when no prefill is in flight, the FIFO head is popped
-        into a free slot iff ``can_place(request)`` passes (the paged
-        engine's free-page gate; FIFO order is preserved — a blocked head
-        back-pressures the queue).  The in-flight prompt then yields one
-        ``PrefillChunk`` per call (the whole prompt when chunking is off).
-
-        ``token_budget`` caps the step's token count (decode slots each
-        cost ``decode_steps``; the chunk costs its length).  An
-        over-budget chunk is deferred — decode-only step — but never
-        twice in a row, and never when there is no decode work to
-        prioritize, so prefill cannot starve.  Newly activated requests
-        join the decode set only on the *next* plan (the engine decodes
-        the live resident set, which includes a request the moment its
-        last chunk completes).
-
-        N-step epoch contract (``decode_steps > 1``, the fused
-        device-resident decode loop): one plan covers an *epoch* of up to
-        ``decode_steps`` decode iterations executed in a single device
-        dispatch.  The scheduler sees the world only at epoch boundaries
-        — finished slots are released, admissions happen, and preemption
-        victims are chosen once per dispatch, not once per token; a slot
-        stays resident (and its pages reserved) for the whole epoch even
-        if it finishes mid-loop, where the device-side active mask stops
-        it from computing or appending KV."""
-        if self._prefilling is None and self.queue and self._free:
-            if can_place is None or can_place(self.queue[0]):
-                req = self.queue.popleft()
-                slot = self._free.pop()
-                warm = (int(self.prefix_probe(req, slot))
-                        if self.prefix_probe is not None else 0)
-                self._prefilling = _InflightPrefill(
-                    req=req, slot=slot, done=warm, warm=warm)
-        decode_slots = sorted(self.active)
+    def plan_step(self, can_place=None) -> StepPlan:
+        """Plan one engine iteration: the FIFO head is popped into a free
+        slot iff ``can_place(request)`` passes (the paged engine's
+        free-page gate; FIFO order is preserved — a blocked head
+        back-pressures the queue) and returned as the step's prefill.
+        The engine prefills it within the iteration and activates it, so
+        it joins the decode set on the next plan."""
         chunk: Optional[PrefillChunk] = None
-        if self._prefilling is not None:
-            pf = self._prefilling
-            T0 = pf.req.prompt_len
-            C = self.prefill_chunk if self.prefill_chunk else T0
-            c = min(C, T0 - pf.done)
-            over = (token_budget is not None and decode_slots
-                    and len(decode_slots) * decode_steps + c > token_budget)
-            if over and pf.deferred < 1:
-                pf.deferred += 1
-            else:
-                pf.deferred = 0
-                toks = np.asarray(pf.req.tokens, np.int32)
-                chunk = PrefillChunk(
-                    req=pf.req, slot=pf.slot, start=pf.done,
-                    tokens=toks[pf.done:pf.done + c],
-                    is_first=pf.done == pf.warm, is_last=pf.done + c >= T0)
-        return StepPlan(decode_slots=decode_slots, prefill=chunk,
-                        decode_steps=decode_steps)
-
-    def prefill_advance(self, chunk: PrefillChunk) -> None:
-        """Record that ``chunk`` was executed; the in-flight state clears
-        on the last chunk (the engine then activates the request)."""
-        pf = self._prefilling
-        assert pf is not None and pf.slot == chunk.slot, "no such prefill"
-        pf.done += len(chunk.tokens)
-        if pf.done >= pf.req.prompt_len:
-            self._prefilling = None
-
-    @property
-    def prefilling(self) -> Optional[_InflightPrefill]:
-        """The in-flight prefill, if any (chunked mode can span engine
-        iterations; monolithic prefill completes within its own)."""
-        return self._prefilling
-
-    def abort_prefill(self, requeue: bool = True) -> _InflightPrefill:
-        """Cancel the in-flight prefill: its slot returns to the free
-        list and (unless ``requeue=False`` — cancellation) the request
-        goes back into the FIFO at its age-ordered position, where it
-        will re-prefill from scratch.  The paged engine uses this as OOM
-        backpressure — the in-flight prompt is the newest admission and
-        has no decode progress to lose, so it is the cheapest victim
-        when residents need page headroom."""
-        pf = self._prefilling
-        assert pf is not None, "no prefill in flight"
-        self._prefilling = None
-        self._free.append(pf.slot)
-        if requeue:
-            self.requeue(pf.req)
-        return pf
+        if self.queue and self._free:
+            if can_place is None or can_place(self.queue[0]):
+                chunk = PrefillChunk(req=self.queue.popleft(),
+                                     slot=self._free.pop())
+        return StepPlan(decode_slots=sorted(self.active), prefill=chunk)
 
     # -- admission / eviction ---------------------------------------------
     def admit(self, can_place=None,

@@ -159,6 +159,68 @@ def test_admission_rejects_unservable(world):
     assert e.value.reason == "prompt_too_long"
 
 
+def _drive_scheduler(mod, lens):
+    """Submit, plan, prefill, evict and requeue through one scheduler
+    module; returns its trace.  Long prompts wait for an empty pool (FIFO
+    backpressure); every other step evicts the lowest resident slot and
+    every third eviction requeues its request (a preemption)."""
+    sched = mod.Scheduler(3, 48, buckets=mod.default_buckets(48))
+    for uid, n in enumerate(lens):
+        sched.submit(mod.Request(uid=uid, tokens=np.zeros(n, np.int32),
+                                 max_new_tokens=4))
+
+    def can_place(req):
+        return req.prompt_len < 30 or not sched.active
+
+    trace, step = [], 0
+    while sched.has_work():
+        step += 1
+        assert step < 200, "scheduler did not drain"
+        plan = sched.plan_step(can_place=can_place)
+        work = plan.prefill
+        if work is not None:
+            if hasattr(sched, "prefill_advance"):   # the reference's chunks
+                sched.prefill_advance(work)
+            sched.activate(mod.ActiveRequest(req=work.req, slot=work.slot,
+                                             pos=work.req.prompt_len))
+        trace.append((plan.decode_slots, work and (work.req.uid, work.slot)))
+        if step % 2 == 0 and sched.active:
+            st = sched.release(min(sched.active))
+            if step % 6 == 0:
+                sched.requeue(st.req)
+            trace.append(("evict", st.req.uid, sched.free_slots,
+                          [r.uid for r in sched.queue]))
+    return trace
+
+
+def test_scheduler_matches_reference():
+    """Admission order, slot choice, backpressure, age-ordered requeue,
+    eviction, ``admit`` and the prefill buckets equal the JAX package's
+    scheduler (monolithic prefill: the reference's chunk is the whole
+    prompt)."""
+    from repro.serve import scheduler as jsched
+    from repro_torch.serve import scheduler as tsched
+    lens = np.random.default_rng(3).integers(1, 40, 9).tolist()
+    assert _drive_scheduler(tsched, lens) == _drive_scheduler(jsched, lens)
+    admitted = []
+    for mod in (tsched, jsched):
+        sched = mod.Scheduler(3, 48)
+        for uid, n in enumerate(lens):
+            sched.submit(mod.Request(uid=uid, tokens=np.zeros(n, np.int32),
+                                     max_new_tokens=4))
+        first = sched.admit(limit=1)
+        rest = sched.admit(can_place=lambda r: r.prompt_len < 30)
+        admitted.append([(s, r.uid) for s, r in first + rest])
+    assert admitted[0] == admitted[1]
+    mine = tsched.Scheduler(2, 48, buckets=tsched.default_buckets(48))
+    ref = jsched.Scheduler(2, 48, buckets=jsched.default_buckets(48))
+    for n in range(1, 48):
+        toks = np.arange(n, dtype=np.int32)
+        (a, ia), (b, ib) = mine.pad_prompt(toks), ref.pad_prompt(toks)
+        np.testing.assert_array_equal(a, b)
+        assert ia == ib and mine.bucket_for(n) == ref.bucket_for(n)
+
+
 @pytest.mark.parametrize("knob", [
     {"prefill_chunk": 4}, {"decode_steps": 2}, {"spec_k": 2},
     {"kv_mode": "paged", "prefix_cache": True}, {"faults": []},
