@@ -8,14 +8,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   2. build    — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
                 the llama2-7b main-path shapes, with times and bounds
-                (router, fused linear and flash in bf16 and fp32; paged
+                (router, dense and int4 fused linear and flash in bf16 and
+                fp32 activations, the int4 matmul at the lm head; paged
                 attention in bf16, int8 and int4 pages over a 512-token
-                history of a keep-0.5 gate log); then ragged shapes off the
-                tile multiples, empty paged histories included (not timed);
+                history of a keep-0.5 gate log; the int4 kernels also
+                against the exact dequantized weights); then ragged shapes
+                off the tile multiples, empty paged histories, padded
+                K-groups, odd N, non-pow2 scales and .5 ties included (not
+                timed);
   4. parity   — llama2-7b smoke in fp32 through the port on cuda (kernels)
                 and on cpu (plain versions): gates, logits, tokens of the
                 lock-step engine, of teacher-forced paged decode steps and
-                of the continuous engine over the paged store;
+                of the continuous engine over the paged store; once with
+                dense weights and once with int4 weights (group 64);
   5. serve    — full-width llama2-7b in bf16 (random seeded weights, neutral
                 router bias) served by ``ServeEngine.generate``: batch 4 x
                 prompt 512 + 32 new tokens, greedy; exact launch counts;
@@ -31,9 +36,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 dense pool and in fp32 pages gives identical tokens on 4
                 phase-6 requests; teacher-forced dense and paged decode in
                 fp32 agree (gates, logits), and bf16 paged flips no more
-                gates against fp32 than bf16 dense does (within 2x + 1 %).
+                gates against fp32 than bf16 dense does (within 2x + 1 %);
+                the fp32 copy is freed after it;
+  8. int4     — the phase-5 weights quantized on the card by the port's
+                ``quantize_params`` (group 128, pow2 scales: every linear of
+                all 32 layers and the lm head), served lock-step (batch 4 x
+                512 + 32) and by the continuous engine (the phase-6
+                requests) in the dense pool and in paged bf16 pages: exact
+                launch counts (4·L int4 fused linears and one int4 matmul
+                per forward, no dense fused linear), finite logits, weight
+                bytes and peak memory; the share of tokens equal to the
+                bf16 runs is reported, not checked.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5 and 6, each counted from 0), and last the contract line
+runs of phases 5, 6 and 8, each counted from 0), and last the contract line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -50,27 +65,35 @@ SRC = os.path.join(ROOT, "src")
 LOG_DIR = os.path.join(ROOT, "build")          # listed in .gitignore
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory rate and the
-# dense bf16 tensor-core rate.  bound_ms = max(bytes / rate, ops / rate).
+# dense bf16 and int8 tensor-core rates.  bound_ms = max(bytes / rate,
+# ops / rate); the int4 kernels' products are int8 operations.
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 # Tolerances (kernel vs plain version on the same inputs).
 TOL_F32 = 1e-4        # x max|ref|: fp32 sums in another order over K ≤ 11008
 TOL_BF16 = 2.0 ** -7  # x max|ref|: two bf16 ulps at the maximum
 TOL_SQ = 1e-5         # relative, Σy² and mean_sq (fp32 outputs)
 TOL_LOGITS = 1e-4     # x max|logits|, phase 4 (fp32 model)
+TOL_BFP = 0.05        # x max|oracle|: int4 kernels against the exact
+#                       dequant (8-bit activation mantissas per group)
 MIN_MARGIN = 1e-3     # phase 4: no router decision this close to its tie
 PARITY_SEED = 6   # its margins clear MIN_MARGIN (checked every run)
 
 TPU_KERNELS = {
     "router_stats": "src/repro/kernels/fused_router_rmsnorm.py:55",
     "fused_linear": "src/repro/kernels/fused_linear.py:135",
+    "fused_linear_int4": "src/repro/kernels/fused_linear.py:93",
+    "int4_matmul": "src/repro/kernels/int4_matmul.py:66",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
     "paged_attention": "src/repro/kernels/paged_attention.py:99",
 }
 SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
     "fused_linear": "src/repro_torch/kernels/csrc/fused_linear.cu",
+    "fused_linear_int4": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
+    "int4_matmul": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
@@ -85,8 +108,8 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(what)
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -161,43 +184,70 @@ def check_router(torch, dev, timer, cfg):
     return shapes
 
 
-def check_fused_linear(torch, dev, timer, cfg):
-    from repro_torch.kernels import fused_linear as fl, ref
+def linear_shapes(cfg):
+    """The four linears of a block: name, K, N, glu, norm prologue,
+    gate/residual/Σy² epilogue."""
     D, ai, ki, Fd = (cfg.d_model, cfg.attn_inner_dim, cfg.kv_inner_dim,
                      cfg.d_ff)
-    linears = [  # name, K, N, glu, prologue, gate/residual/Σy² epilogue
-        ("wqkv", D, ai + 2 * ki, False, True, False),
-        ("wo", ai, D, False, False, True),
-        ("gu", D, 2 * Fd, True, True, False),
-        ("down", Fd, D, False, False, True)]
+    return [("wqkv", D, ai + 2 * ki, False, True, False),
+            ("wo", ai, D, False, False, True),
+            ("gu", D, 2 * Fd, True, True, False),
+            ("down", Fd, D, False, False, True)]
+
+
+def int4_weight(torch, dev, g, K, N, G, pow2=True):
+    """A bf16 weight [K, N] (std 1/sqrt(K)) quantized on the card by the
+    port's ``quantize_rtn``: (codes, scale, the exact dequantized fp32
+    weight [K, N])."""
+    from repro_torch.quant import dequantize, quantize_rtn
+    w = (torch.randn((K, N), generator=g, device=dev)
+         / math.sqrt(K)).to(torch.bfloat16)
+    codes, scale = quantize_rtn(w, G, pow2)
+    return codes, scale, dequantize(codes, scale, K)
+
+
+def linear_inputs(torch, dev, g, M, K, F, glu, pro, epi):
+    """bf16 activation and the optional prologue/epilogue tensors of one
+    fused-linear call (mean_sq and gate_mul in fp32)."""
+    bf = torch.bfloat16
+    x = torch.randn((M, K), generator=g, device=dev).to(bf)
+    kw = {"glu": glu, "act": "silu" if glu else None}
+    if pro:
+        kw["mean_sq"] = (x.float() ** 2).mean(-1)
+        kw["gamma"] = (1 + 0.1 * torch.randn((K,), generator=g,
+                                             device=dev)).to(bf)
+    if epi:
+        kw["residual"] = torch.randn((M, F), generator=g, device=dev).to(bf)
+        kw["gate_mul"] = (torch.rand((M,), generator=g, device=dev)
+                          > 0.5).float()
+        kw["emit_sq"] = True
+    return x, kw
+
+
+def _cast(torch, kw, dt):
+    """kw with its bf16 tensors cast to dt, and the ref's keyword names."""
+    cast = {k: (v.to(dt) if isinstance(v, torch.Tensor)
+                and v.dtype == torch.bfloat16 else v) for k, v in kw.items()}
+    return cast, {("act_name" if k == "act" else k): v
+                  for k, v in cast.items()}
+
+
+def check_fused_linear(torch, dev, timer, cfg):
+    from repro_torch.kernels import fused_linear as fl, ref
     g = torch.Generator(device=dev).manual_seed(12)
     shapes = []
     for M in (2048, 4):
-        for name, K, N, glu, pro, epi in linears:
+        for name, K, N, glu, pro, epi in linear_shapes(cfg):
             F = N // 2 if glu else N
-            bf = torch.bfloat16
-            x = torch.randn((M, K), generator=g, device=dev).to(bf)
             w = (torch.randn((K, N), generator=g, device=dev)
-                 / math.sqrt(K)).to(bf)
-            kw = {"glu": glu, "act": "silu" if glu else None}
-            if pro:
-                kw["mean_sq"] = (x.float() ** 2).mean(-1)
-                kw["gamma"] = (1 + 0.1 * torch.randn(
-                    (K,), generator=g, device=dev)).to(bf)
-            if epi:
-                kw["residual"] = torch.randn((M, F), generator=g,
-                                             device=dev).to(bf)
-                kw["gate_mul"] = (torch.rand((M,), generator=g, device=dev)
-                                  > 0.5).float()
-                kw["emit_sq"] = True
+                 / math.sqrt(K)).to(torch.bfloat16)
+            x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
             errs = {}
-            for dt, tol in ((bf, TOL_BF16), (torch.float32, TOL_F32)):
-                cast = {k: (v.to(dt) if isinstance(v, torch.Tensor)
-                            and v.dtype == bf else v) for k, v in kw.items()}
+            for dt, tol in ((torch.bfloat16, TOL_BF16),
+                            (torch.float32, TOL_F32)):
+                cast, rcast = _cast(torch, kw, dt)
                 out, sq = fl.fused_linear_cuda(x.to(dt), w.to(dt), **cast)
-                ro, rsq = ref.fused_linear_ref(
-                    x.to(dt), w.to(dt), **{("act_name" if k == "act" else k): v
-                                           for k, v in cast.items()})
+                ro, rsq = ref.fused_linear_ref(x.to(dt), w.to(dt), **rcast)
                 torch.cuda.synchronize()
                 e, m = max_err(torch, out, ro)
                 require(e <= tol * m, f"fused_linear {name} M={M} {dt}: "
@@ -210,10 +260,9 @@ def check_fused_linear(torch, dev, timer, cfg):
                     rec["sq_rel_err"] = sr
                 errs[str(dt).split(".")[-1]] = rec
                 del out, sq, ro, rsq
+            _, rkw = _cast(torch, kw, torch.bfloat16)
             ms_k = timer(lambda: fl.fused_linear_cuda(x, w, **kw))
-            ms_p = timer(lambda: ref.fused_linear_ref(
-                x, w, **{("act_name" if k == "act" else k): v
-                         for k, v in kw.items()}))
+            ms_p = timer(lambda: ref.fused_linear_ref(x, w, **rkw))
             ms_l = timer(lambda: torch.matmul(x, w))
             nbytes = (M * K + K * N + M * F) * 2 + (
                 (K * 2 + M * 4) if pro else 0) + (
@@ -227,6 +276,99 @@ def check_fused_linear(torch, dev, timer, cfg):
                            "errors": errs})
             del x, w, kw
     return shapes
+
+
+def check_fused_linear_int4(torch, dev, timer, cfg):
+    """The int4-BFP fused linear at the four linears of a llama2-7b block,
+    M 2048 (prefill) and 4 (decode), against its plain version (the BFP
+    product) and, for the record, against the exact-dequant oracle."""
+    from repro_torch.kernels import fused_linear as fl, ref
+    G = cfg.quant.group_size
+    g = torch.Generator(device=dev).manual_seed(17)
+    shapes = []
+    for M in (2048, 4):
+        for name, K, N, glu, pro, epi in linear_shapes(cfg):
+            F = N // 2 if glu else N
+            codes, scale, w_exact = int4_weight(torch, dev, g, K, N, G)
+            x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
+            errs = {}
+            for dt, tol in ((torch.bfloat16, TOL_BF16),
+                            (torch.float32, TOL_F32)):
+                cast, rcast = _cast(torch, kw, dt)
+                out, sq = fl.fused_linear_int4_cuda(x.to(dt), codes, scale,
+                                                    **cast)
+                ro, rsq = ref.fused_linear_ref(x.to(dt), w_codes=codes,
+                                               scale=scale, **rcast)
+                eo, _ = ref.fused_linear_ref(x.to(dt), w_exact.to(dt),
+                                             **rcast)
+                torch.cuda.synchronize()
+                e, m = max_err(torch, out, ro)
+                require(e <= tol * m, f"fused_linear_int4 {name} M={M} "
+                        f"{dt}: {e} > {tol}·{m}")
+                ee, em = max_err(torch, out, eo)
+                require(ee <= TOL_BFP * em, f"fused_linear_int4 {name} M={M}"
+                        f" {dt}: {ee} from the exact dequant > {TOL_BFP}·{em}")
+                rec = {"max_abs_err": e, "max_ref": m,
+                       "exact_dequant_err": ee, "exact_dequant_max": em}
+                if epi:
+                    sr = ((sq - rsq).abs() / rsq.abs()).max().item()
+                    require(sr <= TOL_SQ, f"fused_linear_int4 {name} M={M} "
+                            f"{dt} Σy² rel err {sr}")
+                    rec["sq_rel_err"] = sr
+                errs[str(dt).split(".")[-1]] = rec
+                del out, sq, ro, rsq, eo
+            _, rkw = _cast(torch, kw, torch.bfloat16)
+            ms_k = timer(lambda: fl.fused_linear_int4_cuda(x, codes, scale,
+                                                           **kw))
+            ms_p = timer(lambda: ref.fused_linear_ref(
+                x, w_codes=codes, scale=scale, **rkw))
+            Kw, C = codes.shape[0], scale.shape[0]
+            nbytes = (M * K + M * F) * 2 + Kw * N + C * N * 4 + (
+                (K * 2 + M * 4) if pro else 0) + (
+                (M * F * 2 + M * 8) if epi else 0)
+            b, by = bound_ms(nbytes, 2.0 * M * Kw * N, INT8_OPS_PER_S)
+            shapes.append({"shape": f"{name} M={M} K={K} N={N} G={G}",
+                           "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+                           "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                           "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 "
+                           f"{TOL_F32}·max|ref|, Σy² {TOL_SQ} rel; exact "
+                           f"dequant {TOL_BFP}·max", "errors": errs})
+            del x, kw, codes, scale, w_exact
+    return shapes
+
+
+def check_int4_matmul(torch, dev, timer, cfg, M=4):
+    """The int4 matmul at the lm head (K 4096, N 32000, M 4) against its
+    plain version and the exact-dequant oracle."""
+    from repro_torch.kernels import int4_matmul as im, ref
+    K, N, G = cfg.d_model, cfg.vocab_size, cfg.quant.group_size
+    g = torch.Generator(device=dev).manual_seed(18)
+    codes, scale, w_exact = int4_weight(torch, dev, g, K, N, G)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    errs = {}
+    for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        out = im.int4_matmul_cuda(x.to(dt), codes, scale)
+        ro = ref.bfp_matmul_ref(x.to(dt), codes, scale)
+        eo = ref.int4_matmul_ref(x.to(dt), codes, scale)
+        torch.cuda.synchronize()
+        e, m = max_err(torch, out, ro)
+        require(e <= tol * m, f"int4_matmul {dt}: {e} > {tol}·{m}")
+        ee, em = max_err(torch, out, eo)
+        require(ee <= TOL_BFP * em, f"int4_matmul {dt}: {ee} from the "
+                f"exact dequant > {TOL_BFP}·{em}")
+        errs[str(dt).split(".")[-1]] = {
+            "max_abs_err": e, "max_ref": m, "exact_dequant_err": ee,
+            "exact_dequant_max": em}
+    ms_k = timer(lambda: im.int4_matmul_cuda(x, codes, scale))
+    ms_p = timer(lambda: ref.bfp_matmul_ref(x, codes, scale))
+    Kw, C = codes.shape[0], scale.shape[0]
+    nbytes = (M * K + M * N) * 2 + Kw * N + C * N * 4
+    b, by = bound_ms(nbytes, 2.0 * M * Kw * N, INT8_OPS_PER_S)
+    return [{"shape": f"lm_head M={M} K={K} N={N} G={G}", "ms": ms_k,
+             "plain_ms": ms_p, "library_ms": None, "bound_ms": b,
+             "bound_by": by, "bytes": nbytes,
+             "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 {TOL_F32}·max|ref|; "
+             f"exact dequant {TOL_BFP}·max", "errors": errs}]
 
 
 def check_flash(torch, dev, timer, cfg):
@@ -389,6 +531,7 @@ def check_ragged(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
+    from repro_torch.kernels import int4_matmul as im
     g = torch.Generator(device=dev).manual_seed(14)
     worst = {}
 
@@ -423,6 +566,17 @@ def check_ragged(torch, dev):
             note("fused_linear", *max_err(torch, out, ro), tol)
             require(((sq - rsq).abs() / rsq).max().item() <= TOL_SQ,
                     f"ragged fused_linear Σy² M={M} K={K} F={F}")
+        for case in INT4_RAGGED:
+            note("fused_linear_int4", *ragged_int4(torch, dev, g, dt, *case),
+                 tol)
+        for M, K, N, G, pow2 in ((1, 200, 33, 64, True),
+                                 (17, 256, 130, 128, False),
+                                 (3, 38, 7, 128, True)):
+            codes, scale, _ = int4_weight(torch, dev, g, K, N, G, pow2)
+            x = bfp_ties(torch, dev, g, M, K, dt)
+            note("int4_matmul", *max_err(
+                torch, im.int4_matmul_cuda(x, codes, scale),
+                ref.bfp_matmul_ref(x, codes, scale)), tol)
         for B, Tq, Tk, Hq, Hkv, dh, window in ((2, 24, 24, 4, 2, 64, 0),
                                                (1, 37, 37, 4, 4, 32, 8),
                                                (3, 1, 50, 8, 2, 128, 0)):
@@ -448,6 +602,47 @@ def check_ragged(torch, dev):
                     torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty), tol)
     torch.cuda.synchronize()
     return {"phase": "ragged", "max_err_over_max_ref": worst}
+
+
+# int4 fused linear off the main shapes: M, K, F, glu, group, pow2 scales,
+# norm prologue, gate/residual/Σy² epilogue (K 200 and 38 leave a padded
+# last group; G 38 leaves a part-filled 32-bit word; F 131 and 97 are odd)
+INT4_RAGGED = ((1, 200, 70, True, 64, True, True, True),
+               (3, 200, 131, False, 64, False, False, True),
+               (17, 300, 97, False, 32, True, True, False),
+               (17, 38, 64, True, 128, False, True, False),
+               (5, 256, 64, False, 128, True, False, False))
+
+
+def bfp_ties(torch, dev, g, M, K, dt):
+    """An activation that stresses the BFP conversion: values (2j+1)/256
+    with a ±1 per row and 128-group, so x·2^7/2^e ends in .5 (bf16 holds
+    them exactly), and an all-zero group in row 0 where K allows."""
+    j = torch.randint(-128, 128, (M, K), generator=g, device=dev)
+    x = (2 * j + 1).float() / 256
+    x[:, ::128] = 1.0
+    if K > 128:
+        x[0, 128:256] = 0.0
+    return x.to(dt)
+
+
+def ragged_int4(torch, dev, g, dt, M, K, F, glu, G, pow2, pro, epi):
+    """One int4 fused-linear call off the main shapes against its plain
+    version."""
+    from repro_torch.kernels import fused_linear as fl, ref
+    N = 2 * F if glu else F
+    codes, scale, _ = int4_weight(torch, dev, g, K, N, G, pow2)
+    _, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
+    x = bfp_ties(torch, dev, g, M, K, dt)
+    if pro:
+        kw["mean_sq"] = 0.5 + torch.rand((M,), generator=g, device=dev)
+    cast, rcast = _cast(torch, kw, dt)
+    out, sq = fl.fused_linear_int4_cuda(x, codes, scale, **cast)
+    ro, rsq = ref.fused_linear_ref(x, w_codes=codes, scale=scale, **rcast)
+    if epi:
+        require(((sq - rsq).abs() / rsq).max().item() <= TOL_SQ,
+                f"ragged fused_linear_int4 Σy² M={M} K={K} F={F}")
+    return max_err(torch, out, ro)
 
 
 def ragged_paged(torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty,
@@ -555,10 +750,14 @@ def _paged_engine(model, prompts, new):
     return [out["results"][u] for u in uids], out["stats"]
 
 
-def parity(torch, np, dev):
+def parity(torch, np, dev, int4=False):
+    """CPU ≡ CUDA on the fp32 smoke model; with ``int4`` every linear and
+    the lm head hold int4 codes (group 64, so the smoke widths make
+    several groups; the 4096-element floor lets every smoke linear in)."""
     from repro_torch.configs import get_config
     from repro_torch.core import routing
     from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.quant import quantize_params
     from repro_torch.serve.engine import ServeEngine
     cfg = dataclasses.replace(get_config("llama2-7b").smoke(),
                               dtype="float32")
@@ -567,6 +766,8 @@ def parity(torch, np, dev):
     for blk in params["blocks"]:            # routers at unit scale, so no
         for sub in blk.values():            # gate sits near the strict-`>`
             sub["router"]["w"] = sub["router"]["w"] * 50.0   # tie
+    if int4:
+        params = quantize_params(params, 64, True, min_size=1 << 12)
     rng = np.random.default_rng(PARITY_SEED)
     m_cpu = LanguageModel(cfg, params, device="cpu")
     m_gpu = LanguageModel(cfg, params, device=dev)
@@ -639,7 +840,8 @@ def parity(torch, np, dev):
               "history_hits_per_layer", "pages_peak", "attn_keep_frac"):
         require(getattr(sc, f) == getattr(sg, f),
                 f"paged engine {f} differs between cpu and cuda")
-    return {"phase": "parity", "config": cfg.name, "dtype": cfg.dtype,
+    return {"phase": "parity_int4" if int4 else "parity", "config": cfg.name,
+            "dtype": cfg.dtype, "int4_weights": int4,
             "gates_identical": True, "logits_max_rel_diff": worst,
             "tol": TOL_LOGITS, "greedy_tokens_identical": True,
             "serve_tokens_identical": True,
@@ -673,7 +875,27 @@ def full_width_model(torch, dev):
     return model, time.perf_counter() - t
 
 
-def serve_full_width(torch, np, dev, model, init_s):
+def is_int4(model) -> bool:
+    return "w_int" in model.params()["lm_head"]
+
+
+def expected_launches(model, n_pf: int, n_st: int, paged: bool = False):
+    """Exact kernel launches of n_pf prefills and n_st decode steps: one
+    router_stats per forward (later blocks take Σy² from the epilogue), four
+    fused linears per layer (the int4 kernel for int4 weights), the lm head
+    through the int4 matmul for int4 weights (else a plain matmul), and
+    one attention per layer: flash, or paged attention for a paged step."""
+    L, fwd = model.cfg.num_layers, n_pf + n_st
+    int4 = is_int4(model)
+    return {"router_stats": fwd,
+            "fused_linear": 0 if int4 else 4 * L * fwd,
+            "fused_linear_int4": 4 * L * fwd if int4 else 0,
+            "int4_matmul": fwd if int4 else 0,
+            "flash_attention": L * (n_pf if paged else fwd),
+            "paged_attention": L * n_st if paged else 0}
+
+
+def serve_full_width(torch, np, dev, model, init_s, phase="serve"):
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeEngine
     cfg = model.cfg
@@ -686,9 +908,7 @@ def serve_full_width(torch, np, dev, model, init_s):
     out = eng.generate(prompts, new)
     launches = ops.kernel_launches()
     s = out["stats"]
-    L = cfg.num_layers
-    expected = {"router_stats": 1 + new, "fused_linear": 4 * L * (1 + new),
-                "flash_attention": L * (1 + new), "paged_attention": 0}
+    expected = expected_launches(model, 1, new)
     require(launches == expected,
             f"kernel launches {launches} != expected {expected}")
     require(0.0 < s.attn_keep_frac < 1.0,
@@ -701,16 +921,19 @@ def serve_full_width(torch, np, dev, model, init_s):
         lg2, _, _ = model.decode_step(cache, toks[:, T0:], T0)
         finite = bool(torch.isfinite(lg).all() and torch.isfinite(lg2).all())
     require(finite, "non-finite logits at full width")
-    return {"phase": "serve", "config": cfg.name, "dtype": cfg.dtype,
+    return {"phase": phase, "config": cfg.name, "dtype": cfg.dtype,
             "batch": B, "prompt_len": T0, "new_tokens": new,
             "init_s": init_s, "prefill_s": s.prefill_s,
             "decode_s": s.decode_s, "decode_tok_per_s": s.decode_tok_per_s,
+            "decode_only_tok_per_s": (s.decode_tokens - B) / s.decode_s,
+            "decode_steps_per_s": new / s.decode_s,
             "attn_keep_frac": s.attn_keep_frac,
             "kv_saved_fraction": s.kv_saved_fraction,
             "kv_saved_analytic": s.kv_saved_analytic,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
             "launches": launches, "logits_finite": finite,
-            "sample_tokens": out["tokens"][0, :8].tolist()}, launches
+            "sample_tokens": out["tokens"][0, :8].tolist()}, launches, \
+        out["tokens"]
 
 
 # ---------------------------------------------------------------------------
@@ -767,11 +990,7 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     launches = ops.kernel_launches()
     s = out["stats"]
     n_pf, n_st = s.prefill_chunks, s.decode_dispatches
-    fwd = n_pf + n_st
-    expected = {"router_stats": fwd, "fused_linear": 4 * L * fwd,
-                "flash_attention": L * fwd, "paged_attention": 0}
-    if eng.kv_mode == "paged":
-        expected.update(flash_attention=L * n_pf, paged_attention=L * n_st)
+    expected = expected_launches(model, n_pf, n_st, eng.kv_mode == "paged")
     require(launches == expected, f"{label}: kernel launches "
             f"{launches} != expected {expected}")
     res = [out["results"][u] for u in uids]
@@ -992,6 +1211,67 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
                        "vs_fp32_dense": dist}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: full-width llama2-7b with int4-BFP weights
+# ---------------------------------------------------------------------------
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
+    """The phase-5 bf16 weights quantized on the card by the port's
+    ``quantize_params`` at llama2-7b's QuantConfig (group 128, pow2 scales:
+    every linear of all 32 layers and the lm head), served lock-step (batch
+    4 × 512 + 32) and by the continuous engine (the phase-6 requests) in
+    the dense pool and in paged bf16 pages, with exact launch counts and
+    finite logits.  The share of tokens equal to the bf16 runs is reported
+    only: random weights make it no check."""
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.quant import quantize_params
+    cfg, L = model.cfg, model.cfg.num_layers
+    t = time.perf_counter()
+    m4 = LanguageModel(cfg, quantize_params(
+        model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
+        device=dev)
+    torch.cuda.synchronize(dev)
+    quant_s = time.perf_counter() - t
+    p4 = m4.params()
+    n_int4 = sum("w_int" in sub["inner"][lin] for blk in p4["blocks"]
+                 for sub in blk.values() for lin in sub["inner"])
+    require(n_int4 == 4 * L and is_int4(m4),
+            f"{n_int4} int4 linears of {4 * L}, lm head int4: {is_int4(m4)}")
+    lock, launches, toks = serve_full_width(torch, np, dev, m4, quant_s,
+                                            phase="int4_serve")
+    total = dict(launches)
+    same = {"lock_step": token_agreement(np, list(toks), list(lock_tokens))}
+    runs = [lock]
+    with FiniteLogits(torch, dev) as finite:
+        for label, ref_label, kw in (
+                ("int4_dense", "dense", dict(kv_mode="dense")),
+                ("int4_paged_bf16", "paged_bf16", dict(kv_mode="paged"))):
+            rec, toks, launches = serve_continuous(
+                torch, dev, m4, finite, label, prompts, 32, **kw)
+            runs.append(rec)
+            same[label] = token_agreement(np, toks, cont_tokens[ref_label])
+            for k, v in launches.items():
+                total[k] += v
+    rec = {"phase": "int4", "config": cfg.name, "dtype": cfg.dtype,
+           "group_size": cfg.quant.group_size,
+           "pow2_scales": cfg.quant.pow2_scales, "int4_linears": n_int4,
+           "lm_head_int4": True, "quantize_s": quant_s,
+           "weight_bytes": _tree_bytes(p4),
+           "bf16_weight_bytes": _tree_bytes(model.params()),
+           "runs": runs, "tokens_equal_to_bf16": same}
+    del m4, p4
+    torch.cuda.empty_cache()
+    return rec, total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -1033,16 +1313,21 @@ def main() -> int:
     from repro_torch.configs import get_config
     cfg = get_config("llama2-7b")
     timer = Timer(torch, dev)
-    per_kernel = {"router_stats": check_router(torch, dev, timer, cfg),
-                  "fused_linear": check_fused_linear(torch, dev, timer, cfg),
-                  "flash_attention": check_flash(torch, dev, timer, cfg),
-                  "paged_attention": check_paged(torch, np, dev, timer, cfg)}
+    per_kernel = {
+        "router_stats": check_router(torch, dev, timer, cfg),
+        "fused_linear": check_fused_linear(torch, dev, timer, cfg),
+        "fused_linear_int4": check_fused_linear_int4(torch, dev, timer, cfg),
+        "int4_matmul": check_int4_matmul(torch, dev, timer, cfg),
+        "flash_attention": check_flash(torch, dev, timer, cfg),
+        "paged_attention": check_paged(torch, np, dev, timer, cfg)}
     emit({"phase": "kernels", "shapes": per_kernel})
     emit(check_ragged(torch, dev))
 
     emit(parity(torch, np, dev))
+    emit(parity(torch, np, dev, int4=True))
     model, init_s = full_width_model(torch, dev)
-    serve, launches = serve_full_width(torch, np, dev, model, init_s)
+    serve, launches, lock_tokens = serve_full_width(torch, np, dev, model,
+                                                    init_s)
     emit(serve)
     cont, cont_launches, prompts, tokens = continuous_full_width(
         torch, np, dev, model)
@@ -1050,6 +1335,11 @@ def main() -> int:
     for k, v in cont_launches.items():
         launches[k] += v
     emit(witness(torch, np, dev, model, prompts, tokens))
+    int4, int4_launches = serve_int4(torch, np, dev, model, lock_tokens,
+                                     tokens, prompts)
+    emit(int4)
+    for k, v in int4_launches.items():
+        launches[k] += v
 
     kernels = []
     for name, shapes in per_kernel.items():

@@ -5,8 +5,11 @@ unrolled), ``stack.stages.pos{k}`` (the other stages, every leaf stacked
 [S-1, ...] for ``lax.scan``), ``final_norm`` and ``lm_head``.  The port
 keeps one list ``blocks`` with a dict per layer: layer ``s·stage_len + k``
 is stage s's ``pos{k}`` (stage 0 from ``stage0``, stage s ≥ 1 from slice
-s-1 of ``stages``).  Dense leaves are carried bit for bit and never
-re-quantized.
+s-1 of ``stages``).  Every leaf is carried bit for bit and never
+re-quantized: dense ``w`` leaves and the quantized linears' int8 ``w_int``
+codes with their fp32 ``scale`` rows alike, in a mixed tree too (the
+reference's ``quantize_params`` quantizes the 2-D ``stage0`` and
+``lm_head`` leaves and leaves the stacked ``stages`` dense).
 
 The bridge takes and gives plain numpy arrays (``np.asarray`` of each JAX
 leaf); it imports nothing of JAX.  bfloat16 leaves arrive as numpy arrays

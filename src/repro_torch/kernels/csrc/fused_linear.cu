@@ -2,8 +2,8 @@
 // {GLU, gate_mul, residual, Σy²} epilogue (paper Alg. 1 + §4.2).
 //
 // Replaces the dense-weight branch of the TPU kernel fused_linear_pallas
-// (src/repro/kernels/fused_linear.py).  The int4-BFP weight branch is not
-// ported yet.
+// (src/repro/kernels/fused_linear.py); its int4-BFP branch is
+// fused_linear_int4.cu.
 //
 //   y   = act((x · rsqrt(mean_sq + eps) · gamma) @ W)          (no GLU)
 //   y   = act(xn @ W[:, :F]) * (xn @ W[:, F:])                 (GLU, W [K, 2F])
@@ -17,12 +17,9 @@
 // matching column tiles of BOTH halves of the widened weight and keeps two
 // accumulators, so the epilogue can combine them in registers.
 //
-// Σy² across output tiles.  The TPU carries Σy² across the j tiles in VMEM
-// because its grid visits j in order; CUDA blocks run in no order.  Each
-// block writes its per-row partial (a fixed-order shuffle reduction over
-// the 16 threads sharing a row) to sq_part[j, m], and a second tiny kernel
-// sums the partials in ascending j.  No atomics, so Σy² — and with it the
-// next block's norm and its strict-`>` router gate — repeats bit for bit.
+// The epilogue and the Σy² carry across output tiles (per-tile partials
+// summed in a fixed order by a second kernel, no atomics) are shared with
+// the int4 kernel: fused_epilogue.cuh.
 //
 // Bound.  Prefill (M = 2048) is bound by operations: the four linears of a
 // llama2-7b layer are 829 GFLOP.  Decode (M = 4) is bound by the weight
@@ -30,17 +27,12 @@
 // the tensor cores, so at prefill it runs far from the bf16 bound; a
 // small-M tile (BM = 16) keeps the wasted rows at decode to 12 of 16.
 // wgmma/TMA pipelines are later work.
-#include "common.cuh"
+#include "fused_epilogue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
-constexpr int kActSilu = 1;
-
-__device__ __forceinline__ float apply_act(float y, int act) {
-  return act == kActSilu ? y / (1.f + expf(-y)) : y;
-}
 
 template <typename T, int BM, int BN, int TM, int TN, bool GLU>
 __global__ void __launch_bounds__(kThreads)
@@ -131,45 +123,9 @@ fused_linear_kernel(const T* __restrict__ x, const float* __restrict__ mean_sq,
     __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty * TM + i;
-    const float gm = (gate_mul != nullptr && row < M) ? gate_mul[row] : 1.f;
-    float rsq = 0.f;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = f0 + tx + j * TX;
-      if (row < M && col < F) {
-        float y;
-        if (GLU)
-          y = apply_act(acc[i][j], act) * accu[GLU ? i : 0][GLU ? j : 0];
-        else
-          y = apply_act(acc[i][j], act);
-        if (gate_mul != nullptr) y *= gm;
-        const long long o = static_cast<long long>(row) * F + col;
-        if (residual != nullptr) y += repro::to_f32(residual[o]);
-        out[o] = repro::from_f32<T>(y);
-        rsq = fmaf(y, y, rsq);
-      }
-    }
-    if (sq_part != nullptr) {
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rsq += __shfl_xor_sync(0xffffffffu, rsq, off);
-      if (tx == 0 && row < M)
-        sq_part[static_cast<long long>(blockIdx.x) * M + row] = rsq;
-    }
-  }
-}
-
-// Second pass of the Σy² carry: sum the per-tile partials in ascending j.
-__global__ void sq_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ sq, int M, int nj) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float s = 0.f;
-  for (int j = 0; j < nj; ++j) s += part[static_cast<long long>(j) * M + m];
-  sq[m] = s;
+  repro::store_tile<T, TM, TN, TX, GLU>(acc, accu, m0 + ty * TM, f0 + tx, M,
+                                         F, act, residual, gate_mul, out,
+                                         sq_part, blockIdx.x, tx == 0);
 }
 
 template <typename T, int BM, int BN, int TM, int TN, bool GLU>
@@ -183,11 +139,8 @@ void launch_tile(const void* x, const void* ms, const void* gamma,
       static_cast<const T*>(gamma), static_cast<const T*>(w),
       static_cast<const T*>(res), static_cast<const float*>(gmul),
       static_cast<T*>(out), static_cast<float*>(sq_part), M, K, F, act, eps);
-  if (sq != nullptr) {
-    sq_reduce_kernel<<<(M + 255) / 256, 256, 0, stream>>>(
-        static_cast<const float*>(sq_part), static_cast<float*>(sq), M,
-        static_cast<int>(grid.x));
-  }
+  if (sq != nullptr)
+    repro::sq_reduce(sq_part, sq, M, static_cast<int>(grid.x), stream);
 }
 
 template <typename T>

@@ -11,21 +11,26 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import fused_router_rmsnorm as frr
+from repro_torch.kernels import int4_matmul as im
 from repro_torch.kernels import paged_attention as pa
 
 
 def kernel_launches() -> dict:
     """Launch counts of every kernel wrapper, by kernel name."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
-            "flash_attention": fa.launches, "paged_attention": pa.launches}
+            "fused_linear_int4": fl.launches_int4,
+            "int4_matmul": im.launches, "flash_attention": fa.launches,
+            "paged_attention": pa.launches}
 
 
 def reset_kernel_launches() -> None:
-    frr.launches = fl.launches = fa.launches = pa.launches = 0
+    frr.launches = fl.launches = fl.launches_int4 = im.launches = 0
+    fa.launches = pa.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -100,21 +105,22 @@ def fused_router_rmsnorm_stats(x: torch.Tensor, w: torch.Tensor,
 def fused_linear(params, x: torch.Tensor, *, mean_sq=None, gamma=None,
                  eps: float = 1e-5, glu: bool = False, act=None,
                  residual=None, gate_mul=None, emit_sq: bool = False):
-    """Fused linear pipeline over a dense linear param dict {"w"}.
+    """Fused linear pipeline over a linear param dict: {"w"} (dense) or
+    {"w_int", "scale"} (int4 codes, per-group scales: the BFP kernel).
 
     x: [..., K]; ``mean_sq`` [...] + ``gamma`` [K] fuse the RMSNorm
     elementwise phase; ``glu``/``act`` apply the GLU epilogue over a widened
     [gate|up] weight; ``gate_mul`` [...] and ``residual`` [..., F] fuse the
     routed-residual write; with ``emit_sq`` the second return is Σy² per row
     (f32).  Returns (out [..., F], Σy² [...] or None)."""
-    if "w" not in params:
-        raise NotImplementedError(
-            "the port's fused linear takes dense weights only (int4-BFP "
-            "weights are not ported yet)")
     lead = x.shape[:-1]
     K = x.shape[-1]
+    if "w_int" in params:
+        weight = dict(w_codes=params["w_int"], scale=params["scale"])
+    else:
+        weight = dict(w=params["w"])
     out, sq = fl.fused_linear(
-        x.reshape(-1, K), params["w"],
+        x.reshape(-1, K), **weight,
         mean_sq=None if mean_sq is None else mean_sq.reshape(-1),
         gamma=gamma, eps=eps, glu=glu, act=act,
         residual=None if residual is None
@@ -123,3 +129,20 @@ def fused_linear(params, x: torch.Tensor, *, mean_sq=None, gamma=None,
         emit_sq=emit_sq)
     out = out.reshape(*lead, out.shape[-1])
     return out, (None if sq is None else sq.reshape(*lead))
+
+
+# ---------------------------------------------------------------------------
+# int4 matmul (BFP accumulation)
+# ---------------------------------------------------------------------------
+
+def int4_matmul(x: torch.Tensor, w_codes: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x: [..., K] × int4 codes [Kw, N] -> [..., N] in x's dtype.  Kw >= K
+    covers group-padded codes (zero rows); x is zero-padded to match."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    Kw, N = w_codes.shape
+    x2 = x.reshape(-1, K)
+    if Kw != K:
+        x2 = F.pad(x2, (0, Kw - K))
+    return im.int4_matmul(x2, w_codes, scale).reshape(*lead, N)

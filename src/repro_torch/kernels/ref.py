@@ -26,23 +26,100 @@ def act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     raise ValueError(f"unsupported epilogue activation {name!r}")
 
 
+# ---------------------------------------------------------------------------
+# int4 weights: BFP fixed-point product (paper §4.2)
+# ---------------------------------------------------------------------------
+
+MBITS = 7          # int8 mantissa: values in [-128, 127], scale 2^7
+
+
+def bfp_quantize_rows(x: torch.Tensor):
+    """x: [..., G] fp32 -> (mant int8 [..., G], 2^e fp32 [..., 1]): one
+    shared exponent e = ceil(log2 amax) per row of the group (0 where the
+    group is all zero) and int8 mantissas rounded half to even."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    e = torch.ceil(torch.log2(torch.clamp(amax, min=1e-30)))
+    e = torch.where(amax == 0, torch.zeros_like(e), e)
+    pe = torch.exp2(e)
+    mant = torch.clamp(torch.round(x * (2.0 ** MBITS) / pe), -128, 127)
+    return mant.to(torch.int8), pe
+
+
+def bfp_matmul_f32(xf: torch.Tensor, w_codes: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """fp32-in/fp32-out BFP product: per (row, K-group) a shared exponent
+    and int8 mantissas, exact integer products with the int4 codes, one
+    reconstruction ``· 2^(e-7) · scale`` per group, groups summed in
+    ascending order (as the kernels do).  ``w_codes`` [Kw, N] may be
+    group-padded (Kw >= K); xf [M, K] is zero-padded to match.  The integer
+    sums run as fp32 matmuls, exact because |Σ| <= G·128·8 < 2^24 (in TF32
+    too: mantissas and codes fit its 10 bits)."""
+    M, K = xf.shape
+    Kw, N = w_codes.shape
+    C = scale.shape[0]
+    G = Kw // C
+    if Kw != K:
+        xf = F.pad(xf, (0, Kw - K))
+    mant, pe = bfp_quantize_rows(xf.reshape(M, C, G))
+    mant, step = mant.float(), pe[..., 0] * (2.0 ** -MBITS)   # [M, C]
+    wg = w_codes.reshape(C, G, N).float()
+    y = torch.zeros((M, N), dtype=torch.float32, device=xf.device)
+    for c in range(C):
+        y = y + (mant[:, c] @ wg[c]) * step[:, c, None] * scale[c].float()
+    return y
+
+
+def int4_matmul_ref(x: torch.Tensor, w_codes: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """Exact-dequant fp32 product (the accuracy target, not the kernels'
+    function): x [M, K] @ dequantized codes [Kw >= K, N] -> x's dtype."""
+    Kw, N = w_codes.shape
+    C = scale.shape[0]
+    w = (w_codes.float().reshape(C, Kw // C, N)
+         * scale[:, None, :].float()).reshape(Kw, N)
+    return (x.float() @ w[:x.shape[1]]).to(x.dtype)
+
+
+def bfp_matmul_ref(x: torch.Tensor, w_codes: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """The int4 matmul kernel's plain version: the BFP product in x's
+    dtype."""
+    return bfp_matmul_f32(x.float(), w_codes, scale).to(x.dtype)
+
+
 def router_stats_ref(x: torch.Tensor, w: torch.Tensor):
     """x: [T, D]; w: [D, 2] -> (logits f32 [T, 2], mean_sq f32 [T])."""
     xf = x.float()
     return xf @ w.float(), (xf * xf).mean(dim=-1)
 
 
-def fused_linear_ref(x, w, *, mean_sq=None, gamma=None, eps: float = 1e-5,
-                     glu: bool = False, act_name=None, residual=None,
-                     gate_mul=None, emit_sq: bool = False):
-    """Dense branch of the fused linear pipeline: RMSNorm prologue from the
-    injected ``mean_sq``, exact fp32 matmul, GLU / activation, gate
-    multiplier, residual add, Σy² of the written rows (fp32, pre-cast).
-    x: [M, K]; w: [K, N] -> (out [M, F] in x's dtype, Σy² [M] f32 or None)."""
+def rms_prologue(x: torch.Tensor, mean_sq: torch.Tensor, gamma: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """The RMSNorm elementwise phase from injected mean(x²), in fp32:
+    ``x · (1 / sqrt(mean_sq + eps)) · gamma``, the expression the CUDA
+    kernels use (IEEE sqrt and division on both sides, so an int4 kernel's
+    BFP mantissas equal its plain version's)."""
+    r = torch.reciprocal(torch.sqrt(mean_sq.float() + eps))
+    return x.float() * r[:, None] * gamma.float()
+
+
+def fused_linear_ref(x, w=None, *, w_codes=None, scale=None, mean_sq=None,
+                     gamma=None, eps: float = 1e-5, glu: bool = False,
+                     act_name=None, residual=None, gate_mul=None,
+                     emit_sq: bool = False):
+    """The fused linear pipeline: RMSNorm prologue from the injected
+    ``mean_sq``, the matmul (exact fp32 for a dense ``w``, the BFP product
+    ``bfp_matmul_f32`` for int4 ``w_codes``/``scale``), GLU / activation,
+    gate multiplier, residual add, Σy² of the written rows (fp32,
+    pre-cast).  x: [M, K]; w or w_codes: [K' >= K, N] -> (out [M, F] in
+    x's dtype, Σy² [M] f32 or None)."""
     xf = x.float()
     if mean_sq is not None:
-        xf = xf * torch.rsqrt(mean_sq.float()[:, None] + eps) * gamma.float()
-    y = xf @ w.float()
+        xf = rms_prologue(xf, mean_sq, gamma, eps)
+    if w_codes is not None:
+        y = bfp_matmul_f32(xf, w_codes, scale)
+    else:
+        y = xf @ w.float()
     if glu:
         f = y.shape[-1] // 2
         y = act(y[:, :f], act_name) * y[:, f:]

@@ -1,0 +1,123 @@
+"""Where a decode step's time goes: ``torch.profiler`` over a window of
+teacher-forced decode steps of one model, in bf16 weights and the same
+weights quantized to int4-BFP, one after the other in one process.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --batch 4 --prompt-len 512 --steps 8   # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --smoke --device cpu                    # plain versions
+
+Weights are random (seed 0, router biases zeroed so routing skips, as
+``chip_smoke.py`` serves them).  After a ``--batch`` × ``--prompt-len``
+prefill and two warm-up steps, ``--steps`` decode steps run unprofiled and
+then ``--steps`` more under the profiler, each window ending in one
+synchronize.  Prints one JSON line per weight type: wall ms per step of
+both windows (host clock; the profiler's own host cost is the
+difference), the host's enqueue ms per step (the profiled loop without its
+final synchronize), the device's busy ms per step (the sum of its kernels'
+and copies' durations in the trace), the idle share 1 − busy / wall
+(against the unprofiled wall), device launches per step, and the kernels
+with the most device time.  On the CPU there is no device trace: busy and
+idle are null.
+"""
+import argparse
+import json
+import time
+
+
+def profile_steps(model, batch: int, prompt_len: int, steps: int,
+                  top: int = 8) -> dict:
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = model.cfg, model.device
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, prompt_len)), device=dev)
+    n = 2 * steps + 2
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
+                           device=dev)
+    _, cache, _ = model.prefill(toks, pad_to=prompt_len + n)
+
+    def window(lo, hi):
+        """Decode steps lo..hi-1: (seconds to enqueue, seconds to finish)."""
+        nonlocal cache
+        t0 = time.perf_counter()
+        for s in range(lo, hi):
+            _, cache, _ = model.decode_step(cache, feed[:, s:s + 1],
+                                            prompt_len + s)
+        t1 = time.perf_counter()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return t1 - t0, time.perf_counter() - t0
+
+    window(0, 2)                                        # warm-up
+    _, plain_s = window(2, steps + 2)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        enq_s, prof_s = window(steps + 2, n)
+    rec = {"weights": "int4" if "w_int" in model.params()["lm_head"]
+           else cfg.dtype, "batch": batch, "prompt_len": prompt_len,
+           "steps": steps, "wall_ms_per_step": plain_s * 1e3 / steps,
+           "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
+           "host_enqueue_ms_per_step": enq_s * 1e3 / steps,
+           "device_busy_ms_per_step": None, "idle_share": None,
+           "device_launches_per_step": None, "top_kernels": None}
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if kernels:
+        by_name = {}
+        for e in kernels:
+            us, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+        busy = sum(us for us, _ in by_name.values()) / 1e3 / steps
+        rec.update(device_busy_ms_per_step=busy,
+                   idle_share=1.0 - busy / rec["wall_ms_per_step"],
+                   device_launches_per_step=len(kernels) / steps,
+                   top_kernels=[
+                       {"name": name[:80], "ms_per_step": us / 1e3 / steps,
+                        "per_step": cnt / steps}
+                       for name, (us, cnt) in sorted(
+                           by_name.items(), key=lambda kv: -kv[1][0])[:top]])
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.quant import quantize_params
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    model = LanguageModel(cfg, device=args.device, seed=0)
+    model = LanguageModel(cfg, neutral_router_bias(model.params()),
+                          device=args.device)
+    print(json.dumps(profile_steps(model, args.batch, args.prompt_len,
+                                   args.steps)), flush=True)
+    q = LanguageModel(cfg, quantize_params(
+        model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
+        device=args.device)
+    del model
+    if q.device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(json.dumps(profile_steps(q, args.batch, args.prompt_len,
+                                   args.steps)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

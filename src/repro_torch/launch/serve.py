@@ -7,10 +7,14 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --smoke --device cpu                                 # plain versions
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --paged-kv --kv-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --int4
 
-Weights are random, drawn from seed 0 on the chosen device.  With
-``--continuous`` the engine serves 2·batch requests of mixed prompt lengths
-(prompt_len/4 to prompt_len) over ``--batch`` slots.
+Weights are random, drawn from seed 0 on the chosen device; ``--int4``
+quantizes every linear weight of the model (all layers and the lm head) to
+int4 codes with the config's group size and power-of-2 scales, served by
+the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
+requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
+``--batch`` slots.
 """
 import argparse
 
@@ -39,6 +43,9 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-dtype", default=None, choices=("int8", "int4"),
                     help="quantize paged-KV page payloads (per-entry pow2 "
                          "scales; requires --paged-kv)")
+    ap.add_argument("--int4", action="store_true",
+                    help="int4-BFP weights: quantize_params at the config's "
+                         "QuantConfig (group size, pow2 scales)")
     args = ap.parse_args(argv)
     if args.paged_kv and not args.continuous:
         raise SystemExit("--paged-kv requires --continuous")
@@ -55,6 +62,11 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.smoke()
     model = LanguageModel(cfg, device=args.device, seed=0)
+    if args.int4:
+        from repro_torch.quant import quantize_params
+        model = LanguageModel(cfg, quantize_params(
+            model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
+            device=args.device)
     rng = np.random.default_rng(0)
     max_len = args.prompt_len + args.new_tokens
     if args.continuous:

@@ -1,5 +1,6 @@
 """Shared layers of the port: embedding, RMSNorm with injected statistics,
-RoPE, and the dense linear projections of the fused pipeline.
+RoPE, and the linear projections (dense or int4-quantized) of the fused
+pipeline.
 
 Counterpart of the JAX package's ``models/layers.py``.  Layers are plain
 functions on tensors; parameters are nested dicts of tensors named after the
@@ -69,7 +70,12 @@ def embedding_init(gen, cfg: ModelConfig, device) -> Params:
 # ---------------------------------------------------------------------------
 
 def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Dense linear outside any kernel (the lm head)."""
+    """A linear outside the fused pipeline (the lm head).  A quantized leaf
+    ({"w_int", "scale"}: int4 codes, per-group scales) runs the int4 BFP
+    kernel; a dense one stays a plain matmul, as the reference leaves it
+    to XLA."""
+    if "w_int" in params:
+        return kops.int4_matmul(x, params["w_int"], params["scale"])
     return x @ params["w"]
 
 
@@ -168,8 +174,8 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(params: Params, head_params: Optional[Params], x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
-    """The lm-head product stays a plain matmul: the reference leaves it to
-    XLA outside any Pallas kernel."""
+    """The lm head: ``linear_apply`` (the int4 kernel for a quantized head,
+    else a plain matmul), or the tied embedding's transpose."""
     if cfg.tie_embeddings:
         return x @ params["table"].T
     return linear_apply(head_params, x)

@@ -23,6 +23,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import fused_router_rmsnorm as frr
+from repro_torch.kernels import int4_matmul as im
 from repro_torch.kernels import ops
 
 torch.set_num_threads(2)
@@ -235,6 +236,9 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/quant/int4.py",
+            "src/repro_torch/kernels/int4_matmul.py"} <= names
     bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not bad, bad
 
@@ -253,7 +257,15 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
                            torch.empty(2, 8, 1, 32, **meta),
                            torch.empty(2, 8, 1, 32, **meta), pos,
                            torch.ones(2, dtype=torch.int32), scale=1.0)
+    codes = torch.empty(128, 32, dtype=torch.int8, **meta)
+    scale = torch.empty(1, 32, **meta)
+    with pytest.raises(ValueError):
+        fl.fused_linear(torch.empty(4, 64, **meta), w_codes=codes,
+                        scale=scale)
+    with pytest.raises(ValueError):
+        im.int4_matmul(torch.empty(4, 128, **meta), codes, scale)
     assert frr.launches == fl.launches == fa.launches == 0
+    assert fl.launches_int4 == im.launches == 0
     # no nvcc: the build raises rather than handing back a plain version
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
