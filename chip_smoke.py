@@ -15,7 +15,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 against the exact dequantized weights); then ragged shapes
                 off the tile multiples, empty paged histories, padded
                 K-groups, odd N, non-pow2 scales and .5 ties included (not
-                timed);
+                timed); the SSD chunk scan at the mamba2-2.7b shapes (x [4,
+                512, 80, 64], B/C [4, 512, 1, 128], chunk 128, bf16 and fp32
+                activations; y and the final state) and at ragged ones (T
+                off the chunk, T < chunk, T = 1, dt = 0 rows, G > 1);
   4. parity   — llama2-7b smoke in fp32 through the port on cuda (kernels)
                 and on cpu (plain versions): gates, logits, tokens of the
                 lock-step engine, of teacher-forced paged decode steps and
@@ -26,8 +29,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 prompt 512 + 32 new tokens, greedy; exact launch counts;
   6. continuous — the same weights served by ``ContinuousBatchingEngine``
                 (4 slots, max_len 544, 8 requests of 128-512 prompt tokens +
-                32 greedy tokens) three times: dense pool, paged bf16 pages,
-                paged int8 pages; then 4 requests of 16-token prompts in
+                32 greedy tokens) four times: dense pool, paged bf16, int8
+                and int4 pages; then 4 requests of 16-token prompts in
                 paged bf16 pages, in the default pool and in one too small
                 for all four (it must preempt; tokens unchanged); exact
                 launch counts per prefill and per decode step, page
@@ -46,10 +49,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 launch counts (4·L int4 fused linears and one int4 matmul
                 per forward, no dense fused linear), finite logits, weight
                 bytes and peak memory; the share of tokens equal to the
-                bf16 runs is reported, not checked.
+                bf16 runs is reported, not checked; the llama2-7b weights
+                are freed after it;
+  9. parity_mamba — mamba2-2.7b smoke in fp32 through the port on cuda and
+                on cpu: gates (the per-layer SSM gate log, smallest router
+                margin checked), logits, keep statistics (sums within 1e-6,
+                counts exact), lock-step and continuous dense-pool tokens;
+ 10. mamba    — full-width mamba2-2.7b in bf16 (random seeded weights,
+                neutral router bias) served by ``ServeEngine.generate``
+                (batch 4 x prompt 512 + 32) and by the continuous engine (4
+                slots, 8 requests of 114-512 prompt tokens + 32, dense pool,
+                exact-length prefill): exact launch counts (64 SSD scans per
+                prefill and none per decode step, 64 router passes per
+                forward, no attention or fused linear), finite logits,
+                weight bytes, peak memory; a paged mamba engine must raise.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6 and 8, each counted from 0), and last the contract line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+runs of phases 5, 6, 8 and 10, each counted from 0), and last the contract
+line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
 import json
@@ -70,6 +86,7 @@ LOG_DIR = os.path.join(ROOT, "build")          # listed in .gitignore
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (the SSD scan)
 
 # Tolerances (kernel vs plain version on the same inputs).
 TOL_F32 = 1e-4        # x max|ref|: fp32 sums in another order over K ≤ 11008
@@ -80,6 +97,9 @@ TOL_BFP = 0.05        # x max|oracle|: int4 kernels against the exact
 #                       dequant (8-bit activation mantissas per group)
 MIN_MARGIN = 1e-3     # phase 4: no router decision this close to its tie
 PARITY_SEED = 6   # its margins clear MIN_MARGIN (checked every run)
+MAMBA_SEEDS = 8   # phase 9 takes the first seed whose cpu margins clear
+#                   MIN_MARGIN (the draws depend on the torch version)
+TOL_KEEP = 1e-6   # keep-fraction sums, cpu against cuda (phase 9)
 
 TPU_KERNELS = {
     "router_stats": "src/repro/kernels/fused_router_rmsnorm.py:55",
@@ -88,6 +108,7 @@ TPU_KERNELS = {
     "int4_matmul": "src/repro/kernels/int4_matmul.py:66",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
     "paged_attention": "src/repro/kernels/paged_attention.py:99",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
 }
 SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
@@ -96,6 +117,7 @@ SOURCES = {
     "int4_matmul": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 
 
@@ -525,6 +547,92 @@ def check_paged(torch, np, dev, timer, cfg, B=4, T=512, ps=16, J=1024,
     return shapes
 
 
+def ssd_inputs(torch, dev, g, B, T, H, P, N, G, dt):
+    """SSD scan inputs: x, B, C ~ N(0, 1) in ``dt``; dt (softplus'd) in
+    (0, 0.1) with every third token skipped (dt = 0, as the routing gate
+    leaves it); A_log = log(linspace(1, 16)) as the model's init."""
+    x = torch.randn((B, T, H, P), generator=g, device=dev).to(dt)
+    d = torch.rand((B, T, H), generator=g, device=dev) * 0.1
+    d[:, 1::3] = 0.0
+    A = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+    Bm = torch.randn((B, T, G, N), generator=g, device=dev).to(dt)
+    Cm = torch.randn((B, T, G, N), generator=g, device=dev).to(dt)
+    return x, d, A, Bm, Cm
+
+
+def ssd_errors(torch, args, chunk, what):
+    """The kernel's y and final state against the plain version's, each
+    within TOL_F32 · max|ref| (fp32 outputs of fp32 math on the same
+    inputs).  Returns {"max_abs_err", "max_ref", "state_*"}."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+    y, st = ss.ssd_scan_cuda(*args, chunk)
+    yr, sr = ref.ssd_scan_ref(*args, chunk)
+    torch.cuda.synchronize()
+    e, m = max_err(torch, y, yr)
+    es, ms = max_err(torch, st, sr)
+    require(e <= TOL_F32 * m, f"ssd_scan y {what}: {e} > {TOL_F32}·{m}")
+    require(es <= TOL_F32 * ms, f"ssd_scan state {what}: {es} > "
+            f"{TOL_F32}·{ms}")
+    return {"max_abs_err": e, "max_ref": m, "state_max_abs_err": es,
+            "state_max_ref": ms}
+
+
+def ssd_work(B, T, H, P, N, G, chunk, esize):
+    """(bytes, fp32 operations) one scan needs: each input read once and
+    each output written once; the chunk products over the real tokens
+    (causal pairs of each chunk: C·B and the intra-chunk y; C·state and
+    the state update per token)."""
+    Q = min(chunk, T)
+    ops = 0
+    for t0 in range(0, T, Q):
+        L = min(Q, T - t0)
+        pairs = L * (L + 1) // 2
+        ops += 2 * pairs * (N + P) + 4 * L * N * P
+    nbytes = (B * T * H * P * esize + B * T * H * 4 + H * 4
+              + 2 * B * T * G * N * esize + B * T * H * P * 4
+              + B * H * P * N * 4)
+    return nbytes, float(B * H * ops)
+
+
+def check_ssd(torch, dev, timer, cfg):
+    """The SSD chunk scan at the mamba2-2.7b main-path shapes: lock-step
+    prefill (B 4 × T 512) and one continuous prefill (B 1 × T 512), in bf16
+    and fp32 activations, y and the final state."""
+    from repro_torch.kernels import ref, ssd_scan as ss
+    H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    G, Q = cfg.ssm_groups, cfg.ssm_chunk
+    g = torch.Generator(device=dev).manual_seed(19)
+    shapes = []
+    for B, T in ((4, 512), (1, 512)):
+        args = ssd_inputs(torch, dev, g, B, T, H, P, N, G, torch.bfloat16)
+        errs = {}
+        for dt in (torch.bfloat16, torch.float32):
+            a = (args[0].to(dt),) + args[1:3] + tuple(m.to(dt)
+                                                      for m in args[3:])
+            errs[str(dt).split(".")[-1]] = ssd_errors(
+                torch, a, Q, f"B={B} T={T} {dt}")
+        ms_k = timer(lambda: ss.ssd_scan_cuda(*args, Q))
+        ms_p = timer(lambda: ref.ssd_scan_ref(*args, Q))
+        nbytes, ops = ssd_work(B, T, H, P, N, G, Q, 2)
+        b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        shapes.append({"shape": f"B={B} T={T} H={H} P={P} N={N} G={G} "
+                       f"Q={Q} bf16", "ms": ms_k, "plain_ms": ms_p,
+                       "library_ms": None, "bound_ms": b, "bound_by": by,
+                       "bytes": nbytes, "fp32_ops": ops,
+                       "tol": f"y and state {TOL_F32}·max|ref| (fp32 "
+                       "outputs)", "errors": errs})
+        del args
+    return shapes
+
+
+# SSD scan off the main shapes: B, T, H, P, N, G, chunk (T off the chunk,
+# T < chunk with G = 2, T = 1, G = 3 with two heads per group at chunk 64,
+# one token past a chunk at full width)
+SSD_RAGGED = ((2, 300, 8, 64, 128, 1, 128), (1, 37, 8, 64, 128, 2, 128),
+              (3, 1, 4, 64, 128, 1, 128), (2, 200, 6, 32, 16, 3, 64),
+              (1, 129, 80, 64, 128, 1, 128))
+
+
 def check_ragged(torch, dev):
     """Shapes off the main path's tile multiples (ragged M, K, F, Tq, Tk,
     G > 1, a window), against the plain versions, not timed."""
@@ -600,6 +708,13 @@ def check_ragged(torch, dev):
             for kd in (None, "int8", "int4"):
                 note("paged_attention", *ragged_paged(
                     torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty), tol)
+        for B, T, H, P, N, G, chunk in SSD_RAGGED:
+            r = ssd_errors(torch, ssd_inputs(torch, dev, g, B, T, H, P, N,
+                                             G, dt), chunk,
+                           f"ragged B={B} T={T} G={G} {dt}")
+            note("ssd_scan", r["max_abs_err"], r["max_ref"], TOL_F32)
+            note("ssd_scan_state", r["state_max_abs_err"],
+                 r["state_max_ref"], TOL_F32)
     torch.cuda.synchronize()
     return {"phase": "ragged", "max_err_over_max_ref": worst}
 
@@ -876,7 +991,7 @@ def full_width_model(torch, dev):
 
 
 def is_int4(model) -> bool:
-    return "w_int" in model.params()["lm_head"]
+    return "w_int" in model.params().get("lm_head", {})
 
 
 def expected_launches(model, n_pf: int, n_st: int, paged: bool = False):
@@ -884,10 +999,19 @@ def expected_launches(model, n_pf: int, n_st: int, paged: bool = False):
     router_stats per forward (later blocks take Σy² from the epilogue), four
     fused linears per layer (the int4 kernel for int4 weights), the lm head
     through the int4 matmul for int4 weights (else a plain matmul), and
-    one attention per layer: flash, or paged attention for a paged step."""
+    one attention per layer: flash, or paged attention for a paged step.
+    A Mamba stack: one router_stats per layer and forward (no block emits
+    the Σy² carry), one SSD scan per layer and prefill (decode steps run
+    the plain recurrence), nothing else."""
+    from repro_torch.models import transformer
     L, fwd = model.cfg.num_layers, n_pf + n_st
+    if transformer.is_ssm_stack(model.cfg):
+        return {"router_stats": L * fwd, "fused_linear": 0,
+                "fused_linear_int4": 0, "int4_matmul": 0,
+                "flash_attention": 0, "paged_attention": 0,
+                "ssd_scan": L * n_pf}
     int4 = is_int4(model)
-    return {"router_stats": fwd,
+    return {"router_stats": fwd, "ssd_scan": 0,
             "fused_linear": 0 if int4 else 4 * L * fwd,
             "fused_linear_int4": 4 * L * fwd if int4 else 0,
             "int4_matmul": fwd if int4 else 0,
@@ -973,7 +1097,7 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     per-request tokens, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.kvcache import paged
-    from repro_torch.models import layers
+    from repro_torch.models import layers, ssm, transformer
     from repro_torch.serve.engine import ContinuousBatchingEngine
     cfg, L = model.cfg, model.cfg.num_layers
     eng = ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
@@ -999,8 +1123,13 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
         for r in res), f"{label}: not every request completed")
     require(bool(finite.all.item()), f"{label}: non-finite logits")
     esize = torch.empty((), dtype=layers.torch_dtype(cfg)).element_size()
-    dense_bytes = (SLOTS * MAX_LEN * L * 2 * cfg.num_kv_heads
-                   * cfg.resolved_head_dim * esize)
+    if transformer.is_ssm_stack(cfg):       # conv histories + fp32 state
+        dense_bytes = SLOTS * L * (
+            (cfg.ssm_conv - 1) * ssm.conv_dim(cfg) * esize
+            + cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4)
+    else:
+        dense_bytes = (SLOTS * MAX_LEN * L * 2 * cfg.num_kv_heads
+                       * cfg.resolved_head_dim * esize)
     # decode_tokens counts each request's first token, which prefill made
     rec = {"run": label, "dtype": cfg.dtype, "requests": len(prompts),
            "prefill_s": s.prefill_s, "prefill_tokens": s.prefill_tokens,
@@ -1065,6 +1194,8 @@ def continuous_full_width(torch, np, dev, model):
                 ("paged_bf16", prompts, dict(kv_mode="paged")),
                 ("paged_int8", prompts, dict(kv_mode="paged",
                                              kv_dtype="int8")),
+                ("paged_int4", prompts, dict(kv_mode="paged",
+                                             kv_dtype="int4")),
                 ("short_paged_bf16", short, dict(kv_mode="paged")),
                 ("short_paged_bf16_tight", short,
                  dict(kv_mode="paged", num_pages=worst * 10 // 7))):
@@ -1074,9 +1205,11 @@ def continuous_full_width(torch, np, dev, model):
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
             runs.append(rec)
-    require(runs[3]["preemptions"] == 0 and runs[4]["preemptions"] >= 1,
-            f"preemptions {runs[3]['preemptions']} (default pool), "
-            f"{runs[4]['preemptions']} (tight pool): want 0 and >= 1")
+    by = {r["run"]: r for r in runs}
+    p0 = by["short_paged_bf16"]["preemptions"]
+    p1 = by["short_paged_bf16_tight"]["preemptions"]
+    require(p0 == 0 and p1 >= 1, f"preemptions {p0} (default pool), {p1} "
+            "(tight pool): want 0 and >= 1")
     require(all(np.array_equal(a, b) for a, b in zip(
         tokens["short_paged_bf16"], tokens["short_paged_bf16_tight"])),
         "preemption changed the tokens of a request")
@@ -1084,7 +1217,7 @@ def continuous_full_width(torch, np, dev, model):
     # random model (phase 7 holds this against fp32): the share of equal
     # tokens and, per request, the first index that differs (32 = none)
     same, first = {}, {}
-    for label in ("paged_bf16", "paged_int8"):
+    for label in ("paged_bf16", "paged_int8", "paged_int4"):
         same[label], first[label] = token_agreement(
             np, tokens[label], tokens["dense"])
     return {"phase": "continuous", "config": cfg.name, "dtype": cfg.dtype,
@@ -1163,7 +1296,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
         "fp32 paged tokens differ from fp32 dense at full width")
     agree = {run: token_agreement(np, bf16_tokens[run][:SLOTS],
                                   tokens["fp32_dense"])
-             for run in ("dense", "paged_bf16", "paged_int8")}
+             for run in ("dense", "paged_bf16", "paged_int8", "paged_int4")}
 
     rng = np.random.default_rng(7)
     toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, 256)),
@@ -1272,6 +1405,178 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
     return rec, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: CPU (plain versions) ≡ CUDA (kernels) on mamba2-2.7b smoke, fp32
+# ---------------------------------------------------------------------------
+
+def _mamba_forced(model, toks, forced):
+    """Prefill + teacher-forced decode steps: per forward the logits, the
+    SSM gate log [L, B(, T)] and the keep statistics (Σ keep, n_routed)."""
+    T = toks.shape[1]
+    lg, cache, st = model.prefill(toks)
+    out = [(lg.float().cpu(), st["ssm_gate"].cpu(),
+            st["keep_frac_sum"].item(), st["n_routed"].item())]
+    for s in range(forced.shape[1]):
+        lg, cache, st = model.decode_step(cache, forced[:, s:s + 1], T + s)
+        out.append((lg.float().cpu(), st["ssm_gate"].cpu(),
+                    st["keep_frac_sum"].item(), st["n_routed"].item()))
+    return out
+
+
+def _mamba_engines(model, prompts, cont_prompts, new):
+    """Lock-step tokens and stats, then the continuous engine over the
+    dense pool (2 slots, so slots are reused) with mixed prompt lengths."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    lock = ServeEngine(model, max_len=prompts.shape[1] + new).generate(
+        prompts, new)
+    eng = ContinuousBatchingEngine(model, max_slots=2, max_len=48)
+    uids = [eng.submit(p, max_new_tokens=new) for p in cont_prompts]
+    out = eng.run()
+    return lock, [out["results"][u].tokens for u in uids], out["stats"]
+
+
+def _mamba_cpu(torch, np, cfg, seed):
+    """The smoke model from ``seed`` (routers at unit scale, zero bias) and
+    its inputs, run on the cpu with every router margin recorded.  Returns
+    (params, inputs, cpu results, smallest margin)."""
+    from repro_torch.core import routing
+    from repro_torch.models.model import LanguageModel, init_params
+    params = routing.neutral_router_bias(
+        init_params(cfg, torch.Generator().manual_seed(seed), "cpu"))
+    for blk in params["blocks"]:            # routers at unit scale: no gate
+        r = blk["mixer"]["router"]          # near the strict-`>` tie
+        r["w"] = r["w"] * 50.0
+    rng = np.random.default_rng(seed)
+    inputs = (torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 21))),
+              torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 4))),
+              rng.integers(0, cfg.vocab_size, (2, 19)),
+              [rng.integers(0, cfg.vocab_size, (n,)) for n in (9, 16, 5, 21)])
+    m_cpu = LanguageModel(cfg, params, device="cpu")
+    margins = []
+    orig = routing.gate_from_logits
+
+    def recording(logits):
+        margins.append((logits[..., 1] - logits[..., 0]).abs().min().item())
+        return orig(logits)
+
+    routing.gate_from_logits = recording
+    try:
+        res = (_mamba_forced(m_cpu, *inputs[:2]),
+               _mamba_engines(m_cpu, inputs[2], inputs[3], 8))
+    finally:
+        routing.gate_from_logits = orig
+    return params, inputs, res, min(margins)
+
+
+def parity_mamba(torch, np, dev):
+    """CPU ≡ CUDA on the fp32 mamba2-2.7b smoke model (2 layers, chunk 8,
+    so the prompts span several chunks and the last one is ragged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").smoke(),
+                              dtype="float32")
+    tried = {}
+    for seed in range(MAMBA_SEEDS):
+        params, inputs, (fc, (lc, cc, sc)), margin = _mamba_cpu(
+            torch, np, cfg, seed)
+        tried[seed] = margin
+        if margin >= MIN_MARGIN:
+            break
+    require(margin >= MIN_MARGIN, f"mamba gate margins {tried} all below "
+            f"{MIN_MARGIN}")
+    toks, forced, prompts, cont = inputs
+    m_gpu = LanguageModel(cfg, params, device=dev)
+    fg = _mamba_forced(m_gpu, toks, forced)
+    worst = keep_diff = 0.0
+    for (la, ga, ka, na), (lb, gb, kb, nb) in zip(fc, fg):
+        require(torch.equal(ga, gb), "mamba gate log differs (cpu/cuda)")
+        d = (la - lb).abs().max().item() / la.abs().max().item()
+        worst = max(worst, d)
+        require(d <= TOL_LOGITS, f"mamba logits differ: {d} > {TOL_LOGITS}")
+        require(torch.equal(la.argmax(-1), lb.argmax(-1)),
+                "mamba greedy tokens differ between cpu and cuda")
+        keep_diff = max(keep_diff, abs(ka - kb))
+        require(abs(ka - kb) <= TOL_KEEP and na == nb,
+                f"mamba keep statistics differ: {ka} vs {kb}, {na} vs {nb}")
+    lg, cg, sg = _mamba_engines(m_gpu, prompts, cont, 8)
+    require(np.array_equal(lc["tokens"], lg["tokens"]),
+            "mamba ServeEngine tokens differ between cpu and cuda")
+    lk = abs(lc["stats"].attn_keep_frac - lg["stats"].attn_keep_frac)
+    require(lk <= TOL_KEEP, f"mamba lock-step keep fraction differs: {lk}")
+    require(all(np.array_equal(a, b) for a, b in zip(cc, cg)),
+            "mamba continuous tokens differ between cpu and cuda")
+    for f in ("prefill_tokens", "decode_tokens", "decode_dispatches",
+              "prefill_chunks", "requests_completed"):
+        require(getattr(sc, f) == getattr(sg, f),
+                f"mamba continuous {f} differs between cpu and cuda")
+    require(abs(sc.attn_keep_frac - sg.attn_keep_frac) <= TOL_KEEP,
+            "mamba continuous keep fraction differs between cpu and cuda")
+    gates = torch.cat([f[1].flatten() for f in fc])
+    return {"phase": "parity_mamba", "config": cfg.name, "dtype": cfg.dtype,
+            "seed": seed, "margins_tried": tried, "gates_identical": True,
+            "gate_decisions": gates.numel(),
+            "gate_ones_frac": gates.mean().item(),
+            "decode_keep_frac": [f[2] / f[3] for f in fc[1:]],
+            "min_gate_margin": margin, "margin_floor": MIN_MARGIN,
+            "logits_max_rel_diff": worst, "tol": TOL_LOGITS,
+            "keep_stats_max_abs_diff": max(keep_diff, lk),
+            "keep_tol": TOL_KEEP, "greedy_tokens_identical": True,
+            "serve_tokens_identical": True,
+            "continuous_tokens_identical": True,
+            "serve_keep_frac": lg["stats"].attn_keep_frac}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: full-width mamba2-2.7b, lock-step and continuous (dense pool)
+# ---------------------------------------------------------------------------
+
+def serve_mamba(torch, np, dev):
+    """mamba2-2.7b at its published widths in bf16, seed-0 random weights,
+    router biases zeroed: lock-step batch 4 × 512 + 32 and the continuous
+    engine on 8 requests of 114-512 prompt tokens + 32 over 4 slots, with
+    exact launch counts; a paged mamba engine must raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    cfg = get_config("mamba2-2.7b")
+    t = time.perf_counter()
+    model = LanguageModel(cfg, device=dev, seed=0)
+    model = LanguageModel(cfg, neutral_router_bias(model.params()),
+                          device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    lock, launches, _ = serve_full_width(torch, np, dev, model, init_s,
+                                         phase="mamba_serve")
+    total = dict(launches)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(114, 513, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in lens]
+    with FiniteLogits(torch, dev) as finite:
+        cont, _, launches = serve_continuous(torch, dev, model, finite,
+                                             "mamba_dense", prompts, 32,
+                                             kv_mode="dense")
+    for k, v in launches.items():
+        total[k] += v
+    try:
+        ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                                 kv_mode="paged")
+        paged_raises = False
+    except ValueError:
+        paged_raises = True
+    require(paged_raises, "a paged mamba engine did not raise")
+    p = model.params()
+    rec = {"phase": "mamba", "config": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "weight_bytes": _tree_bytes(p),
+           "params": sum(t.numel() for t in model.parameters()),
+           "prompt_lens": lens.tolist(), "runs": [lock, cont],
+           "paged_raises": True}
+    del model, p
+    torch.cuda.empty_cache()
+    return rec, total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -1319,7 +1624,8 @@ def main() -> int:
         "fused_linear_int4": check_fused_linear_int4(torch, dev, timer, cfg),
         "int4_matmul": check_int4_matmul(torch, dev, timer, cfg),
         "flash_attention": check_flash(torch, dev, timer, cfg),
-        "paged_attention": check_paged(torch, np, dev, timer, cfg)}
+        "paged_attention": check_paged(torch, np, dev, timer, cfg),
+        "ssd_scan": check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))}
     emit({"phase": "kernels", "shapes": per_kernel})
     emit(check_ragged(torch, dev))
 
@@ -1340,6 +1646,16 @@ def main() -> int:
     emit(int4)
     for k, v in int4_launches.items():
         launches[k] += v
+    del model
+    torch.cuda.empty_cache()
+
+    emit(parity_mamba(torch, np, dev))
+    mamba, mamba_launches = serve_mamba(torch, np, dev)
+    emit(mamba)
+    for k, v in mamba_launches.items():
+        launches[k] += v
+    require(all(launches[k] > 0 for k in TPU_KERNELS),
+            f"a kernel of the path never launched: {launches}")
 
     kernels = []
     for name, shapes in per_kernel.items():

@@ -9,3 +9,4 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 from repro_torch.configs import llama2_7b  # noqa: F401
+from repro_torch.configs import mamba2_2_7b  # noqa: F401

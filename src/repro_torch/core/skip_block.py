@@ -18,7 +18,7 @@ from repro_torch.core import kv_reuse, routing
 from repro_torch.kernels import ops as kops
 from repro_torch.kvcache import history
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm as ssm_mod
 from repro_torch.models.layers import Params
 
 Stats = Dict[str, torch.Tensor]
@@ -104,6 +104,26 @@ def routed_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, stats
 
 
+def routed_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               carried_sq: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Tuple, Stats]:
+    """Mamba block with masked-contribution routing: a skipped token's dt
+    is zeroed inside the SSD scan, so it neither updates the state nor
+    produces output.  Consumes (but does not emit) the Σy²/D carry.
+    Returns (x + ssm(x), ((conv_x, conv_bc), ssm_state), stats with
+    ``ssm_gate`` [B, T])."""
+    B, T, _ = x.shape
+    routed = cfg.skip.enabled and cfg.skip.route_ssm
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits, (B, T), routed, x.device)
+    xn = layers.norm_apply(p["norm"], x, cfg, stats=nstats)
+    y, states = ssm_mod.ssm_apply(p["inner"], xn, cfg,
+                                  gate_mask=gate if routed else None)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    stats["ssm_gate"] = gate
+    return x + y, states, stats
+
+
 # ---------------------------------------------------------------------------
 # Decode (one new token per sequence, per-layer dense KV cache)
 # ---------------------------------------------------------------------------
@@ -178,6 +198,25 @@ def routed_mlp_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                    emit_sq=True)
     stats["res_sq"] = sq / D
     return x, stats
+
+
+def routed_ssm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      conv_state, ssm_state,
+                      carried_sq: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Tuple, Stats]:
+    """One decode token through a routed Mamba block.  x: [B, 1, D].
+    Returns (x + ssm_step(x), new states, stats with ``ssm_gate`` [B])."""
+    B = x.shape[0]
+    routed = cfg.skip.enabled and cfg.skip.route_ssm
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits[:, 0] if logits is not None else None, (B,),
+                         routed, x.device)
+    xn = layers.norm_apply(p["norm"], x, cfg, stats=nstats)
+    y, states = ssm_mod.ssm_step(p["inner"], xn, cfg, conv_state, ssm_state,
+                                 gate_mask=gate if routed else None)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    stats["ssm_gate"] = gate
+    return x + y, states, stats
 
 
 def routed_attention_decode_paged(p: Params, x: torch.Tensor,

@@ -18,6 +18,7 @@ from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import fused_router_rmsnorm as frr
 from repro_torch.kernels import int4_matmul as im
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ss
 
 
 def kernel_launches() -> dict:
@@ -25,12 +26,12 @@ def kernel_launches() -> dict:
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
             "fused_linear_int4": fl.launches_int4,
             "int4_matmul": im.launches, "flash_attention": fa.launches,
-            "paged_attention": pa.launches}
+            "paged_attention": pa.launches, "ssd_scan": ss.launches}
 
 
 def reset_kernel_launches() -> None:
     frr.launches = fl.launches = fl.launches_int4 = im.launches = 0
-    fa.launches = pa.launches = 0
+    fa.launches = pa.launches = ss.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -146,3 +147,15 @@ def int4_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     if Kw != K:
         x2 = F.pad(x2, (0, Kw - K))
     return im.int4_matmul(x2, w_codes, scale).reshape(*lead, N)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunk scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
+    """Chunked SSD from a zero state.  xh [B, T, H, P]; dt [B, T, H] f32
+    (softplus'd, gate-masked); A_log [H]; Bm/Cm [B, T, G, N] per group ->
+    (y [B, T, H, P] f32, final state [B, H, P, N] f32)."""
+    return ss.ssd_scan(xh, dt, A_log, Bm, Cm, chunk)

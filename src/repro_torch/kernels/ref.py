@@ -229,3 +229,54 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, eff_pos, k_tok,
                     torch.zeros_like(p))
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, 1, Hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD chunk scan
+# ---------------------------------------------------------------------------
+
+def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
+    """Chunked SSD from a zero state, in fp32 (the JAX package's
+    ``models/ssm.py::ssd_scan``).
+
+    xh [B, T, H, P]; dt [B, T, H] (softplus'd, gate-masked: a token with
+    dt = 0 decays nothing and adds nothing); A_log [H]; Bm/Cm [B, T, G, N]
+    per group, head h reading group h // (H / G).  T is zero-padded to a
+    multiple of Q = min(chunk, T).  Returns (y [B, T, H, P] fp32, the
+    final state [B, H, P, N] fp32)."""
+    Bsz, T, H, P = xh.shape
+    G, N = Bm.shape[-2:]
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    grp = torch.arange(H, device=xh.device) // (H // G)
+    x, d = xh.float(), dt.float()
+    bh, ch = Bm.float()[:, :, grp], Cm.float()[:, :, grp]     # [B, T, H, N]
+    if pad:
+        x, d, bh, ch = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+                        for a in (x, d, bh, ch))
+    nc = (T + pad) // Q
+    x, d, bh, ch = (a.reshape(Bsz, nc, Q, *a.shape[2:])
+                    for a in (x, d, bh, ch))
+    cum = torch.cumsum(d * -torch.exp(A_log.float()), dim=2)  # [B,nc,Q,H]
+    idx = torch.arange(Q, device=xh.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]    # [1,Qi,Qj,1]
+    state = xh.new_zeros((Bsz, H, P, N), dtype=torch.float32)
+    ys = []
+    for c in range(nc):
+        cq = cum[:, c]
+        dtx = x[:, c] * d[:, c, ..., None]                     # [B,Q,H,P]
+        # exp only where j <= i: exp(cum_i - cum_j) overflows above it
+        seg = torch.exp(torch.where(tri, cq[:, :, None] - cq[:, None],
+                                    float("-inf")))
+        scores = torch.einsum("bihn,bjhn->bijh", ch[:, c], bh[:, c]) * seg
+        y = torch.einsum("bijh,bjhp->bihp", scores, dtx)
+        y = y + torch.einsum("bihn,bhpn->bihp", ch[:, c],
+                             state) * torch.exp(cq)[..., None]
+        w = torch.exp(cq[:, -1:] - cq)                         # [B,Q,H]
+        s_local = torch.einsum("bjhn,bjhp->bhpn", bh[:, c] * w[..., None],
+                               dtx)
+        state = state * torch.exp(cq[:, -1])[:, :, None, None] + s_local
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(Bsz, nc * Q, H, P)[:, :T]
+    return y, state

@@ -1,9 +1,12 @@
 """Where a decode step's time goes: ``torch.profiler`` over a window of
 teacher-forced decode steps of one model, in bf16 weights and the same
-weights quantized to int4-BFP, one after the other in one process.
+weights quantized to int4-BFP, one after the other in one process (a
+Mamba stack, whose int4 weights are not served yet, in bf16 only).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --batch 4 --prompt-len 512 --steps 8   # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch mamba2-2.7b                                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu                    # plain versions
 
@@ -59,7 +62,8 @@ def profile_steps(model, batch: int, prompt_len: int, steps: int,
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         enq_s, prof_s = window(steps + 2, n)
-    rec = {"weights": "int4" if "w_int" in model.params()["lm_head"]
+    rec = {"arch": cfg.name,
+           "weights": "int4" if "w_int" in model.params().get("lm_head", {})
            else cfg.dtype, "batch": batch, "prompt_len": prompt_len,
            "steps": steps, "wall_ms_per_step": plain_s * 1e3 / steps,
            "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
@@ -98,6 +102,7 @@ def main(argv=None) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models import transformer
     from repro_torch.models.model import LanguageModel
     from repro_torch.quant import quantize_params
 
@@ -109,6 +114,8 @@ def main(argv=None) -> None:
                           device=args.device)
     print(json.dumps(profile_steps(model, args.batch, args.prompt_len,
                                    args.steps)), flush=True)
+    if transformer.is_ssm_stack(cfg):
+        return                      # int4 Mamba weights: ROADMAP item 13b
     q = LanguageModel(cfg, quantize_params(
         model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
         device=args.device)

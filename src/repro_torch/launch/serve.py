@@ -8,13 +8,17 @@ batching over the dense slot pool or the paged §4.4 KV store.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --paged-kv --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --int4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --batch 4 --prompt-len 512 --continuous            # dense slot pool
 
 Weights are random, drawn from seed 0 on the chosen device; ``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
 int4 codes with the config's group size and power-of-2 scales, served by
 the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
 requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
-``--batch`` slots.
+``--batch`` slots.  ``mamba2-2.7b`` (attention-free) serves lock-step or
+from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
+raises for it (no KV to page), and so does ``--int4`` (not ported yet).
 """
 import argparse
 
@@ -53,14 +57,20 @@ def main(argv=None) -> None:
         raise SystemExit("--kv-dtype/--num-pages require --paged-kv")
 
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer
     from repro_torch.models.model import LanguageModel
     from repro_torch.serve.config import (EngineConfig, KVConfig,
                                           SchedulingConfig)
     from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.serve.errors import ConfigError
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.int4 and transformer.is_ssm_stack(cfg):
+        raise ConfigError(f"{cfg.name}: int4 weights on a Mamba stack are "
+                          "not ported to repro_torch yet (ROADMAP queue 1 "
+                          "item 13b)")
     model = LanguageModel(cfg, device=args.device, seed=0)
     if args.int4:
         from repro_torch.quant import quantize_params

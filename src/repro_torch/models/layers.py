@@ -124,6 +124,15 @@ def norm_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return (y * params["gamma"].float()).to(x.dtype)
 
 
+def rms_head_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS over the last axis with its own statistics (the Mamba block's
+    gated output norm)."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)
+            * params["gamma"].float()).to(x.dtype)
+
+
 def norm_stats(x: torch.Tensor) -> torch.Tensor:
     """The RMSNorm reduction alone: mean(x²) in fp32."""
     xf = x.float()

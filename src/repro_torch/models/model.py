@@ -55,11 +55,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _pad_cache_to(cache: List[Dict], T: int, pad_to: int) -> List[Dict]:
-    """Grow each layer's [B, T, Hkv, dh] KV view to pad_to (decode room)."""
+    """Grow each layer's [B, T, Hkv, dh] KV view to pad_to (decode room);
+    a Mamba layer's conv histories and state are left as they are."""
     out = []
     for ce in cache:
         grown = {}
         for name, kv in ce.items():
+            if name not in ("k", "v"):
+                grown[name] = kv
+                continue
             g = torch.zeros((kv.shape[0], pad_to) + tuple(kv.shape[2:]),
                             dtype=kv.dtype, device=kv.device)
             g[:, :T] = kv
@@ -73,7 +77,8 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             last_index: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, List[Dict], Dict]:
     """tokens [B, T] -> (last-position logits [B, V], per-layer cache
-    [{"k", "v"}: [B, pad_to or T, Hkv, dh]], stats).
+    [{"k", "v"}: [B, pad_to or T, Hkv, dh]] or, for a Mamba stack,
+    [{"conv_x", "conv_bc", "ssm"}], stats).
 
     ``last_index``: optional [B] index of each sequence's final *real*
     token — bucketed prefill right-pads prompts to a shared length, and the
@@ -86,11 +91,13 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     x, stats, cache, sq = transformer.stack_forward(params["blocks"], x,
                                                     positions, cfg)
     if last_index is None:
-        xl, sql = x[:, -1:], sq[:, -1:]
+        xl = x[:, -1:]
+        sql = None if sq is None else sq[:, -1:]
     else:
         rows = torch.arange(B, device=x.device)
         idx = torch.as_tensor(last_index, device=x.device).long()
-        xl, sql = x[rows, idx][:, None], sq[rows, idx][:, None]
+        xl = x[rows, idx][:, None]
+        sql = None if sq is None else sq[rows, idx][:, None]
     x = layers.norm_apply(params["final_norm"], xl, cfg, stats=sql)
     logits = layers.unembed(params["embed"], params.get("lm_head"), x,
                             cfg)[:, 0]
@@ -103,7 +110,8 @@ def decode_step(params: Dict, cache: List[Dict], tokens: torch.Tensor,
                 t, cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict], Dict]:
     """One token per sequence.  tokens [B, 1]; t: [B] or scalar position
     (lock-step).  The caches are updated IN PLACE (the JAX engine donates
-    them).  Returns (logits [B, V], cache, stats) with ``attn_gate`` [L, B]."""
+    them).  Returns (logits [B, V], cache, stats) with ``attn_gate`` [L, B]
+    (``ssm_gate`` for a Mamba stack)."""
     transformer.check_supported(cfg)
     B = tokens.shape[0]
     t = torch.as_tensor(t, dtype=torch.int32, device=tokens.device)
@@ -132,7 +140,9 @@ def paged_decode_step(params: Dict, store: Dict, tokens: torch.Tensor,
     nothing; ``commit_mask`` [B] overrides that default.  The store is
     updated IN PLACE.  Returns (logits [B, V], store, stats) with
     ``attn_gate`` [L, B]."""
-    transformer.check_supported(cfg)      # every supported stack can page
+    transformer.check_supported(cfg)
+    if not paged_mod.can_page(cfg):
+        raise ValueError(f"{cfg.name}: not a pageable stack")
     B = tokens.shape[0]
     dev = tokens.device
     t = torch.as_tensor(t, dtype=torch.int32, device=dev)

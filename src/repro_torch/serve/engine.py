@@ -9,10 +9,12 @@ Counterpart of the JAX package's ``serve/engine.py``:
 
 ``ContinuousBatchingEngine``
     Slot-based continuous batching with single-step decode and monolithic
-    (length-bucketed) prefill, over either KV mode: the dense slot pool
-    (``max_slots × max_len`` rows per layer, allocated once) or the paged
-    §4.4 entry stream (``kvcache/paged.py``) with alloc-on-demand pages,
-    proactive headroom and preemption of the youngest resident.
+    prefill (length-bucketed where ``can_bucket``, else at the exact prompt
+    length), over either KV mode: the dense slot pool (``max_slots ×
+    max_len`` rows per layer, allocated once; a Mamba stack's conv
+    histories and SSM state per slot) or the paged §4.4 entry stream
+    (``kvcache/paged.py``) with alloc-on-demand pages, proactive headroom
+    and preemption of the youngest resident.
 """
 from __future__ import annotations
 
@@ -27,14 +29,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_reuse
 from repro_torch.kvcache import history as history_mod
 from repro_torch.kvcache import paged as paged_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, transformer
 from repro_torch.models.model import LanguageModel
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
                                       PageExhausted)
 from repro_torch.serve.sampling import sample
 from repro_torch.serve.scheduler import (ActiveRequest, PrefillChunk,
-                                         Request, Scheduler, default_buckets)
+                                         Request, Scheduler, can_bucket,
+                                         default_buckets)
 
 
 @dataclasses.dataclass
@@ -206,8 +209,9 @@ class ServeEngine:
                 break
             logits, cache, dstats = self.model.decode_step(
                 cache, tok[:, None], pos)
-            gates_per_step.append(
-                dstats["attn_gate"].float().cpu().numpy())
+            if "attn_gate" in dstats:
+                gates_per_step.append(
+                    dstats["attn_gate"].float().cpu().numpy())
             keep_acc += float(dstats["keep_frac_sum"])
             keep_n += max(float(dstats["n_routed"]), 1.0)
             tok = sample(logits, generator, self.temperature)
@@ -227,10 +231,22 @@ class ServeEngine:
 
 def init_pool(cfg: ModelConfig, max_slots: int, max_len: int,
               device) -> List[Dict[str, torch.Tensor]]:
-    """The continuous engine's dense KV pool: per layer {"k", "v"}
-    [max_slots, max_len, Hkv, dh] zeros, allocated once."""
-    shape = (max_slots, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    """The continuous engine's dense pool, allocated once: per layer {"k",
+    "v"} [max_slots, max_len, Hkv, dh] zeros, or for a Mamba stack
+    {"conv_x" [S, W-1, di], "conv_bc" [S, W-1, 2GN], "ssm" [S, H, P, N]
+    fp32}."""
     dt = layers.torch_dtype(cfg)
+    if transformer.is_ssm_stack(cfg):
+        W, gn = cfg.ssm_conv - 1, cfg.ssm_groups * cfg.ssm_state
+        return [{"conv_x": torch.zeros((max_slots, W, cfg.d_inner_ssm),
+                                       dtype=dt, device=device),
+                 "conv_bc": torch.zeros((max_slots, W, 2 * gn), dtype=dt,
+                                        device=device),
+                 "ssm": torch.zeros((max_slots, cfg.ssm_nheads,
+                                     cfg.ssm_headdim, cfg.ssm_state),
+                                    dtype=torch.float32, device=device)}
+                for _ in range(cfg.num_layers)]
+    shape = (max_slots, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return [{"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
             for _ in range(cfg.num_layers)]
@@ -238,17 +254,22 @@ def init_pool(cfg: ModelConfig, max_slots: int, max_len: int,
 
 def pool_insert(pool: List[Dict], cache: List[Dict], slot: int
                 ) -> List[Dict]:
-    """Copy a single-request prefill cache (batch 1, padded to max_len) into
-    row ``slot`` of the pool, in place."""
+    """Overwrite row ``slot`` of every pool leaf, in place, with a
+    single-request prefill cache (batch 1; KV padded to max_len).  Every
+    leaf is written whole: an SSM state, which no position masks, must
+    not keep anything of the slot's previous request."""
     for pe, ce in zip(pool, cache):
-        for name in ("k", "v"):
-            pe[name][slot].copy_(ce[name][0])
+        for name, leaf in pe.items():
+            leaf[slot].copy_(ce[name][0])
     return pool
 
 
-def _to_host(tok: torch.Tensor, gates: torch.Tensor):
+def _to_host(tok: torch.Tensor, gates: Optional[torch.Tensor]):
     """One device-to-host transfer for a step's tokens and gate log (token
-    ids are exact in float32).  Returns (int64 tokens, float32 gates)."""
+    ids are exact in float32).  Returns (int64 tokens, float32 gates or
+    None for a stack without attention)."""
+    if gates is None:
+        return tok.cpu().numpy().astype(np.int64), None
     n = tok.numel()
     flat = torch.cat([tok.reshape(-1).float(),
                       gates.reshape(-1).float()]).cpu().numpy()
@@ -305,18 +326,22 @@ class ContinuousBatchingEngine:
     """Continuous batching over a fixed slot pool (per-sequence positions).
 
     Requests are admitted into free slots, prefilled monolithically
-    (right-padded to a length bucket, logits taken at the real last
-    token), decoded concurrently — each sequence at its own position — one
-    ragged decode step per iteration, and evicted on stop token, length or
-    ``max_len``.  ``kv_mode="paged"`` keeps the KV in the §4.4 entry stream:
-    before each step every resident is guaranteed one step of page headroom
-    (the youngest resident is preempted and requeued when the free list
-    runs dry), admission is gated on genuinely spare pages, and each step's
-    fresh entries and history-buffer hits are accounted from its gate log.
-    One host sync per step reads the tokens and the gate log.
+    (right-padded to a length bucket where that is exact, logits taken at
+    the real last token), decoded concurrently — each sequence at its own
+    position — one ragged decode step per iteration, and evicted on stop
+    token, length or ``max_len``.  ``kv_mode="paged"`` keeps the KV in the
+    §4.4 entry stream: before each step every resident is guaranteed one
+    step of page headroom (the youngest resident is preempted and requeued
+    when the free list runs dry), admission is gated on genuinely spare
+    pages, and each step's fresh entries and history-buffer hits are
+    accounted from its gate log.
+    One host sync per step reads the tokens and the attention gate log.
 
-    ``model`` is a ``LanguageModel`` (its stack is pageable and bucketable:
-    ``transformer.check_supported``); its device is the engine's.  Pass an
+    ``model`` is a ``LanguageModel``; its device is the engine's.  An
+    attention-free Mamba stack serves from the dense pool only (paged mode
+    raises ``ValueError``, as do ``prefill_buckets``: it prefills at the
+    exact prompt length, and admission overwrites the slot's conv
+    histories and state whole).  Pass an
     ``EngineConfig`` or its flat kwargs (``max_slots``, ``max_len``,
     ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
     ``temperature``, ``prefill_buckets``).  The reference's
@@ -347,9 +372,20 @@ class ContinuousBatchingEngine:
         self.max_slots, self.max_len = sch.max_slots, sch.max_len
         self.temperature = config.temperature
         self.kv_mode = kvc.kv_mode
-        self.scheduler = Scheduler(
-            self.max_slots, self.max_len,
-            buckets=sch.prefill_buckets or default_buckets(self.max_len))
+        if self.kv_mode == "paged" and not paged_mod.can_page(cfg):
+            raise ValueError(
+                f"{cfg.name}: paged KV requires an all-global-attention "
+                "stack with masked-mode routing — use kv_mode='dense'")
+        buckets = sch.prefill_buckets
+        if buckets is not None and not can_bucket(cfg):
+            raise ValueError(
+                f"{cfg.name}: prefill bucketing pads prompts, which corrupts "
+                "ring-buffer/SSM state and gather-mode capacity — this "
+                "config requires exact-length prefill (prefill_buckets=None)")
+        if buckets is None and can_bucket(cfg):
+            buckets = default_buckets(self.max_len)
+        self.scheduler = Scheduler(self.max_slots, self.max_len,
+                                   buckets=buckets)
         self.kv_dtype = kvc.kv_dtype
         if self.kv_mode == "paged":
             self.n_attn = paged_mod.num_attention_layers(cfg)
@@ -442,14 +478,16 @@ class ContinuousBatchingEngine:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def _prefill(self, rs: _RunState, req: Request, pad_to=None):
-        """Bucketed monolithic prefill of one prompt with the first token
-        sampled.  Returns (token, host gate log [L, Tb], cache)."""
+        """Monolithic prefill of one prompt (bucketed, or at its exact
+        length) with the first token sampled.  Returns (token, host gate
+        log [L, Tb] or None without attention, cache)."""
         padded, last = self.scheduler.pad_prompt(req.tokens)
         logits, cache, pstats = self.model.prefill(
             self._tensor(padded[None]), pad_to=pad_to,
             last_index=self._tensor([last]))
         tok = sample(logits, rs.generator, self.temperature)
-        tok, gates = _to_host(tok, pstats["attn_gate"][:, 0])
+        gates = pstats.get("attn_gate")
+        tok, gates = _to_host(tok, None if gates is None else gates[:, 0])
         return int(tok[0]), gates, cache
 
     def _feed(self):
@@ -493,7 +531,7 @@ class ContinuousBatchingEngine:
             t0 = perf_counter()
             logits, pool, dstats = self.model.decode_step(pool, feed, pos)
             tok = sample(logits, rs.generator, self.temperature)
-            toks, gates = _to_host(tok, dstats["attn_gate"])
+            toks, gates = _to_host(tok, dstats.get("attn_gate"))
             self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, L)
 
     def _run_paged(self, rs: _RunState) -> None:
@@ -597,23 +635,26 @@ class ContinuousBatchingEngine:
         elif req.max_new_tokens <= 1:
             self._finish(rs, work.slot, "length")
 
-    def _bookkeep(self, rs: _RunState, toks: np.ndarray, gates: np.ndarray,
-                  step_s: float, measure: bool, n_layers: int) -> None:
-        """Post-decode bookkeeping for every resident."""
+    def _bookkeep(self, rs: _RunState, toks: np.ndarray,
+                  gates: Optional[np.ndarray], step_s: float, measure: bool,
+                  n_layers: int) -> None:
+        """Post-decode bookkeeping for every resident (a stack without
+        attention logs no gates: no keep rate, no KV accounting)."""
         rs.stats.decode_s += step_s
         rs.stats.decode_dispatches += 1
         for slot in list(self.scheduler.active):
             st = self.scheduler.active[slot]
-            g = gates[:, slot]
-            rs.keep_acc += float(g.sum())
-            rs.keep_n += n_layers
+            g = gates[:, slot] if gates is not None else None
+            if g is not None:
+                rs.keep_acc += float(g.sum())
+                rs.keep_n += n_layers
             reason = self._advance_slot(rs, st, int(toks[slot]), g, step_s,
                                         measure, n_layers)
             if reason:
                 self._finish(rs, slot, reason)
 
     def _advance_slot(self, rs: _RunState, st: ActiveRequest, tok: int,
-                      g: np.ndarray, step_s: float, measure: bool,
+                      g: Optional[np.ndarray], step_s: float, measure: bool,
                       n_layers: int) -> Optional[str]:
         """One resident's post-step state (the fed token's KV was just
         written at st.pos).  Returns the finish reason or None."""
@@ -621,8 +662,9 @@ class ContinuousBatchingEngine:
         now = perf_counter()
         st.max_stall_s = max(st.max_stall_s, now - st.last_emit_s)
         st.last_emit_s = now
-        st.kv_dense += n_layers
-        st.kv_stored += 1 + int(g[1:].sum()) if measure else n_layers
+        if g is not None:
+            st.kv_dense += n_layers
+            st.kv_stored += 1 + int(g[1:].sum()) if measure else n_layers
         st.pos += 1
         st.out_tokens.append(tok)
         st.next_token = tok

@@ -14,10 +14,11 @@ the slot to the next queued request.
 Prefill length-bucketing: prompts are right-padded to a small set of
 bucket lengths, so the reference's jitted prefill compiles once per bucket
 instead of once per prompt length (the port keeps the buckets, so its
-prefill shapes are the reference's).  Bucketing is
-exact for masked-mode global-attention stacks — pads sit *after* the real
-tokens, so causal masking keeps every real position byte-identical — and
-those are the only stacks the port serves (``transformer.check_supported``).
+prefill shapes are the reference's).  Bucketing is exact only for
+masked-mode global-attention stacks — pads sit *after* the real tokens, so
+causal masking keeps every real position byte-identical (``can_bucket``).
+A Mamba stack's state would absorb the pads, so it prefills at the exact
+prompt length (``buckets=None``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.serve.errors import AdmissionRejected
 
 
@@ -97,6 +99,15 @@ def default_buckets(max_len: int, lo: int = 16) -> Tuple[int, ...]:
         b *= 2
     out.append(max_len)
     return tuple(out)
+
+
+def can_bucket(cfg: ModelConfig) -> bool:
+    """Padding-exactness condition: right-padded prompts leave every real
+    position unchanged only in an all-global-attention stack with
+    masked-mode routing (pads would update an SSM state)."""
+    all_global = all(k == ATTN for k in cfg.layer_pattern)
+    gather = cfg.skip.enabled and cfg.skip.mode == "gather"
+    return all_global and not gather
 
 
 @dataclasses.dataclass

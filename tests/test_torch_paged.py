@@ -355,12 +355,12 @@ def setup():
     return ref_params, params, lens, prompts, forced
 
 
-@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"])
 def test_paged_decode_step_matches_reference(setup, kv_dtype):
     """Both packages step from the same (bridged) store: gates exactly,
     logits ≤ 1e-4·max, entry metadata exactly, payloads within 1e-4·max
-    (fp32) or one quantization step (int8; the committed rows differ in
-    their last bits, so a code may round the other way)."""
+    (fp32) or one quantization step (int8 and int4; the committed rows
+    differ in their last bits, so a code may round the other way)."""
     ref_params, params, lens, prompts, forced = setup
     jparams = jax.tree_util.tree_map(jnp.asarray, ref_params)
     nA = CFG.num_layers
