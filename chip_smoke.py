@@ -9,7 +9,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   3. kernels  — each kernel against its plain PyTorch version on the card, at
                 the llama2-7b main-path shapes, with times and bounds
                 (router, dense and int4 fused linear and flash in bf16 and
-                fp32 activations, the int4 matmul at the lm head; paged
+                fp32 activations, the int4 matmul at the lm head; the
+                dense fused linear's two bf16 kernels, the tensor-core tile
+                at M 2048 and the split-K stream at M 4, each launched
+                twice bit for bit, Σy² held against the plain version on
+                the operand the route feeds, its fp32 inputs on the SIMT
+                kernel; paged
                 attention in bf16, int8 and int4 pages over a 512-token
                 history of a keep-0.5 gate log; the int4 kernels also
                 against the exact dequantized weights); then ragged shapes
@@ -26,7 +31,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 dense weights and once with int4 weights (group 64);
   5. serve    — full-width llama2-7b in bf16 (random seeded weights, neutral
                 router bias) served by ``ServeEngine.generate``: batch 4 x
-                prompt 512 + 32 new tokens, greedy; exact launch counts;
+                prompt 512 + 32 new tokens, greedy; exact launch counts
+                (the dense fused linear per route too: prefill on the
+                tensor-core tile, decode steps on the split-K stream);
   6. continuous — the same weights served by ``ContinuousBatchingEngine``
                 (4 slots, max_len 544, 8 requests of 128-512 prompt tokens +
                 32 greedy tokens) four times: dense pool, paged bf16, int8
@@ -64,7 +71,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 forward, no attention or fused linear), finite logits,
                 weight bytes, peak memory; a paged mamba engine must raise.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8 and 10, each counted from 0), and last the contract
+runs of phases 5, 6, 8 and 10, each counted from 0; the dense fused linear
+as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
+by the route counters), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -103,7 +112,8 @@ TOL_KEEP = 1e-6   # keep-fraction sums, cpu against cuda (phase 9)
 
 TPU_KERNELS = {
     "router_stats": "src/repro/kernels/fused_router_rmsnorm.py:55",
-    "fused_linear": "src/repro/kernels/fused_linear.py:135",
+    "fused_linear_wgmma": "src/repro/kernels/fused_linear.py:135",
+    "fused_linear_splitk": "src/repro/kernels/fused_linear.py:135",
     "fused_linear_int4": "src/repro/kernels/fused_linear.py:93",
     "int4_matmul": "src/repro/kernels/int4_matmul.py:66",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
@@ -112,7 +122,8 @@ TPU_KERNELS = {
 }
 SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
-    "fused_linear": "src/repro_torch/kernels/csrc/fused_linear.cu",
+    "fused_linear_wgmma": "src/repro_torch/kernels/csrc/fused_linear.cu",
+    "fused_linear_splitk": "src/repro_torch/kernels/csrc/fused_linear.cu",
     "fused_linear_int4": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "int4_matmul": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -254,34 +265,83 @@ def _cast(torch, kw, dt):
                   for k, v in cast.items()}
 
 
+def fused_linear_mirror(torch, x, w, **rkw):
+    """The plain version on the operand the tensor-core tile feeds its
+    wgmma: with the norm prologue, bf16(x · gamma) (one rounding of a
+    bf16 product, as the kernel rounds it), the per-row 1/sqrt(mean_sq +
+    eps) still applied in fp32 (gamma 1 below); without it, x itself."""
+    from repro_torch.kernels import ref
+    gamma = rkw.get("gamma")
+    if gamma is not None:
+        x = (x.float() * gamma.float()).to(torch.bfloat16)
+        rkw = dict(rkw, gamma=torch.ones_like(gamma))
+    return ref.fused_linear_ref(x, w, **rkw)
+
+
+def fused_linear_call(torch, x, w, kw, what):
+    """One dense fused-linear call on its route against the plain version:
+    out within tol·max|ref| (TOL_BF16 in bf16, TOL_F32 in fp32); Σy² within
+    TOL_SQ (relative) of the plain version on the operand the route feeds
+    (the tile's bf16(x · gamma); exact on the split-K stream and the SIMT
+    kernel), its error against the exact plain version reported; the
+    route ``plan`` picks and only its counter moved; in bf16 a second
+    launch on the same inputs bit for bit.  Returns the error record."""
+    from repro_torch.kernels import fused_linear as fl, ops, ref
+    M, K = x.shape
+    F = w.shape[1] // 2 if kw["glu"] else w.shape[1]
+    tol = TOL_BF16 if x.dtype == torch.bfloat16 else TOL_F32
+    route = fl.plan(M, K, F, kw["glu"], x.dtype).route
+    rkw = {("act_name" if k == "act" else k): v for k, v in kw.items()}
+    before = ops.kernel_launches()
+    out, sq = fl.fused_linear_cuda(x, w, **kw)
+    after = ops.kernel_launches()
+    moved = {r for r in ("wgmma", "splitk", "simt")
+             if after[f"fused_linear_{r}"] != before[f"fused_linear_{r}"]}
+    require(moved == {route} and after[f"fused_linear_{route}"]
+            == before[f"fused_linear_{route}"] + 1,
+            f"{what}: routes {moved}, want {route}")
+    ro, rsq = ref.fused_linear_ref(x, w, **rkw)
+    torch.cuda.synchronize()
+    e, m = max_err(torch, out, ro)
+    require(e <= tol * m, f"{what}: {e} > {tol}·{m}")
+    rec = {"route": route, "max_abs_err": e, "max_ref": m}
+    if sq is not None:
+        msq = fused_linear_mirror(torch, x, w, **rkw)[1] \
+            if route == "wgmma" else rsq
+        sr = ((sq - msq).abs() / msq.abs()).max().item()
+        require(sr <= TOL_SQ, f"{what}: Σy² rel err {sr} > {TOL_SQ}")
+        rec["sq_rel_err"] = sr
+        rec["sq_rel_err_exact"] = ((sq - rsq).abs() / rsq.abs()).max().item()
+    if x.dtype == torch.bfloat16:
+        out2, sq2 = fl.fused_linear_cuda(x, w, **kw)
+        require(torch.equal(out, out2) and (sq is None or torch.equal(
+            sq, sq2)), f"{what}: a second launch differs")
+        rec["repeat_bit_identical"] = True
+    return rec
+
+
 def check_fused_linear(torch, dev, timer, cfg):
+    """The dense fused linear at the four linears of a llama2-7b block: bf16
+    at M 2048 on the tensor-core tile and at M 4 on the split-K stream,
+    each timed beside its plain version and ``torch.matmul``; the same
+    inputs in fp32 on the SIMT kernel (the parity route), checked and
+    timed too.  Returns the shape records by bf16 route."""
     from repro_torch.kernels import fused_linear as fl, ref
     g = torch.Generator(device=dev).manual_seed(12)
-    shapes = []
+    shapes = {"wgmma": [], "splitk": []}
     for M in (2048, 4):
         for name, K, N, glu, pro, epi in linear_shapes(cfg):
             F = N // 2 if glu else N
             w = (torch.randn((K, N), generator=g, device=dev)
                  / math.sqrt(K)).to(torch.bfloat16)
             x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
-            errs = {}
-            for dt, tol in ((torch.bfloat16, TOL_BF16),
-                            (torch.float32, TOL_F32)):
-                cast, rcast = _cast(torch, kw, dt)
-                out, sq = fl.fused_linear_cuda(x.to(dt), w.to(dt), **cast)
-                ro, rsq = ref.fused_linear_ref(x.to(dt), w.to(dt), **rcast)
-                torch.cuda.synchronize()
-                e, m = max_err(torch, out, ro)
-                require(e <= tol * m, f"fused_linear {name} M={M} {dt}: "
-                        f"{e} > {tol}·{m}")
-                rec = {"max_abs_err": e, "max_ref": m}
-                if epi:
-                    sr = ((sq - rsq).abs() / rsq.abs()).max().item()
-                    require(sr <= TOL_SQ, f"fused_linear {name} M={M} {dt} "
-                            f"Σy² rel err {sr}")
-                    rec["sq_rel_err"] = sr
-                errs[str(dt).split(".")[-1]] = rec
-                del out, sq, ro, rsq
+            what = f"fused_linear {name} M={M}"
+            rec = fused_linear_call(torch, x, w, kw, f"{what} bf16")
+            f32, _ = _cast(torch, kw, torch.float32)
+            xf, wf = x.float(), w.float()
+            simt = fused_linear_call(torch, xf, wf, f32, f"{what} fp32")
+            ms_s = timer(lambda: fl.fused_linear_cuda(xf, wf, **f32))
+            del xf, wf
             _, rkw = _cast(torch, kw, torch.bfloat16)
             ms_k = timer(lambda: fl.fused_linear_cuda(x, w, **kw))
             ms_p = timer(lambda: ref.fused_linear_ref(x, w, **rkw))
@@ -290,12 +350,15 @@ def check_fused_linear(torch, dev, timer, cfg):
                 (K * 2 + M * 4) if pro else 0) + (
                 (M * F * 2 + M * 8) if epi else 0)
             b, by = bound_ms(nbytes, 2.0 * M * K * N)
-            shapes.append({"shape": f"{name} M={M} K={K} N={N}",
-                           "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
-                           "bound_ms": b, "bound_by": by,
-                           "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 "
-                           f"{TOL_F32}·max|ref|, Σy² {TOL_SQ} rel",
-                           "errors": errs})
+            shapes[rec["route"]].append({
+                "shape": f"{name} M={M} K={K} N={N}", "route": rec["route"],
+                "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+                "bound_ms": b, "bound_by": by,
+                "tol": f"bf16 {TOL_BF16}·max|ref|; Σy² {TOL_SQ} rel against "
+                       "the plain version on the operand the route feeds "
+                       "(the tile: bf16(x·gamma), rsqrt after the product)",
+                "errors": {"bfloat16": rec}, "simt_f32_ms": ms_s,
+                "simt_f32_errors": dict(simt, tol=f"{TOL_F32}·max|ref|")})
             del x, w, kw
     return shapes
 
@@ -641,7 +704,7 @@ def check_ragged(torch, dev):
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
     from repro_torch.kernels import int4_matmul as im
     g = torch.Generator(device=dev).manual_seed(14)
-    worst = {}
+    worst, dense = {}, {}
 
     def note(name, e, m, tol):
         require(e <= tol * m, f"ragged {name}: {e} > {tol}·{m}")
@@ -663,17 +726,16 @@ def check_ragged(torch, dev):
             kw = dict(mean_sq=(x.float() ** 2).mean(-1),
                       gamma=(1 + 0.1 * torch.randn((K,), generator=g,
                                                    device=dev)).to(dt),
-                      glu=glu, residual=torch.randn(
+                      glu=glu, act="silu" if glu else None,
+                      residual=torch.randn(
                           (M, F), generator=g, device=dev).to(dt),
                       gate_mul=(torch.rand((M,), generator=g, device=dev)
                                 > 0.5).float(), emit_sq=True)
-            out, sq = fl.fused_linear_cuda(x, w, act="silu" if glu else None,
-                                           **kw)
-            ro, rsq = ref.fused_linear_ref(
-                x, w, act_name="silu" if glu else None, **kw)
-            note("fused_linear", *max_err(torch, out, ro), tol)
-            require(((sq - rsq).abs() / rsq).max().item() <= TOL_SQ,
-                    f"ragged fused_linear Σy² M={M} K={K} F={F}")
+            dname = str(dt).split(".")[-1]
+            r = fused_linear_call(torch, x, w, kw, f"ragged fused_linear "
+                                  f"M={M} K={K} F={F} {dname}")
+            note("fused_linear", r["max_abs_err"], r["max_ref"], tol)
+            dense[f"M={M} K={K} F={F} {dname}"] = r
         for case in INT4_RAGGED:
             note("fused_linear_int4", *ragged_int4(torch, dev, g, dt, *case),
                  tol)
@@ -716,7 +778,41 @@ def check_ragged(torch, dev):
             note("ssd_scan_state", r["state_max_abs_err"],
                  r["state_max_ref"], TOL_F32)
     torch.cuda.synchronize()
-    return {"phase": "ragged", "max_err_over_max_ref": worst}
+    return {"phase": "ragged", "max_err_over_max_ref": worst,
+            "fused_linear": dense,
+            "fused_linear_refusals": fused_linear_refusals(torch, dev)}
+
+
+def fused_linear_refusals(torch, dev):
+    """The dense fused linear's C entries refuse a plan that disagrees with
+    the source: one entry of Σy² or split-K scratch short of what the grid
+    writes, or a tile width the source has no instantiation of, returns
+    cudaErrorInvalidValue and the wrapper raises, on every route."""
+    from repro_torch.kernels import fused_linear as fl
+    refused = {}
+    for M, dt in ((4, torch.bfloat16), (37, torch.bfloat16),
+                  (37, torch.float32)):
+        K, F = 64, 136
+        p = fl.plan(M, K, F, False, dt)
+        x = torch.zeros((M, K), dtype=dt, device=dev)
+        w = torch.zeros((K, F), dtype=dt, device=dev)
+        bad = {"tile_n": dataclasses.replace(p, tile_n=p.tile_n // 2)}
+        if p.route == "splitk":
+            bad["part"] = dataclasses.replace(p, part=p.part - 1)
+        else:
+            bad["sq_part"] = dataclasses.replace(p, sq_part=p.sq_part - 1)
+        for what, q in bad.items():
+            try:
+                fl.run_plan(q, x, w, mean_sq=None, gamma=None, eps=1e-5,
+                            glu=False, act=None, residual=None,
+                            gate_mul=None, emit_sq=True)
+            except RuntimeError as e:
+                refused[f"{p.route} {what}"] = str(e)
+                continue
+            raise RuntimeError(f"fused_linear {p.route}: a plan with {what} "
+                               "off the source was not refused")
+    torch.cuda.synchronize()
+    return refused
 
 
 # int4 fused linear off the main shapes: M, K, F, glu, group, pow2 scales,
@@ -994,29 +1090,44 @@ def is_int4(model) -> bool:
     return "w_int" in model.params().get("lm_head", {})
 
 
-def expected_launches(model, n_pf: int, n_st: int, paged: bool = False):
-    """Exact kernel launches of n_pf prefills and n_st decode steps: one
+def expected_launches(model, prefill_rows, n_st: int, step_rows: int,
+                      paged: bool = False):
+    """Exact kernel launches of one prefill per entry of ``prefill_rows``
+    (its rows B·T) and n_st decode steps of ``step_rows`` rows: one
     router_stats per forward (later blocks take Σy² from the epilogue), four
     fused linears per layer (the int4 kernel for int4 weights), the lm head
     through the int4 matmul for int4 weights (else a plain matmul), and
     one attention per layer: flash, or paged attention for a paged step.
-    A Mamba stack: one router_stats per layer and forward (no block emits
-    the Σy² carry), one SSD scan per layer and prefill (decode steps run
-    the plain recurrence), nothing else."""
-    from repro_torch.models import transformer
-    L, fwd = model.cfg.num_layers, n_pf + n_st
-    if transformer.is_ssm_stack(model.cfg):
+    The dense fused linears also by route, as ``plan`` picks it from a
+    forward's rows and the dtype: bf16 prefills above SPLITK_MAX_M rows on
+    the tensor-core tile, decode steps (and prefills of at most that many
+    rows) on the split-K stream, fp32 on the SIMT kernel.  A Mamba stack:
+    one router_stats per layer and forward (no block emits the Σy² carry),
+    one SSD scan per layer and prefill (decode steps run the plain
+    recurrence), nothing else."""
+    from repro_torch.kernels import fused_linear as fl
+    from repro_torch.models import layers, transformer
+    cfg = model.cfg
+    L, n_pf = cfg.num_layers, len(prefill_rows)
+    fwd = n_pf + n_st
+    routes = {f"fused_linear_{r}": 0 for r in ("wgmma", "splitk", "simt")}
+    if transformer.is_ssm_stack(cfg):
         return {"router_stats": L * fwd, "fused_linear": 0,
                 "fused_linear_int4": 0, "int4_matmul": 0,
                 "flash_attention": 0, "paged_attention": 0,
-                "ssd_scan": L * n_pf}
+                "ssd_scan": L * n_pf, **routes}
     int4 = is_int4(model)
+    if not int4:
+        dt, D = layers.torch_dtype(cfg), cfg.d_model
+        for rows in list(prefill_rows) + [step_rows] * n_st:
+            routes["fused_linear_" + fl.plan(rows, D, D, False,
+                                             dt).route] += 4 * L
     return {"router_stats": fwd, "ssd_scan": 0,
             "fused_linear": 0 if int4 else 4 * L * fwd,
             "fused_linear_int4": 4 * L * fwd if int4 else 0,
             "int4_matmul": fwd if int4 else 0,
             "flash_attention": L * (n_pf if paged else fwd),
-            "paged_attention": L * n_st if paged else 0}
+            "paged_attention": L * n_st if paged else 0, **routes}
 
 
 def serve_full_width(torch, np, dev, model, init_s, phase="serve"):
@@ -1032,7 +1143,7 @@ def serve_full_width(torch, np, dev, model, init_s, phase="serve"):
     out = eng.generate(prompts, new)
     launches = ops.kernel_launches()
     s = out["stats"]
-    expected = expected_launches(model, 1, new)
+    expected = expected_launches(model, [B * T0], new, B)
     require(launches == expected,
             f"kernel launches {launches} != expected {expected}")
     require(0.0 < s.attn_keep_frac < 1.0,
@@ -1106,15 +1217,28 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     finite.reset()
+    rows, prefill = [], model.prefill
+
+    def recorded(toks, *a, **k):      # the rows of each prefill it runs
+        rows.append(toks.numel())
+        return prefill(toks, *a, **k)
+
+    model.prefill = recorded
     ops.reset_kernel_launches()
     t = time.perf_counter()
-    out = eng.run()
+    try:
+        out = eng.run()
+    finally:
+        del model.prefill
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t
     launches = ops.kernel_launches()
     s = out["stats"]
     n_pf, n_st = s.prefill_chunks, s.decode_dispatches
-    expected = expected_launches(model, n_pf, n_st, eng.kv_mode == "paged")
+    require(len(rows) == n_pf, f"{label}: {len(rows)} prefills seen, "
+            f"{n_pf} counted")
+    expected = expected_launches(model, rows, n_st, SLOTS,
+                                 eng.kv_mode == "paged")
     require(launches == expected, f"{label}: kernel launches "
             f"{launches} != expected {expected}")
     res = [out["results"][u] for u in uids]
@@ -1618,9 +1742,11 @@ def main() -> int:
     from repro_torch.configs import get_config
     cfg = get_config("llama2-7b")
     timer = Timer(torch, dev)
+    dense = check_fused_linear(torch, dev, timer, cfg)
     per_kernel = {
         "router_stats": check_router(torch, dev, timer, cfg),
-        "fused_linear": check_fused_linear(torch, dev, timer, cfg),
+        "fused_linear_wgmma": dense["wgmma"],
+        "fused_linear_splitk": dense["splitk"],
         "fused_linear_int4": check_fused_linear_int4(torch, dev, timer, cfg),
         "int4_matmul": check_int4_matmul(torch, dev, timer, cfg),
         "flash_attention": check_flash(torch, dev, timer, cfg),

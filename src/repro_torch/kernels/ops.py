@@ -22,8 +22,12 @@ from repro_torch.kernels import ssd_scan as ss
 
 
 def kernel_launches() -> dict:
-    """Launch counts of every kernel wrapper, by kernel name."""
+    """Launch counts of every kernel wrapper, by kernel name; the dense
+    fused linear also by the route each call took (``fl.plan``)."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
+            "fused_linear_wgmma": fl.launches_wgmma,
+            "fused_linear_splitk": fl.launches_splitk,
+            "fused_linear_simt": fl.launches_simt,
             "fused_linear_int4": fl.launches_int4,
             "int4_matmul": im.launches, "flash_attention": fa.launches,
             "paged_attention": pa.launches, "ssd_scan": ss.launches}
@@ -31,6 +35,7 @@ def kernel_launches() -> dict:
 
 def reset_kernel_launches() -> None:
     frr.launches = fl.launches = fl.launches_int4 = im.launches = 0
+    fl.launches_wgmma = fl.launches_splitk = fl.launches_simt = 0
     fa.launches = pa.launches = ss.launches = 0
 
 
