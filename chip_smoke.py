@@ -14,16 +14,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 at M 2048 and the split-K stream at M 4, each launched
                 twice bit for bit, Σy² held against the plain version on
                 the operand the route feeds, its fp32 inputs on the SIMT
-                kernel; paged
+                kernel; flash attention's two bf16 kernels, the tensor-core
+                tile at prefill (4 × 512) and the cluster split-KV walk at
+                decode (B 4 against 544 rows), each launched twice bit for
+                bit and also held against the mirror that rounds P as the
+                route does, its fp32 inputs on the SIMT kernel; paged
                 attention in bf16, int8 and int4 pages over a 512-token
                 history of a keep-0.5 gate log; the int4 kernels also
                 against the exact dequantized weights); then ragged shapes
                 off the tile multiples, empty paged histories, padded
-                K-groups, odd N, non-pow2 scales and .5 ties included (not
-                timed); the SSD chunk scan at the mamba2-2.7b shapes (x [4,
-                512, 80, 64], B/C [4, 512, 1, 128], chunk 128, bf16 and fp32
-                activations; y and the final state) and at ragged ones (T
-                off the chunk, T < chunk, T = 1, dt = 0 rows, G > 1);
+                K-groups, odd N, non-pow2 scales and .5 ties, flash pad rows
+                and splits without a valid key included, each flash case on
+                the route ``plan`` picks, and the C entries' refusals of
+                plans off their source (not timed); the SSD chunk scan at
+                the mamba2-2.7b shapes (x [4, 512, 80, 64], B/C [4, 512, 1,
+                128], chunk 128, bf16 and fp32 activations; y and the final
+                state) and at ragged ones (T off the chunk, T < chunk,
+                T = 1, dt = 0 rows, G > 1);
   4. parity   — llama2-7b smoke in fp32 through the port on cuda (kernels)
                 and on cpu (plain versions): gates, logits, tokens of the
                 lock-step engine, of teacher-forced paged decode steps and
@@ -32,8 +39,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   5. serve    — full-width llama2-7b in bf16 (random seeded weights, neutral
                 router bias) served by ``ServeEngine.generate``: batch 4 x
                 prompt 512 + 32 new tokens, greedy; exact launch counts
-                (the dense fused linear per route too: prefill on the
-                tensor-core tile, decode steps on the split-K stream);
+                (the dense fused linear and flash attention per route too:
+                prefill on the tensor-core tiles, decode steps on the
+                split-K stream and the split-KV walk);
   6. continuous — the same weights served by ``ContinuousBatchingEngine``
                 (4 slots, max_len 544, 8 requests of 128-512 prompt tokens +
                 32 greedy tokens) four times: dense pool, paged bf16, int8
@@ -73,7 +81,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 Then the ``kernels`` summary line (``launches`` summed over the main-path
 runs of phases 5, 6, 8 and 10, each counted from 0; the dense fused linear
 as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
-by the route counters), and last the contract
+and flash attention as ``flash_attention_wgmma`` and
+``flash_attention_splitkv``, by the route counters), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -104,6 +113,12 @@ TOL_SQ = 1e-5         # relative, Σy² and mean_sq (fp32 outputs)
 TOL_LOGITS = 1e-4     # x max|logits|, phase 4 (fp32 model)
 TOL_BFP = 0.05        # x max|oracle|: int4 kernels against the exact
 #                       dequant (8-bit activation mantissas per group)
+TOL_FLASH_MIRROR = 2.0 ** -9  # x max|mirror|, past one bf16 ulp of each
+#                       element: flash's bf16 routes against the mirror that
+#                       rounds P as they do (the ulp is the output's own
+#                       rounding; the rest covers P values that the fp32
+#                       sum order moves across a bf16 rounding boundary)
+LOG2E = 1.4426950408889634
 MIN_MARGIN = 1e-3     # phase 4: no router decision this close to its tie
 PARITY_SEED = 6   # its margins clear MIN_MARGIN (checked every run)
 MAMBA_SEEDS = 8   # phase 9 takes the first seed whose cpu margins clear
@@ -116,7 +131,8 @@ TPU_KERNELS = {
     "fused_linear_splitk": "src/repro/kernels/fused_linear.py:135",
     "fused_linear_int4": "src/repro/kernels/fused_linear.py:93",
     "int4_matmul": "src/repro/kernels/int4_matmul.py:66",
-    "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:74",
+    "flash_attention_splitkv": "src/repro/kernels/flash_attention.py:74",
     "paged_attention": "src/repro/kernels/paged_attention.py:99",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
 }
@@ -126,7 +142,10 @@ SOURCES = {
     "fused_linear_splitk": "src/repro_torch/kernels/csrc/fused_linear.cu",
     "fused_linear_int4": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "int4_matmul": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_wgmma":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_splitkv":
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
@@ -456,39 +475,129 @@ def check_int4_matmul(torch, dev, timer, cfg, M=4):
              f"exact dequant {TOL_BFP}·max", "errors": errs}]
 
 
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each |x|, 2^(floor(log2|x|) - 7); 0 at 0."""
+    e = torch.frexp(x.abs())[1]
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def flash_mirror(torch, q, k, v, q_positions, kv_valid_len=None, *,
+                 causal=True, window=0, scale):
+    """The plain version with P rounded where the bf16 routes round it:
+    scores scaled in fp32 by fp32(scale)·fp32(log2 e), p = exp2(s - M)
+    against the row's integer maximum M = ceil(max s), rounded once to bf16
+    for the product with V, l = Σ p in fp32 (unrounded); rows without a
+    valid key 0.  Returns the fp32 output [B, Tq, Hq, dh] (not rounded)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Tq, Hq, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qp, kp, vp = fa.pack_qkv(q, k, v)
+    pos, kv_len = fa.pack_positions(q_positions, kv_valid_len, B, Hkv, G, Tk)
+    c = (torch.tensor(scale, dtype=torch.float32)
+         * torch.tensor(LOG2E, dtype=torch.float32)).to(q.device)
+    s = torch.einsum("brd,bkd->brk", qp.float(), kp.float()) * c
+    kv = torch.arange(Tk, device=q.device)[None, None]
+    qpos = pos[:, :, None]
+    mask = kv < kv_len[:, None, None]
+    if causal:
+        mask = mask & (kv <= qpos)
+    if window:
+        mask = mask & (kv > qpos - window)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp2(s - torch.ceil(s.amax(-1, keepdim=True)))
+    o = torch.einsum("brk,bkd->brd", p.to(torch.bfloat16).float(),
+                     vp.float()) / p.sum(-1, keepdim=True).clamp_min(1e-20)
+    o = torch.where(mask.any(-1, keepdim=True), o, torch.zeros_like(o))
+    return (o.reshape(B, Hkv, G, Tq, dh).permute(0, 3, 1, 2, 4)
+            .reshape(B, Tq, Hq, dh))
+
+
+def flash_call(torch, q, k, v, qpos, kvl, what, **kw):
+    """One flash-attention call on its route against the plain version:
+    out within tol·max|ref| (TOL_BF16 in bf16, TOL_F32 in fp32); in bf16
+    also within one bf16 ulp of each element plus TOL_FLASH_MIRROR·max of
+    the mirror (``flash_mirror``: P rounded as the route rounds it), and
+    a second launch on the same inputs bit for bit; the route ``plan``
+    picks and only its counter moved.  Returns the error record."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    B, Tq, Hq, dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    bf = q.dtype == torch.bfloat16
+    tol = TOL_BF16 if bf else TOL_F32
+    route = fa.plan(B * Hkv, Hq // Hkv * Tq, Tk, dh, q.dtype).route
+    before = ops.kernel_launches()
+    out = fa.flash_attention_cuda(q, k, v, qpos, kvl, **kw)
+    after = ops.kernel_launches()
+    moved = {r for r in ("wgmma", "splitkv", "simt")
+             if after[f"flash_attention_{r}"]
+             != before[f"flash_attention_{r}"]}
+    require(moved == {route} and after[f"flash_attention_{route}"]
+            == before[f"flash_attention_{route}"] + 1,
+            f"{what}: routes {moved}, want {route}")
+    ro = fa.flash_attention_plain(q, k, v, qpos, kvl, **kw)
+    torch.cuda.synchronize()
+    e, m = max_err(torch, out, ro)
+    require(e <= tol * m, f"{what}: {e} > {tol}·{m}")
+    rec = {"route": route, "max_abs_err": e, "max_ref": m}
+    if bf:
+        mo = flash_mirror(torch, q, k, v, qpos, kvl, **kw)
+        mm = mo.abs().max().item()
+        d = (out.float() - mo).abs()
+        excess = (d - bf16_ulp(torch, mo)).max().item()
+        require(excess <= TOL_FLASH_MIRROR * mm, f"{what}: {excess} past one "
+                f"bf16 ulp of the mirror > {TOL_FLASH_MIRROR}·{mm}")
+        out2 = fa.flash_attention_cuda(q, k, v, qpos, kvl, **kw)
+        require(torch.equal(out, out2), f"{what}: a second launch differs")
+        rec.update(mirror_max_abs_err=d.max().item(), mirror_max=mm,
+                   mirror_excess_over_ulp=excess,
+                   mirror_equal_share=(out == mo.to(torch.bfloat16))
+                   .float().mean().item(),
+                   repeat_bit_identical=True)
+    return rec
+
+
 def check_flash(torch, dev, timer, cfg):
+    """Flash attention at the llama2-7b main-path shapes: prefill (4 × 512,
+    causal) on the tensor-core tile and decode (B 4 against a 544-row cache,
+    kv_len 544) on the split-KV walk in bf16, each timed beside its plain
+    version and SDPA; the same inputs in fp32 on the SIMT kernel (the
+    parity route), checked and timed too.  Returns the shape records by
+    bf16 route."""
     import torch.nn.functional as Fn
     from repro_torch.kernels import flash_attention as fa
     B, H, dh = 4, cfg.num_heads, cfg.resolved_head_dim
     Hkv = cfg.num_kv_heads
     g = torch.Generator(device=dev).manual_seed(13)
     scale = 1.0 / math.sqrt(dh)
-    shapes = []
+    shapes = {"wgmma": [], "splitkv": []}
     for label, Tq, Tk, t_last in (("prefill", 512, 512, None),
                                   ("decode", 1, 544, 543)):
         bf = torch.bfloat16
         q = torch.randn((B, Tq, H, dh), generator=g, device=dev).to(bf)
         k = torch.randn((B, Tk, Hkv, dh), generator=g, device=dev).to(bf)
         v = torch.randn((B, Tk, Hkv, dh), generator=g, device=dev).to(bf)
-        if t_last is None:
-            qpos = torch.arange(Tq, device=dev)[None].expand(B, Tq)
+        if t_last is None:       # as the model's prefill: an expanded arange
+            qpos = torch.arange(Tq, dtype=torch.int32,
+                                device=dev)[None].expand(B, Tq)
             kvl = None
         else:
-            qpos = torch.full((B, 1), t_last, device=dev)
-            kvl = torch.full((B,), t_last + 1, device=dev)
-        pos, kv_len = fa.pack_positions(qpos, kvl, B, Hkv, H // Hkv, Tk)
+            qpos = torch.full((B, 1), t_last, dtype=torch.int32, device=dev)
+            kvl = torch.full((B,), t_last + 1, dtype=torch.int32, device=dev)
         errs = {}
-        for dt, tol in ((bf, TOL_BF16), (torch.float32, TOL_F32)):
+        for dt in (bf, torch.float32):
             a = [t.to(dt) for t in (q, k, v)]
-            out = fa.flash_attention_cuda(*a, pos, kv_len, scale=scale)
-            ro = fa.flash_attention_plain(*a, pos, kv_len, scale=scale)
-            torch.cuda.synchronize()
-            e, m = max_err(torch, out, ro)
-            require(e <= tol * m, f"flash {label} {dt}: {e} > {tol}·{m}")
-            errs[str(dt).split(".")[-1]] = {"max_abs_err": e, "max_ref": m}
-        ms_k = timer(lambda: fa.flash_attention_cuda(q, k, v, pos, kv_len,
+            errs[str(dt).split(".")[-1]] = flash_call(
+                torch, *a, qpos, kvl, f"flash {label} {dt}", scale=scale)
+        route = errs["bfloat16"]["route"]
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        ms_s = timer(lambda: fa.flash_attention_cuda(qf, kf, vf, qpos, kvl,
                                                      scale=scale))
-        ms_p = timer(lambda: fa.flash_attention_plain(q, k, v, pos, kv_len,
+        del qf, kf, vf
+        ms_k = timer(lambda: fa.flash_attention_cuda(q, k, v, qpos, kvl,
+                                                     scale=scale))
+        ms_p = timer(lambda: fa.flash_attention_plain(q, k, v, qpos, kvl,
                                                       scale=scale))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms_l = timer(lambda: Fn.scaled_dot_product_attention(
@@ -501,11 +610,17 @@ def check_flash(torch, dev, timer, cfg):
             keys = t_last + 1
         nbytes = (2 * B * Tq * H * dh + 2 * B * keys * Hkv * dh) * 2
         b, by = bound_ms(nbytes, 4.0 * pairs * dh)
-        shapes.append({"shape": f"{label} B={B} Tq={Tq} Tk={Tk} H={H} "
-                       f"dh={dh}", "ms": ms_k, "plain_ms": ms_p,
-                       "library_ms": ms_l, "bound_ms": b, "bound_by": by,
-                       "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 "
-                       f"{TOL_F32}·max|ref|", "errors": errs})
+        shapes[route].append({
+            "shape": f"{label} B={B} Tq={Tq} Tk={Tk} H={H} dh={dh}",
+            "route": route, "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+            "bound_ms": b, "bound_by": by,
+            "tol": f"bf16 {TOL_BF16}·max|ref|, and one bf16 ulp + "
+                   f"{TOL_FLASH_MIRROR}·max of the mirror (P rounded as the "
+                   f"route rounds it); fp32 {TOL_F32}·max|ref|",
+            "errors": {"bfloat16": errs["bfloat16"]}, "simt_f32_ms": ms_s,
+            "simt_f32_errors": dict(errs["float32"],
+                                    tol=f"{TOL_F32}·max|ref|")})
+        del q, k, v, qt, kt, vt
     return shapes
 
 
@@ -704,13 +819,14 @@ def check_ragged(torch, dev):
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
     from repro_torch.kernels import int4_matmul as im
     g = torch.Generator(device=dev).manual_seed(14)
-    worst, dense = {}, {}
+    worst, dense, flash = {}, {}, {}
 
     def note(name, e, m, tol):
         require(e <= tol * m, f"ragged {name}: {e} > {tol}·{m}")
         worst[name] = max(worst.get(name, 0.0), e / m)
 
     for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        dname = str(dt).split(".")[-1]
         x = torch.randn((37, 300), generator=g, device=dev).to(dt)
         w = torch.randn((300, 2), generator=g, device=dev)
         lo, ms = frr.router_stats_cuda(x, w)
@@ -731,7 +847,6 @@ def check_ragged(torch, dev):
                           (M, F), generator=g, device=dev).to(dt),
                       gate_mul=(torch.rand((M,), generator=g, device=dev)
                                 > 0.5).float(), emit_sq=True)
-            dname = str(dt).split(".")[-1]
             r = fused_linear_call(torch, x, w, kw, f"ragged fused_linear "
                                   f"M={M} K={K} F={F} {dname}")
             note("fused_linear", r["max_abs_err"], r["max_ref"], tol)
@@ -747,22 +862,15 @@ def check_ragged(torch, dev):
             note("int4_matmul", *max_err(
                 torch, im.int4_matmul_cuda(x, codes, scale),
                 ref.bfp_matmul_ref(x, codes, scale)), tol)
-        for B, Tq, Tk, Hq, Hkv, dh, window in ((2, 24, 24, 4, 2, 64, 0),
-                                               (1, 37, 37, 4, 4, 32, 8),
-                                               (3, 1, 50, 8, 2, 128, 0)):
-            q = torch.randn((B, Tq, Hq, dh), generator=g, device=dev).to(dt)
-            k = torch.randn((B, Tk, Hkv, dh), generator=g, device=dev).to(dt)
-            v = torch.randn((B, Tk, Hkv, dh), generator=g, device=dev).to(dt)
-            kvl = torch.tensor([Tk - 3 * b for b in range(B)], device=dev)
-            qpos = (kvl[:, None] - 1 if Tq == 1 else
-                    torch.arange(Tq, device=dev)[None].expand(B, Tq))
-            pos, kv_len = fa.pack_positions(qpos, kvl, B, Hkv, Hq // Hkv, Tk)
-            s = 1.0 / math.sqrt(dh)
-            out = fa.flash_attention_cuda(q, k, v, pos, kv_len, window=window,
-                                          scale=s)
-            ro = fa.flash_attention_plain(q, k, v, pos, kv_len, window=window,
-                                          scale=s)
-            note("flash_attention", *max_err(torch, out, ro), tol)
+        for case in FLASH_RAGGED:
+            B, Tq, Tk, Hq, Hkv, dh, window, kind = case
+            args = flash_ragged_inputs(torch, dev, g, dt, B, Tq, Tk, Hq, Hkv,
+                                       dh, kind)
+            r = flash_call(torch, *args, f"ragged flash {case} {dname}",
+                              window=window, scale=1.0 / math.sqrt(dh))
+            note("flash_attention", r["max_abs_err"], r["max_ref"], tol)
+            flash[f"{kind} B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} dh={dh} "
+                  f"window={window} {dname}"] = r
         for B, Hkv, G, dh, ps, J, empty in ((3, 2, 2, 64, 16, 5, False),
                                             (2, 1, 4, 32, 8, 7, False),
                                             (2, 2, 4, 64, 4, 3, True),
@@ -778,9 +886,88 @@ def check_ragged(torch, dev):
             note("ssd_scan_state", r["state_max_abs_err"],
                  r["state_max_ref"], TOL_F32)
     torch.cuda.synchronize()
+    routes = {(k.split()[-1], r["route"]) for k, r in flash.items()}
+    require(routes == {("bfloat16", "wgmma"), ("bfloat16", "splitkv"),
+                       ("float32", "simt")},
+            f"ragged flash cases took the routes {sorted(routes)}")
     return {"phase": "ragged", "max_err_over_max_ref": worst,
             "fused_linear": dense,
-            "fused_linear_refusals": fused_linear_refusals(torch, dev)}
+            "fused_linear_refusals": fused_linear_refusals(torch, dev),
+            "flash_attention": flash,
+            "flash_attention_refusals": flash_refusals(torch, dev)}
+
+
+# flash attention off the main shapes: B, Tq, Tk, Hq, Hkv, dh, window and
+# the positions (``flash_ragged_inputs``).  bf16 takes the tensor-core tile
+# for the first three (G 2; dh 32 with a window; pad rows and Tk off the
+# 128-key tile) and the split-KV walk for the last three (G 4; kv_len 3
+# of 544, so whole splits see no valid key; R 16 causal); fp32 takes the
+# SIMT kernel for all.
+FLASH_RAGGED = ((2, 24, 24, 4, 2, 64, 0, "prefill"),
+                (1, 37, 37, 4, 4, 32, 8, "prefill"),
+                (2, 40, 70, 8, 4, 128, 0, "tail"),
+                (3, 1, 50, 8, 2, 128, 0, "decode"),
+                (2, 1, 544, 4, 4, 128, 0, "short"),
+                (2, 16, 16, 2, 2, 64, 0, "prefill"))
+
+
+def flash_ragged_inputs(torch, dev, g, dt, B, Tq, Tk, Hq, Hkv, dh, kind):
+    """q, k, v ~ N(0, 1) in dt and int32 positions: "prefill" 0..Tq-1 with
+    kv_len Tk - 3b; "tail" the last Tq of Tk with kv_len Tk - 9b and batch
+    1's last 5 rows pads (-1); "decode" at kv_len - 1, kv_len Tk - 3b;
+    "short" decode with kv_len 3 (then 300)."""
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev).to(dt)  # noqa
+    q, k, v = rnd(B, Tq, Hq, dh), rnd(B, Tk, Hkv, dh), rnd(B, Tk, Hkv, dh)
+    step = {"prefill": 3, "tail": 9, "decode": 3}.get(kind, 0)
+    kvl = torch.tensor([Tk - step * b for b in range(B)], dtype=torch.int32,
+                       device=dev)
+    if kind == "short":
+        kvl = torch.tensor([3, 300][:B], dtype=torch.int32, device=dev)
+    ar = torch.arange(Tq, dtype=torch.int32, device=dev)[None]
+    if kind == "prefill":
+        qpos = ar.expand(B, Tq)
+    elif kind == "tail":
+        qpos = (ar + Tk - Tq).repeat(B, 1)
+        qpos[1, -5:] = -1
+    else:
+        qpos = kvl[:, None] - 1
+    return q, k, v, qpos, kvl
+
+
+def flash_refusals(torch, dev):
+    """Flash attention's C entries refuse a plan that disagrees with the
+    source: a key tile, grid, split or shared-memory size it has no
+    instantiation of, or the SIMT route for bf16, returns
+    cudaErrorInvalidValue and the wrapper raises, on every route."""
+    from repro_torch.kernels import flash_attention as fa
+    refused = {}
+    B, Hkv, dh, Tk = 2, 2, 64, 100
+    for Tq, dt in ((40, torch.bfloat16), (1, torch.bfloat16),
+                   (40, torch.float32)):
+        q = torch.zeros((B, Tq, Hkv, dh), dtype=dt, device=dev)
+        k = torch.zeros((B, Tk, Hkv, dh), dtype=dt, device=dev)
+        qpos = torch.full((B, Tq), Tk - 1, dtype=torch.int32, device=dev)
+        p = fa.plan(B * Hkv, Tq, Tk, dh, dt)
+        bad = {"tile_k": dataclasses.replace(p, tile_k=p.tile_k // 2),
+               "grid": dataclasses.replace(p, grid=(p.grid[0] + 1,
+                                                     p.grid[1])),
+               "smem": dataclasses.replace(p, smem=p.smem + 16)}
+        if p.route == "splitkv":
+            bad["splits"] = dataclasses.replace(
+                p, splits=p.splits + 1, grid=(p.splits + 1, p.grid[1]))
+        if dt == torch.bfloat16:
+            bad["simt"] = fa.plan(B * Hkv, Tq, Tk, dh, torch.float32)
+        for what, bp in bad.items():
+            try:
+                fa.run_plan(bp, q, k, k, qpos, None, causal=True, window=0,
+                            scale=0.125)
+            except RuntimeError as e:
+                refused[f"{p.route} {what}"] = str(e)
+                continue
+            raise RuntimeError(f"flash_attention {p.route}: a plan with "
+                               f"{what} off the source was not refused")
+    torch.cuda.synchronize()
+    return refused
 
 
 def fused_linear_refusals(torch, dev):
@@ -1090,38 +1277,52 @@ def is_int4(model) -> bool:
     return "w_int" in model.params().get("lm_head", {})
 
 
-def expected_launches(model, prefill_rows, n_st: int, step_rows: int,
+def expected_launches(model, prefills, n_st: int, step_rows: int,
                       paged: bool = False):
-    """Exact kernel launches of one prefill per entry of ``prefill_rows``
-    (its rows B·T) and n_st decode steps of ``step_rows`` rows: one
+    """Exact kernel launches of one prefill per entry of ``prefills`` (its
+    tokens' shape (B, T)) and n_st decode steps of ``step_rows`` rows: one
     router_stats per forward (later blocks take Σy² from the epilogue), four
     fused linears per layer (the int4 kernel for int4 weights), the lm head
     through the int4 matmul for int4 weights (else a plain matmul), and
     one attention per layer: flash, or paged attention for a paged step.
-    The dense fused linears also by route, as ``plan`` picks it from a
-    forward's rows and the dtype: bf16 prefills above SPLITK_MAX_M rows on
+    The dense fused linears also by route, as ``fl.plan`` picks it from a
+    forward's rows and the dtype: bf16 prefills above SPLITKV_MAX_M rows on
     the tensor-core tile, decode steps (and prefills of at most that many
-    rows) on the split-K stream, fp32 on the SIMT kernel.  A Mamba stack:
-    one router_stats per layer and forward (no block emits the Σy² carry),
-    one SSD scan per layer and prefill (decode steps run the plain
+    rows) on the split-K stream, fp32 on the SIMT kernel.  Flash attention
+    by route too, as ``fa.plan`` picks it from the packed rows G·T of one
+    (batch, kv-head) and the dtype: bf16 prefills above SPLITKV_MAX_R rows
+    on the tensor-core tile, decode steps (G rows) and shorter prefills on
+    the split-KV walk, fp32 on the SIMT kernel.  A Mamba stack: one
+    router_stats per layer and forward (no block emits the Σy² carry), one
+    SSD scan per layer and prefill (decode steps run the plain
     recurrence), nothing else."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.models import layers, transformer
     cfg = model.cfg
-    L, n_pf = cfg.num_layers, len(prefill_rows)
+    L, n_pf = cfg.num_layers, len(prefills)
     fwd = n_pf + n_st
     routes = {f"fused_linear_{r}": 0 for r in ("wgmma", "splitk", "simt")}
+    routes.update({f"flash_attention_{r}": 0
+                   for r in ("wgmma", "splitkv", "simt")})
     if transformer.is_ssm_stack(cfg):
         return {"router_stats": L * fwd, "fused_linear": 0,
                 "fused_linear_int4": 0, "int4_matmul": 0,
                 "flash_attention": 0, "paged_attention": 0,
                 "ssd_scan": L * n_pf, **routes}
     int4 = is_int4(model)
-    if not int4:
-        dt, D = layers.torch_dtype(cfg), cfg.d_model
-        for rows in list(prefill_rows) + [step_rows] * n_st:
+    dt, D = layers.torch_dtype(cfg), cfg.d_model
+    Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    G = cfg.num_heads // Hkv
+    forwards = [(b * t, b, G * t, t) for b, t in prefills]
+    forwards += [(step_rows, step_rows, G, MAX_LEN)] * n_st
+    for i, (rows, b, R, Tk) in enumerate(forwards):
+        if not int4:
             routes["fused_linear_" + fl.plan(rows, D, D, False,
                                              dt).route] += 4 * L
+        if i < n_pf or not paged:
+            routes["flash_attention_" + fa.plan(b * Hkv, R, Tk, dh,
+                                                dt).route] += L
     return {"router_stats": fwd, "ssd_scan": 0,
             "fused_linear": 0 if int4 else 4 * L * fwd,
             "fused_linear_int4": 4 * L * fwd if int4 else 0,
@@ -1143,7 +1344,7 @@ def serve_full_width(torch, np, dev, model, init_s, phase="serve"):
     out = eng.generate(prompts, new)
     launches = ops.kernel_launches()
     s = out["stats"]
-    expected = expected_launches(model, [B * T0], new, B)
+    expected = expected_launches(model, [(B, T0)], new, B)
     require(launches == expected,
             f"kernel launches {launches} != expected {expected}")
     require(0.0 < s.attn_keep_frac < 1.0,
@@ -1219,8 +1420,8 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     finite.reset()
     rows, prefill = [], model.prefill
 
-    def recorded(toks, *a, **k):      # the rows of each prefill it runs
-        rows.append(toks.numel())
+    def recorded(toks, *a, **k):      # the shape of each prefill it runs
+        rows.append(tuple(toks.shape))
         return prefill(toks, *a, **k)
 
     model.prefill = recorded
@@ -1743,13 +1944,15 @@ def main() -> int:
     cfg = get_config("llama2-7b")
     timer = Timer(torch, dev)
     dense = check_fused_linear(torch, dev, timer, cfg)
+    flash = check_flash(torch, dev, timer, cfg)
     per_kernel = {
         "router_stats": check_router(torch, dev, timer, cfg),
         "fused_linear_wgmma": dense["wgmma"],
         "fused_linear_splitk": dense["splitk"],
         "fused_linear_int4": check_fused_linear_int4(torch, dev, timer, cfg),
         "int4_matmul": check_int4_matmul(torch, dev, timer, cfg),
-        "flash_attention": check_flash(torch, dev, timer, cfg),
+        "flash_attention_wgmma": flash["wgmma"],
+        "flash_attention_splitkv": flash["splitkv"],
         "paged_attention": check_paged(torch, np, dev, timer, cfg),
         "ssd_scan": check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))}
     emit({"phase": "kernels", "shapes": per_kernel})

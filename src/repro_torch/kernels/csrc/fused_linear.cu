@@ -72,12 +72,9 @@
 // bit, and with it the next block's norm and its router gate.  No state
 // outlives a launch: the wrapper allocates all scratch per call.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <dlfcn.h>
-
-#include <cstdint>
 
 #include "fused_epilogue.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -264,153 +261,6 @@ int tc_smem(int K) {
          kTcConsumers * kTcEpiBytes + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Returns once the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// One TMA tile copy global -> shared; completion is reported to `bar`.
-// c0 indexes the contiguous dimension.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major A: rows of
-// 64 k (128 B), SBO = 1024 B between 8-row groups (LBO unused).  MN-major
-// B: atoms of 64 columns (128 B) x 64 k rows, LBO = 8 KB from one atom to
-// the next along N, SBO = 1024 B between 8-row groups along K.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// D[64 x 128] (+)= A[64 x 16] · B[16 x 128]; A K-major, B MN-major.  With
-// accumulate == 0 the product overwrites D.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db,
-                                                 uint32_t accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// The same with A from registers: this lane's four bf16x2 registers of
-// the 64 x 16 A tile.
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t db,
-                                                    uint32_t accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-// Pins registers at this point of the program: wgmma writes the
-// accumulators and reads the A registers asynchronously, behind the
-// compiler's back.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
-}
-
 __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
   const __nv_bfloat162 y =
       __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
@@ -546,8 +396,8 @@ fused_linear_tc(const __grid_constant__ CUtensorMap tmx,
       if constexpr (PRO)
         wgmma_m64n128k16_rs(acc, a[kk], db, accumulate);
       else
-        wgmma_m64n128k16(acc, smem_desc(sa + kk * 32, 16, 1024), db,
-                         accumulate);
+        wgmma_m64n128k16<1>(acc, smem_desc(sa + kk * 32, 16, 1024), db,
+                            accumulate);
     }
     wgmma_commit();
     if (kt + 1 < nk) {
@@ -558,8 +408,8 @@ fused_linear_tc(const __grid_constant__ CUtensorMap tmx,
                       (kt + 1) * kTcBK, K, gamma_s);
     }
     wgmma_wait<0>();
-    fence_acc(acc);
-    if constexpr (PRO) fence_a(a);
+    fence_regs(acc);
+    if constexpr (PRO) fence_regs(a);
     mbar_arrive(empty + 8 * s);
     if (kt % kTcPromote == kTcPromote - 1 || kt == nk - 1) {
 #pragma unroll
@@ -571,46 +421,6 @@ fused_linear_tc(const __grid_constant__ CUtensorMap tmx,
                          residual, gate_mul, out, sq_part, blockIdx.y,
                          tail + (PRO ? 2 * K : 0) + wg * kTcEpiBytes, 1 + wg);
 }
-
-// cuTensorMapEncodeTiled, looked up in the libcuda.so.1 the process has
-// already loaded (this library does not link against it).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// A 2-D bf16 map of a row-major [outer, inner] matrix, boxes of
-// box_inner x box_outer elements, 128-byte swizzle, zero fill outside.
-bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
-                int box_inner, int box_outer) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The shared-memory opt-in is set once per device.
-constexpr int kMaxDevices = 64;
 
 template <bool GLU, bool PRO>
 cudaError_t launch_tc(const void* x, const void* ms, const void* gamma,
@@ -624,17 +434,9 @@ cudaError_t launch_tc(const void* x, const void* ms, const void* gamma,
       (sq != nullptr && static_cast<long long>(grid.y) * M > sq_cap))
     return cudaErrorInvalidValue;
   static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = opt_in_smem(fused_linear_tc<GLU, PRO>,
+                                    tc_smem<PRO>(kTcGammaMax), configured);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    e = cudaFuncSetAttribute(fused_linear_tc<GLU, PRO>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tc_smem<PRO>(kTcGammaMax));
-    if (e != cudaSuccess) return e;
-    configured[dev] = true;
-  }
   CUtensorMap tmx, tmw;
   if (!tensor_map(&tmx, x, K, M, kTcBK, kTcBM) ||
       !tensor_map(&tmw, w, GLU ? 2 * F : F, K, 64, kTcBK))

@@ -23,13 +23,17 @@ from repro_torch.kernels import ssd_scan as ss
 
 def kernel_launches() -> dict:
     """Launch counts of every kernel wrapper, by kernel name; the dense
-    fused linear also by the route each call took (``fl.plan``)."""
+    fused linear and flash attention also by the route each call took
+    (``fl.plan``, ``fa.plan``)."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
             "fused_linear_wgmma": fl.launches_wgmma,
             "fused_linear_splitk": fl.launches_splitk,
             "fused_linear_simt": fl.launches_simt,
             "fused_linear_int4": fl.launches_int4,
             "int4_matmul": im.launches, "flash_attention": fa.launches,
+            "flash_attention_wgmma": fa.launches_wgmma,
+            "flash_attention_splitkv": fa.launches_splitkv,
+            "flash_attention_simt": fa.launches_simt,
             "paged_attention": pa.launches, "ssd_scan": ss.launches}
 
 
@@ -37,6 +41,7 @@ def reset_kernel_launches() -> None:
     frr.launches = fl.launches = fl.launches_int4 = im.launches = 0
     fl.launches_wgmma = fl.launches_splitk = fl.launches_simt = 0
     fa.launches = pa.launches = ss.launches = 0
+    fa.launches_wgmma = fa.launches_splitkv = fa.launches_simt = 0
 
 
 # ---------------------------------------------------------------------------
@@ -58,13 +63,10 @@ def flash_attention(q, k, v, *, q_positions, causal: bool = True,
                     window: int = 0, kv_valid_len=None,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Tq,Hq,dh]; k/v: [B,Tk,Hkv,dh] -> [B,Tq,Hq,dh]."""
-    B, Tq, Hq, dh = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
+    dh = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(dh)
-    pos, kv_len = fa.pack_positions(q_positions, kv_valid_len, B, Hkv,
-                                    Hq // Hkv, Tk)
-    return fa.flash_attention(q, k, v, pos, kv_len, causal=causal,
-                              window=window, scale=scale)
+    return fa.flash_attention(q, k, v, q_positions, kv_valid_len,
+                              causal=causal, window=window, scale=scale)
 
 
 def decode_attention(q, k, v, *, q_positions, window: int = 0,

@@ -267,6 +267,7 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
     assert frr.launches == fl.launches == fa.launches == 0
     assert fl.launches_int4 == im.launches == 0
     assert fl.launches_wgmma == fl.launches_splitk == fl.launches_simt == 0
+    assert fa.launches_wgmma == fa.launches_splitkv == fa.launches_simt == 0
     # no nvcc: the build raises rather than handing back a plain version
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
