@@ -18,14 +18,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 tile at prefill (4 × 512) and the cluster split-KV walk at
                 decode (B 4 against 544 rows), each launched twice bit for
                 bit and also held against the mirror that rounds P as the
-                route does, its fp32 inputs on the SIMT kernel; paged
+                route does, its fp32 inputs on the SIMT kernel; the int4
+                fused linear's two kernels, the s8 tensor-core tile at M
+                2048, 512 and 256 and the split-K code stream at M 4, and
+                the int4 matmul's stream at the lm head (M 4; its tile at
+                M 2048 for the record), in bf16 and fp32 activations, each
+                launched twice bit for bit, held bit for bit against the
+                plain version summed in the route's order (GLU outputs
+                within one ulp plus the activation's difference) and
+                against the exact dequantized weights, timed beside the
+                bf16 dense route at the same shape; paged
                 attention in bf16, int8 and int4 pages over a 512-token
-                history of a keep-0.5 gate log; the int4 kernels also
-                against the exact dequantized weights); then ragged shapes
+                history of a keep-0.5 gate log); then ragged shapes
                 off the tile multiples, empty paged histories, padded
                 K-groups, odd N, non-pow2 scales and .5 ties, flash pad rows
-                and splits without a valid key included, each flash case on
-                the route ``plan`` picks, and the C entries' refusals of
+                and splits without a valid key included, each flash and
+                int4 case on the route its plan picks, and the C entries'
+                refusals of
                 plans off their source (not timed); the SSD chunk scan at
                 the mamba2-2.7b shapes (x [4, 512, 80, 64], B/C [4, 512, 1,
                 128], chunk 128, bf16 and fp32 activations; y and the final
@@ -36,6 +45,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 lock-step engine, of teacher-forced paged decode steps and
                 of the continuous engine over the paged store; once with
                 dense weights and once with int4 weights (group 64);
+                exact launch counts of the cuda ``ServeEngine`` run, per
+                route (int4: its prefill on the s8 tile, its decode steps
+                on the split-K stream);
   5. serve    — full-width llama2-7b in bf16 (random seeded weights, neutral
                 router bias) served by ``ServeEngine.generate``: batch 4 x
                 prompt 512 + 32 new tokens, greedy; exact launch counts
@@ -62,7 +74,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 512 + 32) and by the continuous engine (the phase-6
                 requests) in the dense pool and in paged bf16 pages: exact
                 launch counts (4·L int4 fused linears and one int4 matmul
-                per forward, no dense fused linear), finite logits, weight
+                per forward, by route, no dense fused linear), finite
+                logits, weight
                 bytes and peak memory; the share of tokens equal to the
                 bf16 runs is reported, not checked; the llama2-7b weights
                 are freed after it;
@@ -81,8 +94,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 Then the ``kernels`` summary line (``launches`` summed over the main-path
 runs of phases 5, 6, 8 and 10, each counted from 0; the dense fused linear
 as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
-and flash attention as ``flash_attention_wgmma`` and
-``flash_attention_splitkv``, by the route counters), and last the contract
+the int4 fused linear as ``fused_linear_int4_tc`` and
+``fused_linear_int4_stream``, the int4 matmul as ``int4_matmul_stream``
+(its tile is off the main path), and flash attention as
+``flash_attention_wgmma`` and ``flash_attention_splitkv``, by the route
+counters), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -129,8 +145,9 @@ TPU_KERNELS = {
     "router_stats": "src/repro/kernels/fused_router_rmsnorm.py:55",
     "fused_linear_wgmma": "src/repro/kernels/fused_linear.py:135",
     "fused_linear_splitk": "src/repro/kernels/fused_linear.py:135",
-    "fused_linear_int4": "src/repro/kernels/fused_linear.py:93",
-    "int4_matmul": "src/repro/kernels/int4_matmul.py:66",
+    "fused_linear_int4_tc": "src/repro/kernels/fused_linear.py:93",
+    "fused_linear_int4_stream": "src/repro/kernels/fused_linear.py:93",
+    "int4_matmul_stream": "src/repro/kernels/int4_matmul.py:66",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:74",
     "flash_attention_splitkv": "src/repro/kernels/flash_attention.py:74",
     "paged_attention": "src/repro/kernels/paged_attention.py:99",
@@ -140,8 +157,11 @@ SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
     "fused_linear_wgmma": "src/repro_torch/kernels/csrc/fused_linear.cu",
     "fused_linear_splitk": "src/repro_torch/kernels/csrc/fused_linear.cu",
-    "fused_linear_int4": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
-    "int4_matmul": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
+    "fused_linear_int4_tc":
+        "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
+    "fused_linear_int4_stream":
+        "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
+    "int4_matmul_stream": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "flash_attention_wgmma":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_splitkv":
@@ -250,12 +270,12 @@ def linear_shapes(cfg):
 def int4_weight(torch, dev, g, K, N, G, pow2=True):
     """A bf16 weight [K, N] (std 1/sqrt(K)) quantized on the card by the
     port's ``quantize_rtn``: (codes, scale, the exact dequantized fp32
-    weight [K, N])."""
+    weight [K, N], the bf16 weight)."""
     from repro_torch.quant import dequantize, quantize_rtn
     w = (torch.randn((K, N), generator=g, device=dev)
          / math.sqrt(K)).to(torch.bfloat16)
     codes, scale = quantize_rtn(w, G, pow2)
-    return codes, scale, dequantize(codes, scale, K)
+    return codes, scale, dequantize(codes, scale, K), w
 
 
 def linear_inputs(torch, dev, g, M, K, F, glu, pro, epi):
@@ -382,97 +402,205 @@ def check_fused_linear(torch, dev, timer, cfg):
     return shapes
 
 
+def int4_ulp(torch, x):
+    """One ulp of x's dtype (bf16 or fp32) at each |x|; 0 at 0."""
+    bits = 7 if x.dtype == torch.bfloat16 else 23
+    e = torch.frexp(x.float().abs())[1]
+    return torch.where(x == 0, torch.zeros_like(x.float()),
+                       torch.ldexp(torch.ones_like(x.float()), e - 1 - bits))
+
+
+def int4_mirror_check(torch, out, ro, x, codes, scale, rkw, split, what):
+    """The int4 kernels against the plain version summed in the route's
+    order of the fp32 group terms (``split``: the stream's groups per
+    split; None on the tile).  Every value before the activation is equal
+    bit for bit, so without an activation the output is; with the GLU's
+    silu each output lies within one ulp of its dtype plus the activation's
+    difference (the kernel's y / (1 + expf(-y)) against ``F.silu``, times
+    |up|).  Returns (bit-identical share, largest excess over that bound
+    as a share of max|ref|)."""
+    from repro_torch.kernels import ref
+    if rkw.get("act_name") is None:
+        require(torch.equal(out, ro), f"{what}: not bit for bit with the "
+                "plain version in the route's order")
+        return 1.0, 0.0
+    xf = x.float()
+    if rkw.get("mean_sq") is not None:
+        xf = ref.rms_prologue(xf, rkw["mean_sq"], rkw["gamma"],
+                              rkw.get("eps", 1e-5))
+    y = ref.bfp_matmul_f32(xf, codes, scale, split)
+    f = y.shape[1] // 2
+    yg, yu = y[:, :f], y[:, f:]
+    act_diff = ((yg / (1.0 + torch.exp(-yg))) - ref.act(yg, "silu")).abs()
+    bound = int4_ulp(torch, ro) + act_diff * yu.abs()
+    d = (out.float() - ro.float()).abs()
+    excess = (d - bound).max().item()
+    require(excess <= 0.0, f"{what}: {excess} past one ulp plus the "
+            "activation's difference")
+    return ((out == ro).float().mean().item(),
+            max(excess, 0.0) / ro.float().abs().max().item())
+
+
+def int4_call(torch, x, codes, scale, kw, what, matmul=False):
+    """One int4 fused-linear (or, with ``matmul``, int4-matmul) call on its
+    route against the plain version in the route's order
+    (``int4_mirror_check``); Σy² within TOL_SQ (relative); the route
+    ``plan_int4`` picks and only its counter moved; a second launch on the
+    same inputs bit for bit.  Returns (the error record, the plan)."""
+    from repro_torch.kernels import fused_linear as fl, ops, ref
+    from repro_torch.kernels import int4_matmul as im
+    M, K = x.shape
+    N, C = codes.shape[1], scale.shape[0]
+    glu = kw.get("glu", False)
+    p = fl.plan_int4(M, K, N // 2 if glu else N, codes.shape[0] // C, C,
+                     glu, x.dtype)
+    split = p.group_split or None
+    name = "int4_matmul" if matmul else "fused_linear_int4"
+    rkw = {("act_name" if k == "act" else k): v for k, v in kw.items()}
+
+    def run():
+        if matmul:
+            return im.int4_matmul_cuda(x, codes, scale), None
+        return fl.fused_linear_int4_cuda(x, codes, scale, **kw)
+
+    before = ops.kernel_launches()
+    out, sq = run()
+    after = ops.kernel_launches()
+    moved = {r for r in ("tc", "stream")
+             if after[f"{name}_{r}"] != before[f"{name}_{r}"]}
+    require(moved == {p.route} and after[name] == before[name] + 1
+            and after[f"{name}_{p.route}"] == before[f"{name}_{p.route}"] + 1,
+            f"{what}: routes {moved}, want {p.route}")
+    if matmul:
+        ro, rsq = ref.bfp_matmul_ref(x, codes, scale, split), None
+    else:
+        ro, rsq = ref.fused_linear_ref(x, w_codes=codes, scale=scale,
+                                       split_groups=split, **rkw)
+    torch.cuda.synchronize()
+    same, excess = int4_mirror_check(torch, out, ro, x, codes, scale, rkw,
+                                     split, what)
+    e, m = max_err(torch, out, ro)
+    rec = {"route": p.route, "max_abs_err": e, "max_ref": m,
+           "bit_identical_share": same, "excess_over_ulp": excess}
+    if sq is not None:
+        sr = ((sq - rsq).abs() / rsq.abs()).max().item()
+        require(sr <= TOL_SQ, f"{what}: Σy² rel err {sr} > {TOL_SQ}")
+        rec["sq_rel_err"] = sr
+    out2, sq2 = run()
+    require(torch.equal(out, out2) and (sq is None or torch.equal(sq, sq2)),
+            f"{what}: a second launch differs")
+    rec["repeat_bit_identical"] = True
+    return rec, p
+
+
+INT4_TOL = ("the plain version summed in the route's order: bit for bit "
+            "without an activation, else one ulp + the activation's "
+            f"difference; Σy² {TOL_SQ} rel; exact dequant {TOL_BFP}·max")
+
+
 def check_fused_linear_int4(torch, dev, timer, cfg):
-    """The int4-BFP fused linear at the four linears of a llama2-7b block,
-    M 2048 (prefill) and 4 (decode), against its plain version (the BFP
-    product) and, for the record, against the exact-dequant oracle."""
+    """The int4-BFP fused linear at the four linears of a llama2-7b block:
+    M 2048 (lock-step prefill), 512 and 256 (the continuous buckets) on the
+    tensor-core tile and M 4 (decode) on the split-K stream, in bf16 and
+    fp32 activations, against the plain version in the route's order and,
+    for the record, the exact-dequant oracle; timed beside the plain
+    version and the bf16 dense route at the same shape.  Returns the
+    shape records by route."""
     from repro_torch.kernels import fused_linear as fl, ref
     G = cfg.quant.group_size
     g = torch.Generator(device=dev).manual_seed(17)
-    shapes = []
-    for M in (2048, 4):
+    shapes = {"tc": [], "stream": []}
+    for M in (2048, 512, 256, 4):
         for name, K, N, glu, pro, epi in linear_shapes(cfg):
             F = N // 2 if glu else N
-            codes, scale, w_exact = int4_weight(torch, dev, g, K, N, G)
+            codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
             x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
             errs = {}
-            for dt, tol in ((torch.bfloat16, TOL_BF16),
-                            (torch.float32, TOL_F32)):
+            for dt in (torch.bfloat16, torch.float32):
                 cast, rcast = _cast(torch, kw, dt)
-                out, sq = fl.fused_linear_int4_cuda(x.to(dt), codes, scale,
-                                                    **cast)
-                ro, rsq = ref.fused_linear_ref(x.to(dt), w_codes=codes,
-                                               scale=scale, **rcast)
+                what = f"fused_linear_int4 {name} M={M} {dt}"
+                rec, p = int4_call(torch, x.to(dt), codes, scale, cast, what)
+                out, _ = fl.fused_linear_int4_cuda(x.to(dt), codes, scale,
+                                                   **cast)
                 eo, _ = ref.fused_linear_ref(x.to(dt), w_exact.to(dt),
                                              **rcast)
                 torch.cuda.synchronize()
-                e, m = max_err(torch, out, ro)
-                require(e <= tol * m, f"fused_linear_int4 {name} M={M} "
-                        f"{dt}: {e} > {tol}·{m}")
                 ee, em = max_err(torch, out, eo)
-                require(ee <= TOL_BFP * em, f"fused_linear_int4 {name} M={M}"
-                        f" {dt}: {ee} from the exact dequant > {TOL_BFP}·{em}")
-                rec = {"max_abs_err": e, "max_ref": m,
-                       "exact_dequant_err": ee, "exact_dequant_max": em}
-                if epi:
-                    sr = ((sq - rsq).abs() / rsq.abs()).max().item()
-                    require(sr <= TOL_SQ, f"fused_linear_int4 {name} M={M} "
-                            f"{dt} Σy² rel err {sr}")
-                    rec["sq_rel_err"] = sr
+                require(ee <= TOL_BFP * em, f"{what}: {ee} from the exact "
+                        f"dequant > {TOL_BFP}·{em}")
+                rec.update(exact_dequant_err=ee, exact_dequant_max=em)
                 errs[str(dt).split(".")[-1]] = rec
-                del out, sq, ro, rsq, eo
+                del out, eo
             _, rkw = _cast(torch, kw, torch.bfloat16)
+            split = p.group_split or None
             ms_k = timer(lambda: fl.fused_linear_int4_cuda(x, codes, scale,
                                                            **kw))
             ms_p = timer(lambda: ref.fused_linear_ref(
-                x, w_codes=codes, scale=scale, **rkw))
+                x, w_codes=codes, scale=scale, split_groups=split, **rkw))
+            ms_d = timer(lambda: fl.fused_linear_cuda(x, w, **kw))
             Kw, C = codes.shape[0], scale.shape[0]
             nbytes = (M * K + M * F) * 2 + Kw * N + C * N * 4 + (
                 (K * 2 + M * 4) if pro else 0) + (
                 (M * F * 2 + M * 8) if epi else 0)
             b, by = bound_ms(nbytes, 2.0 * M * Kw * N, INT8_OPS_PER_S)
-            shapes.append({"shape": f"{name} M={M} K={K} N={N} G={G}",
-                           "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
-                           "bound_ms": b, "bound_by": by, "bytes": nbytes,
-                           "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 "
-                           f"{TOL_F32}·max|ref|, Σy² {TOL_SQ} rel; exact "
-                           f"dequant {TOL_BFP}·max", "errors": errs})
-            del x, kw, codes, scale, w_exact
+            shapes[p.route].append({
+                "shape": f"{name} M={M} K={K} N={N} G={G}", "route": p.route,
+                "plan": dataclasses.asdict(p), "ms": ms_k, "plain_ms": ms_p,
+                "library_ms": None, "bound_ms": b, "bound_by": by,
+                "bytes": nbytes, "bf16_dense_ms": ms_d,
+                "bf16_dense_route": fl.plan(M, K, F, glu,
+                                            torch.bfloat16).route,
+                "tol": INT4_TOL, "errors": errs})
+            del x, kw, codes, scale, w_exact, w
     return shapes
 
 
-def check_int4_matmul(torch, dev, timer, cfg, M=4):
-    """The int4 matmul at the lm head (K 4096, N 32000, M 4) against its
-    plain version and the exact-dequant oracle."""
-    from repro_torch.kernels import int4_matmul as im, ref
+def check_int4_matmul(torch, dev, timer, cfg):
+    """The int4 matmul at the lm head (K 4096, N 32000): M 4 (the main
+    path's batch) on the split-K stream and, for the record, M 2048 on the
+    tensor-core tile, in bf16 and fp32 activations, against the plain
+    version in the route's order and the exact-dequant oracle; timed
+    beside the plain version and the bf16 dense route at the same shape.
+    Returns the shape records by route."""
+    from repro_torch.kernels import fused_linear as fl, int4_matmul as im
+    from repro_torch.kernels import ref
     K, N, G = cfg.d_model, cfg.vocab_size, cfg.quant.group_size
     g = torch.Generator(device=dev).manual_seed(18)
-    codes, scale, w_exact = int4_weight(torch, dev, g, K, N, G)
-    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-    errs = {}
-    for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
-        out = im.int4_matmul_cuda(x.to(dt), codes, scale)
-        ro = ref.bfp_matmul_ref(x.to(dt), codes, scale)
-        eo = ref.int4_matmul_ref(x.to(dt), codes, scale)
-        torch.cuda.synchronize()
-        e, m = max_err(torch, out, ro)
-        require(e <= tol * m, f"int4_matmul {dt}: {e} > {tol}·{m}")
-        ee, em = max_err(torch, out, eo)
-        require(ee <= TOL_BFP * em, f"int4_matmul {dt}: {ee} from the "
-                f"exact dequant > {TOL_BFP}·{em}")
-        errs[str(dt).split(".")[-1]] = {
-            "max_abs_err": e, "max_ref": m, "exact_dequant_err": ee,
-            "exact_dequant_max": em}
-    ms_k = timer(lambda: im.int4_matmul_cuda(x, codes, scale))
-    ms_p = timer(lambda: ref.bfp_matmul_ref(x, codes, scale))
-    Kw, C = codes.shape[0], scale.shape[0]
-    nbytes = (M * K + M * N) * 2 + Kw * N + C * N * 4
-    b, by = bound_ms(nbytes, 2.0 * M * Kw * N, INT8_OPS_PER_S)
-    return [{"shape": f"lm_head M={M} K={K} N={N} G={G}", "ms": ms_k,
-             "plain_ms": ms_p, "library_ms": None, "bound_ms": b,
-             "bound_by": by, "bytes": nbytes,
-             "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 {TOL_F32}·max|ref|; "
-             f"exact dequant {TOL_BFP}·max", "errors": errs}]
+    codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
+    shapes = {"tc": [], "stream": []}
+    for M in (4, 2048):
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        errs = {}
+        for dt in (torch.bfloat16, torch.float32):
+            what = f"int4_matmul M={M} {dt}"
+            rec, p = int4_call(torch, x.to(dt), codes, scale, {}, what,
+                               matmul=True)
+            out = im.int4_matmul_cuda(x.to(dt), codes, scale)
+            eo = ref.int4_matmul_ref(x.to(dt), codes, scale)
+            torch.cuda.synchronize()
+            ee, em = max_err(torch, out, eo)
+            require(ee <= TOL_BFP * em, f"{what}: {ee} from the exact "
+                    f"dequant > {TOL_BFP}·{em}")
+            rec.update(exact_dequant_err=ee, exact_dequant_max=em)
+            errs[str(dt).split(".")[-1]] = rec
+            del out, eo
+        split = p.group_split or None
+        ms_k = timer(lambda: im.int4_matmul_cuda(x, codes, scale))
+        ms_p = timer(lambda: ref.bfp_matmul_ref(x, codes, scale, split))
+        ms_d = timer(lambda: fl.fused_linear_cuda(x, w))
+        Kw, C = codes.shape[0], scale.shape[0]
+        nbytes = (M * K + M * N) * 2 + Kw * N + C * N * 4
+        b, by = bound_ms(nbytes, 2.0 * M * Kw * N, INT8_OPS_PER_S)
+        shapes[p.route].append({
+            "shape": f"lm_head M={M} K={K} N={N} G={G}", "route": p.route,
+            "plan": dataclasses.asdict(p), "ms": ms_k, "plain_ms": ms_p,
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+            "bytes": nbytes, "bf16_dense_ms": ms_d,
+            "bf16_dense_route": fl.plan(M, K, N, False,
+                                        torch.bfloat16).route,
+            "tol": INT4_TOL, "errors": errs})
+        del x
+    return shapes
 
 
 def bf16_ulp(torch, x):
@@ -817,9 +945,8 @@ def check_ragged(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
-    from repro_torch.kernels import int4_matmul as im
     g = torch.Generator(device=dev).manual_seed(14)
-    worst, dense, flash = {}, {}, {}
+    worst, dense, flash, int4 = {}, {}, {}, {}
 
     def note(name, e, m, tol):
         require(e <= tol * m, f"ragged {name}: {e} > {tol}·{m}")
@@ -852,16 +979,20 @@ def check_ragged(torch, dev):
             note("fused_linear", r["max_abs_err"], r["max_ref"], tol)
             dense[f"M={M} K={K} F={F} {dname}"] = r
         for case in INT4_RAGGED:
-            note("fused_linear_int4", *ragged_int4(torch, dev, g, dt, *case),
-                 tol)
+            r = ragged_int4(torch, dev, g, dt, *case)
+            note("fused_linear_int4", r["max_abs_err"], r["max_ref"], tol)
+            int4[f"M={case[0]} K={case[1]} F={case[2]} G={case[4]} "
+                 f"{dname}"] = r
         for M, K, N, G, pow2 in ((1, 200, 33, 64, True),
                                  (17, 256, 130, 128, False),
                                  (3, 38, 7, 128, True)):
-            codes, scale, _ = int4_weight(torch, dev, g, K, N, G, pow2)
+            codes, scale, _, _ = int4_weight(torch, dev, g, K, N, G, pow2)
             x = bfp_ties(torch, dev, g, M, K, dt)
-            note("int4_matmul", *max_err(
-                torch, im.int4_matmul_cuda(x, codes, scale),
-                ref.bfp_matmul_ref(x, codes, scale)), tol)
+            r, _ = int4_call(torch, x, codes, scale, {}, f"ragged "
+                             f"int4_matmul M={M} K={K} N={N} {dname}",
+                             matmul=True)
+            note("int4_matmul", r["max_abs_err"], r["max_ref"], tol)
+            int4[f"matmul M={M} K={K} N={N} G={G} {dname}"] = r
         for case in FLASH_RAGGED:
             B, Tq, Tk, Hq, Hkv, dh, window, kind = case
             args = flash_ragged_inputs(torch, dev, g, dt, B, Tq, Tk, Hq, Hkv,
@@ -890,9 +1021,14 @@ def check_ragged(torch, dev):
     require(routes == {("bfloat16", "wgmma"), ("bfloat16", "splitkv"),
                        ("float32", "simt")},
             f"ragged flash cases took the routes {sorted(routes)}")
+    routes = {(k.split()[-1], r["route"]) for k, r in int4.items()}
+    require(routes == {(d, r) for d in ("bfloat16", "float32")
+                       for r in ("tc", "stream")},
+            f"ragged int4 cases took the routes {sorted(routes)}")
     return {"phase": "ragged", "max_err_over_max_ref": worst,
             "fused_linear": dense,
             "fused_linear_refusals": fused_linear_refusals(torch, dev),
+            "int4": int4, "int4_refusals": int4_refusals(torch, dev),
             "flash_attention": flash,
             "flash_attention_refusals": flash_refusals(torch, dev)}
 
@@ -1025,22 +1161,56 @@ def bfp_ties(torch, dev, g, M, K, dt):
 
 
 def ragged_int4(torch, dev, g, dt, M, K, F, glu, G, pow2, pro, epi):
-    """One int4 fused-linear call off the main shapes against its plain
-    version."""
-    from repro_torch.kernels import fused_linear as fl, ref
+    """One int4 fused-linear call off the main shapes on the route
+    ``plan_int4`` picks, against the plain version in the route's order
+    (``int4_call``)."""
     N = 2 * F if glu else F
-    codes, scale, _ = int4_weight(torch, dev, g, K, N, G, pow2)
+    codes, scale, _, _ = int4_weight(torch, dev, g, K, N, G, pow2)
     _, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
     x = bfp_ties(torch, dev, g, M, K, dt)
     if pro:
         kw["mean_sq"] = 0.5 + torch.rand((M,), generator=g, device=dev)
-    cast, rcast = _cast(torch, kw, dt)
-    out, sq = fl.fused_linear_int4_cuda(x, codes, scale, **cast)
-    ro, rsq = ref.fused_linear_ref(x, w_codes=codes, scale=scale, **rcast)
-    if epi:
-        require(((sq - rsq).abs() / rsq).max().item() <= TOL_SQ,
-                f"ragged fused_linear_int4 Σy² M={M} K={K} F={F}")
-    return max_err(torch, out, ro)
+    cast, _ = _cast(torch, kw, dt)
+    return int4_call(torch, x, codes, scale, cast, f"ragged "
+                     f"fused_linear_int4 M={M} K={K} F={F} G={G} {dt}")[0]
+
+
+def int4_refusals(torch, dev):
+    """The int4 C entries refuse a plan that disagrees with the source: a
+    tile, group split, split count or grid it has no instantiation of, or
+    one entry of mantissa, step or Σy² scratch short of what the grid
+    writes, returns cudaErrorInvalidValue and the wrapper raises, on both
+    routes."""
+    from repro_torch.kernels import fused_linear as fl
+    refused = {}
+    K, F, G = 256, 128, 128
+    codes = torch.zeros((K, F), dtype=torch.int8, device=dev)
+    scale = torch.ones((K // G, F), dtype=torch.float32, device=dev)
+    for M in (37, 4):
+        x = torch.zeros((M, K), dtype=torch.bfloat16, device=dev)
+        p = fl.plan_int4(M, K, F, G, K // G, False, torch.bfloat16)
+        rep = dataclasses.replace
+        bad = {"tile_m": rep(p, tile_m=p.tile_m // 2),
+               "tile_n": rep(p, tile_n=p.tile_n // 2),
+               "grid": rep(p, grid=(p.grid[0] + 1, p.grid[1])),
+               "sq_part": rep(p, sq_part=p.sq_part - 1)}
+        if p.route == "tc":
+            bad.update(group_split=rep(p, group_split=1),
+                       mant=rep(p, mant=p.mant - 1),
+                       steps=rep(p, steps=p.steps - 1))
+        else:
+            bad.update(group_split=rep(p, group_split=p.group_split + 1),
+                       splits=rep(p, splits=p.splits + 1))
+        for what, q in bad.items():
+            try:
+                fl.run_plan_int4(q, x, codes, scale, emit_sq=True)
+            except RuntimeError as e:
+                refused[f"{p.route} {what}"] = str(e)
+                continue
+            raise RuntimeError(f"int4 {p.route}: a plan with {what} off "
+                               "the source was not refused")
+    torch.cuda.synchronize()
+    return refused
 
 
 def ragged_paged(torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty,
@@ -1154,6 +1324,7 @@ def parity(torch, np, dev, int4=False):
     several groups; the 4096-element floor lets every smoke linear in)."""
     from repro_torch.configs import get_config
     from repro_torch.core import routing
+    from repro_torch.kernels import ops
     from repro_torch.models.model import LanguageModel, init_params
     from repro_torch.quant import quantize_params
     from repro_torch.serve.engine import ServeEngine
@@ -1198,7 +1369,12 @@ def parity(torch, np, dev, int4=False):
                 "greedy tokens differ between cpu and cuda")
     prompts = rng.integers(0, cfg.vocab_size, (2, 24))
     oc = ServeEngine(m_cpu, max_len=32).generate(prompts, 8)
+    ops.reset_kernel_launches()
     og = ServeEngine(m_gpu, max_len=32).generate(prompts, 8)
+    launches = ops.kernel_launches()
+    expected = expected_launches(m_gpu, [prompts.shape], 8, prompts.shape[0])
+    require(launches == expected, f"parity launches {launches} != expected "
+            f"{expected}")
     require(np.array_equal(oc["tokens"], og["tokens"]),
             "ServeEngine tokens differ between cpu and cuda")
     require(oc["stats"].kv_saved_fraction == og["stats"].kv_saved_fraction,
@@ -1242,7 +1418,7 @@ def parity(torch, np, dev, int4=False):
             "dtype": cfg.dtype, "int4_weights": int4,
             "gates_identical": True, "logits_max_rel_diff": worst,
             "tol": TOL_LOGITS, "greedy_tokens_identical": True,
-            "serve_tokens_identical": True,
+            "serve_tokens_identical": True, "serve_launches": launches,
             "min_gate_margin": lock_margin,
             "gate_ones_frac": gates.mean().item(),
             "kv_saved_fraction": og["stats"].kv_saved_fraction,
@@ -1292,7 +1468,10 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     by route too, as ``fa.plan`` picks it from the packed rows G·T of one
     (batch, kv-head) and the dtype: bf16 prefills above SPLITKV_MAX_R rows
     on the tensor-core tile, decode steps (G rows) and shorter prefills on
-    the split-KV walk, fp32 on the SIMT kernel.  A Mamba stack: one
+    the split-KV walk, fp32 on the SIMT kernel.  The int4 fused linears
+    and the lm head by route too, as ``fl.plan_int4`` picks it from a
+    forward's rows (the lm head's: its batch): above INT4_STREAM_MAX_M on
+    the tensor-core tile, else on the split-K stream.  A Mamba stack: one
     router_stats per layer and forward (no block emits the Σy² carry), one
     SSD scan per layer and prefill (decode steps run the plain
     recurrence), nothing else."""
@@ -1305,6 +1484,8 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     routes = {f"fused_linear_{r}": 0 for r in ("wgmma", "splitk", "simt")}
     routes.update({f"flash_attention_{r}": 0
                    for r in ("wgmma", "splitkv", "simt")})
+    routes.update({f"{k}_{r}": 0 for k in ("fused_linear_int4", "int4_matmul")
+                   for r in ("tc", "stream")})
     if transformer.is_ssm_stack(cfg):
         return {"router_stats": L * fwd, "fused_linear": 0,
                 "fused_linear_int4": 0, "int4_matmul": 0,
@@ -1316,8 +1497,19 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     G = cfg.num_heads // Hkv
     forwards = [(b * t, b, G * t, t) for b, t in prefills]
     forwards += [(step_rows, step_rows, G, MAX_LEN)] * n_st
+    if int4:
+        lm = model.params()["lm_head"]
+        C = lm["scale"].shape[0]
+        Kw, V = lm["w_int"].shape
+
+        def int4_route(rows):
+            return fl.plan_int4(rows, D, V, Kw // C, C, False, dt).route
+
     for i, (rows, b, R, Tk) in enumerate(forwards):
-        if not int4:
+        if int4:
+            routes["fused_linear_int4_" + int4_route(rows)] += 4 * L
+            routes["int4_matmul_" + int4_route(b)] += 1
+        else:
             routes["fused_linear_" + fl.plan(rows, D, D, False,
                                              dt).route] += 4 * L
         if i < n_pf or not paged:
@@ -1765,6 +1957,7 @@ def _mamba_cpu(torch, np, cfg, seed):
     its inputs, run on the cpu with every router margin recorded.  Returns
     (params, inputs, cpu results, smallest margin)."""
     from repro_torch.core import routing
+    from repro_torch.kernels import ops
     from repro_torch.models.model import LanguageModel, init_params
     params = routing.neutral_router_bias(
         init_params(cfg, torch.Generator().manual_seed(seed), "cpu"))
@@ -1945,17 +2138,22 @@ def main() -> int:
     timer = Timer(torch, dev)
     dense = check_fused_linear(torch, dev, timer, cfg)
     flash = check_flash(torch, dev, timer, cfg)
+    int4_lin = check_fused_linear_int4(torch, dev, timer, cfg)
+    lm_head = check_int4_matmul(torch, dev, timer, cfg)
     per_kernel = {
         "router_stats": check_router(torch, dev, timer, cfg),
         "fused_linear_wgmma": dense["wgmma"],
         "fused_linear_splitk": dense["splitk"],
-        "fused_linear_int4": check_fused_linear_int4(torch, dev, timer, cfg),
-        "int4_matmul": check_int4_matmul(torch, dev, timer, cfg),
+        "fused_linear_int4_tc": int4_lin["tc"],
+        "fused_linear_int4_stream": int4_lin["stream"],
+        "int4_matmul_stream": lm_head["stream"],
         "flash_attention_wgmma": flash["wgmma"],
         "flash_attention_splitkv": flash["splitkv"],
         "paged_attention": check_paged(torch, np, dev, timer, cfg),
         "ssd_scan": check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))}
-    emit({"phase": "kernels", "shapes": per_kernel})
+    # the lm head's tile (M 2048) is off the main path: recorded, not listed
+    emit({"phase": "kernels", "shapes": per_kernel,
+          "int4_matmul_tc": lm_head["tc"]})
     emit(check_ragged(torch, dev))
 
     emit(parity(torch, np, dev))

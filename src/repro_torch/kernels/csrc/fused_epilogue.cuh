@@ -59,8 +59,23 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// The same epilogue on a warpgroup's wgmma accumulator (fused_linear.cu,
-// route 1), bf16: one m64n128 fragment, element i of lane l in warp w of
+// Two adjacent outputs of type T as fp32, and back (rounded to nearest).
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// The same epilogue on a warpgroup's wgmma accumulator (fused_linear.cu's
+// tensor-core tile in bf16, fused_linear_int4.cu's in bf16 or fp32): one
+// m64n128 fragment, element i of lane l in warp w of
 // the warpgroup at row 16 w + l / 4 + 8 ((i / 2) % 2) and column
 // 8 (i / 4) + 2 (l % 4) + i % 2.  Without GLU the 128 columns are output
 // columns; with GLU columns [0, 64) are the gate and [64, 128) the up
@@ -69,25 +84,26 @@ __device__ __forceinline__ void store_tile(
 // the fp32 accumulator here (the kernel fed the tensor cores x · gamma).
 //
 // The warpgroup's 64 x NO tile (rows m0.., output columns f0..; NO = 128,
-// or 64 with GLU) passes through `stage` (64 rows of 2·NO + 16 bytes: the
-// pad keeps the fragment's 8 rows on distinct banks), so the residual
-// comes in and the output leaves as whole 16-byte chunks (F % 8 == 0 and
-// the residual 16-byte aligned).  Σy²: a row's values lie in the 4 lanes
+// or 64 with GLU) passes through `stage` (64 rows of NO·sizeof(T) + 16
+// bytes: the pad keeps the fragment's 8 rows on distinct banks), so the
+// residual comes in and the output leaves as whole 16-byte chunks (F a
+// multiple of 16 / sizeof(T) and the residual 16-byte aligned).  Σy²: a row's values lie in the 4 lanes
 // of one quad; each lane adds its own in column order, then two shuffles
 // add the quad in a fixed order and the quad's first lane writes the
 // row's partial of tile `tile`.  No atomics: a row never spans two warps.
 // `bar` is a named barrier of the warpgroup's 128 threads.
-template <bool GLU>
+template <bool GLU, typename T>
 __device__ __forceinline__ void store_frag(
     const float (&acc)[64], int m0, int f0, int M, int F, int act,
     const float* __restrict__ mean_sq, float eps,
-    const __nv_bfloat16* __restrict__ residual,
-    const float* __restrict__ gate_mul, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ sq_part, int tile, uint8_t* stage, int bar) {
+    const T* __restrict__ residual, const float* __restrict__ gate_mul,
+    T* __restrict__ out, float* __restrict__ sq_part, int tile,
+    uint8_t* stage, int bar) {
   constexpr int NJ = GLU ? 8 : 16;          // column pairs of a lane per row
   constexpr int NO = 8 * NJ;                // output columns of the tile
-  constexpr int CPR = NO / 8;               // 16-byte chunks per row
-  constexpr int ROW = 2 * NO + 16;          // staged row, bytes
+  constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte chunk
+  constexpr int CPR = NO / EPC;             // 16-byte chunks per row
+  constexpr int ROW = NO * sizeof(T) + 16;  // staged row, bytes
   constexpr int NC = 64 * CPR / 128;        // chunks per thread
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   auto sync = [&] {
@@ -97,7 +113,7 @@ __device__ __forceinline__ void store_frag(
     uint4 v[NC];
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
-      const int id = t + 128 * i, r = id / CPR, c = 8 * (id % CPR);
+      const int id = t + 128 * i, r = id / CPR, c = EPC * (id % CPR);
       v[i] = (m0 + r < M && f0 + c < F)
                  ? __ldg(reinterpret_cast<const uint4*>(
                        residual + static_cast<long long>(m0 + r) * F + f0 + c))
@@ -122,8 +138,7 @@ __device__ __forceinline__ void store_frag(
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int lc = 8 * j + 2 * (lane % 4);
-      __nv_bfloat162* p =
-          reinterpret_cast<__nv_bfloat162*>(stage + lr * ROW + 2 * lc);
+      T* p = reinterpret_cast<T*>(stage + lr * ROW + sizeof(T) * lc);
       float y[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -133,7 +148,7 @@ __device__ __forceinline__ void store_frag(
         if (gate_mul != nullptr) y[e] *= gm;
       }
       if (residual != nullptr) {
-        const float2 r = __bfloat1622float2(*p);
+        const float2 r = load2(p);
         y[0] += r.x;
         y[1] += r.y;
       }
@@ -141,7 +156,7 @@ __device__ __forceinline__ void store_frag(
         rsq = fmaf(y[0], y[0], rsq);
         rsq = fmaf(y[1], y[1], rsq);
       }
-      *p = __floats2bfloat162_rn(y[0], y[1]);
+      store2(p, y[0], y[1]);
     }
     if (sq_part != nullptr) {
       rsq += __shfl_xor_sync(0xffffffffu, rsq, 1);
@@ -153,7 +168,7 @@ __device__ __forceinline__ void store_frag(
   sync();
 #pragma unroll
   for (int i = 0; i < NC; ++i) {
-    const int id = t + 128 * i, r = id / CPR, c = 8 * (id % CPR);
+    const int id = t + 128 * i, r = id / CPR, c = EPC * (id % CPR);
     if (m0 + r < M && f0 + c < F)
       *reinterpret_cast<uint4*>(out + static_cast<long long>(m0 + r) * F +
                                 f0 + c) =

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (fused_linear.cu, flash_attention.cu): mbarriers, TMA tile loads and
+// (fused_linear.cu, fused_linear_int4.cu, flash_attention.cu): mbarriers, TMA tile loads and
 // their tensor maps, the wgmma shared-memory descriptor and instructions,
 // and the fences around them.  Everything is sm_90a.
 #pragma once
@@ -65,6 +65,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
@@ -96,20 +107,28 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 map of `rank` dimensions (dims[0] contiguous; strides in bytes of
-// dims 1..rank-1), boxes of box[] elements, 128-byte swizzle, zero fill
-// outside the tensor.
-bool tensor_map_nd(CUtensorMap* map, const void* ptr, int rank,
-                   const cuuint64_t* dims, const cuuint64_t* strides,
-                   const cuuint32_t* box) {
+// A map of `rank` dimensions of element type `type` (dims[0] contiguous;
+// strides in bytes of dims 1..rank-1), boxes of box[] elements, with the
+// given swizzle, zero fill outside the tensor.
+bool tensor_map_typed(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* ptr, int rank, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same for bf16 in the 128-byte swizzle.
+bool tensor_map_nd(CUtensorMap* map, const void* ptr, int rank,
+                   const cuuint64_t* dims, const cuuint64_t* strides,
+                   const cuuint32_t* box) {
+  return tensor_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank,
+                          dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A 2-D bf16 map of a row-major [outer, inner] matrix, boxes of
@@ -250,6 +269,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "r"(accumulate));
 }
 
+// D[64 x 128] (+)= A[64 x 32] · B[32 x 128] in int8 with exact int32
+// sums, both operands K-major in shared memory (the only layout wgmma
+// takes for 8-bit types: there is no transpose bit).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db,
+                                                    uint32_t accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // Pins registers at this point of the program: wgmma writes the
 // accumulators and reads A registers asynchronously, behind the
 // compiler's back.
@@ -257,6 +310,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {

@@ -22,15 +22,19 @@ from repro_torch.kernels import ssd_scan as ss
 
 
 def kernel_launches() -> dict:
-    """Launch counts of every kernel wrapper, by kernel name; the dense
-    fused linear and flash attention also by the route each call took
-    (``fl.plan``, ``fa.plan``)."""
+    """Launch counts of every kernel wrapper, by kernel name; the fused
+    linear (dense and int4), the int4 matmul and flash attention also by
+    the route each call took (``fl.plan``, ``fl.plan_int4``, ``fa.plan``)."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
             "fused_linear_wgmma": fl.launches_wgmma,
             "fused_linear_splitk": fl.launches_splitk,
             "fused_linear_simt": fl.launches_simt,
             "fused_linear_int4": fl.launches_int4,
-            "int4_matmul": im.launches, "flash_attention": fa.launches,
+            "fused_linear_int4_tc": fl.launches_int4_tc,
+            "fused_linear_int4_stream": fl.launches_int4_stream,
+            "int4_matmul": im.launches, "int4_matmul_tc": im.launches_tc,
+            "int4_matmul_stream": im.launches_stream,
+            "flash_attention": fa.launches,
             "flash_attention_wgmma": fa.launches_wgmma,
             "flash_attention_splitkv": fa.launches_splitkv,
             "flash_attention_simt": fa.launches_simt,
@@ -40,6 +44,8 @@ def kernel_launches() -> dict:
 def reset_kernel_launches() -> None:
     frr.launches = fl.launches = fl.launches_int4 = im.launches = 0
     fl.launches_wgmma = fl.launches_splitk = fl.launches_simt = 0
+    fl.launches_int4_tc = fl.launches_int4_stream = 0
+    im.launches_tc = im.launches_stream = 0
     fa.launches = pa.launches = ss.launches = 0
     fa.launches_wgmma = fa.launches_splitkv = fa.launches_simt = 0
 

@@ -46,14 +46,19 @@ def bfp_quantize_rows(x: torch.Tensor):
 
 
 def bfp_matmul_f32(xf: torch.Tensor, w_codes: torch.Tensor,
-                   scale: torch.Tensor) -> torch.Tensor:
+                   scale: torch.Tensor,
+                   split_groups: Optional[int] = None) -> torch.Tensor:
     """fp32-in/fp32-out BFP product: per (row, K-group) a shared exponent
     and int8 mantissas, exact integer products with the int4 codes, one
-    reconstruction ``· 2^(e-7) · scale`` per group, groups summed in
-    ascending order (as the kernels do).  ``w_codes`` [Kw, N] may be
-    group-padded (Kw >= K); xf [M, K] is zero-padded to match.  The integer
-    sums run as fp32 matmuls, exact because |Σ| <= G·128·8 < 2^24 (in TF32
-    too: mantissas and codes fit its 10 bits)."""
+    reconstruction ``· 2^(e-7) · scale`` per group.  ``w_codes`` [Kw, N] may
+    be group-padded (Kw >= K); xf [M, K] is zero-padded to match.  The
+    integer sums run as fp32 matmuls, exact because |Σ| <= G·128·8 < 2^24
+    (in TF32 too: mantissas and codes fit its 10 bits).
+
+    The group terms are summed in ascending order (the tensor-core tile's
+    order); with ``split_groups`` = s, the groups are summed in runs of s
+    (each from zero, ascending) and the runs added in ascending order, the
+    order of the split-K stream whose plan splits K every s groups."""
     M, K = xf.shape
     Kw, N = w_codes.shape
     C = scale.shape[0]
@@ -63,10 +68,26 @@ def bfp_matmul_f32(xf: torch.Tensor, w_codes: torch.Tensor,
     mant, pe = bfp_quantize_rows(xf.reshape(M, C, G))
     mant, step = mant.float(), pe[..., 0] * (2.0 ** -MBITS)   # [M, C]
     wg = w_codes.reshape(C, G, N).float()
+    run = C if split_groups is None else split_groups
     y = torch.zeros((M, N), dtype=torch.float32, device=xf.device)
-    for c in range(C):
-        y = y + (mant[:, c] @ wg[c]) * step[:, c, None] * scale[c].float()
+    for c0 in range(0, C, run):
+        part = torch.zeros_like(y)
+        for c in range(c0, min(C, c0 + run)):
+            part = part + ((mant[:, c] @ wg[c]) * step[:, c, None]
+                           * scale[c].float())
+        y = part if split_groups is None else y + part
     return y
+
+
+def bfp_operand(xf: torch.Tensor, G: int, C: int, Gq: int):
+    """The tensor-core tile's BFP operand of xf [M, K <= G·C] (fp32, the
+    prologue applied): mantissas int8 [M, C·Gq], each group's G values
+    followed by Gq - G zeros, and the steps 2^(e-7) fp32 [C, M]."""
+    M, K = xf.shape
+    xf = F.pad(xf, (0, G * C - K))
+    mant, pe = bfp_quantize_rows(xf.reshape(M, C, G))
+    mant = F.pad(mant, (0, Gq - G)).reshape(M, C * Gq)
+    return mant, (pe[..., 0] * (2.0 ** -MBITS)).t().contiguous()
 
 
 def int4_matmul_ref(x: torch.Tensor, w_codes: torch.Tensor,
@@ -81,10 +102,12 @@ def int4_matmul_ref(x: torch.Tensor, w_codes: torch.Tensor,
 
 
 def bfp_matmul_ref(x: torch.Tensor, w_codes: torch.Tensor,
-                   scale: torch.Tensor) -> torch.Tensor:
+                   scale: torch.Tensor,
+                   split_groups: Optional[int] = None) -> torch.Tensor:
     """The int4 matmul kernel's plain version: the BFP product in x's
-    dtype."""
-    return bfp_matmul_f32(x.float(), w_codes, scale).to(x.dtype)
+    dtype (``split_groups``: as in ``bfp_matmul_f32``)."""
+    return bfp_matmul_f32(x.float(), w_codes, scale,
+                          split_groups).to(x.dtype)
 
 
 def router_stats_ref(x: torch.Tensor, w: torch.Tensor):
@@ -106,10 +129,12 @@ def rms_prologue(x: torch.Tensor, mean_sq: torch.Tensor, gamma: torch.Tensor,
 def fused_linear_ref(x, w=None, *, w_codes=None, scale=None, mean_sq=None,
                      gamma=None, eps: float = 1e-5, glu: bool = False,
                      act_name=None, residual=None, gate_mul=None,
-                     emit_sq: bool = False):
+                     emit_sq: bool = False,
+                     split_groups: Optional[int] = None):
     """The fused linear pipeline: RMSNorm prologue from the injected
     ``mean_sq``, the matmul (exact fp32 for a dense ``w``, the BFP product
-    ``bfp_matmul_f32`` for int4 ``w_codes``/``scale``), GLU / activation,
+    ``bfp_matmul_f32`` for int4 ``w_codes``/``scale``, its groups summed in
+    runs of ``split_groups`` when given), GLU / activation,
     gate multiplier, residual add, Σy² of the written rows (fp32,
     pre-cast).  x: [M, K]; w or w_codes: [K' >= K, N] -> (out [M, F] in
     x's dtype, Σy² [M] f32 or None)."""
@@ -117,7 +142,7 @@ def fused_linear_ref(x, w=None, *, w_codes=None, scale=None, mean_sq=None,
     if mean_sq is not None:
         xf = rms_prologue(xf, mean_sq, gamma, eps)
     if w_codes is not None:
-        y = bfp_matmul_f32(xf, w_codes, scale)
+        y = bfp_matmul_f32(xf, w_codes, scale, split_groups)
     else:
         y = xf @ w.float()
     if glu:
