@@ -29,11 +29,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 against the exact dequantized weights, timed beside the
                 bf16 dense route at the same shape; paged
                 attention in bf16, int8 and int4 pages over a 512-token
-                history of a keep-0.5 gate log); then ragged shapes
+                history of a keep-0.5 gate log, bf16 q on the cluster
+                split walk (launched twice bit for bit; timed beside the
+                SIMT kernel on the same bf16 inputs and beside flash's
+                split-KV walk over the same admitted rows laid out
+                contiguously, the yardstick), fp32 q on the SIMT kernel);
+                then ragged shapes
                 off the tile multiples, empty paged histories, padded
                 K-groups, odd N, non-pow2 scales and .5 ties, flash pad rows
-                and splits without a valid key included, each flash and
-                int4 case on the route its plan picks, and the C entries'
+                and splits without a valid key included, paged G 8, 16 and
+                32, head groups that do not divide Hkv, fewer admitted
+                entries than blocks, all of them in one block's slice, two
+                windows and rounds of listed rows, each flash, int4 and
+                paged case on the route its plan picks, and the C entries'
                 refusals of
                 plans off their source (not timed); the SSD chunk scan at
                 the mamba2-2.7b shapes (x [4, 512, 80, 64], B/C [4, 512, 1,
@@ -60,12 +68,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 and int4 pages; then 4 requests of 16-token prompts in
                 paged bf16 pages, in the default pool and in one too small
                 for all four (it must preempt; tokens unchanged); exact
-                launch counts per prefill and per decode step, page
-                conservation, finite logits;
+                launch counts per prefill and per decode step (paged
+                attention per route: its bf16 steps on the split walk),
+                page conservation, finite logits;
   7. witness  — the same weights upcast to fp32: the continuous engine in the
-                dense pool and in fp32 pages gives identical tokens on 4
-                phase-6 requests; teacher-forced dense and paged decode in
-                fp32 agree (gates, logits), and bf16 paged flips no more
+                dense pool and in fp32 pages (paged attention on the SIMT
+                kernel) gives identical tokens on 4 phase-6 requests;
+                teacher-forced dense and paged decode in fp32 agree
+                (gates, logits), and bf16 paged flips no more
                 gates against fp32 than bf16 dense does (within 2x + 1 %);
                 the fp32 copy is freed after it;
   8. int4     — the phase-5 weights quantized on the card by the port's
@@ -92,13 +102,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 forward, no attention or fused linear), finite logits,
                 weight bytes, peak memory; a paged mamba engine must raise.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8 and 10, each counted from 0; the dense fused linear
+runs of phases 5, 6, 8 and 10, each counted from 0, and for the paged
+SIMT route, which only fp32 serving takes, over phase 7's fp32 paged run,
+counted from 0 too; the dense fused linear
 as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
 the int4 fused linear as ``fused_linear_int4_tc`` and
 ``fused_linear_int4_stream``, the int4 matmul as ``int4_matmul_stream``
 (its tile is off the main path), and flash attention as
-``flash_attention_wgmma`` and ``flash_attention_splitkv``, by the route
-counters), and last the contract
+``flash_attention_wgmma`` and ``flash_attention_splitkv``, and paged
+attention as ``paged_attention_split`` and ``paged_attention_simt``, by the
+route counters), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -126,6 +139,9 @@ FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (the SSD scan)
 TOL_F32 = 1e-4        # x max|ref|: fp32 sums in another order over K ≤ 11008
 TOL_BF16 = 2.0 ** -7  # x max|ref|: two bf16 ulps at the maximum
 TOL_SQ = 1e-5         # relative, Σy² and mean_sq (fp32 outputs)
+TOL_SQ_EXACT = 2.0 ** -8  # relative, the tile's Σy² against the exact plain
+#                       version: its operand is bf16(x · gamma), rounded once
+#                       (9x the worst measured, 4.5e-4)
 TOL_LOGITS = 1e-4     # x max|logits|, phase 4 (fp32 model)
 TOL_BFP = 0.05        # x max|oracle|: int4 kernels against the exact
 #                       dequant (8-bit activation mantissas per group)
@@ -150,7 +166,8 @@ TPU_KERNELS = {
     "int4_matmul_stream": "src/repro/kernels/int4_matmul.py:66",
     "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:74",
     "flash_attention_splitkv": "src/repro/kernels/flash_attention.py:74",
-    "paged_attention": "src/repro/kernels/paged_attention.py:99",
+    "paged_attention_split": "src/repro/kernels/paged_attention.py:99",
+    "paged_attention_simt": "src/repro/kernels/paged_attention.py:99",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
 }
 SOURCES = {
@@ -166,7 +183,10 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_splitkv":
         "src/repro_torch/kernels/csrc/flash_attention.cu",
-    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_attention_split":
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "paged_attention_simt":
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 
@@ -322,7 +342,7 @@ def fused_linear_call(torch, x, w, kw, what):
     out within tol·max|ref| (TOL_BF16 in bf16, TOL_F32 in fp32); Σy² within
     TOL_SQ (relative) of the plain version on the operand the route feeds
     (the tile's bf16(x · gamma); exact on the split-K stream and the SIMT
-    kernel), its error against the exact plain version reported; the
+    kernel) and within TOL_SQ_EXACT of the exact plain version; the
     route ``plan`` picks and only its counter moved; in bf16 a second
     launch on the same inputs bit for bit.  Returns the error record."""
     from repro_torch.kernels import fused_linear as fl, ops, ref
@@ -350,7 +370,10 @@ def fused_linear_call(torch, x, w, kw, what):
         sr = ((sq - msq).abs() / msq.abs()).max().item()
         require(sr <= TOL_SQ, f"{what}: Σy² rel err {sr} > {TOL_SQ}")
         rec["sq_rel_err"] = sr
-        rec["sq_rel_err_exact"] = ((sq - rsq).abs() / rsq.abs()).max().item()
+        se = ((sq - rsq).abs() / rsq.abs()).max().item()
+        require(se <= TOL_SQ_EXACT, f"{what}: Σy² rel err {se} against the "
+                f"exact plain version > {TOL_SQ_EXACT}")
+        rec["sq_rel_err_exact"] = se
     if x.dtype == torch.bfloat16:
         out2, sq2 = fl.fused_linear_cuda(x, w, **kw)
         require(torch.equal(out, out2) and (sq is None or torch.equal(
@@ -752,6 +775,49 @@ def check_flash(torch, dev, timer, cfg):
     return shapes
 
 
+def paged_call(torch, a, qpos, kw, kd, scale, what):
+    """One paged-attention call on its route against the plain version:
+    out within tol·max|ref| (TOL_BF16 for bf16 q, TOL_F32 for fp32 q); the
+    route ``plan`` picks and only its counter moved; for bf16 q a second
+    launch on the same inputs bit for bit.  Returns the error record."""
+    from repro_torch.kernels import ops, paged_attention as pa, ref
+    q, kp, _, bt, eff = a[:5]
+    bf = q.dtype == torch.bfloat16
+    tol = TOL_BF16 if bf else TOL_F32
+    route = pa.plan(q.shape[0], kp.shape[2], q.shape[2] // kp.shape[2],
+                    q.shape[3], eff.shape[1], kd, q.dtype).route
+    before = ops.kernel_launches()
+    out = pa.paged_attention_cuda(*a, qpos, scale=scale, kv_dtype=kd, **kw)
+    after = ops.kernel_launches()
+    moved = {r for r in ("split", "simt") if after[f"paged_attention_{r}"]
+             != before[f"paged_attention_{r}"]}
+    require(moved == {route} and after[f"paged_attention_{route}"]
+            == before[f"paged_attention_{route}"] + 1,
+            f"{what}: routes {moved}, want {route}")
+    ro = ref.paged_attention_ref(*a, q_positions=qpos, softmax_scale=scale,
+                                 kv_dtype=kd, **kw)
+    torch.cuda.synchronize()
+    e, m = max_err(torch, out, ro)
+    require(e <= tol * m, f"{what}: {e} > {tol}·{m}")
+    rec = {"route": route, "max_abs_err": e, "max_ref": m}
+    if bf:
+        out2 = pa.paged_attention_cuda(*a, qpos, scale=scale, kv_dtype=kd,
+                                       **kw)
+        require(torch.equal(out, out2), f"{what}: a second launch differs")
+        rec["repeat_bit_identical"] = True
+    return rec
+
+
+def paged_bytes(kd, q_bytes, rows, B, Hq, Hkv, dh, J, ps):
+    """Bytes a paged call must move: the admitted rows' payload (and fp32
+    scales) for every kv-head, the in-flight tokens (q's type), the eff_pos row
+    and block table, q in and out, q_positions."""
+    from repro_torch.kernels import paged_attention as pa
+    row = pa.row_bytes(kd, dh) + (4 if kd else 0)
+    return (rows * Hkv * 2 * row + B * Hkv * dh * 2 * q_bytes + B * J * ps * 4
+            + B * J * 4 + 2 * B * Hq * dh * q_bytes + B * 4)
+
+
 def paged_history(torch, np, dev, cfg, kv_dtypes, B=4, T=512, ps=16,
                   J=1024, layer=16, keep=0.5):
     """B slots' T-token entry streams in one store per payload type, packed
@@ -792,8 +858,15 @@ def check_paged(torch, np, dev, timer, cfg, B=4, T=512, ps=16, J=1024,
                 layer=16):
     """Paged decode attention at the full-width decode shape: B 4, 32 heads,
     dh 128, page 16, a 1024-page walk over 512-token histories, in bf16,
-    int8 and int4 pages."""
+    int8 and int4 pages: bf16 q on the split walk (timed; beside it the
+    SIMT kernel on the same bf16 inputs, the route bf16 decode took before
+    the split walk, and the dense pool's split-KV walk over the same
+    admitted rows laid out contiguously, the yardstick), fp32 q on the
+    SIMT kernel (int8 and int4 pages; timed).  Returns the shape records
+    by route."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa, ref
+    from repro_torch.kvcache import paged
     Hq, dh, Hkv = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
     kinds = (None, "int8", "int4")
     stores, bt, eff, fill = paged_history(torch, np, dev, cfg, kinds, B=B,
@@ -808,47 +881,68 @@ def check_paged(torch, np, dev, timer, cfg, B=4, T=512, ps=16, J=1024,
     hist_rows = int((eff <= T).sum().item())
     require(hist_rows == B * T, f"layer {layer} admits {hist_rows} entries, "
             f"not one per token ({B * T})")
-    shapes = []
+    # the yardstick: the admitted bf16 rows gathered in order, then the
+    # in-flight token, as the dense pool holds them (kv_len T + 1)
+    st = stores[None]
+    rows = paged.gather_view(st, bt)          # [B, J·ps, ...]
+    order = torch.argsort(torch.where(eff <= T, eff, T + 1), dim=1,
+                          stable=True)[:, :T]
+    idx = order[..., None, None].expand(B, T, Hkv, dh)
+    kd_ = torch.cat([rows["k"].gather(1, idx), kt], 1).contiguous()
+    vd_ = torch.cat([rows["v"].gather(1, idx), vt], 1).contiguous()
+    kvl = torch.full((B,), T + 1, dtype=torch.int32, device=dev)
+    ms_y = timer(lambda: fa.flash_attention_cuda(q, kd_, vd_, qpos, kvl,
+                                                 scale=scale))
+    y_route = fa.plan(B * Hkv, Hq // Hkv, T + 1, dh, q.dtype).route
+    del rows, kd_, vd_, idx
+    shapes = {"split": [], "simt": []}
     for kd in kinds:
         st = stores[kd]
         kw = {} if kd is None else {"k_scales": st["k_scales"],
                                     "v_scales": st["v_scales"]}
         pages = (st["k_pages"], st["v_pages"], bt, eff)
-        errs = {}
-        for dt, tol in ((bf, TOL_BF16), (torch.float32, TOL_F32)):
-            if kd is None and dt != bf:
-                continue            # native pages are bf16: q must match
-            a = (q.to(dt), *pages, kt.to(dt), vt.to(dt))
-            out = pa.paged_attention_cuda(*a, qpos, scale=scale,
-                                          kv_dtype=kd, **kw)
-            ro = ref.paged_attention_ref(*a, q_positions=qpos,
-                                         softmax_scale=scale, kv_dtype=kd,
-                                         **kw)
-            torch.cuda.synchronize()
-            e, m = max_err(torch, out, ro)
-            require(e <= tol * m, f"paged {kd} {dt}: {e} > {tol}·{m}")
-            errs[str(dt).split(".")[-1]] = {"max_abs_err": e, "max_ref": m}
-            del out, ro
+        label = f"B={B} H={Hq} dh={dh} ps={ps} J={J} T={T} layer={layer}"
         a = (q, *pages, kt, vt)
+        p = pa.plan(B, Hkv, Hq // Hkv, dh, J * ps, kd, q.dtype)
+        simt_bf16 = pa.plan(B, Hkv, Hq // Hkv, dh, J * ps, kd, torch.float32)
+        err = paged_call(torch, a, qpos, kw, kd, scale,
+                         f"paged {kd or 'bf16'} bf16")
         ms_k = timer(lambda: pa.paged_attention_cuda(
             *a, qpos, scale=scale, kv_dtype=kd, **kw))
+        ms_s = timer(lambda: pa.run_plan(simt_bf16, *a, qpos, scale=scale,
+                                         kv_dtype=kd, **kw))
         ms_p = timer(lambda: ref.paged_attention_ref(
             *a, q_positions=qpos, softmax_scale=scale, kv_dtype=kd, **kw))
-        row = {None: 2 * dh, "int8": dh, "int4": dh // 2}[kd] + (
-            4 if kd else 0)                     # payload + f32 scale
-        rows = hist_rows + B                    # + the in-flight tokens
-        nbytes = (hist_rows * Hkv * 2 * row + B * Hkv * dh * 2 * 2
-                  + B * J * ps * 4 + B * J * 4 + 2 * B * Hq * dh * 2 + B * 4)
-        b, by = bound_ms(nbytes, 4.0 * rows * Hq * dh)
-        shapes.append({
-            "shape": f"paged {kd or 'bf16'} B={B} H={Hq} dh={dh} ps={ps} "
-                     f"J={J} T={T} layer={layer}",
-            "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
-            "bound_ms": b, "bound_by": by, "bytes": nbytes,
-            "admitted_rows": rows, "entries_walked": B * J * ps,
-            "fill": fill, "tpu_walk_bytes": B * J * ps * Hkv * 2 * row,
-            "tol": f"bf16 {TOL_BF16}·max|ref|, fp32 {TOL_F32}·max|ref|",
-            "errors": errs})
+        nbytes = paged_bytes(kd, 2, hist_rows, B, Hq, Hkv, dh, J, ps)
+        b, by = bound_ms(nbytes, 4.0 * (hist_rows + B) * Hq * dh)
+        shapes["split"].append({
+            "shape": f"paged {kd or 'bf16'} pages, bf16 q, {label}",
+            "plan": dataclasses.asdict(p), "ms": ms_k, "plain_ms": ms_p,
+            "library_ms": None, "bound_ms": b, "bound_by": by,
+            "bytes": nbytes, "simt_bf16_ms": ms_s,
+            "yardstick_flash_splitkv_ms": ms_y, "yardstick_route": y_route,
+            "admitted_rows": hist_rows + B, "entries_walked": B * J * ps,
+            "fill": fill, "tpu_walk_bytes": B * J * ps * Hkv * 2 * (
+                pa.row_bytes(kd, dh) + (4 if kd else 0)),
+            "tol": f"{TOL_BF16}·max|ref|", "errors": {"bfloat16": err}})
+        if kd is None:
+            continue            # native pages are bf16: q must match
+        a32 = (q.float(), *pages, kt.float(), vt.float())
+        err = paged_call(torch, a32, qpos, kw, kd, scale,
+                         f"paged {kd} fp32")
+        ms_k = timer(lambda: pa.paged_attention_cuda(
+            *a32, qpos, scale=scale, kv_dtype=kd, **kw))
+        ms_p = timer(lambda: ref.paged_attention_ref(
+            *a32, q_positions=qpos, softmax_scale=scale, kv_dtype=kd, **kw))
+        nbytes = paged_bytes(kd, 4, hist_rows, B, Hq, Hkv, dh, J, ps)
+        b, by = bound_ms(nbytes, 4.0 * (hist_rows + B) * Hq * dh,
+                         FP32_OPS_PER_S)
+        shapes["simt"].append({
+            "shape": f"paged {kd} pages, fp32 q, {label}",
+            "plan": dataclasses.asdict(simt_bf16), "ms": ms_k,
+            "plain_ms": ms_p, "library_ms": None, "bound_ms": b,
+            "bound_by": by, "bytes": nbytes,
+            "tol": f"{TOL_F32}·max|ref|", "errors": {"float32": err}})
     del stores
     return shapes
 
@@ -946,7 +1040,7 @@ def check_ragged(torch, dev):
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
     g = torch.Generator(device=dev).manual_seed(14)
-    worst, dense, flash, int4 = {}, {}, {}, {}
+    worst, dense, flash, int4, paged_recs = {}, {}, {}, {}, {}
 
     def note(name, e, m, tol):
         require(e <= tol * m, f"ragged {name}: {e} > {tol}·{m}")
@@ -1002,13 +1096,11 @@ def check_ragged(torch, dev):
             note("flash_attention", r["max_abs_err"], r["max_ref"], tol)
             flash[f"{kind} B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} dh={dh} "
                   f"window={window} {dname}"] = r
-        for B, Hkv, G, dh, ps, J, empty in ((3, 2, 2, 64, 16, 5, False),
-                                            (2, 1, 4, 32, 8, 7, False),
-                                            (2, 2, 4, 64, 4, 3, True),
-                                            (1, 3, 1, 32, 5, 9, False)):
+        for case in PAGED_RAGGED:
             for kd in (None, "int8", "int4"):
-                note("paged_attention", *ragged_paged(
-                    torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty), tol)
+                r = ragged_paged(torch, dev, g, dt, kd, *case)
+                note("paged_attention", r["max_abs_err"], r["max_ref"], tol)
+                paged_recs[f"{case} {kd} {dname}"] = r
         for B, T, H, P, N, G, chunk in SSD_RAGGED:
             r = ssd_errors(torch, ssd_inputs(torch, dev, g, B, T, H, P, N,
                                              G, dt), chunk,
@@ -1025,12 +1117,18 @@ def check_ragged(torch, dev):
     require(routes == {(d, r) for d in ("bfloat16", "float32")
                        for r in ("tc", "stream")},
             f"ragged int4 cases took the routes {sorted(routes)}")
+    routes = {(k.split()[-1], r["route"]) for k, r in paged_recs.items()}
+    require(routes == {("bfloat16", "split"), ("bfloat16", "simt"),
+                       ("float32", "simt")},
+            f"ragged paged cases took the routes {sorted(routes)}")
     return {"phase": "ragged", "max_err_over_max_ref": worst,
             "fused_linear": dense,
             "fused_linear_refusals": fused_linear_refusals(torch, dev),
             "int4": int4, "int4_refusals": int4_refusals(torch, dev),
             "flash_attention": flash,
-            "flash_attention_refusals": flash_refusals(torch, dev)}
+            "flash_attention_refusals": flash_refusals(torch, dev),
+            "paged_attention": paged_recs,
+            "paged_attention_refusals": paged_refusals(torch, dev)}
 
 
 # flash attention off the main shapes: B, Tq, Tk, Hq, Hkv, dh, window and
@@ -1213,13 +1311,56 @@ def int4_refusals(torch, dev):
     return refused
 
 
-def ragged_paged(torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty,
-                 P=64, qp=20):
-    """One paged-attention call off the main shapes against its plain
-    version: random pages, block tables and effective positions (40 %
-    masked), or an empty history (all MASKED_POS, all-zero block table)."""
-    from repro_torch.kernels import paged_attention as pa, ref
-    from repro_torch.kvcache import history, paged
+# paged attention off the main shape: B, Hkv, G, dh, ps, J and the history
+# (``ragged_paged``).  bf16 q takes the split walk for all but the last (G
+# 32, the SIMT kernel); among them G 8 and 16, Hkv 6 over head groups of 4
+# and Hkv 3 over groups of 2 (a short last group), 3 admitted entries over
+# 8 blocks (n < S), every admitted entry in the first block's slice, an
+# empty history, and a 40960-entry row, two windows of 8 slices of 4096
+# (~24600 admitted, rounds of 1024 listed rows); fp32 q takes the SIMT
+# kernel for all.
+PAGED_RAGGED = ((3, 2, 2, 64, 16, 5, "random"), (2, 1, 4, 32, 8, 7, "random"),
+                (2, 2, 4, 64, 4, 3, "empty"), (1, 3, 1, 32, 5, 9, "random"),
+                (2, 2, 8, 128, 16, 40, "random"),
+                (2, 1, 16, 64, 16, 64, "random"),
+                (16, 6, 2, 64, 16, 128, "random"),
+                (16, 3, 1, 32, 16, 128, "random"),
+                (1, 2, 1, 128, 16, 128, "few"),
+                (2, 4, 1, 128, 16, 128, "front"),
+                (1, 1, 4, 64, 16, 2560, "random"),
+                (1, 1, 32, 64, 8, 5, "random"))
+
+
+def ragged_history(torch, dev, g, B, E, kind, qp):
+    """Effective positions [B, E] below qp: "random" 40 % masked; "empty"
+    all masked; "few" 3 admitted entries in all; "front" only among the
+    first 200 entries (40 % masked there)."""
+    from repro_torch.kvcache import history
+    masked = history.MASKED_POS
+    eff = torch.randint(0, qp, (B, E), generator=g, device=dev,
+                        dtype=torch.int32)
+    if kind == "random":
+        eff[torch.rand((B, E), generator=g, device=dev) < 0.4] = masked
+    elif kind == "empty":
+        eff.fill_(masked)
+    elif kind == "few":
+        keep = torch.randperm(B * E, generator=g, device=dev)[:3]
+        flat = torch.full((B * E,), masked, dtype=torch.int32, device=dev)
+        flat[keep] = eff.reshape(-1)[keep]
+        eff = flat.reshape(B, E)
+    elif kind == "front":
+        eff[torch.rand((B, E), generator=g, device=dev) < 0.4] = masked
+        eff[:, 200:] = masked
+    return eff
+
+
+def ragged_paged(torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, kind, P=64,
+                 qp=20):
+    """One paged-attention call off the main shapes on its route against
+    its plain version (``paged_call``): random pages and block tables
+    (all-zero for an empty history), effective positions as
+    ``ragged_history`` makes them."""
+    from repro_torch.kvcache import paged
     rnd = lambda *sh: torch.randn(sh, generator=g, device=dev)   # noqa
     q, kt, vt = rnd(B, 1, G * Hkv, dh), rnd(B, 1, Hkv, dh), rnd(B, 1, Hkv, dh)
     kp, vp = rnd(P, ps, Hkv, dh), rnd(P, ps, Hkv, dh)
@@ -1229,25 +1370,70 @@ def ragged_paged(torch, dev, g, dt, kd, B, Hkv, G, dh, ps, J, empty,
     else:
         kp, vp, ks, vs = paged.quantize_entries(kp, vp, kd)
         kw = {"k_scales": ks, "v_scales": vs}
-    E = J * ps
-    if empty:
+    if kind == "empty":
         bt = torch.zeros((B, J), dtype=torch.int32, device=dev)
-        eff = torch.full((B, E), history.MASKED_POS, dtype=torch.int32,
-                         device=dev)
     else:
         bt = torch.randint(0, P, (B, J), generator=g, device=dev,
                            dtype=torch.int32)
-        eff = torch.randint(0, qp, (B, E), generator=g, device=dev,
-                            dtype=torch.int32)
-        eff[torch.rand((B, E), generator=g, device=dev) < 0.4] = \
-            history.MASKED_POS
+    eff = ragged_history(torch, dev, g, B, J * ps, kind, qp)
     qpos = torch.full((B, 1), qp, dtype=torch.int32, device=dev)
     a = (q.to(dt), kp, vp, bt, eff, kt.to(dt), vt.to(dt))
-    s = 1.0 / math.sqrt(dh)
-    out = pa.paged_attention_cuda(*a, qpos, scale=s, kv_dtype=kd, **kw)
-    ro = ref.paged_attention_ref(*a, q_positions=qpos, softmax_scale=s,
-                                 kv_dtype=kd, **kw)
-    return max_err(torch, out, ro)
+    rec = paged_call(torch, a, qpos, kw, kd, 1.0 / math.sqrt(dh),
+                     f"ragged paged B={B} Hkv={Hkv} G={G} dh={dh} ps={ps} "
+                     f"J={J} {kind} {kd} {dt}")
+    rec["admitted"] = int((eff <= qp).sum().item())
+    return rec
+
+
+def paged_refusals(torch, dev):
+    """Paged attention's C entries refuse a plan that disagrees with the
+    source: more kv-heads per block than warps, a tile, ring depth, split,
+    grid or shared-memory size it has no instantiation of, rows the SIMT
+    kernel does not take, or the split walk for fp32 q, returns
+    cudaErrorInvalidValue and the wrapper raises, on both routes."""
+    from repro_torch.kernels import paged_attention as pa
+    refused = {}
+    B, Hkv, G, dh, ps, J, P = 2, 4, 2, 64, 16, 32, 8
+    kp = torch.zeros((P, ps, Hkv, dh), dtype=torch.bfloat16, device=dev)
+    bt = torch.zeros((B, J), dtype=torch.int32, device=dev)
+    eff = torch.zeros((B, J * ps), dtype=torch.int32, device=dev)
+    tok = torch.zeros((B, 1, Hkv, dh), dtype=torch.bfloat16, device=dev)
+    qpos = torch.ones((B, 1), dtype=torch.int32, device=dev)
+    rep = dataclasses.replace
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.zeros((B, 1, Hkv * G, dh), dtype=dt, device=dev)
+        pages = kp.to(dt)
+        p = pa.plan(B, Hkv, G, dh, J * ps, None, dt)
+        bad = {"tile": rep(p, tile=p.tile * 2),
+               "grid": rep(p, grid=(p.grid[0] + 1, p.grid[1])),
+               "smem": rep(p, smem=p.smem + 16)}
+        if p.route == "split":
+            bad.update(
+                heads=rep(p, heads=2 * pa.SPLIT_WARPS,
+                          tile=pa.SPLIT_SUB // 2,
+                          grid=(p.grid[0],
+                                B * -(-Hkv // (2 * pa.SPLIT_WARPS)))),
+                stages=rep(p, stages=pa.SPLIT_MAX_STAGES + 1,
+                           smem=pa.split_smem(None, p.heads, dh,
+                                              pa.SPLIT_MAX_STAGES + 1)),
+                splits=rep(p, splits=pa.SPLIT_MAX_S + 1,
+                           grid=(pa.SPLIT_MAX_S + 1, p.grid[1])),
+                rows=rep(p, rows=8))
+        else:
+            bad.update(rows=rep(p, rows=2, grid=(p.grid[0], -(-G // 2))),
+                       split=pa.plan(B, Hkv, G, dh, J * ps, None,
+                                     torch.bfloat16))
+        for what, bp in bad.items():
+            try:
+                pa.run_plan(bp, q, pages, pages, bt, eff, tok.to(dt),
+                            tok.to(dt), qpos, scale=0.125)
+            except RuntimeError as e:
+                refused[f"{p.route} {what}"] = str(e)
+                continue
+            raise RuntimeError(f"paged_attention {p.route}: a plan with "
+                               f"{what} off the source was not refused")
+    torch.cuda.synchronize()
+    return refused
 
 
 # ---------------------------------------------------------------------------
@@ -1471,12 +1657,15 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     the split-KV walk, fp32 on the SIMT kernel.  The int4 fused linears
     and the lm head by route too, as ``fl.plan_int4`` picks it from a
     forward's rows (the lm head's: its batch): above INT4_STREAM_MAX_M on
-    the tensor-core tile, else on the split-K stream.  A Mamba stack: one
+    the tensor-core tile, else on the split-K stream.  Paged attention by
+    route too, as ``pa.plan`` picks it from the dtype and G: bf16 on the
+    split walk, fp32 on the SIMT kernel.  A Mamba stack: one
     router_stats per layer and forward (no block emits the Σy² carry), one
     SSD scan per layer and prefill (decode steps run the plain
     recurrence), nothing else."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import layers, transformer
     cfg = model.cfg
     L, n_pf = cfg.num_layers, len(prefills)
@@ -1486,6 +1675,7 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
                    for r in ("wgmma", "splitkv", "simt")})
     routes.update({f"{k}_{r}": 0 for k in ("fused_linear_int4", "int4_matmul")
                    for r in ("tc", "stream")})
+    routes.update({f"paged_attention_{r}": 0 for r in ("split", "simt")})
     if transformer.is_ssm_stack(cfg):
         return {"router_stats": L * fwd, "fused_linear": 0,
                 "fused_linear_int4": 0, "int4_matmul": 0,
@@ -1514,6 +1704,9 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
                                              dt).route] += 4 * L
         if i < n_pf or not paged:
             routes["flash_attention_" + fa.plan(b * Hkv, R, Tk, dh,
+                                                dt).route] += L
+        else:       # the route takes q's dtype and G alone
+            routes["paged_attention_" + pa.plan(b, Hkv, G, dh, Tk, None,
                                                 dt).route] += L
     return {"router_stats": fwd, "ssd_scan": 0,
             "fused_linear": 0 if int4 else 4 * L * fwd,
@@ -1804,8 +1997,8 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     with FiniteLogits(torch, dev) as finite:
         for label, kw in (("fp32_dense", dict(kv_mode="dense")),
                           ("fp32_paged", dict(kv_mode="paged"))):
-            rec, toks, _ = serve_continuous(torch, dev, m32, finite, label,
-                                            reqs, new, **kw)
+            rec, toks, launches = serve_continuous(torch, dev, m32, finite,
+                                                   label, reqs, new, **kw)
             runs.append(rec)
             tokens[label] = toks
     require(all(np.array_equal(a, b) for a, b in zip(
@@ -1858,7 +2051,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "phase6_tokens_vs_fp32_dense": agree,
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
-                       "vs_fp32_dense": dist}}
+                       "vs_fp32_dense": dist}}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2140,6 +2333,7 @@ def main() -> int:
     flash = check_flash(torch, dev, timer, cfg)
     int4_lin = check_fused_linear_int4(torch, dev, timer, cfg)
     lm_head = check_int4_matmul(torch, dev, timer, cfg)
+    paged = check_paged(torch, np, dev, timer, cfg)
     per_kernel = {
         "router_stats": check_router(torch, dev, timer, cfg),
         "fused_linear_wgmma": dense["wgmma"],
@@ -2149,7 +2343,8 @@ def main() -> int:
         "int4_matmul_stream": lm_head["stream"],
         "flash_attention_wgmma": flash["wgmma"],
         "flash_attention_splitkv": flash["splitkv"],
-        "paged_attention": check_paged(torch, np, dev, timer, cfg),
+        "paged_attention_split": paged["split"],
+        "paged_attention_simt": paged["simt"],
         "ssd_scan": check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))}
     # the lm head's tile (M 2048) is off the main path: recorded, not listed
     emit({"phase": "kernels", "shapes": per_kernel,
@@ -2167,7 +2362,9 @@ def main() -> int:
     emit(cont)
     for k, v in cont_launches.items():
         launches[k] += v
-    emit(witness(torch, np, dev, model, prompts, tokens))
+    wit, wit_launches = witness(torch, np, dev, model, prompts, tokens)
+    emit(wit)            # its fp32 paged run: the paged SIMT route's launches
+    launches["paged_attention_simt"] += wit_launches["paged_attention_simt"]
     int4, int4_launches = serve_int4(torch, np, dev, model, lock_tokens,
                                      tokens, prompts)
     emit(int4)

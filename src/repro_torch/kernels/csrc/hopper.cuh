@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (fused_linear.cu, fused_linear_int4.cu, flash_attention.cu): mbarriers, TMA tile loads and
+// (fused_linear.cu, fused_linear_int4.cu, flash_attention.cu; and through
+// warp_mma.cuh paged_attention.cu): mbarriers, TMA tile loads and
 // their tensor maps, the wgmma shared-memory descriptor and instructions,
 // and the fences around them.  Everything is sm_90a.
 #pragma once

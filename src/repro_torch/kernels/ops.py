@@ -23,8 +23,9 @@ from repro_torch.kernels import ssd_scan as ss
 
 def kernel_launches() -> dict:
     """Launch counts of every kernel wrapper, by kernel name; the fused
-    linear (dense and int4), the int4 matmul and flash attention also by
-    the route each call took (``fl.plan``, ``fl.plan_int4``, ``fa.plan``)."""
+    linear (dense and int4), the int4 matmul, flash and paged attention
+    also by the route each call took (``fl.plan``, ``fl.plan_int4``,
+    ``fa.plan``, ``pa.plan``)."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
             "fused_linear_wgmma": fl.launches_wgmma,
             "fused_linear_splitk": fl.launches_splitk,
@@ -38,7 +39,10 @@ def kernel_launches() -> dict:
             "flash_attention_wgmma": fa.launches_wgmma,
             "flash_attention_splitkv": fa.launches_splitkv,
             "flash_attention_simt": fa.launches_simt,
-            "paged_attention": pa.launches, "ssd_scan": ss.launches}
+            "paged_attention": pa.launches,
+            "paged_attention_split": pa.launches_split,
+            "paged_attention_simt": pa.launches_simt,
+            "ssd_scan": ss.launches}
 
 
 def reset_kernel_launches() -> None:
@@ -48,6 +52,7 @@ def reset_kernel_launches() -> None:
     im.launches_tc = im.launches_stream = 0
     fa.launches = pa.launches = ss.launches = 0
     fa.launches_wgmma = fa.launches_splitkv = fa.launches_simt = 0
+    pa.launches_split = pa.launches_simt = 0
 
 
 # ---------------------------------------------------------------------------

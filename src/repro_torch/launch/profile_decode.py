@@ -1,57 +1,57 @@
 """Where a decode step's time goes: ``torch.profiler`` over a window of
 teacher-forced decode steps of one model, in bf16 weights and the same
 weights quantized to int4-BFP, one after the other in one process (a
-Mamba stack, whose int4 weights are not served yet, in bf16 only).
+Mamba stack, whose int4 weights are not served yet, in bf16 only); with
+``--paged``, teacher-forced paged decode steps of the bf16 weights over a
+store packed from the prefill, in bf16, int8 and int4 pages.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --batch 4 --prompt-len 512 --steps 8   # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --paged                                 # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch mamba2-2.7b                                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-      --arch llama2-7b --smoke --device cpu                    # plain versions
+      --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
 
 Weights are random (seed 0, router biases zeroed so routing skips, as
 ``chip_smoke.py`` serves them).  After a ``--batch`` × ``--prompt-len``
 prefill and two warm-up steps, ``--steps`` decode steps run unprofiled and
 then ``--steps`` more under the profiler, each window ending in one
-synchronize.  Prints one JSON line per weight type: wall ms per step of
-both windows (host clock; the profiler's own host cost is the
+synchronize.  A paged step is ``model.paged_decode_step`` over the prefill's
+entries packed into pages of 16 (``paged.pack_prefill``, one
+``PageAllocator`` chain per row, as the continuous engine keeps them),
+reading the step's attention gates back to the host to append its entries,
+as the engine does.  Prints one JSON line per weight or page type: wall ms
+per step of both windows (host clock; the profiler's own host cost is the
 difference), the host's enqueue ms per step (the profiled loop without its
 final synchronize), the device's busy ms per step (the sum of its kernels'
 and copies' durations in the trace), the idle share 1 − busy / wall
-(against the unprofiled wall), device launches per step, and the kernels
-with the most device time.  On the CPU there is no device trace: busy and
-idle are null.
+(against the unprofiled wall), device launches per step, paged
+attention's own device ms and launches per step (its kernels' names
+start with ``paged_``), and the kernels with the most device time.  On the
+CPU there is no device trace: busy and idle are null.
 """
 import argparse
 import json
 import time
 
 
-def profile_steps(model, batch: int, prompt_len: int, steps: int,
-                  top: int = 8) -> dict:
-    import numpy as np
+def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
+    """Two warm-up steps, ``steps`` unprofiled, ``steps`` profiled (``step(s)``
+    runs decode step s); fills rec's timing and trace fields."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, dev = model.cfg, model.device
+    dev = model.device
     cuda = dev.type == "cuda"
-    rng = np.random.default_rng(0)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (batch, prompt_len)), device=dev)
-    n = 2 * steps + 2
-    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
-                           device=dev)
-    _, cache, _ = model.prefill(toks, pad_to=prompt_len + n)
 
     def window(lo, hi):
         """Decode steps lo..hi-1: (seconds to enqueue, seconds to finish)."""
-        nonlocal cache
         t0 = time.perf_counter()
         for s in range(lo, hi):
-            _, cache, _ = model.decode_step(cache, feed[:, s:s + 1],
-                                            prompt_len + s)
+            step(s)
         t1 = time.perf_counter()
         if cuda:
             torch.cuda.synchronize(dev)
@@ -61,15 +61,15 @@ def profile_steps(model, batch: int, prompt_len: int, steps: int,
     _, plain_s = window(2, steps + 2)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        enq_s, prof_s = window(steps + 2, n)
-    rec = {"arch": cfg.name,
-           "weights": "int4" if "w_int" in model.params().get("lm_head", {})
-           else cfg.dtype, "batch": batch, "prompt_len": prompt_len,
-           "steps": steps, "wall_ms_per_step": plain_s * 1e3 / steps,
-           "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
-           "host_enqueue_ms_per_step": enq_s * 1e3 / steps,
-           "device_busy_ms_per_step": None, "idle_share": None,
-           "device_launches_per_step": None, "top_kernels": None}
+        enq_s, prof_s = window(steps + 2, 2 * steps + 2)
+    rec.update({"steps": steps, "wall_ms_per_step": plain_s * 1e3 / steps,
+                "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
+                "host_enqueue_ms_per_step": enq_s * 1e3 / steps,
+                "device_busy_ms_per_step": None, "idle_share": None,
+                "device_launches_per_step": None,
+                "paged_attention_ms_per_step": None,
+                "paged_attention_launches_per_step": None,
+                "top_kernels": None})
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if kernels:
         by_name = {}
@@ -77,15 +77,105 @@ def profile_steps(model, batch: int, prompt_len: int, steps: int,
             us, cnt = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
         busy = sum(us for us, _ in by_name.values()) / 1e3 / steps
+        paged = [(us, cnt) for name, (us, cnt) in by_name.items()
+                 if "paged_" in name]
         rec.update(device_busy_ms_per_step=busy,
                    idle_share=1.0 - busy / rec["wall_ms_per_step"],
                    device_launches_per_step=len(kernels) / steps,
+                   paged_attention_ms_per_step=sum(
+                       us for us, _ in paged) / 1e3 / steps,
+                   paged_attention_launches_per_step=sum(
+                       cnt for _, cnt in paged) / steps,
                    top_kernels=[
                        {"name": name[:80], "ms_per_step": us / 1e3 / steps,
                         "per_step": cnt / steps}
                        for name, (us, cnt) in sorted(
                            by_name.items(), key=lambda kv: -kv[1][0])[:top]])
     return rec
+
+
+def _weights(model) -> str:
+    return ("int4" if "w_int" in model.params().get("lm_head", {})
+            else model.cfg.dtype)
+
+
+def profile_steps(model, batch: int, prompt_len: int, steps: int,
+                  top: int = 8) -> dict:
+    import numpy as np
+    import torch
+
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, prompt_len)), device=dev)
+    n = 2 * steps + 2
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
+                           device=dev)
+    _, cache, _ = model.prefill(toks, pad_to=prompt_len + n)
+    state = {"cache": cache}
+
+    def step(s):
+        _, state["cache"], _ = model.decode_step(
+            state["cache"], feed[:, s:s + 1], prompt_len + s)
+
+    return _profile_windows(model, step, steps, top, {
+        "arch": cfg.name, "weights": _weights(model), "batch": batch,
+        "prompt_len": prompt_len})
+
+
+def profile_paged_steps(model, batch: int, prompt_len: int, steps: int,
+                        kv_dtype=None, page_size: int = 16,
+                        top: int = 8) -> dict:
+    """As ``profile_steps``, over ``model.paged_decode_step``: the prefill's
+    entries packed into pages of ``kv_dtype`` (None = the model's dtype),
+    one allocator chain per row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kvcache import paged
+
+    cfg, dev = model.cfg, model.device
+    L = cfg.num_layers
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, prompt_len)), device=dev)
+    n = 2 * steps + 2
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
+                           device=dev)
+    cap = (prompt_len + n + 1) * L                 # every entry fresh
+    per_slot = -(-cap // page_size)
+    store = paged.init_store(cfg, batch * per_slot, page_size,
+                             kv_dtype=kv_dtype, device=dev)
+    alloc = paged.PageAllocator(batch * per_slot, page_size, batch,
+                                slot_entry_capacity=cap)
+    _, cache, st = model.prefill(toks)
+    gates = st["attn_gate"]                        # [L, B, T]
+    for b in range(batch):
+        g = gates[:, b]
+        k = paged.prefill_entry_count(g.cpu().numpy(), prompt_len, True)
+        alloc.ensure(b, k + L)
+        paged.pack_prefill(store, [{n_: c[n_][b:b + 1] for n_ in ("k", "v")}
+                                   for c in cache], g, prompt_len,
+                           torch.as_tensor(alloc.block_table[b], device=dev),
+                           cfg, kv_dtype=kv_dtype)
+        alloc.append(b, k, L * prompt_len)
+    del cache
+    state = {"store": store}
+
+    def step(s):
+        for b in range(batch):
+            alloc.ensure(b, int(alloc.fill[b]) + L)
+        _, state["store"], st = model.paged_decode_step(
+            state["store"], feed[:, s:s + 1], prompt_len + s,
+            torch.as_tensor(alloc.block_table), torch.as_tensor(alloc.fill))
+        g = st["attn_gate"].cpu()                  # [L, B]
+        for b in range(batch):
+            alloc.append(b, int(1 + g[1:, b].sum()), L)
+
+    return _profile_windows(model, step, steps, top, {
+        "arch": cfg.name, "weights": _weights(model), "batch": batch,
+        "prompt_len": prompt_len, "paged": True,
+        "kv_dtype": kv_dtype or cfg.dtype, "page_size": page_size})
 
 
 def main(argv=None) -> None:
@@ -96,6 +186,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged decode steps in bf16, int8 and int4 pages")
     args = ap.parse_args(argv)
 
     import torch
@@ -112,6 +204,14 @@ def main(argv=None) -> None:
     model = LanguageModel(cfg, device=args.device, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=args.device)
+    if args.paged:
+        if transformer.is_ssm_stack(cfg):
+            raise SystemExit("--paged: a Mamba stack keeps no KV pages")
+        for kd in (None, "int8", "int4"):
+            print(json.dumps(profile_paged_steps(
+                model, args.batch, args.prompt_len, args.steps, kd)),
+                flush=True)
+        return
     print(json.dumps(profile_steps(model, args.batch, args.prompt_len,
                                    args.steps)), flush=True)
     if transformer.is_ssm_stack(cfg):

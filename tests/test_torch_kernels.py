@@ -25,6 +25,7 @@ from repro_torch.kernels import fused_linear as fl
 from repro_torch.kernels import fused_router_rmsnorm as frr
 from repro_torch.kernels import int4_matmul as im
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 
 torch.set_num_threads(2)
 
@@ -264,10 +265,21 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
                         scale=scale)
     with pytest.raises(ValueError):
         im.int4_matmul(torch.empty(4, 128, **meta), codes, scale)
-    assert frr.launches == fl.launches == fa.launches == 0
+    with pytest.raises(ValueError):
+        pa.paged_attention(torch.empty(2, 1, 2, 32, **meta),
+                           torch.empty(4, 4, 1, 32, **meta),
+                           torch.empty(4, 4, 1, 32, **meta),
+                           torch.zeros(2, 2, dtype=torch.int32),
+                           torch.zeros(2, 8, dtype=torch.int32),
+                           torch.empty(2, 1, 1, 32, **meta),
+                           torch.empty(2, 1, 1, 32, **meta), pos, scale=1.0)
+    assert frr.launches == fl.launches == fa.launches == pa.launches == 0
     assert fl.launches_int4 == im.launches == 0
     assert fl.launches_wgmma == fl.launches_splitk == fl.launches_simt == 0
+    assert fl.launches_int4_tc == fl.launches_int4_stream == 0
+    assert im.launches_tc == im.launches_stream == 0
     assert fa.launches_wgmma == fa.launches_splitkv == fa.launches_simt == 0
+    assert pa.launches_split == pa.launches_simt == 0
     # no nvcc: the build raises rather than handing back a plain version
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -76,10 +76,15 @@ def _params(rng):
 # Paged attention: plain version vs the jnp oracle and the Pallas kernel
 # ---------------------------------------------------------------------------
 
-def _attn_inputs(rng, G, kv_dtype, empty):
-    B, Hkv, dh = (2, 1, 16) if empty else (3, 2, 32)
+# (B, Hkv, dh, P, ps, J): the default history, and a page of 5 entries over
+# 3 kv-heads (the split walk's head groups of 2 leave the last one short)
+_SHAPE = (3, 2, 32, 16, 4, 3)
+_SHAPE_PS5 = (2, 3, 32, 16, 5, 7)
+
+
+def _attn_inputs(rng, G, kv_dtype, empty, shape=_SHAPE):
+    B, Hkv, dh, P, ps, J = (2, 1, 16, 4, 4, 2) if empty else shape
     Hq = G * Hkv
-    P, ps, J = (4, 4, 2) if empty else (16, 4, 3)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)   # noqa: E731
     q, kt, vt = f(B, 1, Hq, dh), f(B, 1, Hkv, dh), f(B, 1, Hkv, dh)
     kp, vp = f(P, ps, Hkv, dh), f(P, ps, Hkv, dh)
@@ -102,10 +107,14 @@ def _attn_inputs(rng, G, kv_dtype, empty):
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8", "int4"])
-@pytest.mark.parametrize("G", [1, 2])
-def test_paged_attention_matches_oracle_and_pallas(G, kv_dtype):
-    rng = np.random.default_rng(10 * G + len(kv_dtype or ""))
-    args, qpos, scales = _attn_inputs(rng, G, kv_dtype, empty=False)
+@pytest.mark.parametrize("G,shape", [(1, _SHAPE), (2, _SHAPE), (8, _SHAPE),
+                                     (16, _SHAPE), (2, _SHAPE_PS5)],
+                         ids=["1", "2", "8", "16", "ps5-hkv3"])
+def test_paged_attention_matches_oracle_and_pallas(G, shape, kv_dtype):
+    rng = np.random.default_rng(10 * G + len(kv_dtype or "")
+                                + 100 * (shape != _SHAPE))
+    args, qpos, scales = _attn_inputs(rng, G, kv_dtype, empty=False,
+                                      shape=shape)
     _check_attention(args, qpos, scales, kv_dtype)
 
 
