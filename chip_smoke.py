@@ -44,10 +44,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 paged case on the route its plan picks, and the C entries'
                 refusals of
                 plans off their source (not timed); the SSD chunk scan at
-                the mamba2-2.7b shapes (x [4, 512, 80, 64], B/C [4, 512, 1,
-                128], chunk 128, bf16 and fp32 activations; y and the final
-                state) and at ragged ones (T off the chunk, T < chunk,
-                T = 1, dt = 0 rows, G > 1);
+                the mamba2-2.7b shapes (x [4, 512, 80, 64] and [1, 512, 80,
+                64], B/C [B, 512, 1, 128], chunk 128; y and the final
+                state): bf16 on the tensor-core route (timed beside the
+                SIMT kernel on the same bf16 inputs, and held also against
+                the mirror of its three-term bf16 split, tightly on inputs
+                whose cumsums are exact), fp32 on the SIMT kernel, each
+                launched twice bit for bit, with byte and operation
+                bounds; and at ragged ones (T off the chunk, T <
+                chunk, T = 1, dt = 0 rows, G > 1, N 16), every bf16 case on
+                the tensor-core route and every fp32 case on the SIMT
+                kernel, and the C entries' refusals of plans off the
+                source;
   4. parity   — llama2-7b smoke in fp32 through the port on cuda (kernels)
                 and on cpu (plain versions): gates, logits, tokens of the
                 lock-step engine, of teacher-forced paged decode steps and
@@ -93,25 +101,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 on cpu: gates (the per-layer SSM gate log, smallest router
                 margin checked), logits, keep statistics (sums within 1e-6,
                 counts exact), lock-step and continuous dense-pool tokens;
+                exact launch counts of the cuda runs (every SSD scan on the
+                SIMT kernel);
  10. mamba    — full-width mamba2-2.7b in bf16 (random seeded weights,
                 neutral router bias) served by ``ServeEngine.generate``
                 (batch 4 x prompt 512 + 32) and by the continuous engine (4
                 slots, 8 requests of 114-512 prompt tokens + 32, dense pool,
                 exact-length prefill): exact launch counts (64 SSD scans per
-                prefill and none per decode step, 64 router passes per
-                forward, no attention or fused linear), finite logits,
+                prefill, all on the tensor-core route, and none per decode
+                step, 64 router passes per forward, no attention or fused
+                linear), finite logits,
                 weight bytes, peak memory; a paged mamba engine must raise.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
 runs of phases 5, 6, 8 and 10, each counted from 0, and for the paged
 SIMT route, which only fp32 serving takes, over phase 7's fp32 paged run,
+and for the SSD scan's SIMT route over phase 9's fp32 cuda runs, both
 counted from 0 too; the dense fused linear
 as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
 the int4 fused linear as ``fused_linear_int4_tc`` and
 ``fused_linear_int4_stream``, the int4 matmul as ``int4_matmul_stream``
 (its tile is off the main path), and flash attention as
 ``flash_attention_wgmma`` and ``flash_attention_splitkv``, and paged
-attention as ``paged_attention_split`` and ``paged_attention_simt``, by the
-route counters), and last the contract
+attention as ``paged_attention_split`` and ``paged_attention_simt``, and
+the SSD scan as ``ssd_scan_tc`` and ``ssd_scan_simt``, by the route
+counters), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -150,6 +163,10 @@ TOL_FLASH_MIRROR = 2.0 ** -9  # x max|mirror|, past one bf16 ulp of each
 #                       rounds P as they do (the ulp is the output's own
 #                       rounding; the rest covers P values that the fp32
 #                       sum order moves across a bf16 rounding boundary)
+TOL_SPLIT = 2.0 ** -19  # x max|mirror|: the SSD scan's tensor-core route
+#                       against ref.ssd_scan_split on inputs whose cumsums
+#                       are exact in any order (ssd_exact_inputs); the
+#                       mirror without the split's lo term is off by ~2^-18
 LOG2E = 1.4426950408889634
 MIN_MARGIN = 1e-3     # phase 4: no router decision this close to its tie
 PARITY_SEED = 6   # its margins clear MIN_MARGIN (checked every run)
@@ -168,7 +185,8 @@ TPU_KERNELS = {
     "flash_attention_splitkv": "src/repro/kernels/flash_attention.py:74",
     "paged_attention_split": "src/repro/kernels/paged_attention.py:99",
     "paged_attention_simt": "src/repro/kernels/paged_attention.py:99",
-    "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
+    "ssd_scan_tc": "src/repro/kernels/ssd_scan.py:67",
+    "ssd_scan_simt": "src/repro/kernels/ssd_scan.py:67",
 }
 SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
@@ -187,7 +205,8 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_attention_simt":
         "src/repro_torch/kernels/csrc/paged_attention.cu",
-    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan_tc": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan_simt": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 
 
@@ -960,34 +979,77 @@ def ssd_inputs(torch, dev, g, B, T, H, P, N, G, dt):
     return x, d, A, Bm, Cm
 
 
-def ssd_errors(torch, args, chunk, what):
-    """The kernel's y and final state against the plain version's, each
-    within TOL_F32 · max|ref| (fp32 outputs of fp32 math on the same
-    inputs).  Returns {"max_abs_err", "max_ref", "state_*"}."""
+def ssd_exact_inputs(torch, dev, g, B, T, H, P, N, G):
+    """bf16 SSD scan inputs whose chunk cumsums are exact in any order: x,
+    B, C ~ N(0, 1); A_log = 0 (A = -1); dt on a 2^-10 grid in [0, 0.1),
+    every third token 0.  exp(cum_i - cum_j) then has the same argument on
+    the card as in the plain versions, so the tensor-core route differs
+    from ``ref.ssd_scan_split`` only by its sum order and its exp; on
+    ``ssd_inputs`` the fp32 cumsum's order alone moves y by ~4e-6·max,
+    as much as the split's lo term."""
+    x = torch.randn((B, T, H, P), generator=g, device=dev).bfloat16()
+    d = torch.randint(0, 103, (B, T, H), generator=g, device=dev) / 1024.0
+    d[:, 1::3] = 0.0
+    A = torch.zeros(H, device=dev)
+    Bm = torch.randn((B, T, G, N), generator=g, device=dev).bfloat16()
+    Cm = torch.randn((B, T, G, N), generator=g, device=dev).bfloat16()
+    return x, d, A, Bm, Cm
+
+
+def ssd_errors(torch, args, chunk, what, split_tol=TOL_F32):
+    """The kernel's y and final state, on the route ``ss.plan`` picks,
+    against the plain version's, each within TOL_F32 · max|ref| (fp32
+    outputs of fp32 math on the same inputs; the tensor-core route splits
+    its fp32 operands into three bf16 terms, exact to fp32); on the
+    tensor-core route also against ``ref.ssd_scan_split``, which rounds
+    the operands as the route does, within ``split_tol`` · max|mirror|; a
+    second launch must repeat both bit for bit.  Returns {"route",
+    "max_abs_err", "max_ref", "state_*", "split_*"}."""
     from repro_torch.kernels import ref, ssd_scan as ss
+    x, Bm = args[0], args[3]
+    route = ss.plan(*x.shape, Bm.shape[-1], Bm.shape[-2], chunk,
+                    x.dtype).route
     y, st = ss.ssd_scan_cuda(*args, chunk)
+    y2, st2 = ss.ssd_scan_cuda(*args, chunk)
     yr, sr = ref.ssd_scan_ref(*args, chunk)
     torch.cuda.synchronize()
+    require(torch.equal(y, y2) and torch.equal(st, st2),
+            f"ssd_scan {route} {what}: a second launch differs")
     e, m = max_err(torch, y, yr)
     es, ms = max_err(torch, st, sr)
+    out = {"route": route, "max_abs_err": e, "max_ref": m,
+           "state_max_abs_err": es, "state_max_ref": ms,
+           "second_launch_identical": True}
+    if route == "tc":
+        ym, sm = ref.ssd_scan_split(*args, chunk)
+        e2, m2 = max_err(torch, y, ym)
+        es2, ms2 = max_err(torch, st, sm)
+        out.update(split_max_abs_err=e2, split_max_ref=m2,
+                   split_state_max_abs_err=es2, split_state_max_ref=ms2,
+                   split_tol=split_tol)
     require(e <= TOL_F32 * m, f"ssd_scan y {what}: {e} > {TOL_F32}·{m}")
     require(es <= TOL_F32 * ms, f"ssd_scan state {what}: {es} > "
             f"{TOL_F32}·{ms}")
-    return {"max_abs_err": e, "max_ref": m, "state_max_abs_err": es,
-            "state_max_ref": ms}
+    if route == "tc":
+        require(e2 <= split_tol * m2 and es2 <= split_tol * ms2,
+                f"ssd_scan {what} against its split mirror: y {e2} of {m2}, "
+                f"state {es2} of {ms2}, limit {split_tol}·max")
+    return out
 
 
-def ssd_work(B, T, H, P, N, G, chunk, esize):
-    """(bytes, fp32 operations) one scan needs: each input read once and
-    each output written once; the chunk products over the real tokens
-    (causal pairs of each chunk: C·B and the intra-chunk y; C·state and
-    the state update per token)."""
+def ssd_work(B, T, H, P, N, G, chunk, esize, splits=1):
+    """(bytes, operations) one scan needs: each input read once and each
+    output written once; the chunk products over the real tokens (causal
+    pairs of each chunk: C·B and the intra-chunk y; C·state and the state
+    update per token), the products with an fp32 operand ``splits`` times
+    (1: the scan's own work, what the bound counts; 3: the tensor-core
+    route's three bf16 terms; C·B is bf16 × bf16 either way)."""
     Q = min(chunk, T)
     ops = 0
     for t0 in range(0, T, Q):
         L = min(Q, T - t0)
         pairs = L * (L + 1) // 2
-        ops += 2 * pairs * (N + P) + 4 * L * N * P
+        ops += 2 * pairs * N + splits * (2 * pairs * P + 4 * L * N * P)
     nbytes = (B * T * H * P * esize + B * T * H * 4 + H * 4
               + 2 * B * T * G * N * esize + B * T * H * P * 4
               + B * H * P * N * 4)
@@ -996,32 +1058,67 @@ def ssd_work(B, T, H, P, N, G, chunk, esize):
 
 def check_ssd(torch, dev, timer, cfg):
     """The SSD chunk scan at the mamba2-2.7b main-path shapes: lock-step
-    prefill (B 4 × T 512) and one continuous prefill (B 1 × T 512), in bf16
-    and fp32 activations, y and the final state."""
+    prefill (B 4 × T 512) and one continuous prefill (B 1 × T 512), y and
+    the final state.  bf16 inputs on the tensor-core route (timed; beside
+    it the SIMT kernel on the same bf16 inputs, through ``run_plan``), fp32
+    inputs on the SIMT kernel (timed), each launched twice bit for bit.
+    The tensor-core route is held also against ``ref.ssd_scan_split``:
+    within TOL_F32 on these inputs and within TOL_SPLIT on
+    ``ssd_exact_inputs`` of the same shape.  Each record carries both
+    bounds: bytes, and the scan's operations, each product counted once,
+    at the route's rate (bf16 tensor cores; the SIMT kernel's fp32), and
+    beside them the tensor-core route's operations with its three split
+    terms counted (``tc_split_ops``, not a bound).  Returns the shape
+    records by route."""
     from repro_torch.kernels import ref, ssd_scan as ss
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     G, Q = cfg.ssm_groups, cfg.ssm_chunk
     g = torch.Generator(device=dev).manual_seed(19)
-    shapes = []
+    shapes = {"tc": [], "simt": []}
     for B, T in ((4, 512), (1, 512)):
+        label = f"B={B} T={T} H={H} P={P} N={N} G={G} Q={Q}"
+        tol = f"y and state {TOL_F32}·max|ref| (fp32 outputs)"
         args = ssd_inputs(torch, dev, g, B, T, H, P, N, G, torch.bfloat16)
-        errs = {}
-        for dt in (torch.bfloat16, torch.float32):
-            a = (args[0].to(dt),) + args[1:3] + tuple(m.to(dt)
-                                                      for m in args[3:])
-            errs[str(dt).split(".")[-1]] = ssd_errors(
-                torch, a, Q, f"B={B} T={T} {dt}")
+        p = ss.plan(B, T, H, P, N, G, Q, torch.bfloat16)
+        simt_bf16 = ss.plan(B, T, H, P, N, G, Q, torch.float32)
+        require(p.route == "tc" and simt_bf16.route == "simt",
+                f"ssd_scan {label}: plans {p.route}/{simt_bf16.route}")
+        err = ssd_errors(torch, args, Q, f"{label} bf16")
+        exact = ssd_errors(torch, ssd_exact_inputs(torch, dev, g, B, T, H, P,
+                                                   N, G), Q,
+                           f"{label} bf16 exact cumsums", TOL_SPLIT)
         ms_k = timer(lambda: ss.ssd_scan_cuda(*args, Q))
+        ms_s = timer(lambda: ss.run_plan(simt_bf16, *args, Q))
         ms_p = timer(lambda: ref.ssd_scan_ref(*args, Q))
         nbytes, ops = ssd_work(B, T, H, P, N, G, Q, 2)
-        b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
-        shapes.append({"shape": f"B={B} T={T} H={H} P={P} N={N} G={G} "
-                       f"Q={Q} bf16", "ms": ms_k, "plain_ms": ms_p,
-                       "library_ms": None, "bound_ms": b, "bound_by": by,
-                       "bytes": nbytes, "fp32_ops": ops,
-                       "tol": f"y and state {TOL_F32}·max|ref| (fp32 "
-                       "outputs)", "errors": errs})
+        b, by = bound_ms(nbytes, ops)
+        shapes["tc"].append({
+            "shape": f"{label} bf16", "plan": dataclasses.asdict(p),
+            "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+            "bound_ms": b, "bound_by": by,
+            "bound_ops_ms": ops / BF16_OPS_PER_S * 1e3,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "ops": ops,
+            "tc_split_ops": ssd_work(B, T, H, P, N, G, Q, 2, splits=3)[1],
+            "simt_bf16_ms": ms_s, "tol": tol, "errors": {"bfloat16": err},
+            "exact_cumsums": exact})
+        a32 = (args[0].float(),) + args[1:3] + tuple(m.float()
+                                                     for m in args[3:])
         del args
+        err = ssd_errors(torch, a32, Q, f"{label} fp32")
+        ms_k = timer(lambda: ss.ssd_scan_cuda(*a32, Q))
+        ms_p = timer(lambda: ref.ssd_scan_ref(*a32, Q))
+        nbytes, ops = ssd_work(B, T, H, P, N, G, Q, 4)
+        b, by = bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        shapes["simt"].append({
+            "shape": f"{label} fp32", "plan": dataclasses.asdict(simt_bf16),
+            "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+            "bound_ms": b, "bound_by": by,
+            "bound_ops_ms": ops / FP32_OPS_PER_S * 1e3,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes": nbytes, "ops": ops, "tol": tol,
+            "errors": {"float32": err}})
+        del a32
     return shapes
 
 
@@ -1040,7 +1137,7 @@ def check_ragged(torch, dev):
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
     g = torch.Generator(device=dev).manual_seed(14)
-    worst, dense, flash, int4, paged_recs = {}, {}, {}, {}, {}
+    worst, dense, flash, int4, paged_recs, ssd = {}, {}, {}, {}, {}, {}
 
     def note(name, e, m, tol):
         require(e <= tol * m, f"ragged {name}: {e} > {tol}·{m}")
@@ -1108,6 +1205,8 @@ def check_ragged(torch, dev):
             note("ssd_scan", r["max_abs_err"], r["max_ref"], TOL_F32)
             note("ssd_scan_state", r["state_max_abs_err"],
                  r["state_max_ref"], TOL_F32)
+            ssd[f"B={B} T={T} H={H} P={P} N={N} G={G} Q={chunk} "
+                f"{dname}"] = r
     torch.cuda.synchronize()
     routes = {(k.split()[-1], r["route"]) for k, r in flash.items()}
     require(routes == {("bfloat16", "wgmma"), ("bfloat16", "splitkv"),
@@ -1121,6 +1220,9 @@ def check_ragged(torch, dev):
     require(routes == {("bfloat16", "split"), ("bfloat16", "simt"),
                        ("float32", "simt")},
             f"ragged paged cases took the routes {sorted(routes)}")
+    routes = {(k.split()[-1], r["route"]) for k, r in ssd.items()}
+    require(routes == {("bfloat16", "tc"), ("float32", "simt")},
+            f"ragged ssd cases took the routes {sorted(routes)}")
     return {"phase": "ragged", "max_err_over_max_ref": worst,
             "fused_linear": dense,
             "fused_linear_refusals": fused_linear_refusals(torch, dev),
@@ -1128,7 +1230,8 @@ def check_ragged(torch, dev):
             "flash_attention": flash,
             "flash_attention_refusals": flash_refusals(torch, dev),
             "paged_attention": paged_recs,
-            "paged_attention_refusals": paged_refusals(torch, dev)}
+            "paged_attention_refusals": paged_refusals(torch, dev),
+            "ssd_scan": ssd, "ssd_scan_refusals": ssd_refusals(torch, dev)}
 
 
 # flash attention off the main shapes: B, Tq, Tk, Hq, Hkv, dh, window and
@@ -1436,6 +1539,48 @@ def paged_refusals(torch, dev):
     return refused
 
 
+def ssd_refusals(torch, dev):
+    """The SSD scan's C entries refuse a plan that disagrees with the
+    source: a P slice it has no instantiation of or that does not divide
+    P, a grid, thread count, stage count or shared-memory size other than
+    the plan's, the SIMT kernel with a P split, or the tensor-core route
+    for fp32 inputs, returns cudaErrorInvalidValue and the wrapper raises,
+    on both routes."""
+    from repro_torch.kernels import ssd_scan as ss
+    refused = {}
+    B, T, H, P, N, G, Q = 2, 40, 4, 64, 128, 1, 32
+    rep = dataclasses.replace
+    for dt in (torch.bfloat16, torch.float32):
+        args = (torch.zeros((B, T, H, P), dtype=dt, device=dev),
+                torch.zeros((B, T, H), device=dev), torch.zeros(H, device=dev),
+                torch.zeros((B, T, G, N), dtype=dt, device=dev),
+                torch.zeros((B, T, G, N), dtype=dt, device=dev))
+        p = ss.plan(B, T, H, P, N, G, Q, dt)
+        bad = {"grid": rep(p, grid=(p.grid[0] + 1, p.grid[1])),
+               "threads": rep(p, threads=128),
+               "stages": rep(p, stages=p.stages + 1),
+               "smem": rep(p, smem=p.smem + 16)}
+        if p.route == "tc":
+            bad.update(
+                pb16=rep(p, pb=16, grid=(B * H, 4), smem=ss.tc_smem(Q, N, 16)),
+                pb32=rep(p, pb=32, grid=(B * H, 2), smem=ss.tc_smem(Q, N, 32)),
+                pb128=rep(p, pb=128, grid=(B * H, 1),
+                          smem=ss.tc_smem(Q, N, 128)))
+        else:
+            bad.update(pb=rep(p, pb=P // 2, grid=(B * H, 2)),
+                       tc=ss.plan(B, T, H, P, N, G, Q, torch.bfloat16))
+        for what, bp in bad.items():
+            try:
+                ss.run_plan(bp, *args, Q)
+            except RuntimeError as e:
+                refused[f"{p.route} {what}"] = str(e)
+                continue
+            raise RuntimeError(f"ssd_scan {p.route}: a plan with {what} off "
+                               "the source was not refused")
+    torch.cuda.synchronize()
+    return refused
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: CPU (plain versions) ≡ CUDA (kernels) on llama2-7b smoke, fp32
 # ---------------------------------------------------------------------------
@@ -1662,10 +1807,13 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     split walk, fp32 on the SIMT kernel.  A Mamba stack: one
     router_stats per layer and forward (no block emits the Σy² carry), one
     SSD scan per layer and prefill (decode steps run the plain
-    recurrence), nothing else."""
+    recurrence), nothing else; the scans by route too, as ``ss.plan``
+    picks it from the prefill's shape and the dtype: bf16 on the
+    tensor-core route, fp32 on the SIMT kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import layers, transformer
     cfg = model.cfg
     L, n_pf = cfg.num_layers, len(prefills)
@@ -1676,7 +1824,13 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     routes.update({f"{k}_{r}": 0 for k in ("fused_linear_int4", "int4_matmul")
                    for r in ("tc", "stream")})
     routes.update({f"paged_attention_{r}": 0 for r in ("split", "simt")})
+    routes.update({f"ssd_scan_{r}": 0 for r in ("tc", "simt")})
     if transformer.is_ssm_stack(cfg):
+        dt = layers.torch_dtype(cfg)
+        for b, t in prefills:
+            routes["ssd_scan_" + ss.plan(
+                b, t, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+                cfg.ssm_groups, cfg.ssm_chunk, dt).route] += L
         return {"router_stats": L * fwd, "fused_linear": 0,
                 "fused_linear_int4": 0, "int4_matmul": 0,
                 "flash_attention": 0, "paged_attention": 0,
@@ -2181,8 +2335,11 @@ def _mamba_cpu(torch, np, cfg, seed):
 
 def parity_mamba(torch, np, dev):
     """CPU ≡ CUDA on the fp32 mamba2-2.7b smoke model (2 layers, chunk 8,
-    so the prompts span several chunks and the last one is ragged)."""
+    so the prompts span several chunks and the last one is ragged), with
+    exact launch counts of the cuda runs (every SSD scan on the SIMT
+    kernel).  Returns (record, launches)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.model import LanguageModel
     cfg = dataclasses.replace(get_config("mamba2-2.7b").smoke(),
                               dtype="float32")
@@ -2197,6 +2354,18 @@ def parity_mamba(torch, np, dev):
             f"{MIN_MARGIN}")
     toks, forced, prompts, cont = inputs
     m_gpu = LanguageModel(cfg, params, device=dev)
+    rows, steps, prefill, decode = [], [], m_gpu.prefill, m_gpu.decode_step
+
+    def recorded(toks, *a, **k):      # the shape of each prefill it runs
+        rows.append(tuple(toks.shape))
+        return prefill(toks, *a, **k)
+
+    def stepped(*a, **k):
+        steps.append(1)
+        return decode(*a, **k)
+
+    m_gpu.prefill, m_gpu.decode_step = recorded, stepped
+    ops.reset_kernel_launches()
     fg = _mamba_forced(m_gpu, toks, forced)
     worst = keep_diff = 0.0
     for (la, ga, ka, na), (lb, gb, kb, nb) in zip(fc, fg):
@@ -2210,6 +2379,12 @@ def parity_mamba(torch, np, dev):
         require(abs(ka - kb) <= TOL_KEEP and na == nb,
                 f"mamba keep statistics differ: {ka} vs {kb}, {na} vs {nb}")
     lg, cg, sg = _mamba_engines(m_gpu, prompts, cont, 8)
+    torch.cuda.synchronize(dev)
+    launches = ops.kernel_launches()
+    del m_gpu.prefill, m_gpu.decode_step
+    expected = expected_launches(m_gpu, rows, len(steps), 0)
+    require(launches == expected and launches["ssd_scan_tc"] == 0,
+            f"mamba parity launches {launches} != expected {expected}")
     require(np.array_equal(lc["tokens"], lg["tokens"]),
             "mamba ServeEngine tokens differ between cpu and cuda")
     lk = abs(lc["stats"].attn_keep_frac - lg["stats"].attn_keep_frac)
@@ -2234,7 +2409,9 @@ def parity_mamba(torch, np, dev):
             "keep_tol": TOL_KEEP, "greedy_tokens_identical": True,
             "serve_tokens_identical": True,
             "continuous_tokens_identical": True,
-            "serve_keep_frac": lg["stats"].attn_keep_frac}
+            "serve_keep_frac": lg["stats"].attn_keep_frac,
+            "prefills": len(rows), "decode_steps": len(steps),
+            "launches": launches}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2334,6 +2511,7 @@ def main() -> int:
     int4_lin = check_fused_linear_int4(torch, dev, timer, cfg)
     lm_head = check_int4_matmul(torch, dev, timer, cfg)
     paged = check_paged(torch, np, dev, timer, cfg)
+    ssd = check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))
     per_kernel = {
         "router_stats": check_router(torch, dev, timer, cfg),
         "fused_linear_wgmma": dense["wgmma"],
@@ -2345,7 +2523,7 @@ def main() -> int:
         "flash_attention_splitkv": flash["splitkv"],
         "paged_attention_split": paged["split"],
         "paged_attention_simt": paged["simt"],
-        "ssd_scan": check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))}
+        "ssd_scan_tc": ssd["tc"], "ssd_scan_simt": ssd["simt"]}
     # the lm head's tile (M 2048) is off the main path: recorded, not listed
     emit({"phase": "kernels", "shapes": per_kernel,
           "int4_matmul_tc": lm_head["tc"]})
@@ -2373,7 +2551,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    emit(parity_mamba(torch, np, dev))
+    par, par_launches = parity_mamba(torch, np, dev)
+    emit(par)            # fp32: the SSD scan's SIMT route's launches
+    launches["ssd_scan_simt"] += par_launches["ssd_scan_simt"]
     mamba, mamba_launches = serve_mamba(torch, np, dev)
     emit(mamba)
     for k, v in mamba_launches.items():

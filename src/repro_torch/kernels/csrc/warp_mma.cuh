@@ -1,9 +1,10 @@
 // Warp-level building blocks shared by the port's mma.sync kernels
-// (flash_attention.cu's split-KV walk, paged_attention.cu's split walk):
-// 16-byte cp.async copies, ldmatrix and mma.sync m16n8k16 over bf16
-// fragments, the quad reductions of its accumulator layout (four lanes
-// hold one row), and the exact power-of-two rescales of an online softmax
-// whose running maximum is kept as an integer.
+// (flash_attention.cu's split-KV walk, paged_attention.cu's split walk,
+// ssd_scan.cu's tensor-core route): 16-byte cp.async copies, ldmatrix and
+// mma.sync m16n8k16 over bf16 fragments, the quad reductions of its
+// accumulator layout (four lanes hold one row), the exact power-of-two
+// rescales of an online softmax whose running maximum is kept as an
+// integer, and the three-term bf16 split of fp32 operands.
 #pragma once
 #include <cuda_bf16.h>
 
@@ -28,6 +29,24 @@ __device__ __forceinline__ float exp2_fast(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+// Two fp32 values as three packed bf16 pairs: hi = bf16(v), mid = bf16(v −
+// hi), lo = bf16(v − hi − mid), each rounded to nearest even.  The three
+// hold all 24 bits of v's significand, so hi + mid + lo == v exactly
+// wherever lo's last bit stays within bf16's range (|v| >= 2^-110; below
+// it the sum is off by at most 2^-134): three bf16 products against an
+// exact bf16 operand, summed in fp32, give the fp32 product.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -70,6 +89,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p))
       : "memory");
 }

@@ -24,8 +24,8 @@ from repro_torch.kernels import ssd_scan as ss
 def kernel_launches() -> dict:
     """Launch counts of every kernel wrapper, by kernel name; the fused
     linear (dense and int4), the int4 matmul, flash and paged attention
-    also by the route each call took (``fl.plan``, ``fl.plan_int4``,
-    ``fa.plan``, ``pa.plan``)."""
+    and the SSD scan also by the route each call took (``fl.plan``,
+    ``fl.plan_int4``, ``fa.plan``, ``pa.plan``, ``ss.plan``)."""
     return {"router_stats": frr.launches, "fused_linear": fl.launches,
             "fused_linear_wgmma": fl.launches_wgmma,
             "fused_linear_splitk": fl.launches_splitk,
@@ -42,7 +42,8 @@ def kernel_launches() -> dict:
             "paged_attention": pa.launches,
             "paged_attention_split": pa.launches_split,
             "paged_attention_simt": pa.launches_simt,
-            "ssd_scan": ss.launches}
+            "ssd_scan": ss.launches, "ssd_scan_tc": ss.launches_tc,
+            "ssd_scan_simt": ss.launches_simt}
 
 
 def reset_kernel_launches() -> None:
@@ -53,6 +54,7 @@ def reset_kernel_launches() -> None:
     fa.launches = pa.launches = ss.launches = 0
     fa.launches_wgmma = fa.launches_splitkv = fa.launches_simt = 0
     pa.launches_split = pa.launches_simt = 0
+    ss.launches_tc = ss.launches_simt = 0
 
 
 # ---------------------------------------------------------------------------

@@ -305,3 +305,72 @@ def ssd_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(Bsz, nc * Q, H, P)[:, :T]
     return y, state
+
+
+def split_bf16(a: torch.Tensor):
+    """fp32 ``a`` as three bf16 terms, each rounded to nearest even: hi =
+    bf16(a), mid = bf16(a − hi), lo = bf16(a − hi − mid) (``split_bf16`` of
+    ``csrc/warp_mma.cuh``).  They hold all 24 bits of a's significand, so
+    hi + mid + lo, summed in fp32, is a bit for bit wherever lo's last bit
+    lies within bf16's range (|a| >= 2^-110); below, off by at most
+    2^-134."""
+    a = a.float()
+    hi = a.to(torch.bfloat16)
+    r = a - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def ssd_scan_split(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
+    """``ssd_scan_ref`` with the operands rounded as the tensor-core route
+    of ``csrc/ssd_scan.cu`` rounds them: x, B and C taken as bf16; the
+    scores C·Bᵀ in fp32; W = scores · (exp(cum_i − cum_j) · dt_j) (0 above
+    the diagonal), the carried state S and Bᵀ · (exp(cum_Q − cum_j) · dt_j)
+    each split into three bf16 terms (``split_bf16``), and each product
+    taken term by term against its exact bf16 operand and summed in fp32.
+    Same arguments and returns as ``ssd_scan_ref``."""
+    Bsz, T, H, P = xh.shape
+    G, N = Bm.shape[-2:]
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    grp = torch.arange(H, device=xh.device) // (H // G)
+
+    def exact(t):
+        return t.to(torch.bfloat16).float()
+
+    def terms(t):
+        return [s.float() for s in split_bf16(t)]
+
+    x, d = exact(xh), dt.float()
+    bh, ch = exact(Bm)[:, :, grp], exact(Cm)[:, :, grp]       # [B, T, H, N]
+    if pad:
+        x, d, bh, ch = (F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+                        for a in (x, d, bh, ch))
+    nc = (T + pad) // Q
+    x, d, bh, ch = (a.reshape(Bsz, nc, Q, *a.shape[2:])
+                    for a in (x, d, bh, ch))
+    cum = torch.cumsum(d * -torch.exp(A_log.float()), dim=2)  # [B,nc,Q,H]
+    idx = torch.arange(Q, device=xh.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]    # [1,Qi,Qj,1]
+    state = xh.new_zeros((Bsz, H, P, N), dtype=torch.float32)
+    ys = []
+    for c in range(nc):
+        cq, dc, xc = cum[:, c], d[:, c], x[:, c]
+        scores = torch.einsum("bihn,bjhn->bijh", ch[:, c], bh[:, c])
+        seg = torch.exp(torch.where(tri, cq[:, :, None] - cq[:, None],
+                                    float("-inf")))
+        w = torch.where(tri, scores * (seg * dc[:, None]),
+                        torch.zeros_like(scores))
+        y = sum(torch.einsum("bijh,bjhp->bihp", t, xc) for t in terms(w))
+        y = y + sum(torch.einsum("bihn,bhpn->bihp", ch[:, c], t)
+                    for t in terms(state)) * torch.exp(cq)[..., None]
+        f = torch.exp(cq[:, -1:] - cq) * dc                    # [B,Q,H]
+        bt = bh[:, c] * f[..., None]
+        s_local = sum(torch.einsum("bjhn,bjhp->bhpn", t, xc)
+                      for t in terms(bt))
+        state = state * torch.exp(cq[:, -1])[:, :, None, None] + s_local
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(Bsz, nc * Q, H, P)[:, :T]
+    return y, state

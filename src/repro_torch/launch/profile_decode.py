@@ -3,7 +3,8 @@ teacher-forced decode steps of one model, in bf16 weights and the same
 weights quantized to int4-BFP, one after the other in one process (a
 Mamba stack, whose int4 weights are not served yet, in bf16 only); with
 ``--paged``, teacher-forced paged decode steps of the bf16 weights over a
-store packed from the prefill, in bf16, int8 and int4 pages.
+store packed from the prefill, in bf16, int8 and int4 pages; with
+``--prefill``, one lock-step prefill of the bf16 weights instead.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --batch 4 --prompt-len 512 --steps 8   # on the card
@@ -11,6 +12,8 @@ store packed from the prefill, in bf16, int8 and int4 pages.
       --arch llama2-7b --paged                                 # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch mamba2-2.7b                                       # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch mamba2-2.7b --prefill                             # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
 
@@ -29,8 +32,17 @@ final synchronize), the device's busy ms per step (the sum of its kernels'
 and copies' durations in the trace), the idle share 1 − busy / wall
 (against the unprofiled wall), device launches per step, paged
 attention's own device ms and launches per step (its kernels' names
-start with ``paged_``), and the kernels with the most device time.  On the
-CPU there is no device trace: busy and idle are null.
+start with ``paged_``), and the kernels with the most device time.
+
+``--prefill`` runs the ``--batch`` × ``--prompt-len`` prefill as the
+lock-step engine does (room for 32 new tokens), once to warm up, once
+timed on the host clock and once under the profiler, and prints one JSON
+line: wall ms, device busy ms (the sum of its kernels' and copies'
+durations), idle share 1 − busy / wall, device launches, the SSD scan's
+own device ms and launches (kernel names with ``ssd_scan``), the kernels
+with the most device time, and the PyTorch operators (``aten::``) with the
+most device time of their own.  On the CPU there is no device trace: busy
+and idle are null.
 """
 import argparse
 import json
@@ -91,6 +103,72 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
                         "per_step": cnt / steps}
                        for name, (us, cnt) in sorted(
                            by_name.items(), key=lambda kv: -kv[1][0])[:top]])
+    return rec
+
+
+def _device_time_us(avg) -> float:
+    """An operator's own device time in the profiler's averages (the
+    attribute's name differs between PyTorch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(avg, name):
+            return float(getattr(avg, name))
+    return 0.0
+
+
+def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
+                    new_tokens: int = 32) -> dict:
+    """One lock-step prefill of ``batch`` × ``prompt_len`` seeded tokens
+    (cache room for ``new_tokens`` more, as ``ServeEngine`` gives it):
+    warm-up, timed, profiled."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = model.cfg, model.device
+    cuda = dev.type == "cuda"
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+
+    def run():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model.prefill(toks, pad_to=prompt_len + new_tokens)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    run()                                               # warm-up
+    wall_s = run()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        prof_s = run()
+    rec = {"arch": cfg.name, "weights": _weights(model), "batch": batch,
+           "prompt_len": prompt_len, "prefill": True, "wall_ms": wall_s * 1e3,
+           "profiled_wall_ms": prof_s * 1e3, "device_busy_ms": None,
+           "idle_share": None, "device_launches": None, "ssd_scan_ms": None,
+           "ssd_scan_launches": None, "top_kernels": None, "top_ops": None}
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if kernels:
+        by_name = {}
+        for e in kernels:
+            us, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        ssd = [(us, cnt) for name, (us, cnt) in by_name.items()
+               if "ssd_scan" in name]
+        ops = [(a.key, _device_time_us(a), a.count)
+               for a in prof.key_averages() if a.key.startswith("aten::")]
+        rec.update(
+            device_busy_ms=busy, idle_share=1.0 - busy / rec["wall_ms"],
+            device_launches=len(kernels),
+            ssd_scan_ms=sum(us for us, _ in ssd) / 1e3,
+            ssd_scan_launches=sum(cnt for _, cnt in ssd),
+            top_kernels=[{"name": name[:80], "ms": us / 1e3, "launches": cnt}
+                         for name, (us, cnt) in sorted(
+                             by_name.items(), key=lambda kv: -kv[1][0])[:top]],
+            top_ops=[{"op": k, "self_device_ms": us / 1e3, "calls": n}
+                     for k, us, n in sorted(ops, key=lambda o: -o[1])[:top]])
     return rec
 
 
@@ -188,6 +266,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--paged", action="store_true",
                     help="paged decode steps in bf16, int8 and int4 pages")
+    ap.add_argument("--prefill", action="store_true",
+                    help="one lock-step prefill of the bf16 weights")
     args = ap.parse_args(argv)
 
     import torch
@@ -204,6 +284,10 @@ def main(argv=None) -> None:
     model = LanguageModel(cfg, device=args.device, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=args.device)
+    if args.prefill:
+        print(json.dumps(profile_prefill(model, args.batch, args.prompt_len)),
+              flush=True)
+        return
     if args.paged:
         if transformer.is_ssm_stack(cfg):
             raise SystemExit("--paged: a Mamba stack keeps no KV pages")

@@ -62,7 +62,8 @@ def _t(a):
     (1, 32, 1, 16, 16, 1, 16),
     (1, 10, 2, 4, 4, 2, 16),      # T < chunk and not divisible
     (2, 21, 4, 8, 4, 2, 8),       # G > 1 with two heads per group, ragged T
-])
+    (1, 300, 2, 64, 128, 1, 128),  # the main path's chunk (Q 128, N 128,
+])                                 # P 64) over a ragged T
 def test_ssd_scan_ref_matches_reference(B, T, H, P, N, G, Q):
     rng = np.random.default_rng(SEED)
     xh = rng.standard_normal((B, T, H, P)).astype(np.float32)
