@@ -7,8 +7,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   1. device   — the card (``nvidia-smi`` name and power limit, printed raw too);
   2. build    — nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
   3. kernels  — each kernel against its plain PyTorch version on the card, at
-                the llama2-7b main-path shapes, with times and bounds
-                (router, dense and int4 fused linear and flash in bf16 and
+                the llama2-7b main-path shapes, with times and bounds, on a
+                Timer that reads a buffer twice the L2's size before each
+                run (clean L2) and beside an empty kernel's time on it
+                (``launch_floor_ms``); the router at every main-path shape
+                (D 4096 and 2560 at T 2048, 453 and 4, bf16 and fp32, each
+                launched twice bit for bit and, above 16 rows, its first
+                16 rows held bit for bit against a call on those rows
+                alone, timed beside the two-call torch composite);
+                (dense and int4 fused linear and flash in bf16 and
                 fp32 activations, the int4 matmul at the lm head; the
                 dense fused linear's two bf16 kernels, the tensor-core tile
                 at M 2048 and the split-K stream at M 4, each launched
@@ -35,7 +42,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 split-KV walk over the same admitted rows laid out
                 contiguously, the yardstick), fp32 q on the SIMT kernel);
                 then ragged shapes
-                off the tile multiples, empty paged histories, padded
+                off the tile multiples (the router at D 300, 301 and 4100,
+                T 1, 16, 17 and 2049, and x at an address that allows 1 or
+                2 elements a load), empty paged histories, padded
                 K-groups, odd N, non-pow2 scales and .5 ties, flash pad rows
                 and splits without a valid key included, paged G 8, 16 and
                 32, head groups that do not divide Hkv, fewer admitted
@@ -226,16 +235,24 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
 
 
 class Timer:
-    """Median CUDA-event time of one call on the device, L2 flushed before
-    each run.  A ~2 ms device sleep precedes the start event, so the host
-    has enqueued the call before the card reaches it and the events time
-    device work, not Python and ctypes launch overhead."""
+    """Median CUDA-event time of one call on the device, on a clean L2.
+
+    Before each run the Timer reads a buffer twice the L2's size, filled
+    once at construction: whatever the previous run left dirty in L2 is
+    written back during that read, before the start event, so a kernel
+    that streams its inputs pays for its own bytes only (a flush that
+    writes would leave its dirty lines for the timed kernel to evict).
+    A ~2 ms device
+    sleep precedes the start event, so the host has enqueued the call
+    before the card reaches it and the events time device work, not
+    Python and ctypes launch overhead."""
 
     SLEEP_CYCLES = 4_000_000
+    FLUSH_BYTES = 100 << 20        # twice the H100's 50 MB L2
 
     def __init__(self, torch, dev):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        self.flush = torch.ones(self.FLUSH_BYTES // 4, device=dev)
 
     def __call__(self, fn, iters: int = 7, warmup: int = 2) -> float:
         torch = self.torch
@@ -243,7 +260,7 @@ class Timer:
             fn()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
+            self.flush.sum()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(self.SLEEP_CYCLES)
@@ -255,6 +272,12 @@ class Timer:
         return statistics.median(times)
 
 
+def launch_floor_ms(torch, timer) -> float:
+    """An empty kernel (``torch.cuda._sleep(0)``) under ``timer``: the
+    least time any launch shows on this yardstick."""
+    return timer(lambda: torch.cuda._sleep(0))
+
+
 def max_err(torch, out, ref):
     d = (out.float() - ref.float()).abs().max().item()
     return d, ref.float().abs().max().item()
@@ -264,34 +287,80 @@ def max_err(torch, out, ref):
 # Phase 3: kernels against their plain versions at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def check_router(torch, dev, timer, cfg):
+ROUTER_T = (2048, 453, 4)   # lock-step prefill B·T0 = 4·512; the longest
+#                             continuous prefill; decode B = 4
+ROUTER_ALONE = 16           # router_call reruns a call's first rows alone
+
+
+def router_call(torch, x, w, what):
+    """One router pass on the plan ``plan`` makes against the plain
+    version: logits within TOL_F32·max|ref|, mean_sq within TOL_SQ
+    (relative), one launch counted, a second launch bit for bit the same,
+    and above 16 rows its first 16 rows bit for bit the same as a call on
+    those rows alone (a block a row): a row's results do not depend on
+    the rows a block or on the other rows.  Returns the error record."""
     from repro_torch.kernels import fused_router_rmsnorm as frr, ref
-    D = cfg.d_model
+    T, D = x.shape
+    p = frr.plan(T, D, x.dtype, x.data_ptr())
+    before = frr.launches
+    lo, ms = frr.router_stats_cuda(x, w)
+    require(frr.launches == before + 1,
+            f"{what}: {frr.launches - before} launches counted, want 1")
+    lo2, ms2 = frr.router_stats_cuda(x, w)
+    lr, mr = ref.router_stats_ref(x, w)
+    torch.cuda.synchronize()
+    e, m = max_err(torch, lo, lr)
+    require(e <= TOL_F32 * m, f"{what}: logits {e} > {TOL_F32}·{m}")
+    sq_rel = ((ms - mr).abs() / mr.abs()).max().item() if T else 0.0
+    require(sq_rel <= TOL_SQ, f"{what}: mean_sq rel err {sq_rel}")
+    require(torch.equal(lo, lo2) and torch.equal(ms, ms2),
+            f"{what}: a second launch differs")
+    rec = {"rows": p.rows, "vec": p.vec, "max_abs_err": e, "max_ref": m,
+           "mean_sq_rel_err": sq_rel, "repeat_bit_identical": True}
+    if T > ROUTER_ALONE:
+        lo3, ms3 = frr.router_stats_cuda(x[:ROUTER_ALONE], w)
+        torch.cuda.synchronize()
+        require(torch.equal(lo[:ROUTER_ALONE], lo3)
+                and torch.equal(ms[:ROUTER_ALONE], ms3),
+                f"{what}: the first {ROUTER_ALONE} rows differ alone")
+        rec["rows_alone_bit_identical"] = True
+    return rec
+
+
+def check_router(torch, dev, timer, cfgs, floor):
+    """The router at every main-path shape: D of each config (llama2-7b
+    4096, mamba2-2.7b 2560) at T 2048, 453 and 4, bf16 and fp32, each
+    checked by ``router_call``.  The bf16 kernel is timed beside the plain
+    version and beside the two-call torch composite (``x.float() @ w`` and
+    ``x.float().square().mean(-1)``: two calls, not one, so not
+    ``library_ms``); each record carries the bound and ``floor``, the
+    empty kernel's time on the same Timer.  Returns the shape records."""
+    from repro_torch.kernels import fused_router_rmsnorm as frr, ref
     g = torch.Generator(device=dev).manual_seed(11)
     shapes = []
-    for T in (2048, 4):                   # prefill B·T0 = 4·512; decode B = 4
-        x = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    for cfg in cfgs:
+        D = cfg.d_model
         w = torch.randn((D, 2), generator=g, device=dev) * 0.02
-        rel = {}
-        for dt in (torch.bfloat16, torch.float32):
-            xx = x.to(dt)
-            lo, ms = frr.router_stats_cuda(xx, w)
-            lr, mr = ref.router_stats_ref(xx, w)
-            torch.cuda.synchronize()
-            e, m = max_err(torch, lo, lr)
-            require(e <= TOL_F32 * m, f"router logits {dt} T={T}: {e} > "
-                    f"{TOL_F32}·{m}")
-            sq_rel = ((ms - mr).abs() / mr.abs()).max().item()
-            require(sq_rel <= TOL_SQ, f"router mean_sq {dt} T={T}: {sq_rel}")
-            rel[str(dt).split(".")[-1]] = {"max_abs_err": e, "max_ref": m,
-                                           "mean_sq_rel_err": sq_rel}
-        ms_k = timer(lambda: frr.router_stats_cuda(x, w))
-        ms_p = timer(lambda: ref.router_stats_ref(x, w))
-        b, by = bound_ms(T * D * 2 + D * 2 * 4 + T * 3 * 4, 6.0 * T * D)
-        shapes.append({"shape": f"x[{T},{D}] bf16", "ms": ms_k,
-                       "plain_ms": ms_p, "library_ms": None, "bound_ms": b,
-                       "bound_by": by, "tol": f"{TOL_F32}·max|ref|; "
-                       f"mean_sq {TOL_SQ} rel", "errors": rel})
+        for T in ROUTER_T:
+            x = torch.randn((T, D), generator=g, device=dev).to(
+                torch.bfloat16)
+            rel = {}
+            for dt in (torch.bfloat16, torch.float32):
+                rel[str(dt).split(".")[-1]] = router_call(
+                    torch, x.to(dt), w, f"router {cfg.name} T={T} {dt}")
+            p = frr.plan(T, D, x.dtype, x.data_ptr())
+            ms_k = timer(lambda: frr.router_stats_cuda(x, w))
+            b, by = bound_ms(T * D * 2 + D * 2 * 4 + T * 3 * 4, 6.0 * T * D)
+            shapes.append({
+                "shape": f"x[{T},{D}] bf16 ({cfg.name})", "ms": ms_k,
+                "plain_ms": timer(lambda: ref.router_stats_ref(x, w)),
+                "library_ms": None,
+                "torch_two_calls_ms": timer(
+                    lambda: (x.float() @ w, x.float().square().mean(-1))),
+                "torch_two_calls_note": "two calls, not one",
+                "bound_ms": b, "bound_by": by,
+                "launch_floor_ms": floor, "plan": dataclasses.asdict(p),
+                "errors": rel})
     return shapes
 
 
@@ -1135,9 +1204,9 @@ def check_ragged(torch, dev):
     G > 1, a window), against the plain versions, not timed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
-    from repro_torch.kernels import fused_router_rmsnorm as frr, ref
     g = torch.Generator(device=dev).manual_seed(14)
     worst, dense, flash, int4, paged_recs, ssd = {}, {}, {}, {}, {}, {}
+    router = {}
 
     def note(name, e, m, tol):
         require(e <= tol * m, f"ragged {name}: {e} > {tol}·{m}")
@@ -1145,13 +1214,17 @@ def check_ragged(torch, dev):
 
     for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
         dname = str(dt).split(".")[-1]
-        x = torch.randn((37, 300), generator=g, device=dev).to(dt)
-        w = torch.randn((300, 2), generator=g, device=dev)
-        lo, ms = frr.router_stats_cuda(x, w)
-        lr, mr = ref.router_stats_ref(x, w)
-        note("router_stats", *max_err(torch, lo, lr), TOL_F32)
-        require(((ms - mr).abs() / mr).max().item() <= TOL_SQ,
-                "ragged router mean_sq")
+        for T, D, off in ROUTER_RAGGED:
+            # off: x starts that many elements into its buffer (None: a
+            # view one row into a buffer of odd D, one more row)
+            w = torch.randn((D, 2), generator=g, device=dev)
+            n = (T + 1) * D if off is None else T * D + off
+            buf = torch.randn((n,), generator=g, device=dev).to(dt)
+            x = buf[D if off is None else off:].view(T, D)
+            r = router_call(torch, x, w, f"ragged router T={T} D={D} "
+                            f"off={off} {dname}")
+            note("router_stats", r["max_abs_err"], r["max_ref"], TOL_F32)
+            router[f"T={T} D={D} off={off} {dname}"] = r
         for M, K, F, glu in ((37, 200, 70, True), (5, 300, 130, False),
                              (130, 40, 200, False)):
             N = 2 * F if glu else F
@@ -1208,6 +1281,10 @@ def check_ragged(torch, dev):
             ssd[f"B={B} T={T} H={H} P={P} N={N} G={G} Q={chunk} "
                 f"{dname}"] = r
     torch.cuda.synchronize()
+    routes = {(k.split()[-1], r["rows"], r["vec"]) for k, r in router.items()}
+    require(routes == {(d, rv, v) for d in ("bfloat16", "float32")
+                       for rv, v in ((4, 2), (1, 2), (1, 1))},
+            f"ragged router cases took (rows, vec) {sorted(routes)}")
     routes = {(k.split()[-1], r["route"]) for k, r in flash.items()}
     require(routes == {("bfloat16", "wgmma"), ("bfloat16", "splitkv"),
                        ("float32", "simt")},
@@ -1224,6 +1301,8 @@ def check_ragged(torch, dev):
     require(routes == {("bfloat16", "tc"), ("float32", "simt")},
             f"ragged ssd cases took the routes {sorted(routes)}")
     return {"phase": "ragged", "max_err_over_max_ref": worst,
+            "router_stats": router,
+            "router_stats_refusals": router_refusals(torch, dev),
             "fused_linear": dense,
             "fused_linear_refusals": fused_linear_refusals(torch, dev),
             "int4": int4, "int4_refusals": int4_refusals(torch, dev),
@@ -1232,6 +1311,63 @@ def check_ragged(torch, dev):
             "paged_attention": paged_recs,
             "paged_attention_refusals": paged_refusals(torch, dev),
             "ssd_scan": ssd, "ssd_scan_refusals": ssd_refusals(torch, dev)}
+
+
+# router_stats off the main shapes: T, D and x's offset in its buffer in
+# elements (None: one row into a buffer of odd D).  T 1 to 37 take a block
+# a row, 2049 blocks of 4 rows (rows off a multiple of the block's; past
+# the grid's cap); T 17 and above also rerun their first 16 rows alone;
+# D 300, 4096 and 4100 take lanes of 2 elements, D 301 (odd) of 1;
+# offsets of 1 and 2 elements make x's address take 1 and 2.
+ROUTER_RAGGED = ((1, 300, 0), (16, 300, 0), (17, 300, 0), (37, 300, 0),
+                 (2049, 300, 0), (1, 4100, 0), (16, 4100, 0),
+                 (17, 4100, 0), (2049, 4100, 0), (1, 4096, 0),
+                 (17, 4096, 0), (3, 301, None), (20, 301, None),
+                 (4, 4096, 1), (20, 4096, 1), (4, 4096, 2), (20, 4096, 2))
+
+
+def router_refusals(torch, dev):
+    """The router's C entries refuse a plan that disagrees with the
+    source: a grid, thread count or shared-memory size other than the
+    plan's, a vector width the kernel has no instantiation of or to which
+    x's address is not aligned, or rows a block past its 16 warps; it
+    returns cudaErrorInvalidValue and the wrapper raises, at a block a row
+    and at blocks of 4 rows and in both element types."""
+    from repro_torch.kernels import fused_router_rmsnorm as frr
+    refused = {}
+    rep = dataclasses.replace
+    D = 4096
+    w = torch.zeros((D, 2), device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        buf = torch.zeros((2048 * D + 1,), dtype=dt, device=dev)
+        for T in (2048, 4):
+            x = buf[:T * D].view(T, D)
+            p = frr.plan(T, D, dt, x.data_ptr())
+            bad = {"grid": rep(p, grid=p.grid + 1),
+                   "threads": rep(p, threads=p.threads + 32),
+                   "smem": rep(p, smem=p.smem + 16),
+                   "vec4": rep(p, vec=4), "vec3": rep(p, vec=3),
+                   "rows": rep(p, rows=8, grid=-(-T // 8),
+                               threads=p.threads * 8 // p.rows,
+                               smem=p.smem * 8 // p.rows)}
+            for what, bp in bad.items():
+                try:
+                    frr.run_plan(bp, x, w)
+                except RuntimeError as e:
+                    refused[f"T={T} {what} {dt}"] = str(e)
+                    continue
+                raise RuntimeError(f"router_stats T={T}: a plan with "
+                                   f"{what} off the source was not refused")
+            xm = buf[1:1 + T * D].view(T, D)      # 2 or 4 bytes off
+            try:
+                frr.run_plan(p, xm, w)
+            except RuntimeError as e:
+                refused[f"T={T} misaligned {dt}"] = str(e)
+                continue
+            raise RuntimeError(f"router_stats T={T}: a {p.vec}-element "
+                               "vector at a misaligned x was not refused")
+    torch.cuda.synchronize()
+    return refused
 
 
 # flash attention off the main shapes: B, Tq, Tk, Hq, Hkv, dh, window and
@@ -1825,8 +1961,8 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
                    for r in ("tc", "stream")})
     routes.update({f"paged_attention_{r}": 0 for r in ("split", "simt")})
     routes.update({f"ssd_scan_{r}": 0 for r in ("tc", "simt")})
+    dt, D = layers.torch_dtype(cfg), cfg.d_model
     if transformer.is_ssm_stack(cfg):
-        dt = layers.torch_dtype(cfg)
         for b, t in prefills:
             routes["ssd_scan_" + ss.plan(
                 b, t, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
@@ -1836,7 +1972,6 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
                 "flash_attention": 0, "paged_attention": 0,
                 "ssd_scan": L * n_pf, **routes}
     int4 = is_int4(model)
-    dt, D = layers.torch_dtype(cfg), cfg.d_model
     Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     G = cfg.num_heads // Hkv
     forwards = [(b * t, b, G * t, t) for b, t in prefills]
@@ -2506,14 +2641,17 @@ def main() -> int:
     from repro_torch.configs import get_config
     cfg = get_config("llama2-7b")
     timer = Timer(torch, dev)
+    floor = launch_floor_ms(torch, timer)
     dense = check_fused_linear(torch, dev, timer, cfg)
     flash = check_flash(torch, dev, timer, cfg)
     int4_lin = check_fused_linear_int4(torch, dev, timer, cfg)
     lm_head = check_int4_matmul(torch, dev, timer, cfg)
     paged = check_paged(torch, np, dev, timer, cfg)
-    ssd = check_ssd(torch, dev, timer, get_config("mamba2-2.7b"))
+    mamba_cfg = get_config("mamba2-2.7b")
+    ssd = check_ssd(torch, dev, timer, mamba_cfg)
+    router = check_router(torch, dev, timer, (cfg, mamba_cfg), floor)
     per_kernel = {
-        "router_stats": check_router(torch, dev, timer, cfg),
+        "router_stats": router,
         "fused_linear_wgmma": dense["wgmma"],
         "fused_linear_splitk": dense["splitk"],
         "fused_linear_int4_tc": int4_lin["tc"],
@@ -2525,8 +2663,8 @@ def main() -> int:
         "paged_attention_simt": paged["simt"],
         "ssd_scan_tc": ssd["tc"], "ssd_scan_simt": ssd["simt"]}
     # the lm head's tile (M 2048) is off the main path: recorded, not listed
-    emit({"phase": "kernels", "shapes": per_kernel,
-          "int4_matmul_tc": lm_head["tc"]})
+    emit({"phase": "kernels", "launch_floor_ms": floor,
+          "shapes": per_kernel, "int4_matmul_tc": lm_head["tc"]})
     emit(check_ragged(torch, dev))
 
     emit(parity(torch, np, dev))

@@ -32,14 +32,16 @@ final synchronize), the device's busy ms per step (the sum of its kernels'
 and copies' durations in the trace), the idle share 1 − busy / wall
 (against the unprofiled wall), device launches per step, paged
 attention's own device ms and launches per step (its kernels' names
-start with ``paged_``), and the kernels with the most device time.
+start with ``paged_``), the router's (names with ``router_``), and the
+kernels with the most device time.
 
 ``--prefill`` runs the ``--batch`` × ``--prompt-len`` prefill as the
 lock-step engine does (room for 32 new tokens), once to warm up, once
 timed on the host clock and once under the profiler, and prints one JSON
 line: wall ms, device busy ms (the sum of its kernels' and copies'
 durations), idle share 1 − busy / wall, device launches, the SSD scan's
-own device ms and launches (kernel names with ``ssd_scan``), the kernels
+own device ms and launches (kernel names with ``ssd_scan``), the
+router's (names with ``router_``), the kernels
 with the most device time, and the PyTorch operators (``aten::``) with the
 most device time of their own.  On the CPU there is no device trace: busy
 and idle are null.
@@ -81,6 +83,8 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
                 "device_launches_per_step": None,
                 "paged_attention_ms_per_step": None,
                 "paged_attention_launches_per_step": None,
+                "router_ms_per_step": None,
+                "router_launches_per_step": None,
                 "top_kernels": None})
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if kernels:
@@ -91,6 +95,8 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
         busy = sum(us for us, _ in by_name.values()) / 1e3 / steps
         paged = [(us, cnt) for name, (us, cnt) in by_name.items()
                  if "paged_" in name]
+        router = [(us, cnt) for name, (us, cnt) in by_name.items()
+                  if "router_" in name]
         rec.update(device_busy_ms_per_step=busy,
                    idle_share=1.0 - busy / rec["wall_ms_per_step"],
                    device_launches_per_step=len(kernels) / steps,
@@ -98,6 +104,10 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
                        us for us, _ in paged) / 1e3 / steps,
                    paged_attention_launches_per_step=sum(
                        cnt for _, cnt in paged) / steps,
+                   router_ms_per_step=sum(us for us, _ in router) / 1e3
+                   / steps,
+                   router_launches_per_step=sum(
+                       cnt for _, cnt in router) / steps,
                    top_kernels=[
                        {"name": name[:80], "ms_per_step": us / 1e3 / steps,
                         "per_step": cnt / steps}
@@ -147,7 +157,8 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
            "prompt_len": prompt_len, "prefill": True, "wall_ms": wall_s * 1e3,
            "profiled_wall_ms": prof_s * 1e3, "device_busy_ms": None,
            "idle_share": None, "device_launches": None, "ssd_scan_ms": None,
-           "ssd_scan_launches": None, "top_kernels": None, "top_ops": None}
+           "ssd_scan_launches": None, "router_ms": None,
+           "router_launches": None, "top_kernels": None, "top_ops": None}
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if kernels:
         by_name = {}
@@ -157,6 +168,8 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
         busy = sum(us for us, _ in by_name.values()) / 1e3
         ssd = [(us, cnt) for name, (us, cnt) in by_name.items()
                if "ssd_scan" in name]
+        router = [(us, cnt) for name, (us, cnt) in by_name.items()
+                  if "router_" in name]
         ops = [(a.key, _device_time_us(a), a.count)
                for a in prof.key_averages() if a.key.startswith("aten::")]
         rec.update(
@@ -164,6 +177,8 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
             device_launches=len(kernels),
             ssd_scan_ms=sum(us for us, _ in ssd) / 1e3,
             ssd_scan_launches=sum(cnt for _, cnt in ssd),
+            router_ms=sum(us for us, _ in router) / 1e3,
+            router_launches=sum(cnt for _, cnt in router),
             top_kernels=[{"name": name[:80], "ms": us / 1e3, "launches": cnt}
                          for name, (us, cnt) in sorted(
                              by_name.items(), key=lambda kv: -kv[1][0])[:top]],

@@ -51,7 +51,8 @@ def _rel(out, ref, tol=TOL_SQ):
 # Router stats
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("T,D", [(1, 64), (4, 200), (37, 300)])
+@pytest.mark.parametrize("T,D", [(1, 64), (4, 200), (37, 300), (16, 256),
+                                 (17, 256)])
 def test_router_stats_matches_oracle_and_pallas(T, D):
     rng = np.random.default_rng(T + D)
     x = rng.standard_normal((T, D)).astype(np.float32)
