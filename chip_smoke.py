@@ -120,9 +120,29 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 prefill, all on the tensor-core route, and none per decode
                 step, 64 router passes per forward, no attention or fused
                 linear), finite logits,
-                weight bytes, peak memory; a paged mamba engine must raise.
+                weight bytes, peak memory; a paged mamba engine must raise;
+ 11. fused    — the continuous engine at ``decode_steps`` 8 (device-resident
+                epochs: on the card a CUDA graph of one decode iteration,
+                replayed) on the weights of phases 6, 8 and 10: the dense
+                pool, paged bf16 and int8 pages (phase 6's requests), int4
+                weights on the dense pool (phase 8's) and mamba2-2.7b on
+                the dense pool (phase 10's), each giving bit for bit the
+                tokens of its single-step run; phase 6's 4 short requests
+                in its tight paged pool (epochs must shrink); a run at
+                temperature 0.8 (tokens in the vocabulary); exact launch
+                counts of the prefills and the eager warm-up iterations, at
+                most one capture for the dense pool and one per block-table
+                width for the paged store, every iteration past a capture's
+                eager warm-up a replay; after each run one more epoch of
+                its graph traced by torch.profiler, its port kernels
+                counted by name equal to the capture delta × replays; no host sync in a dense
+                run's deferred prefills (``set_sync_debug_mode``); page
+                conservation, finite logits (its lines are emitted after
+                phase 10).
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8 and 10, each counted from 0, and for the paged
+runs of phases 5, 6, 8, 10 and 11, each counted from 0 by the wrappers,
+which a graph replay does not pass through: phase 11's replayed launches
+stand in its own line, traced and derived, and in no sum; for the paged
 SIMT route, which only fp32 serving takes, over phase 7's fp32 paged run,
 and for the SSD scan's SIMT route over phase 9's fp32 cuda runs, both
 counted from 0 too; the dense fused linear
@@ -144,6 +164,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -2064,7 +2085,9 @@ class FiniteLogits:
 
     def __enter__(self):
         def checked(logits, generator=None, temperature=0.0):
-            self.all = self.all & self.torch.isfinite(logits).all()
+            # in place: a CUDA graph of a decode iteration captures this
+            # write, so every replay adds its logits to the same flag
+            self.all &= self.torch.isfinite(logits).all()
             return self.orig(logits, generator, temperature)
         self.engine.sample = checked
         return self
@@ -2079,8 +2102,17 @@ class FiniteLogits:
 def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     """One ContinuousBatchingEngine run (4 slots, max_len 544, page 16) with
     exact launch counts, every request completed, finite logits and, paged,
-    page conservation with no page in use at the end.  Returns (record,
-    per-request tokens, launches)."""
+    page conservation with no page in use at the end.  With ``decode_steps``
+    > 1 (fused epochs, CUDA graphs): the wrappers count the prefills' and
+    the eager warm-up iterations' launches (exact, as in single-step runs),
+    at most one capture for the dense pool and one per block-table width
+    ``j_step`` can take for the paged store, every iteration past a
+    capture's warm-up a replay, the capture deltas × replays (derived)
+    equal to the replayed iterations' expected launches, on the dense pool
+    no host sync in the deferred prefills, and after the run one more
+    epoch of the run's last graph traced: its port kernels, counted by
+    name in the device trace, must equal its capture delta × replays.  Returns (record,
+    per-request tokens, the wrappers' launches)."""
     from repro_torch.kernels import ops
     from repro_torch.kvcache import paged
     from repro_torch.models import layers, ssm, transformer
@@ -2089,6 +2121,27 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     eng = ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
                                    page_size=PAGE, **kw)
     uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    if eng.decode_steps > 1:
+        # a preemption storm (the reference's youngest-other policy can
+        # evict two residents in turn forever) fails here, not at the limit
+        epochs, process = [0], eng._process_epoch
+
+        def guarded(*a, **k):
+            epochs[0] += 1
+            require(epochs[0] <= 4 * new * len(prompts),
+                    f"{label}: {epochs[0]} epochs, no end in sight")
+            return process(*a, **k)
+
+        eng._process_epoch = guarded
+        launch_epoch, seen = eng._launch_epoch, {}
+
+        def kept(rs, ep, n):               # the run's DecodeEpoch
+            seen["ep"] = ep
+            return launch_epoch(rs, ep, n)
+
+        eng._launch_epoch = kept
+        if eng.kv_mode == "dense":
+            eng._prefill = unsynced_prefill(torch, eng._prefill, seen)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     finite.reset()
@@ -2109,11 +2162,37 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     wall = time.perf_counter() - t
     launches = ops.kernel_launches()
     s = out["stats"]
-    n_pf, n_st = s.prefill_chunks, s.decode_dispatches
+    n_pf, n_st = s.prefill_chunks, s.decode_iterations
     require(len(rows) == n_pf, f"{label}: {len(rows)} prefills seen, "
             f"{n_pf} counted")
-    expected = expected_launches(model, rows, n_st, SLOTS,
-                                 eng.kv_mode == "paged")
+    paged_run = eng.kv_mode == "paged"
+    graph_rec = {}
+    if eng.decode_steps > 1:
+        cap = (len(table_widths(eng.allocator.pages_per_slot))
+               if paged_run else 1)
+        require(1 <= s.compiles <= cap, f"{label}: {s.compiles} graphs "
+                f"captured, want 1..{cap}")
+        require(s.graph_replays == n_st - s.compiles,
+                f"{label}: {s.graph_replays} replays of {n_st} iterations "
+                f"and {s.compiles} captures (an iteration ran eagerly)")
+        derived = seen["ep"].graph_launches()
+        want = expected_launches(model, [], s.graph_replays, SLOTS,
+                                 paged_run)
+        require(derived == want, f"{label}: capture deltas × replays "
+                f"{derived} != the replayed iterations' {want}")
+        graph_rec = {"graph_launches_derived": derived}
+        if eng.kv_mode == "dense":
+            require(seen.get("deferred", 0) >= 1 and not seen["syncs"],
+                    f"{label}: {seen.get('syncs')} host syncs in "
+                    f"{seen.get('deferred')} deferred prefills")
+            graph_rec.update(deferred_prefills=seen["deferred"],
+                             deferred_prefill_syncs=seen["syncs"])
+        n_eager = s.compiles          # each capture's eager warm-up
+    else:
+        require(s.compiles == s.graph_replays == 0 and n_st == s.
+                decode_dispatches, f"{label}: single-step run captured")
+        n_eager = n_st
+    expected = expected_launches(model, rows, n_eager, SLOTS, paged_run)
     require(launches == expected, f"{label}: kernel launches "
             f"{launches} != expected {expected}")
     res = [out["results"][u] for u in uids]
@@ -2132,15 +2211,21 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     # decode_tokens counts each request's first token, which prefill made
     rec = {"run": label, "dtype": cfg.dtype, "requests": len(prompts),
            "prefill_s": s.prefill_s, "prefill_tokens": s.prefill_tokens,
-           "prefills": n_pf, "decode_steps": n_st, "decode_s": s.decode_s,
+           "prefills": n_pf, "decode_steps": n_st,
+           "decode_dispatches": s.decode_dispatches,
+           "steps_per_dispatch": eng.decode_steps,
+           "graphs_captured": s.compiles, "graph_replays": s.graph_replays,
+           "epoch_shrinks": s.epoch_shrinks, "host_s": s.host_s,
+           "device_s": s.device_s, "decode_s": s.decode_s,
            "decode_tok_per_s": s.decode_tok_per_s,
            "decode_only_tok_per_s": (s.decode_tokens - n_pf) / s.decode_s,
            "decode_steps_per_s": n_st / s.decode_s,
            "wall_s": wall, "attn_keep_frac": s.attn_keep_frac,
            "kv_saved_fraction": s.kv_saved_fraction,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-           "dense_pool_bytes": dense_bytes, "launches": launches}
-    if eng.kv_mode == "paged":
+           "dense_pool_bytes": dense_bytes, "launches": launches,
+           **graph_rec}
+    if paged_run:
         alloc = eng.allocator
         alloc.check_conservation()
         require(alloc.free_pages == eng.num_pages
@@ -2157,6 +2242,9 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
                    kv_entries_saved_fraction=s.kv_entries_saved_fraction,
                    history_hit_rate=s.history_hit_rate,
                    preemptions=s.preemptions)
+    if eng.decode_steps > 1:
+        rec["traced_epoch"] = trace_epoch(torch, dev, label, seen["ep"],
+                                          eng.decode_steps)
     return rec, [r.tokens for r in res], launches
 
 
@@ -2224,7 +2312,123 @@ def continuous_full_width(torch, np, dev, model):
             "prompt_lens": lens.tolist(), "new_tokens": new, "runs": runs,
             "tokens_identical_to_dense": same,
             "first_divergence": first,
-            "preempted_tokens_identical": True}, total, prompts, tokens
+            "preempted_tokens_identical": True}, total, prompts, tokens, \
+        (short, worst * 10 // 7)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: device-resident decode epochs (CUDA graphs of one iteration)
+# ---------------------------------------------------------------------------
+
+def table_widths(pages_per_slot: int) -> set:
+    """The block-table widths the paged fused loop can load: power-of-two
+    buckets of the live chain, clamped to pages_per_slot."""
+    return {min(1 << k, pages_per_slot)
+            for k in range(pages_per_slot.bit_length() + 1)}
+
+
+def unsynced_prefill(torch, prefill, seen):
+    """``ContinuousBatchingEngine._prefill`` with its deferred calls (a
+    fused dense run's: the first token left on the device) watched by
+    ``torch.cuda.set_sync_debug_mode``: ``seen["syncs"]`` counts the host
+    syncs they make, which would wait on the epoch in flight."""
+    seen.setdefault("syncs", 0)
+
+    def watched(rs, req, pad_to=None, defer=False):
+        if not defer:
+            return prefill(rs, req, pad_to=pad_to)
+        seen["deferred"] = seen.get("deferred", 0) + 1
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return prefill(rs, req, pad_to=pad_to, defer=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                seen["syncs"] += sum(
+                    "called a synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+    return watched
+
+
+def trace_epoch(torch, dev, label, ep, n):
+    """One more epoch of ``n`` replays of the run's last graph, under
+    torch.profiler once the run is over (its times untouched; the slots
+    are all finished, so nothing escapes): the port's kernels in the
+    device trace, counted by name, must equal the capture delta × n
+    (``ops.DEVICE_KERNELS``), and no wrapper may launch.  Returns the
+    traced counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_decode import _kernel_times
+    require(ep.captured(), f"{label}: the run's last width has no graph")
+    before, g0 = ops.kernel_launches(), ep.graph_launches()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ep.run(n)
+        torch.cuda.synchronize(dev)
+    require(ops.kernel_launches() == before,
+            f"{label}: a wrapper launched inside a replayed epoch")
+    replayed = {k: v - g0.get(k, 0) for k, v in ep.graph_launches().items()}
+    want = {k: v for k, v in ops.device_kernel_launches(replayed).items()
+            if v}
+    got = {}
+    for name, (_, cnt) in _kernel_times(prof).items():
+        kern = ops.device_kernel(name)
+        if kern is not None:
+            got[kern] = got.get(kern, 0) + cnt
+    require(bool(want) and got == want, f"{label}: the traced epoch's "
+            f"kernels {got} != capture delta × replays {want}")
+    return {"replays": n, "device_kernels": got}
+
+
+FUSED_STEPS = 8
+FUSED_TEMPERATURE = 0.8
+
+
+def serve_fused(torch, np, dev, model, specs):
+    """Continuous runs at ``decode_steps`` FUSED_STEPS through
+    ``serve_continuous`` (exact wrapper launches, captures bounded, no
+    eager iteration past a warm-up, one replayed epoch traced against its
+    capture delta, pages conserved, finite logits).  ``specs``: (label,
+    prompts, the single-step run's tokens or None, engine kwargs).  Where tokens are given the fused run
+    must equal them bit for bit (the same kernels on the same rows: a
+    graph replays its launches); a run with ``num_pages`` must shrink an
+    epoch; one at a temperature must give tokens in the vocabulary.
+    Returns (records, the wrappers' launches)."""
+    runs, total = [], {}
+    vocab = model.cfg.vocab_size
+    with FiniteLogits(torch, dev) as finite:
+        for label, plist, want, kw in specs:
+            rec, toks, launches = serve_continuous(
+                torch, dev, model, finite, label, plist, 32,
+                decode_steps=FUSED_STEPS, **kw)
+            if want is not None:
+                same = token_agreement(np, toks, want)
+                require(same[0] == 1.0, f"{label}: fused tokens differ from "
+                        f"the single-step run's (share equal, first "
+                        f"divergence): {same}")
+                rec["tokens_identical_to_single_step"] = True
+            if "num_pages" in kw:
+                require(rec["epoch_shrinks"] >= 1,
+                        f"{label}: the tight pool shrank no epoch")
+            if kw.get("temperature"):
+                flat = np.concatenate(toks)
+                require(bool(((flat >= 0) & (flat < vocab)).all()),
+                        f"{label}: a sampled token outside the vocabulary")
+                rec["temperature"] = kw["temperature"]
+                rec["distinct_tokens"] = int(np.unique(flat).size)
+            _add(total, launches)
+            runs.append(rec)
+    return runs, total
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
 
 
 # ---------------------------------------------------------------------------
@@ -2381,7 +2585,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
                                             phase="int4_serve")
     total = dict(launches)
     same = {"lock_step": token_agreement(np, list(toks), list(lock_tokens))}
-    runs = [lock]
+    runs, int4_tokens = [lock], {}
     with FiniteLogits(torch, dev) as finite:
         for label, ref_label, kw in (
                 ("int4_dense", "dense", dict(kv_mode="dense")),
@@ -2390,8 +2594,12 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
                 torch, dev, m4, finite, label, prompts, 32, **kw)
             runs.append(rec)
             same[label] = token_agreement(np, toks, cont_tokens[ref_label])
+            int4_tokens[label] = toks
             for k, v in launches.items():
                 total[k] += v
+    fused, fused_launches = serve_fused(torch, np, dev, m4, [
+        ("fused_int4_dense", prompts, int4_tokens["int4_dense"],
+         dict(kv_mode="dense"))])
     rec = {"phase": "int4", "config": cfg.name, "dtype": cfg.dtype,
            "group_size": cfg.quant.group_size,
            "pow2_scales": cfg.quant.pow2_scales, "int4_linears": n_int4,
@@ -2401,7 +2609,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
            "runs": runs, "tokens_equal_to_bf16": same}
     del m4, p4
     torch.cuda.empty_cache()
-    return rec, total
+    return rec, total, (fused, fused_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2577,11 +2785,13 @@ def serve_mamba(torch, np, dev):
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in lens]
     with FiniteLogits(torch, dev) as finite:
-        cont, _, launches = serve_continuous(torch, dev, model, finite,
-                                             "mamba_dense", prompts, 32,
-                                             kv_mode="dense")
+        cont, cont_tokens, launches = serve_continuous(
+            torch, dev, model, finite, "mamba_dense", prompts, 32,
+            kv_mode="dense")
     for k, v in launches.items():
         total[k] += v
+    fused = serve_fused(torch, np, dev, model, [
+        ("fused_mamba_dense", prompts, cont_tokens, dict(kv_mode="dense"))])
     try:
         ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
                                  kv_mode="paged")
@@ -2597,7 +2807,7 @@ def serve_mamba(torch, np, dev):
            "paged_raises": True}
     del model, p
     torch.cuda.empty_cache()
-    return rec, total
+    return rec, total, fused
 
 
 def main() -> int:
@@ -2673,29 +2883,53 @@ def main() -> int:
     serve, launches, lock_tokens = serve_full_width(torch, np, dev, model,
                                                     init_s)
     emit(serve)
-    cont, cont_launches, prompts, tokens = continuous_full_width(
-        torch, np, dev, model)
+    cont, cont_launches, prompts, tokens, (short, tight) = \
+        continuous_full_width(torch, np, dev, model)
     emit(cont)
     for k, v in cont_launches.items():
         launches[k] += v
+    fused_runs, fused_launches = serve_fused(torch, np, dev, model, [
+        ("fused_dense", prompts, tokens["dense"], dict(kv_mode="dense")),
+        ("fused_paged_bf16", prompts, tokens["paged_bf16"],
+         dict(kv_mode="paged")),
+        ("fused_paged_int8", prompts, tokens["paged_int8"],
+         dict(kv_mode="paged", kv_dtype="int8")),
+        ("fused_short_paged_bf16_tight", short, None,
+         dict(kv_mode="paged", num_pages=tight)),
+        ("fused_dense_temperature", prompts[:4], None,
+         dict(kv_mode="dense", temperature=FUSED_TEMPERATURE))])
     wit, wit_launches = witness(torch, np, dev, model, prompts, tokens)
     emit(wit)            # its fp32 paged run: the paged SIMT route's launches
     launches["paged_attention_simt"] += wit_launches["paged_attention_simt"]
-    int4, int4_launches = serve_int4(torch, np, dev, model, lock_tokens,
-                                     tokens, prompts)
+    int4, int4_launches, (runs, more) = serve_int4(
+        torch, np, dev, model, lock_tokens, tokens, prompts)
     emit(int4)
     for k, v in int4_launches.items():
         launches[k] += v
+    fused_runs += runs
+    _add(fused_launches, more)
     del model
     torch.cuda.empty_cache()
 
     par, par_launches = parity_mamba(torch, np, dev)
     emit(par)            # fp32: the SSD scan's SIMT route's launches
     launches["ssd_scan_simt"] += par_launches["ssd_scan_simt"]
-    mamba, mamba_launches = serve_mamba(torch, np, dev)
+    mamba, mamba_launches, (runs, more) = serve_mamba(torch, np, dev)
     emit(mamba)
     for k, v in mamba_launches.items():
         launches[k] += v
+    fused_runs += runs
+    _add(fused_launches, more)
+    derived, traced = {}, {}
+    for r in fused_runs:
+        _add(derived, r["graph_launches_derived"])
+        _add(traced, r["traced_epoch"]["device_kernels"])
+    emit({"phase": "fused", "steps_per_dispatch": FUSED_STEPS,
+          "graphs_captured": sum(r["graphs_captured"] for r in fused_runs),
+          "runs": fused_runs, "launches": fused_launches,
+          "graph_launches_derived": derived,
+          "traced_epochs_device_kernels": traced})
+    _add(launches, fused_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

@@ -8,6 +8,7 @@ build or launch fails.  There is no fallback and no switch.
 from __future__ import annotations
 
 import math
+import re
 from typing import Optional
 
 import torch
@@ -21,40 +22,85 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd_scan as ss
 
 
+# Launch counters: (module, attribute) of each, by kernel name; the fused
+# linear (dense and int4), the int4 matmul, flash and paged attention and
+# the SSD scan also by the route each call took (``fl.plan``,
+# ``fl.plan_int4``, ``fa.plan``, ``pa.plan``, ``ss.plan``).
+_COUNTERS = {
+    "router_stats": (frr, "launches"), "fused_linear": (fl, "launches"),
+    "fused_linear_wgmma": (fl, "launches_wgmma"),
+    "fused_linear_splitk": (fl, "launches_splitk"),
+    "fused_linear_simt": (fl, "launches_simt"),
+    "fused_linear_int4": (fl, "launches_int4"),
+    "fused_linear_int4_tc": (fl, "launches_int4_tc"),
+    "fused_linear_int4_stream": (fl, "launches_int4_stream"),
+    "int4_matmul": (im, "launches"), "int4_matmul_tc": (im, "launches_tc"),
+    "int4_matmul_stream": (im, "launches_stream"),
+    "flash_attention": (fa, "launches"),
+    "flash_attention_wgmma": (fa, "launches_wgmma"),
+    "flash_attention_splitkv": (fa, "launches_splitkv"),
+    "flash_attention_simt": (fa, "launches_simt"),
+    "paged_attention": (pa, "launches"),
+    "paged_attention_split": (pa, "launches_split"),
+    "paged_attention_simt": (pa, "launches_simt"),
+    "ssd_scan": (ss, "launches"), "ssd_scan_tc": (ss, "launches_tc"),
+    "ssd_scan_simt": (ss, "launches_simt")}
+
+
 def kernel_launches() -> dict:
-    """Launch counts of every kernel wrapper, by kernel name; the fused
-    linear (dense and int4), the int4 matmul, flash and paged attention
-    and the SSD scan also by the route each call took (``fl.plan``,
-    ``fl.plan_int4``, ``fa.plan``, ``pa.plan``, ``ss.plan``)."""
-    return {"router_stats": frr.launches, "fused_linear": fl.launches,
-            "fused_linear_wgmma": fl.launches_wgmma,
-            "fused_linear_splitk": fl.launches_splitk,
-            "fused_linear_simt": fl.launches_simt,
-            "fused_linear_int4": fl.launches_int4,
-            "fused_linear_int4_tc": fl.launches_int4_tc,
-            "fused_linear_int4_stream": fl.launches_int4_stream,
-            "int4_matmul": im.launches, "int4_matmul_tc": im.launches_tc,
-            "int4_matmul_stream": im.launches_stream,
-            "flash_attention": fa.launches,
-            "flash_attention_wgmma": fa.launches_wgmma,
-            "flash_attention_splitkv": fa.launches_splitkv,
-            "flash_attention_simt": fa.launches_simt,
-            "paged_attention": pa.launches,
-            "paged_attention_split": pa.launches_split,
-            "paged_attention_simt": pa.launches_simt,
-            "ssd_scan": ss.launches, "ssd_scan_tc": ss.launches_tc,
-            "ssd_scan_simt": ss.launches_simt}
+    """Launch counts of every kernel wrapper, by counter name."""
+    return {k: getattr(mod, attr) for k, (mod, attr) in _COUNTERS.items()}
+
+
+def set_kernel_launches(counts: dict) -> None:
+    """Set every counter named in ``counts``."""
+    for k, n in counts.items():
+        mod, attr = _COUNTERS[k]
+        setattr(mod, attr, n)
+
+
+# The device kernels that one counted launch runs, by the kernel's name in a
+# trace (``csrc/*.cu``): a CUDA graph's replay runs them without passing
+# through the wrappers, so a traced replay is held against these.  The int4
+# fused linear and the int4 matmul share one C entry, so their routes run
+# the same kernels.
+DEVICE_KERNELS = {
+    "router_pass": ("router_stats",),
+    "fused_linear_tc": ("fused_linear_wgmma",),
+    "splitk_stream": ("fused_linear_splitk",),
+    "splitk_epilogue": ("fused_linear_splitk",),
+    "fused_linear_kernel": ("fused_linear_simt",),
+    "bfp_prepass": ("fused_linear_int4_tc", "int4_matmul_tc"),
+    "int4_tc": ("fused_linear_int4_tc", "int4_matmul_tc"),
+    "int4_stream": ("fused_linear_int4_stream", "int4_matmul_stream"),
+    "flash_wgmma": ("flash_attention_wgmma",),
+    "flash_splitkv": ("flash_attention_splitkv",),
+    "flash_simt": ("flash_attention_simt",),
+    "paged_split": ("paged_attention_split",),
+    "paged_simt": ("paged_attention_simt",),
+    "ssd_scan_tc": ("ssd_scan_tc",),
+    "ssd_scan_kernel": ("ssd_scan_simt",)}
+
+
+_KERNEL_NAME = re.compile(r"([A-Za-z_]\w*)(?:[<(]|$)")
+
+
+def device_kernel(name: str) -> Optional[str]:
+    """The ``DEVICE_KERNELS`` key of a traced kernel's name (``void
+    (anonymous namespace)::splitk_stream<4>(float const*, ...)`` →
+    ``splitk_stream``), or None for a kernel that is not the port's."""
+    m = _KERNEL_NAME.search(name.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m and m.group(1) in DEVICE_KERNELS else None
+
+
+def device_kernel_launches(counts: dict) -> dict:
+    """{device kernel: launches} that route counts ``counts`` run."""
+    return {kern: sum(counts.get(c, 0) for c in routes)
+            for kern, routes in DEVICE_KERNELS.items()}
 
 
 def reset_kernel_launches() -> None:
-    frr.launches = fl.launches = fl.launches_int4 = im.launches = 0
-    fl.launches_wgmma = fl.launches_splitk = fl.launches_simt = 0
-    fl.launches_int4_tc = fl.launches_int4_stream = 0
-    im.launches_tc = im.launches_stream = 0
-    fa.launches = pa.launches = ss.launches = 0
-    fa.launches_wgmma = fa.launches_splitkv = fa.launches_simt = 0
-    pa.launches_split = pa.launches_simt = 0
-    ss.launches_tc = ss.launches_simt = 0
+    set_kernel_launches(dict.fromkeys(_COUNTERS, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ weights quantized to int4-BFP, one after the other in one process (a
 Mamba stack, whose int4 weights are not served yet, in bf16 only); with
 ``--paged``, teacher-forced paged decode steps of the bf16 weights over a
 store packed from the prefill, in bf16, int8 and int4 pages; with
-``--prefill``, one lock-step prefill of the bf16 weights instead.
+``--prefill``, one lock-step prefill of the bf16 weights instead; with
+``--decode-steps N``, fused N-step decode epochs (``model.DecodeEpoch``: on
+the card a CUDA graph of one decode iteration, replayed) beside the eager
+steps, in the same process.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --batch 4 --prompt-len 512 --steps 8   # on the card
@@ -14,6 +17,8 @@ store packed from the prefill, in bf16, int8 and int4 pages; with
       --arch mamba2-2.7b                                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch mamba2-2.7b --prefill                             # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --decode-steps 8                        # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
 
@@ -45,6 +50,22 @@ router's (names with ``router_``), the kernels
 with the most device time, and the PyTorch operators (``aten::``) with the
 most device time of their own.  On the CPU there is no device trace: busy
 and idle are null.
+
+``--decode-steps N`` prints, for each weight type, the eager line above and
+then a fused line: the prefill's cache becomes a dense pool of ``--batch``
+slots, every slot active and free of stop tokens, and the epoch runs N
+steps of ``decode_loop``'s body (greedy; one warm-up epoch captures the
+graph), then ``max(2, --steps // N)`` epochs timed on the host clock and
+as many under the profiler, each window ending in one synchronize, and
+last one epoch launched onto an idle device: wall ms a step, host enqueue
+ms a token (launching the profiled window's epochs, without its
+synchronize, over its tokens: once the launch queue fills, the host waits
+on the device, so this reads back-pressure), the last epoch's launch ms
+on the host and a token of it (the host's own cost), device busy ms a
+step and idle share as above, the timed window's device time on CUDA
+events a step, graph replays and device launches a step, decode tok/s
+(batch / wall a step) and the top kernels.  The eager line's tok/s is
+batch / its wall a step too.
 """
 import argparse
 import json
@@ -55,7 +76,6 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
     """Two warm-up steps, ``steps`` unprofiled, ``steps`` profiled (``step(s)``
     runs decode step s); fills rec's timing and trace fields."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = model.device
@@ -77,6 +97,7 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
     with profile(activities=acts) as prof:
         enq_s, prof_s = window(steps + 2, 2 * steps + 2)
     rec.update({"steps": steps, "wall_ms_per_step": plain_s * 1e3 / steps,
+                "decode_tok_per_s": rec["batch"] * steps / plain_s,
                 "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
                 "host_enqueue_ms_per_step": enq_s * 1e3 / steps,
                 "device_busy_ms_per_step": None, "idle_share": None,
@@ -86,20 +107,14 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
                 "router_ms_per_step": None,
                 "router_launches_per_step": None,
                 "top_kernels": None})
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if kernels:
-        by_name = {}
-        for e in kernels:
-            us, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
-        busy = sum(us for us, _ in by_name.values()) / 1e3 / steps
+    by_name = _kernel_times(prof)
+    if by_name:
         paged = [(us, cnt) for name, (us, cnt) in by_name.items()
                  if "paged_" in name]
         router = [(us, cnt) for name, (us, cnt) in by_name.items()
                   if "router_" in name]
-        rec.update(device_busy_ms_per_step=busy,
-                   idle_share=1.0 - busy / rec["wall_ms_per_step"],
-                   device_launches_per_step=len(kernels) / steps,
+        rec.update(_step_summary(by_name, steps, rec["wall_ms_per_step"],
+                                 top),
                    paged_attention_ms_per_step=sum(
                        us for us, _ in paged) / 1e3 / steps,
                    paged_attention_launches_per_step=sum(
@@ -107,12 +122,108 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
                    router_ms_per_step=sum(us for us, _ in router) / 1e3
                    / steps,
                    router_launches_per_step=sum(
-                       cnt for _, cnt in router) / steps,
-                   top_kernels=[
-                       {"name": name[:80], "ms_per_step": us / 1e3 / steps,
-                        "per_step": cnt / steps}
-                       for name, (us, cnt) in sorted(
-                           by_name.items(), key=lambda kv: -kv[1][0])[:top]])
+                       cnt for _, cnt in router) / steps)
+    return rec
+
+
+def _kernel_times(prof) -> dict:
+    """{kernel name: (device µs, launches)} of a profiled window (empty
+    without a device trace)."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    return by_name
+
+
+def _step_summary(by_name: dict, steps: int, wall_ms: float,
+                  top: int) -> dict:
+    """Busy ms a step, idle share against ``wall_ms`` a step, launches a
+    step and the kernels with the most device time."""
+    busy = sum(us for us, _ in by_name.values()) / 1e3 / steps
+    return {"device_busy_ms_per_step": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "device_launches_per_step": sum(
+                cnt for _, cnt in by_name.values()) / steps,
+            "top_kernels": [
+                {"name": name[:80], "ms_per_step": us / 1e3 / steps,
+                 "per_step": cnt / steps}
+                for name, (us, cnt) in sorted(
+                    by_name.items(), key=lambda kv: -kv[1][0])[:top]]}
+
+
+def profile_fused(model, batch: int, prompt_len: int, n_steps: int,
+                  epochs: int, top: int = 8) -> dict:
+    """Fused decode epochs over a dense pool seeded by one ``batch`` ×
+    ``prompt_len`` prefill: one warm-up epoch (on the card: the eager
+    warm-up iteration and the capture), ``epochs`` timed, ``epochs``
+    profiled, one launched onto an idle device."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import DecodeEpoch
+
+    cfg, dev = model.cfg, model.device
+    cuda = dev.type == "cuda"
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    max_len = prompt_len + (2 * epochs + 2) * n_steps + 1
+    with torch.no_grad():
+        logits, pool, _ = model.prefill(toks, pad_to=max_len)
+        epoch = DecodeEpoch(model.params(), pool, cfg, slots=batch,
+                            n_max=n_steps, max_len=max_len)
+        epoch.load(logits.argmax(-1), torch.full((batch,), prompt_len),
+                   torch.ones((batch,), dtype=torch.bool),
+                   torch.full((batch,), max_len), torch.full((batch,), -1))
+
+    def window(k):
+        """k epochs: (seconds to enqueue, seconds to finish, event ms)."""
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              if cuda else None)
+        t0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        with torch.no_grad():
+            for _ in range(k):
+                epoch.run(n_steps)       # continues from its own carry
+        if ev:
+            ev[1].record()
+        t1 = time.perf_counter()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return (t1 - t0, time.perf_counter() - t0,
+                ev[0].elapsed_time(ev[1]) if ev else None)
+
+    window(1)                                           # warm-up + capture
+    steps = epochs * n_steps
+    r0 = epoch.replays
+    _, plain_s, event_ms = window(epochs)
+    replays = epoch.replays - r0
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        enq_s, prof_s, _ = window(epochs)
+    launch_s, _, _ = window(1)                  # the device idle before it
+    wall_ms = plain_s * 1e3 / steps
+    rec = {"arch": cfg.name, "weights": _weights(model), "batch": batch,
+           "prompt_len": prompt_len, "fused": True, "decode_steps": n_steps,
+           "epochs": epochs, "steps": steps, "wall_ms_per_step": wall_ms,
+           "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
+           "host_enqueue_ms_per_token": enq_s * 1e3 / (steps * batch),
+           "epoch_launch_ms": launch_s * 1e3,
+           "epoch_launch_ms_per_token": launch_s * 1e3 / (n_steps * batch),
+           "decode_tok_per_s": batch * 1e3 / wall_ms,
+           "event_ms_per_step": (None if event_ms is None
+                                 else event_ms / steps),
+           "graph_replays_per_step": replays / steps,
+           "graphs_captured": epoch.captures,
+           "device_busy_ms_per_step": None, "idle_share": None,
+           "device_launches_per_step": None, "top_kernels": None}
+    by_name = _kernel_times(prof)
+    if by_name:
+        rec.update(_step_summary(by_name, steps, wall_ms, top))
     return rec
 
 
@@ -132,7 +243,6 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
     warm-up, timed, profiled."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg, dev = model.cfg, model.device
@@ -159,12 +269,8 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
            "idle_share": None, "device_launches": None, "ssd_scan_ms": None,
            "ssd_scan_launches": None, "router_ms": None,
            "router_launches": None, "top_kernels": None, "top_ops": None}
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if kernels:
-        by_name = {}
-        for e in kernels:
-            us, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    by_name = _kernel_times(prof)
+    if by_name:
         busy = sum(us for us, _ in by_name.values()) / 1e3
         ssd = [(us, cnt) for name, (us, cnt) in by_name.items()
                if "ssd_scan" in name]
@@ -174,7 +280,7 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
                for a in prof.key_averages() if a.key.startswith("aten::")]
         rec.update(
             device_busy_ms=busy, idle_share=1.0 - busy / rec["wall_ms"],
-            device_launches=len(kernels),
+            device_launches=sum(cnt for _, cnt in by_name.values()),
             ssd_scan_ms=sum(us for us, _ in ssd) / 1e3,
             ssd_scan_launches=sum(cnt for _, cnt in ssd),
             router_ms=sum(us for us, _ in router) / 1e3,
@@ -283,7 +389,14 @@ def main(argv=None) -> None:
                     help="paged decode steps in bf16, int8 and int4 pages")
     ap.add_argument("--prefill", action="store_true",
                     help="one lock-step prefill of the bf16 weights")
+    ap.add_argument("--decode-steps", type=int, default=0,
+                    help="also fused epochs of N decode steps (CUDA graphs "
+                         "on the card) beside the eager steps")
     args = ap.parse_args(argv)
+    if args.decode_steps < 0 or (args.decode_steps
+                                 and (args.paged or args.prefill)):
+        raise SystemExit("--decode-steps takes N >= 1 and neither --paged "
+                         "nor --prefill")
 
     import torch
 
@@ -311,8 +424,15 @@ def main(argv=None) -> None:
                 model, args.batch, args.prompt_len, args.steps, kd)),
                 flush=True)
         return
-    print(json.dumps(profile_steps(model, args.batch, args.prompt_len,
-                                   args.steps)), flush=True)
+    def lines(m):
+        print(json.dumps(profile_steps(m, args.batch, args.prompt_len,
+                                       args.steps)), flush=True)
+        if args.decode_steps:
+            print(json.dumps(profile_fused(
+                m, args.batch, args.prompt_len, args.decode_steps,
+                max(2, args.steps // args.decode_steps))), flush=True)
+
+    lines(model)
     if transformer.is_ssm_stack(cfg):
         return                      # int4 Mamba weights: ROADMAP item 13b
     q = LanguageModel(cfg, quantize_params(
@@ -321,8 +441,7 @@ def main(argv=None) -> None:
     del model
     if q.device.type == "cuda":
         torch.cuda.empty_cache()
-    print(json.dumps(profile_steps(q, args.batch, args.prompt_len,
-                                   args.steps)), flush=True)
+    lines(q)
 
 
 if __name__ == "__main__":

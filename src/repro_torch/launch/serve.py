@@ -10,13 +10,17 @@ batching over the dense slot pool or the paged §4.4 KV store.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --int4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --batch 4 --prompt-len 512 --continuous            # dense slot pool
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --decode-steps 8                # CUDA graph epochs
 
 Weights are random, drawn from seed 0 on the chosen device; ``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
 int4 codes with the config's group size and power-of-2 scales, served by
 the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
 requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
-``--batch`` slots.  ``mamba2-2.7b`` (attention-free) serves lock-step or
+``--batch`` slots; ``--decode-steps N`` > 1 decodes in device-resident
+epochs of up to N steps, one host sync each (on CUDA one captured graph
+of a decode iteration, replayed).  ``mamba2-2.7b`` (attention-free) serves lock-step or
 from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
 raises for it (no KV to page), and so does ``--int4`` (not ported yet).
 """
@@ -47,6 +51,11 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-dtype", default=None, choices=("int8", "int4"),
                     help="quantize paged-KV page payloads (per-entry pow2 "
                          "scales; requires --paged-kv)")
+    ap.add_argument("--decode-steps", type=int, default=None,
+                    help="decode iterations fused into one device-resident "
+                         "epoch (default: the config's "
+                         "decode_steps_per_dispatch; 1 = single-step; "
+                         "requires --continuous)")
     ap.add_argument("--int4", action="store_true",
                     help="int4-BFP weights: quantize_params at the config's "
                          "QuantConfig (group size, pow2 scales)")
@@ -55,6 +64,8 @@ def main(argv=None) -> None:
         raise SystemExit("--paged-kv requires --continuous")
     if (args.kv_dtype or args.num_pages) and not args.paged_kv:
         raise SystemExit("--kv-dtype/--num-pages require --paged-kv")
+    if args.decode_steps is not None and not args.continuous:
+        raise SystemExit("--decode-steps requires --continuous")
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -85,7 +96,8 @@ def main(argv=None) -> None:
                         page_size=args.page_size, num_pages=args.num_pages,
                         kv_dtype=args.kv_dtype),
             scheduling=SchedulingConfig(max_slots=args.batch,
-                                        max_len=max_len),
+                                        max_len=max_len,
+                                        decode_steps=args.decode_steps),
             temperature=args.temperature))
         for _ in range(2 * args.batch):
             ln = int(rng.integers(max(args.prompt_len // 4, 1),
@@ -99,6 +111,10 @@ def main(argv=None) -> None:
               f"decode: {s.decode_tok_per_s:.1f} tok/s | "
               f"requests: {s.requests_completed} | "
               f"KV storage saved≈{s.kv_saved_fraction:.1%} (measured)")
+        print(f"decode: {s.decode_dispatches} dispatches for "
+              f"{s.decode_iterations} steps | graphs captured "
+              f"{s.compiles}, replays {s.graph_replays} | host "
+              f"{s.host_s:.2f}s, blocked on the device {s.device_s:.2f}s")
         if s.kv_mode == "paged":
             print(f"paged KV: peak {s.pages_peak}/{s.pages_total} pages "
                   f"(×{s.page_size} entries) | live entry saving "

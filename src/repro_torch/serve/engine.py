@@ -8,13 +8,16 @@ Counterpart of the JAX package's ``serve/engine.py``:
     Lock-step batch: one fixed batch, every sequence at the same position.
 
 ``ContinuousBatchingEngine``
-    Slot-based continuous batching with single-step decode and monolithic
-    prefill (length-bucketed where ``can_bucket``, else at the exact prompt
+    Slot-based continuous batching with monolithic prefill
+    (length-bucketed where ``can_bucket``, else at the exact prompt
     length), over either KV mode: the dense slot pool (``max_slots ×
     max_len`` rows per layer, allocated once; a Mamba stack's conv
     histories and SSM state per slot) or the paged §4.4 entry stream
     (``kvcache/paged.py``) with alloc-on-demand pages, proactive headroom
-    and preemption of the youngest resident.
+    and preemption of the youngest resident.  Decode runs one step per
+    dispatch or, with ``decode_steps > 1``, device-resident N-step epochs
+    (``models.model.DecodeEpoch``: on CUDA a captured graph of one
+    iteration, replayed).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch.core import kv_reuse
 from repro_torch.kvcache import history as history_mod
 from repro_torch.kvcache import paged as paged_mod
 from repro_torch.models import layers, transformer
-from repro_torch.models.model import LanguageModel
+from repro_torch.models.model import DecodeEpoch, LanguageModel
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
                                       PageExhausted)
@@ -57,7 +60,26 @@ class ServeStats:
                           log; ``kv_saved_analytic`` is the configured-
                           keep-rate estimate.
       requests_completed / decode_dispatches — finished requests / decode
-                          steps run (continuous engine).
+                          dispatches (continuous engine): one per step in
+                          single-step mode, one per N-step epoch with
+                          ``decode_steps > 1``.
+      decode_iterations — decode iterations the device ran (the port's;
+                          equal to ``decode_dispatches`` in single-step
+                          mode, the sum of the epoch lengths in fused
+                          mode).
+      device_s / host_s — wall time the host spent blocked on device
+                          results (the per-step or per-epoch sync and the
+                          prefills' token reads) / the rest of the run
+                          loop's wall time.  In fused mode a paged
+                          prefill's read waits for the epoch in flight
+                          (in ``device_s`` and ``prefill_s``); a dense
+                          prefill is only enqueued (``prefill_s`` is host
+                          time).
+      compiles          — CUDA graphs captured during the run (fused mode
+                          on CUDA: one for the dense pool, one per
+                          block-table width for the paged store);
+                          ``graph_replays`` — their replays.
+      epoch_shrinks     — paged fused epochs halved under page pressure.
 
     Paged mode (``kv_mode == "paged"``): page pool geometry, the live
     footprint's peak ``pages_peak``, ``preemptions``, the entry-stream write
@@ -75,6 +97,12 @@ class ServeStats:
     kv_saved_analytic: float = 0.0
     requests_completed: int = 0
     decode_dispatches: int = 0
+    decode_iterations: int = 0
+    host_s: float = 0.0
+    device_s: float = 0.0
+    compiles: int = 0
+    graph_replays: int = 0
+    epoch_shrinks: int = 0
     # -- paged-KV engine mode (kv_mode == "paged") -------------------------
     kv_mode: str = "dense"
     page_size: int = 0
@@ -282,13 +310,9 @@ def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
     sch, rob, obs = config.scheduling, config.robustness, config.obs
     chunk = cfg.prefill_chunk if sch.prefill_chunk is None \
         else sch.prefill_chunk
-    steps = cfg.decode_steps_per_dispatch if sch.decode_steps is None \
-        else sch.decode_steps
     out = []
     if chunk:
         out.append("prefill_chunk > 0 (item 9)")
-    if steps > 1:
-        out.append("decode_steps > 1 (item 9)")
     if config.spec.spec_k or config.spec.draft_keep is not None:
         out.append("spec_k / draft_keep (item 11)")
     if config.kv.prefix_cache:
@@ -320,6 +344,15 @@ class _RunState:
     keep_acc: float = 0.0
     keep_n: float = 0.0
     hist: Optional[history_mod.HistoryAccounting] = None
+    # fused mode: first tokens sampled by a dense prefill that the host has
+    # not read yet ({slot: device [1] tensor}); the next epoch feeds them
+    # from the device
+    pending: Dict[int, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    # paged fused mode: the epoch length that fit after a page-pressure
+    # shrink (0 = uncapped) and the clean-epoch streak that grows it back
+    epoch_cap: int = 0
+    clean_epochs: int = 0
 
 
 class ContinuousBatchingEngine:
@@ -328,14 +361,32 @@ class ContinuousBatchingEngine:
     Requests are admitted into free slots, prefilled monolithically
     (right-padded to a length bucket where that is exact, logits taken at
     the real last token), decoded concurrently — each sequence at its own
-    position — one ragged decode step per iteration, and evicted on stop
-    token, length or ``max_len``.  ``kv_mode="paged"`` keeps the KV in the
+    position — one ragged decode step per iteration (or, with
+    ``decode_steps`` N > 1, one device-resident epoch of up to N steps),
+    and evicted on stop token, length or ``max_len``.
+    ``kv_mode="paged"`` keeps the KV in the
     §4.4 entry stream: before each step every resident is guaranteed one
     step of page headroom (the youngest resident is preempted and requeued
     when the free list runs dry), admission is gated on genuinely spare
     pages, and each step's fresh entries and history-buffer hits are
     accounted from its gate log.
-    One host sync per step reads the tokens and the attention gate log.
+    One host sync per step (per epoch) reads the tokens and the attention
+    gate log.
+
+    ``decode_steps`` (default ``cfg.decode_steps_per_dispatch``; must be
+    >= 1) > 1 runs the fused epoch (``models.model.DecodeEpoch``): the
+    host syncs once per epoch.  Admission, prefills and pool inserts are
+    enqueued on the same stream behind the epoch, their inputs copied
+    from pinned memory without a sync.  In the dense pool a prefill's
+    first token stays on the device and the next epoch feeds it (a first
+    token equal to the stop token kills the slot at the epoch's entry),
+    so the host prepares it while the epoch runs; a paged prefill reads
+    its first token and gate log back, so it waits for the epoch.  In the paged store every resident's worst case
+    for the whole epoch is reserved before dispatch; when the free list
+    cannot cover it the epoch halves before anyone is preempted, and the
+    length that fit caps later epochs until two clean epochs in a row
+    double it back.  At temperature 0 the tokens equal the single-step
+    engine's.
 
     ``model`` is a ``LanguageModel``; its device is the engine's.  An
     attention-free Mamba stack serves from the dense pool only (paged mode
@@ -344,8 +395,8 @@ class ContinuousBatchingEngine:
     histories and state whole).  Pass an
     ``EngineConfig`` or its flat kwargs (``max_slots``, ``max_len``,
     ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
-    ``temperature``, ``prefill_buckets``).  The reference's
-    other levers raise ``ConfigError`` naming the ROADMAP item that will
+    ``temperature``, ``prefill_buckets``, ``decode_steps``).  The
+    reference's other levers raise ``ConfigError`` naming the ROADMAP item that will
     port them.  Sampling at ``temperature > 0`` draws from the
     ``torch.Generator`` given to ``run``."""
 
@@ -371,6 +422,11 @@ class ContinuousBatchingEngine:
         kvc, sch = config.kv, config.scheduling
         self.max_slots, self.max_len = sch.max_slots, sch.max_len
         self.temperature = config.temperature
+        self.decode_steps = int(cfg.decode_steps_per_dispatch
+                                if sch.decode_steps is None
+                                else sch.decode_steps)
+        if self.decode_steps < 1:
+            raise ValueError("decode_steps must be >= 1 (1 = single-step)")
         self.kv_mode = kvc.kv_mode
         if self.kv_mode == "paged" and not paged_mod.can_page(cfg):
             raise ValueError(
@@ -468,26 +524,41 @@ class ContinuousBatchingEngine:
             stats, hist = ServeStats(), None
         rs = _RunState(stats=stats, results={}, t_run=perf_counter(),
                        generator=generator, hist=hist)
-        if paged:
-            self._run_paged(rs)
+        if self.decode_steps > 1:
+            run = self._run_paged_fused if paged else self._run_dense_fused
         else:
-            self._run_dense(rs)
+            run = self._run_paged if paged else self._run_dense
+        run(rs)
+        stats.host_s = perf_counter() - rs.t_run - stats.device_s
         return self._finalize(rs)
 
     def _tensor(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
-        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+        """A host array on the engine's device: on CUDA an asynchronous
+        copy from pinned memory, so the host does not wait for the work in
+        flight on the stream (a fused epoch's replays)."""
+        t = torch.tensor(np.asarray(a), dtype=dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _prefill(self, rs: _RunState, req: Request, pad_to=None):
+    def _prefill(self, rs: _RunState, req: Request, pad_to=None,
+                 defer: bool = False):
         """Monolithic prefill of one prompt (bucketed, or at its exact
-        length) with the first token sampled.  Returns (token, host gate
-        log [L, Tb] or None without attention, cache)."""
+        length) with the first token sampled.  Returns (token, gate log
+        [L, Tb] or None without attention, cache): on the host, or with
+        ``defer`` as device tensors ([1] and [L, Tb]) with no sync."""
         padded, last = self.scheduler.pad_prompt(req.tokens)
         logits, cache, pstats = self.model.prefill(
             self._tensor(padded[None]), pad_to=pad_to,
             last_index=self._tensor([last]))
         tok = sample(logits, rs.generator, self.temperature)
         gates = pstats.get("attn_gate")
-        tok, gates = _to_host(tok, None if gates is None else gates[:, 0])
+        gates = None if gates is None else gates[:, 0]
+        if defer:
+            return tok, gates, cache
+        t_sync = perf_counter()
+        tok, gates = _to_host(tok, gates)
+        rs.stats.device_s += perf_counter() - t_sync
         return int(tok[0]), gates, cache
 
     def _feed(self):
@@ -531,7 +602,9 @@ class ContinuousBatchingEngine:
             t0 = perf_counter()
             logits, pool, dstats = self.model.decode_step(pool, feed, pos)
             tok = sample(logits, rs.generator, self.temperature)
+            t_sync = perf_counter()
             toks, gates = _to_host(tok, dstats.get("attn_gate"))
+            rs.stats.device_s += perf_counter() - t_sync
             self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, L)
 
     def _run_paged(self, rs: _RunState) -> None:
@@ -581,7 +654,9 @@ class ContinuousBatchingEngine:
                 self._tensor(alloc.block_table[:, :j_step], torch.int32),
                 self._tensor(alloc.fill, torch.int32))
             tok = sample(logits, rs.generator, self.temperature)
+            t_sync = perf_counter()
             toks, gates = _to_host(tok, dstats["attn_gate"])
+            rs.stats.device_s += perf_counter() - t_sync
             for slot in sched.active:
                 g = gates[:, slot]
                 fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
@@ -612,17 +687,254 @@ class ContinuousBatchingEngine:
         rs.hist.on_prefill(slot, gates, T0)
         self._finish_prefill(rs, work, tok, t0, gates)
 
+    # -- fused-epoch run loops (decode_steps > 1) --------------------------
+    def _epoch(self, kv, rs: _RunState, paged: bool) -> DecodeEpoch:
+        """The run's epoch over the dense pool or, ``paged``, the store: on
+        CUDA the owner of its captured graphs (the pool's and the store's
+        addresses hold for the whole run): one for the dense pool, one per
+        block-table width for the store (power-of-two buckets of the live
+        chains clamped to pages_per_slot, so at most
+        ceil(log2(pages_per_slot)) + 1)."""
+        return DecodeEpoch(self.model.params(), kv, self.cfg,
+                           slots=self.max_slots, n_max=self.decode_steps,
+                           max_len=self.max_len,
+                           temperature=self.temperature,
+                           generator=rs.generator, paged=paged,
+                           sampler=sample)
+
+    def _epoch_args(self, rem: Dict[int, int]):
+        """The epoch's inputs from the resident set; ``rem[slot]`` gets
+        each slot's horizon — min(budget left, positions to max_len) —
+        whose max picks the epoch length.  Returns (feed, pos, act,
+        budget, stop, slots)."""
+        S = self.max_slots
+        feed = np.zeros((S,), np.int64)
+        pos = np.zeros((S,), np.int32)
+        act = np.zeros((S,), bool)
+        budget = np.zeros((S,), np.int32)
+        stop = np.full((S,), -1, np.int64)
+        slots = []
+        for slot, st in self.scheduler.active.items():
+            feed[slot] = st.next_token
+            pos[slot] = st.pos
+            act[slot] = True
+            b = st.req.max_new_tokens - len(st.out_tokens)
+            budget[slot] = b
+            if st.req.stop_token is not None:
+                stop[slot] = st.req.stop_token
+            rem[slot] = min(b, self.max_len - st.pos)
+            slots.append(slot)
+        return feed, pos, act, budget, stop, slots
+
+    def _epoch_len(self, rem: Dict[int, int]) -> int:
+        """``decode_steps`` clipped to the longest resident horizon,
+        rounded up to a power of two (the reference's bound on its
+        compiled loop variants; kept so epochs, and so tokens, match)."""
+        rem_max = max(rem.values())
+        return min(self.decode_steps, 1 << max(0, rem_max - 1).bit_length())
+
+    def _launch_epoch(self, rs: _RunState, ep: DecodeEpoch, n: int) -> None:
+        ep.run(n)
+        rs.stats.decode_dispatches += 1
+        rs.stats.decode_iterations += n
+        rs.stats.compiles, rs.stats.graph_replays = ep.captures, ep.replays
+
+    def _process_epoch(self, rs: _RunState, ep: DecodeEpoch, n_run: int,
+                       slots: List[int], t_disp: float,
+                       per_step=None) -> None:
+        """The epoch's one sync, then the per-token bookkeeping replayed in
+        step order exactly as the single-step loops do it
+        (``step_active`` masks the steps a slot sat out after finishing
+        mid-epoch).  ``per_step`` is the paged hook (allocator append +
+        history replay).  A host/device disagreement on finishing raises
+        instead of desyncing the KV state."""
+        cfg, sched = self.cfg, self.scheduler
+        L = max(len(cfg.attention_layers), 1)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        t_sync = perf_counter()
+        toks, step_act, gates, fin_act = ep.fetch(n_run)
+        now = perf_counter()
+        rs.stats.device_s += now - t_sync
+        epoch_s = now - t_disp
+        rs.stats.decode_s += epoch_s
+        step_s = epoch_s / n_run
+        # deferred first tokens first: their slots either join the replay
+        # below or were killed at the epoch's entry and finish here
+        self._resolve_pending(rs)
+        for slot in slots:
+            st = sched.active.get(slot)
+            if st is None:
+                continue
+            reason = None
+            for s in range(n_run):
+                if not step_act[s, slot]:
+                    continue
+                g = gates[s, :, slot] if gates is not None else None
+                if g is not None:
+                    rs.keep_acc += float(g.sum())
+                    rs.keep_n += L
+                if per_step is not None:
+                    per_step(slot, g)
+                reason = self._advance_slot(rs, st, int(toks[s, slot]), g,
+                                            step_s, measure, L)
+                if reason:
+                    self._finish(rs, slot, reason)
+                    break
+            if (reason is None) != bool(fin_act[slot]):
+                raise RuntimeError(
+                    f"fused-epoch divergence on slot {slot}: host finish "
+                    f"reason {reason!r} vs device active "
+                    f"{bool(fin_act[slot])} — the device loop's stop/length "
+                    "conditions no longer mirror _advance_slot")
+
+    def _run_dense_fused(self, rs: _RunState) -> None:
+        """Dense pool with device-resident N-step epochs.  Per iteration:
+        (1) launch one epoch over the residents (sampling, stop/length
+        detection and position advance on the device; deferred first
+        tokens copied into the feed on the device); (2) while it runs,
+        admission, prefills (first token left on the device, inputs
+        copied from pinned memory) and pool inserts, enqueued behind it
+        on the same stream with no host sync; (3) one sync and the
+        epoch's bookkeeping.  Tokens equal ``_run_dense``'s at
+        temperature 0."""
+        sched = self.scheduler
+        pool = init_pool(self.cfg, self.max_slots, self.max_len, self.device)
+        ep = self._epoch(pool, rs, paged=False)
+        while sched.has_work():
+            slots: List[int] = []
+            n_eff, t_disp = 1, None
+            if sched.active:
+                rem: Dict[int, int] = {}
+                feed, pos, act, budget, stop, slots = self._epoch_args(rem)
+                n_eff = self._epoch_len(rem)
+                t_disp = perf_counter()
+                ep.load(feed, pos, act, budget, stop)
+                for slot, tok_dev in rs.pending.items():
+                    if act[slot]:
+                        ep.feed[slot].copy_(tok_dev[0])
+                self._launch_epoch(rs, ep, n_eff)
+            pre_active = bool(sched.active)
+            did_prefill = False
+            while True:
+                plan = sched.plan_step(decode_steps=n_eff)
+                if plan.prefill is None:
+                    break
+                work = plan.prefill
+                t0 = perf_counter()
+                defer = work.req.max_new_tokens > 1
+                tok, gates, cache = self._prefill(rs, work.req,
+                                                  pad_to=self.max_len,
+                                                  defer=defer)
+                pool_insert(pool, cache, work.slot)
+                del cache
+                self._finish_prefill(rs, work, tok, t0, gates, defer=defer)
+                did_prefill = True
+            if did_prefill and pre_active:
+                rs.stats.interleaved_steps += 1
+            if t_disp is not None:
+                self._process_epoch(rs, ep, n_eff, slots, t_disp)
+
+    def _run_paged_fused(self, rs: _RunState) -> None:
+        """Paged store with device-resident N-step epochs: the entry
+        stream's fill advances on the device, and the allocator and
+        history accounting are replayed from the epoch's gate log at its
+        one sync.  OOM safety is per epoch: before launch every resident's
+        worst case for the whole epoch (fill + min(n, horizon) · n_attn
+        entries) is reserved; when the free list cannot cover it the epoch
+        halves, and only at one step is the youngest resident preempted.
+        After a shrink the length that fit caps later epochs, and two
+        clean epochs in a row double the cap back."""
+        sched, alloc, nA = self.scheduler, self.allocator, self.n_attn
+        reuse = paged_mod.reuse_enabled(self.cfg)
+        store = paged_mod.init_store(self.cfg, self.num_pages,
+                                     self.page_size, kv_dtype=self.kv_dtype,
+                                     device=self.device)
+        ep = self._epoch(store, rs, paged=True)
+
+        def per_step(slot, g):
+            fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
+            alloc.append(slot, fresh_n, nA)
+            rs.hist.on_decode_step(slot, g)
+
+        while sched.has_work():
+            slots: List[int] = []
+            n_eff, t_disp = 1, None
+            if sched.active:
+                rem = {slot: min(st.req.max_new_tokens - len(st.out_tokens),
+                                 self.max_len - st.pos)
+                       for slot, st in sched.active.items()}
+                n_eff = self._epoch_len(rem)
+                if rs.epoch_cap:
+                    n_eff = min(n_eff, rs.epoch_cap)
+                shrunk = False
+                while True:
+                    failed = None
+                    for slot in sorted(sched.active):
+                        need = (int(alloc.fill[slot])
+                                + min(n_eff, rem.get(slot, 1)) * nA)
+                        if not alloc.ensure(slot, need):
+                            failed = slot
+                            break
+                    if failed is None:
+                        break
+                    if n_eff > 1:
+                        n_eff //= 2
+                        shrunk = True
+                        continue
+                    if not self._preempt_youngest(rs, exclude=failed):
+                        raise PageExhausted(
+                            f"page pool exhausted with a single resident "
+                            f"request (slot {failed}) — submit() should "
+                            "have rejected it", slot=failed,
+                            free_pages=alloc.free_pages,
+                            pages_total=self.num_pages)
+                if shrunk:
+                    rs.epoch_cap, rs.clean_epochs = n_eff, 0
+                    rs.stats.epoch_shrinks += 1
+                elif rs.epoch_cap:
+                    rs.clean_epochs += 1
+                    if rs.clean_epochs >= 2:
+                        grown = rs.epoch_cap * 2
+                        rs.epoch_cap = (0 if grown >= self.decode_steps
+                                        else grown)
+                        rs.clean_epochs = 0
+                feed, pos, act, budget, stop, slots = self._epoch_args({})
+                j_live = max(1, alloc.max_chain_pages())
+                j_step = min(1 << (j_live - 1).bit_length(),
+                             alloc.pages_per_slot)
+                t_disp = perf_counter()
+                ep.load(feed, pos, act, budget, stop, fill=alloc.fill,
+                        block_table=alloc.block_table[:, :j_step])
+                self._launch_epoch(rs, ep, n_eff)
+            # admission sees the free list net of the epoch's reservation
+            pre_active = bool(sched.active)
+            plan = sched.plan_step(can_place=self._can_place,
+                                   decode_steps=n_eff)
+            if plan.prefill is not None:
+                self._prefill_paged(rs, plan.prefill, store, reuse)
+                if pre_active:
+                    rs.stats.interleaved_steps += 1
+            if t_disp is not None:
+                self._process_epoch(rs, ep, n_eff, slots, t_disp,
+                                    per_step=per_step)
+
     # -- bookkeeping shared by both KV modes -------------------------------
-    def _finish_prefill(self, rs: _RunState, work: PrefillChunk, tok: int,
-                        t0: float, gates: np.ndarray) -> None:
+    def _finish_prefill(self, rs: _RunState, work: PrefillChunk, tok,
+                        t0: float, gates, defer: bool = False) -> None:
         """Activate a request whose prefill (first token included) just
-        completed; finish it at once when that token already ends it."""
+        completed; finish it at once when that token already ends it.
+        With ``defer`` (fused dense mode) ``tok`` is the device tensor: the
+        host holds a placeholder until ``_resolve_pending`` reads it at
+        the next epoch sync, and the stop check runs on the device at the
+        next epoch's entry."""
         now = perf_counter()
         st = rs.stats
         st.prefill_chunks += 1
         st.prefill_s += now - t0
         st.prefill_tokens += work.req.prompt_len
         st.decode_tokens += 1
+        if defer:
+            rs.pending[work.slot], tok = tok, 0
         act = ActiveRequest(req=work.req, slot=work.slot,
                             pos=work.req.prompt_len, next_token=tok,
                             out_tokens=[tok], submit_s=rs.t_run,
@@ -630,10 +942,29 @@ class ContinuousBatchingEngine:
         act.pf_gates = gates
         self.scheduler.activate(act)
         req = work.req
+        if defer:
+            return
         if req.stop_token is not None and tok == req.stop_token:
             self._finish(rs, work.slot, "stop")
         elif req.max_new_tokens <= 1:
             self._finish(rs, work.slot, "length")
+
+    def _resolve_pending(self, rs: _RunState) -> None:
+        """Backfill the host bookkeeping of first tokens deferred by fused
+        dense prefills (called at an epoch sync: the values are long
+        computed, so the read is a copy, not a stall).  A deferred first
+        token that IS the stop token was killed at the epoch's entry on
+        the device (no emission, no KV append), so finishing it here
+        mirrors the single-step engine's completion-time stop check."""
+        for slot in list(rs.pending):
+            tok = int(rs.pending.pop(slot)[0])
+            st = self.scheduler.active.get(slot)
+            if st is None:
+                continue                  # stale (slot preempted)
+            st.out_tokens[0] = st.next_token = tok
+            if (st.req.stop_token is not None and tok == st.req.stop_token
+                    and len(st.out_tokens) == 1):
+                self._finish(rs, slot, "stop")
 
     def _bookkeep(self, rs: _RunState, toks: np.ndarray,
                   gates: Optional[np.ndarray], step_s: float, measure: bool,
@@ -642,6 +973,7 @@ class ContinuousBatchingEngine:
         attention logs no gates: no keep rate, no KV accounting)."""
         rs.stats.decode_s += step_s
         rs.stats.decode_dispatches += 1
+        rs.stats.decode_iterations += 1
         for slot in list(self.scheduler.active):
             st = self.scheduler.active[slot]
             g = gates[:, slot] if gates is not None else None
@@ -685,7 +1017,10 @@ class ContinuousBatchingEngine:
         T0 = st.req.prompt_len
         L = max(len(self.cfg.attention_layers), 1)
         if self.cfg.skip.enabled and self.cfg.skip.kv_reuse:
-            g = np.asarray(st.pf_gates, np.float32)[:, :T0]
+            g = st.pf_gates
+            if isinstance(g, torch.Tensor):      # a deferred prefill's log
+                g = g.float().cpu().numpy()
+            g = np.asarray(g, np.float32)[:, :T0]
             stored = T0 + int((g[1:] > 0.5).sum())
         else:
             stored = L * T0
@@ -725,6 +1060,7 @@ class ContinuousBatchingEngine:
         st = sched.release(slot)
         self.allocator.release(slot)
         rs.hist.on_release(slot)
+        rs.pending.pop(slot, None)
         rs.stats.preemptions += 1
         sched.requeue(st.req)
         return True

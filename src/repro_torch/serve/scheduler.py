@@ -121,9 +121,21 @@ class PrefillChunk:
 @dataclasses.dataclass
 class StepPlan:
     """One engine iteration's worth of work: every resident decode slot
-    plus at most one prefill."""
+    plus at most one prefill.
+
+    ``decode_steps`` is the iteration's *epoch length*: with the fused
+    device-resident decode loop (``decode_steps_per_dispatch > 1``) each
+    resident slot decodes up to N tokens per dispatch, so one plan covers
+    an N-step epoch and each decode slot costs N budget tokens."""
     decode_slots: List[int]
     prefill: Optional[PrefillChunk]
+    decode_steps: int = 1
+
+    @property
+    def tokens(self) -> int:
+        """Tokens this step computes (the planner's budget currency)."""
+        n = len(self.decode_slots) * self.decode_steps
+        return n + (len(self.prefill.req.tokens) if self.prefill else 0)
 
 
 class Scheduler:
@@ -168,19 +180,30 @@ class Scheduler:
         return bool(self.queue or self.active)
 
     # -- step planning ------------------------------------------------------
-    def plan_step(self, can_place=None) -> StepPlan:
+    def plan_step(self, can_place=None, decode_steps: int = 1) -> StepPlan:
         """Plan one engine iteration: the FIFO head is popped into a free
         slot iff ``can_place(request)`` passes (the paged engine's
         free-page gate; FIFO order is preserved — a blocked head
         back-pressures the queue) and returned as the step's prefill.
         The engine prefills it within the iteration and activates it, so
-        it joins the decode set on the next plan."""
+        it joins the decode set on the next plan.
+
+        N-step epoch contract (``decode_steps > 1``, the fused
+        device-resident decode loop): one plan covers an *epoch* of up to
+        ``decode_steps`` decode iterations in one device dispatch.  The
+        scheduler sees the world only at epoch boundaries — finished
+        slots are released, admissions happen and preemption victims are
+        chosen once per dispatch, not once per token; a slot stays
+        resident (its pages reserved) for the whole epoch even if it
+        finishes mid-loop, where the device-side active mask stops it
+        from appending KV."""
         chunk: Optional[PrefillChunk] = None
         if self.queue and self._free:
             if can_place is None or can_place(self.queue[0]):
                 chunk = PrefillChunk(req=self.queue.popleft(),
                                      slot=self._free.pop())
-        return StepPlan(decode_slots=sorted(self.active), prefill=chunk)
+        return StepPlan(decode_slots=sorted(self.active), prefill=chunk,
+                        decode_steps=decode_steps)
 
     # -- admission / eviction ---------------------------------------------
     def admit(self, can_place=None,
