@@ -134,18 +134,55 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 most one capture for the dense pool and one per block-table
                 width for the paged store, every iteration past a capture's
                 eager warm-up a replay; after each run one more epoch of
-                its graph traced by torch.profiler, its port kernels
-                counted by name equal to the capture delta × replays; no host sync in a dense
+                its graph traced by torch.profiler a replay a session,
+                each replay's port kernels counted by name equal to the
+                capture delta (a trace short of it, as a lossy trace
+                is, retaken at most twice); no host sync in a dense
                 run's deferred prefills (``set_sync_debug_mode``); page
                 conservation, finite logits (its lines are emitted after
-                phase 10).
+                phase 10);
+ 12. chunked  — chunked (resumable) prefill, run while phase 6's bf16
+                weights (and for its witness phase 7's fp32 copy, and
+                phase 8's int4 weights) are resident, its line emitted
+                after phase 11's: (a) flash attention at one chunk's
+                geometry (C 128 at t0 0, 128 and 384 over a 640-row
+                staging cache with kv_len t0 + 128, and a final chunk of 71
+                real columns at t0 512, bf16 on the tensor-core tile; C 8,
+                (d)'s chunk, at t0 0, 8 and 536 over a 544-row staging
+                cache, and a final chunk of 3 real columns at t0 528, bf16
+                on the split-KV walk), and each in fp32 on the SIMT kernel,
+                against the plain version with
+                phase 3's tolerances, launched twice bit for bit, the final
+                chunk's real rows bit for bit a call without its pads,
+                timed beside SDPA with a boolean mask of the same keys; the
+                dense fused linear and the router at M = T = 128 against
+                their plain versions; (b) the fp32 witness: phase 7's 4
+                requests at chunk 128 against phase 7's chunk-0 runs, dense
+                and fp32 pages: tokens bit for bit, each request's gate
+                logs and the KV accounting identical; (c) phase 6's 8
+                requests at chunk 128: the dense pool, bf16, int8 and int4
+                pages, fused 8-step epochs (dense and paged bf16) under
+                step_tokens 160 (no chunk deferred) and 136 (chunks
+                deferred), and phase 8's int4 weights on the dense pool:
+                exact launch counts, per chunk 1 router pass, 4·L fused
+                linears on the tile (int4: the s8 tile), 32 flash tiles and
+                nothing on the decode routes, prefill_chunks = Σ⌈T0/128⌉,
+                chunks interleaved with resident decode steps, pages
+                conserved, finite logits, peak memory; the share of tokens
+                equal to the chunk-0 runs reported, not checked; (d) phase
+                6's 4 short requests in its tight pool at chunk 8: every
+                request finishes and every page comes back, aborts and
+                preemptions reported (the engine's ``prefill_aborts`` and
+                ``preemptions``); (e) a chunked mamba2-2.7b engine
+                raises ``ConfigError`` (checked in phase 10).
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10 and 11, each counted from 0 by the wrappers,
-which a graph replay does not pass through: phase 11's replayed launches
-stand in its own line, traced and derived, and in no sum; for the paged
-SIMT route, which only fp32 serving takes, over phase 7's fp32 paged run,
-and for the SSD scan's SIMT route over phase 9's fp32 cuda runs, both
-counted from 0 too; the dense fused linear
+runs of phases 5, 6, 8, 10, 11 and 12 (its fp32 witness runs included),
+each counted from 0 by the wrappers, which a graph replay does not pass
+through: phase 11's and 12's replayed launches stand in their own lines,
+derived, and in no sum; for the paged SIMT route, which only fp32 serving
+takes, over phase 7's and phase 12's fp32 paged runs, and for the SSD
+scan's SIMT route over phase 9's fp32 cuda runs, all counted from 0 too;
+the dense fused linear
 as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
 the int4 fused linear as ``fused_linear_int4_tc`` and
 ``fused_linear_int4_stream``, the int4 matmul as ``int4_matmul_stream``
@@ -176,7 +213,7 @@ LOG_DIR = os.path.join(ROOT, "build")          # listed in .gitignore
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
-FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (the SSD scan)
+FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (the SIMT routes)
 
 # Tolerances (kernel vs plain version on the same inputs).
 TOL_F32 = 1e-4        # x max|ref|: fp32 sums in another order over K ≤ 11008
@@ -521,6 +558,11 @@ def check_fused_linear(torch, dev, timer, cfg):
                 (K * 2 + M * 4) if pro else 0) + (
                 (M * F * 2 + M * 8) if epi else 0)
             b, by = bound_ms(nbytes, 2.0 * M * K * N)
+            # the fp32 inputs: 4-byte elements, fp32 operations
+            b32, by32 = bound_ms((M * K + K * N + M * F) * 4 + (
+                (K * 4 + M * 4) if pro else 0) + (
+                (M * F * 4 + M * 8) if epi else 0), 2.0 * M * K * N,
+                FP32_OPS_PER_S)
             shapes[rec["route"]].append({
                 "shape": f"{name} M={M} K={K} N={N}", "route": rec["route"],
                 "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
@@ -529,6 +571,7 @@ def check_fused_linear(torch, dev, timer, cfg):
                        "the plain version on the operand the route feeds "
                        "(the tile: bf16(x·gamma), rsqrt after the product)",
                 "errors": {"bfloat16": rec}, "simt_f32_ms": ms_s,
+                "simt_f32_bound_ms": b32, "simt_f32_bound_by": by32,
                 "simt_f32_errors": dict(simt, tol=f"{TOL_F32}·max|ref|")})
             del x, w, kw
     return shapes
@@ -870,6 +913,7 @@ def check_flash(torch, dev, timer, cfg):
             keys = t_last + 1
         nbytes = (2 * B * Tq * H * dh + 2 * B * keys * Hkv * dh) * 2
         b, by = bound_ms(nbytes, 4.0 * pairs * dh)
+        b32, by32 = bound_ms(2 * nbytes, 4.0 * pairs * dh, FP32_OPS_PER_S)
         shapes[route].append({
             "shape": f"{label} B={B} Tq={Tq} Tk={Tk} H={H} dh={dh}",
             "route": route, "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
@@ -878,6 +922,7 @@ def check_flash(torch, dev, timer, cfg):
                    f"{TOL_FLASH_MIRROR}·max of the mirror (P rounded as the "
                    f"route rounds it); fp32 {TOL_F32}·max|ref|",
             "errors": {"bfloat16": errs["bfloat16"]}, "simt_f32_ms": ms_s,
+            "simt_f32_bound_ms": b32, "simt_f32_bound_by": by32,
             "simt_f32_errors": dict(errs["float32"],
                                     tol=f"{TOL_F32}·max|ref|")})
         del q, k, v, qt, kt, vt
@@ -1944,7 +1989,8 @@ def is_int4(model) -> bool:
 def expected_launches(model, prefills, n_st: int, step_rows: int,
                       paged: bool = False):
     """Exact kernel launches of one prefill per entry of ``prefills`` (its
-    tokens' shape (B, T)) and n_st decode steps of ``step_rows`` rows: one
+    tokens' shape (B, T), or (B, C, Tk) for a chunk of C tokens over a
+    staging cache of Tk rows) and n_st decode steps of ``step_rows`` rows: one
     router_stats per forward (later blocks take Σy² from the epilogue), four
     fused linears per layer (the int4 kernel for int4 weights), the lm head
     through the int4 matmul for int4 weights (else a plain matmul), and
@@ -1984,7 +2030,7 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     routes.update({f"ssd_scan_{r}": 0 for r in ("tc", "simt")})
     dt, D = layers.torch_dtype(cfg), cfg.d_model
     if transformer.is_ssm_stack(cfg):
-        for b, t in prefills:
+        for b, t in prefills:          # exact-length prefills, no chunks
             routes["ssd_scan_" + ss.plan(
                 b, t, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
                 cfg.ssm_groups, cfg.ssm_chunk, dt).route] += L
@@ -1995,7 +2041,7 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     int4 = is_int4(model)
     Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     G = cfg.num_heads // Hkv
-    forwards = [(b * t, b, G * t, t) for b, t in prefills]
+    forwards = [(e[0] * e[1], e[0], G * e[1], e[-1]) for e in prefills]
     forwards += [(step_rows, step_rows, G, MAX_LEN)] * n_st
     if int4:
         lm = model.params()["lm_head"]
@@ -2099,10 +2145,17 @@ class FiniteLogits:
         self.all = self.torch.ones((), dtype=self.torch.bool, device=self.dev)
 
 
-def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
+def serve_continuous(torch, dev, model, finite, label, prompts, new,
+                     log=None, trace=True, **kw):
     """One ContinuousBatchingEngine run (4 slots, max_len 544, page 16) with
-    exact launch counts, every request completed, finite logits and, paged,
-    page conservation with no page in use at the end.  With ``decode_steps``
+    exact launch counts (each prefill and each prefill chunk by its shape),
+    every request completed, finite logits and, paged,
+    page conservation with no page in use at the end.  ``log`` (a dict)
+    receives each request's prompt gate log [L, T0] and decode gate
+    columns (``gates``: {uid: (prompt, [L] per step)}); ``trace=False`` leaves out a fused run's traced epoch
+    (phase 12's fused runs: phase 11 traces the same decode iteration).
+    With
+    ``decode_steps``
     > 1 (fused epochs, CUDA graphs): the wrappers count the prefills' and
     the eager warm-up iterations' launches (exact, as in single-step runs),
     at most one capture for the dense pool and one per block-table width
@@ -2110,8 +2163,9 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     capture's warm-up a replay, the capture deltas × replays (derived)
     equal to the replayed iterations' expected launches, on the dense pool
     no host sync in the deferred prefills, and after the run one more
-    epoch of the run's last graph traced: its port kernels, counted by
-    name in the device trace, must equal its capture delta × replays.  Returns (record,
+    epoch of the run's last graph traced a replay at a time: each
+    replay's port kernels, counted by name in its device trace, must
+    equal its capture delta (``trace_epoch``).  Returns (record,
     per-request tokens, the wrappers' launches)."""
     from repro_torch.kernels import ops
     from repro_torch.kvcache import paged
@@ -2141,23 +2195,30 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
 
         eng._launch_epoch = kept
         if eng.kv_mode == "dense":
-            eng._prefill = unsynced_prefill(torch, eng._prefill, seen)
+            eng._prefill_work_dense = unsynced_prefill(
+                torch, eng._prefill_work_dense, seen)
+    if log is not None:
+        watch_engine(eng, log)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     finite.reset()
-    rows, prefill = [], model.prefill
+    rows, prefill, chunk = [], model.prefill, model.prefill_chunk
 
     def recorded(toks, *a, **k):      # the shape of each prefill it runs
         rows.append(tuple(toks.shape))
         return prefill(toks, *a, **k)
 
-    model.prefill = recorded
+    def recorded_chunk(cache, toks, *a, **k):   # (B, C, staging rows)
+        rows.append(tuple(toks.shape) + (cache[0]["k"].shape[1],))
+        return chunk(cache, toks, *a, **k)
+
+    model.prefill, model.prefill_chunk = recorded, recorded_chunk
     ops.reset_kernel_launches()
     t = time.perf_counter()
     try:
         out = eng.run()
     finally:
-        del model.prefill
+        del model.prefill, model.prefill_chunk
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t
     launches = ops.kernel_launches()
@@ -2211,7 +2272,11 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
     # decode_tokens counts each request's first token, which prefill made
     rec = {"run": label, "dtype": cfg.dtype, "requests": len(prompts),
            "prefill_s": s.prefill_s, "prefill_tokens": s.prefill_tokens,
-           "prefills": n_pf, "decode_steps": n_st,
+           "prefills": n_pf, "prefill_chunk": eng.prefill_chunk,
+           "step_tokens": eng.step_tokens,
+           "prefill_aborts": s.prefill_aborts,
+           "prefill_deferrals": s.prefill_deferrals,
+           "interleaved_steps": s.interleaved_steps, "decode_steps": n_st,
            "decode_dispatches": s.decode_dispatches,
            "steps_per_dispatch": eng.decode_steps,
            "graphs_captured": s.compiles, "graph_replays": s.graph_replays,
@@ -2240,12 +2305,41 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new, **kw):
                    peak_page_bytes=s.pages_peak * page_bytes,
                    peak_over_dense=s.pages_peak * page_bytes / dense_bytes,
                    kv_entries_saved_fraction=s.kv_entries_saved_fraction,
+                   kv_entries_stored=s.kv_entries_stored,
+                   kv_entries_dense=s.kv_entries_dense,
                    history_hit_rate=s.history_hit_rate,
+                   history_hits_per_layer=s.history_hits_per_layer,
                    preemptions=s.preemptions)
     if eng.decode_steps > 1:
-        rec["traced_epoch"] = trace_epoch(torch, dev, label, seen["ep"],
-                                          eng.decode_steps)
+        if trace:
+            rec["traced_epoch"] = trace_epoch(torch, dev, label, seen["ep"],
+                                              eng.decode_steps)
     return rec, [r.tokens for r in res], launches
+
+
+def watch_engine(eng, log):
+    """Wrap ``eng`` so that ``log`` receives each request's prompt gate log
+    [L, T0] and per decode step its gate column [L] (``gates``: {uid:
+    [prompt, [columns]]})."""
+    import numpy as np
+    gates = log.setdefault("gates", {})
+    account, advance = eng._account_prefill, eng._advance_slot
+
+    def accounted(st):
+        g = st.pf_gates
+        if g is not None:
+            g = g.float().cpu().numpy() if hasattr(g, "cpu") else g
+            gates.setdefault(st.req.uid, [None, []])[0] = np.asarray(
+                g, np.float32)[:, :st.req.prompt_len]
+        return account(st)
+
+    def advanced(rs, st, tok, g, *a):
+        if g is not None:
+            gates.setdefault(st.req.uid, [None, []])[1].append(
+                np.asarray(g, np.float32).copy())
+        return advance(rs, st, tok, g, *a)
+
+    eng._account_prefill, eng._advance_slot = accounted, advanced
 
 
 def token_agreement(np, a, b):
@@ -2327,22 +2421,23 @@ def table_widths(pages_per_slot: int) -> set:
             for k in range(pages_per_slot.bit_length() + 1)}
 
 
-def unsynced_prefill(torch, prefill, seen):
-    """``ContinuousBatchingEngine._prefill`` with its deferred calls (a
-    fused dense run's: the first token left on the device) watched by
+def unsynced_prefill(torch, work, seen):
+    """``ContinuousBatchingEngine._prefill_work_dense`` with its deferred
+    calls (a fused dense run's prefills and prefill chunks: nothing read
+    back, the first token left on the device) watched by
     ``torch.cuda.set_sync_debug_mode``: ``seen["syncs"]`` counts the host
     syncs they make, which would wait on the epoch in flight."""
     seen.setdefault("syncs", 0)
 
-    def watched(rs, req, pad_to=None, defer=False):
+    def watched(rs, unit, pool, defer=False):
         if not defer:
-            return prefill(rs, req, pad_to=pad_to)
+            return work(rs, unit, pool)
         seen["deferred"] = seen.get("deferred", 0) + 1
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                return prefill(rs, req, pad_to=pad_to, defer=True)
+                return work(rs, unit, pool, defer=True)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 seen["syncs"] += sum(
@@ -2353,39 +2448,75 @@ def unsynced_prefill(torch, prefill, seen):
 
 
 def trace_epoch(torch, dev, label, ep, n):
-    """One more epoch of ``n`` replays of the run's last graph, under
-    torch.profiler once the run is over (its times untouched; the slots
-    are all finished, so nothing escapes): the port's kernels in the
-    device trace, counted by name, must equal the capture delta × n
-    (``ops.DEVICE_KERNELS``), and no wrapper may launch.  Returns the
-    traced counts."""
+    """One more epoch of ``n`` replays of the run's last graph once the run
+    is over (its times untouched; the slots are all finished, so nothing
+    escapes), each replay in a torch.profiler session of its own: the
+    port's kernels in a replay's device trace, counted by name, must equal
+    the capture delta (``ops.DEVICE_KERNELS``), and no wrapper may launch.
+    A trace can lose records: the first ones of a session (up to 228 of
+    256 lead kernels of 1000 cycles; hence a lead of longer throwaway
+    kernels) and, on a loaded host, a run of them in the middle of a long
+    one (31 of an 8-replay epoch's 2312 port kernels, once).  A replay whose trace falls short of the delta and exceeds it
+    nowhere is traced again, at most TRACE_ATTEMPTS times, and every short
+    trace is reported; a count above the delta, or a replay short in
+    every attempt, fails.  Returns the accepted traces' summed counts."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_decode import _kernel_times
     require(ep.captured(), f"{label}: the run's last width has no graph")
-    before, g0 = ops.kernel_launches(), ep.graph_launches()
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ep.run(n)
-        torch.cuda.synchronize(dev)
+    before, t = ops.kernel_launches(), time.perf_counter()
+    total, short, lead_min = {}, [], TRACE_LEAD_KERNELS
+    for i in range(n):
+        for attempt in range(TRACE_ATTEMPTS):
+            g0 = ep.graph_launches()
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(TRACE_LEAD_KERNELS):
+                    torch.cuda._sleep(TRACE_LEAD_CYCLES)
+                ep.run(1)
+                torch.cuda.synchronize(dev)
+            replayed = {k: v - g0.get(k, 0)
+                        for k, v in ep.graph_launches().items()}
+            want = {k: v for k, v in ops.device_kernel_launches(
+                replayed).items() if v}
+            got, events, lead = {}, 0, 0
+            for name, (_, cnt) in _kernel_times(prof).items():
+                events += cnt
+                lead += cnt if "spin_kernel" in name else 0
+                kern = ops.device_kernel(name)
+                if kern is not None:
+                    got[kern] = got.get(kern, 0) + cnt
+            if want and got == want:
+                break
+            over = [k for k in got if got[k] > want.get(k, 0)]
+            if not want or over or attempt == TRACE_ATTEMPTS - 1:
+                seq = sorted((e.time_range.start, e.name[:40])
+                             for e in prof.events()
+                             if e.device_type == DeviceType.CUDA)
+                raise RuntimeError(
+                    f"{label}: replay {i}'s traced kernels {got} != its "
+                    f"capture delta {want} (attempt {attempt + 1} of "
+                    f"{TRACE_ATTEMPTS}; {events} device kernels traced; "
+                    f"first {seq[:4]}, last {seq[-4:]}; earlier short "
+                    f"traces {short})")
+            short.append({"replay": i, "traced": got, "events": events,
+                          "lead_kernels_traced": lead})
+        _add(total, got)
+        lead_min = min(lead_min, lead)
     require(ops.kernel_launches() == before,
             f"{label}: a wrapper launched inside a replayed epoch")
-    replayed = {k: v - g0.get(k, 0) for k, v in ep.graph_launches().items()}
-    want = {k: v for k, v in ops.device_kernel_launches(replayed).items()
-            if v}
-    got = {}
-    for name, (_, cnt) in _kernel_times(prof).items():
-        kern = ops.device_kernel(name)
-        if kern is not None:
-            got[kern] = got.get(kern, 0) + cnt
-    require(bool(want) and got == want, f"{label}: the traced epoch's "
-            f"kernels {got} != capture delta × replays {want}")
-    return {"replays": n, "device_kernels": got}
+    return {"replays": n, "device_kernels": total,
+            "lead_kernels_traced_min": lead_min, "short_traces": short,
+            "seconds": time.perf_counter() - t}
 
 
 FUSED_STEPS = 8
+TRACE_LEAD_KERNELS = 256   # trace_epoch's throwaway kernels a session
+TRACE_LEAD_CYCLES = 10000  # the spin of each (~5 µs at 1.98 GHz)
+TRACE_ATTEMPTS = 3         # trace_epoch's sessions a replay at most
 FUSED_TEMPERATURE = 0.8
 
 
@@ -2429,6 +2560,276 @@ def serve_fused(torch, np, dev, model, specs):
 def _add(total, launches):
     for k, v in launches.items():
         total[k] = total.get(k, 0) + v
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: chunked (resumable) prefill
+# ---------------------------------------------------------------------------
+
+CHUNK = 128
+CHUNK_CAP = -(-MAX_LEN // CHUNK) * CHUNK   # the staging cache's rows: 640
+CHUNK_T0 = (0, 128, 384)   # chunk starts held on flash's tile
+CHUNK_LAST = (512, 71)     # a final chunk: its start and its real columns
+# (d)'s chunk 8: llama2-7b's G = 1 packs R = 8 rows, which take the split-KV
+# walk, over a staging cache of 544 rows; the chunk starts (t0, real
+# columns) held there, the last a right-padded final chunk
+CHUNK_SPLIT = 8
+CHUNK_SPLIT_CAP = -(-MAX_LEN // CHUNK_SPLIT) * CHUNK_SPLIT
+CHUNK_SPLIT_T0 = ((0, 8), (8, 8), (536, 8), (528, 3))
+
+
+def chunk_flash(torch, dev, timer, cfg, floor):
+    """Flash attention at the chunk geometry: q of one request's C
+    columns at positions t0..t0 + C - 1 over a staging cache with kv_len
+    t0 + C.  C = 128 over 640 rows (the tensor-core tile) for each t0 of
+    CHUNK_T0 and a final chunk (t0 512, kv_len 640 = the cache's rows, 71
+    real columns); C = 8 over 544 rows (the split-KV walk, as (d)'s chunks
+    take it) for each (t0, real) of CHUNK_SPLIT_T0.  Each in bf16 on its
+    route and fp32 on the SIMT kernel against the plain version
+    (``flash_call``: phase 3's tolerances, the mirror, a second launch bit
+    for bit); a final chunk's real rows equal, bit for bit, a call on
+    those rows alone (kv_len t0 + real: its pad columns are inert).  Timed
+    beside the plain version and SDPA with a boolean mask of the same
+    keys; bound: the bytes of q, out and keys [0, kv_len), and 4·dh
+    operations per (row, valid key) pair."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import flash_attention as fa
+    B, H, dh = 1, cfg.num_heads, cfg.resolved_head_dim
+    Hkv = cfg.num_kv_heads
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(15)
+    scale = 1.0 / math.sqrt(dh)
+    k_all = torch.randn((B, CHUNK_CAP, Hkv, dh), generator=g,
+                        device=dev).to(bf)
+    v_all = torch.randn((B, CHUNK_CAP, Hkv, dh), generator=g,
+                        device=dev).to(bf)
+    cases = ([(CHUNK, CHUNK_CAP, t, CHUNK, "wgmma") for t in CHUNK_T0]
+             + [(CHUNK, CHUNK_CAP) + CHUNK_LAST + ("wgmma",)]
+             + [(CHUNK_SPLIT, CHUNK_SPLIT_CAP, t, real, "splitkv")
+                for t, real in CHUNK_SPLIT_T0])
+    out = []
+    for C, cap, t0, real, want in cases:
+        k, v = (x[:, :cap].contiguous() for x in (k_all, v_all))
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        keys = torch.arange(cap, device=dev)
+        q = torch.randn((B, C, H, dh), generator=g, device=dev).to(bf)
+        qpos = (t0 + torch.arange(C, dtype=torch.int32, device=dev))[None]
+        kvl = torch.full((B,), t0 + C, dtype=torch.int32, device=dev)
+        what = f"flash chunk C={C} t0={t0} kv_len={t0 + C}"
+        errs = {}
+        for dt in (bf, torch.float32):
+            a = [t.to(dt) for t in (q, k, v)]
+            errs[str(dt).split(".")[-1]] = flash_call(
+                torch, *a, qpos, kvl, f"{what} {dt}", scale=scale)
+        require(errs["bfloat16"]["route"] == want,
+                f"{what}: route {errs['bfloat16']['route']}, want {want}")
+        rec = {"shape": f"B={B} C={C} t0={t0} Tk={cap} "
+                        f"kv_len={t0 + C} H={H} dh={dh}",
+               "real_columns": real}
+        if real < C:
+            full = fa.flash_attention_cuda(q, k, v, qpos, kvl, scale=scale)
+            alone = fa.flash_attention_cuda(
+                q[:, :real], k, v, qpos[:, :real],
+                torch.full((B,), t0 + real, dtype=torch.int32, device=dev),
+                scale=scale)
+            require(torch.equal(full[:, :real], alone),
+                    f"{what}: the real rows differ from a call without the "
+                    "pad columns")
+            rec["real_rows_bit_identical_alone"] = True
+        mask = ((keys[None, :] <= qpos[0, :, None])
+                & (keys[None, :] < t0 + C))
+        qt = q.transpose(1, 2)
+        ms_k = timer(lambda: fa.flash_attention_cuda(q, k, v, qpos, kvl,
+                                                     scale=scale))
+        ms_p = timer(lambda: fa.flash_attention_plain(q, k, v, qpos, kvl,
+                                                      scale=scale))
+        ms_l = timer(lambda: Fn.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        pairs = B * H * (C * t0 + C * (C + 1) // 2)
+        nbytes = (2 * B * C * H * dh + 2 * B * (t0 + C) * Hkv * dh) * 2
+        b, by = bound_ms(nbytes, 4.0 * pairs * dh)
+        rec.update(route=want, ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                   library="SDPA, boolean mask of the same keys",
+                   bound_ms=b, bound_by=by, launch_floor_ms=floor,
+                   errors=errs)
+        out.append(rec)
+    return out
+
+
+def chunk_kernels(torch, dev, timer, cfg, floor):
+    """(a) The kernels at one chunk's geometry: flash (``chunk_flash``),
+    the dense fused linear's four linears at M = 128 (bf16 on the
+    tensor-core tile, fp32 on the SIMT kernel, ``fused_linear_call``) and
+    the router at T = 128 (``router_call``), each also timed beside its
+    plain version (the linears beside ``torch.matmul``), with phase 3's
+    bounds."""
+    from repro_torch.kernels import fused_linear as fl
+    from repro_torch.kernels import fused_router_rmsnorm as frr, ref
+    g = torch.Generator(device=dev).manual_seed(16)
+    M = CHUNK
+    linears = []
+    for name, K, N, glu, pro, epi in linear_shapes(cfg):
+        F = N // 2 if glu else N
+        w = (torch.randn((K, N), generator=g, device=dev)
+             / math.sqrt(K)).to(torch.bfloat16)
+        x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
+        what = f"fused_linear {name} M={M}"
+        rec = fused_linear_call(torch, x, w, kw, f"{what} bf16")
+        require(rec["route"] == "wgmma", f"{what}: route {rec['route']}")
+        f32, _ = _cast(torch, kw, torch.float32)
+        simt = fused_linear_call(torch, x.float(), w.float(), f32,
+                                 f"{what} fp32")
+        _, rkw = _cast(torch, kw, torch.bfloat16)
+        b, by = bound_ms((M * K + K * N + M * F) * 2 + (
+            (K * 2 + M * 4) if pro else 0) + (
+            (M * F * 2 + M * 8) if epi else 0), 2.0 * M * K * N)
+        linears.append({
+            "shape": f"{name} M={M} K={K} N={N}", "route": rec["route"],
+            "ms": timer(lambda: fl.fused_linear_cuda(x, w, **kw)),
+            "plain_ms": timer(lambda: ref.fused_linear_ref(x, w, **rkw)),
+            "library_ms": timer(lambda: torch.matmul(x, w)),
+            "bound_ms": b, "bound_by": by,
+            "errors": {"bfloat16": rec, "float32": simt}})
+        del x, w, kw
+    D = cfg.d_model
+    w = torch.randn((D, 2), generator=g, device=dev) * 0.02
+    x = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
+    errs = {str(dt).split(".")[-1]: router_call(
+        torch, x.to(dt), w, f"router T={M} {dt}")
+        for dt in (torch.bfloat16, torch.float32)}
+    b, by = bound_ms(M * D * 2 + D * 2 * 4 + M * 3 * 4, 6.0 * M * D)
+    router = {"shape": f"x[{M},{D}] bf16",
+              "plan": dataclasses.asdict(frr.plan(M, D, x.dtype,
+                                                  x.data_ptr())),
+              "ms": timer(lambda: frr.router_stats_cuda(x, w)),
+              "plain_ms": timer(lambda: ref.router_stats_ref(x, w)),
+              "bound_ms": b, "bound_by": by, "errors": errs}
+    return {"launch_floor_ms": floor,
+            "flash": chunk_flash(torch, dev, timer, cfg, floor),
+            "fused_linear": linears, "router": router}
+
+
+def check_chunk_run(model, rec, prompts):
+    """A chunked run's own checks beside ``serve_continuous``'s: per chunk
+    of 128 the plans give 1 router pass, 4·L fused linears on the tile
+    (int4 weights: the s8 tile; the lm head's one row on the stream), L
+    flash tiles and nothing on the decode routes (fp32: the SIMT kernels); ``prefill_chunks`` =
+    Σ⌈T0/128⌉; prefills interleaved with resident decode steps; no abort
+    and no preemption."""
+    L = model.cfg.num_layers
+    per = expected_launches(model, [(1, CHUNK, CHUNK_CAP)], 0, SLOTS)
+    route = "simt" if model.cfg.dtype == "float32" else "wgmma"
+    lin = ("fused_linear_int4_tc" if is_int4(model)
+           else f"fused_linear_{route}")
+    want = {"router_stats": 1, lin: 4 * L, f"flash_attention_{route}": L,
+            "int4_matmul_stream": 1 if is_int4(model) else 0}
+    moved = {k: v for k, v in per.items() if v and k not in (
+        "fused_linear", "fused_linear_int4", "int4_matmul",
+        "flash_attention")}
+    want = {k: v for k, v in want.items() if v}
+    require(moved == want, f"{rec['run']}: launches per chunk {moved}, "
+            f"want {want}")
+    n_chunks = sum(-(-len(p) // CHUNK) for p in prompts)
+    require(rec["prefills"] == n_chunks, f"{rec['run']}: {rec['prefills']} "
+            f"prefill chunks, want {n_chunks}")
+    require(rec["interleaved_steps"] > 0,
+            f"{rec['run']}: no chunk ran beside a resident")
+    require(rec["prefill_aborts"] == 0 and rec.get("preemptions", 0) == 0,
+            f"{rec['run']}: aborted or preempted in a roomy pool")
+    rec["launches_per_chunk"] = moved
+
+
+def chunked_full_width(torch, np, dev, model, prompts, tokens, short, tight):
+    """(c) Phase 6's 8 requests at chunk 128 on its bf16 weights: the dense
+    pool and bf16, int8 and int4 pages, then fused 8-step epochs (dense
+    and paged bf16) under step_tokens 160 (3 residents × 8 + 128: no chunk
+    deferred) and 136 (chunks deferred); each run's launches exact
+    (``serve_continuous``) and checked per chunk (``check_chunk_run``),
+    its share of tokens equal to the chunk-0 run reported, not checked.
+    (d) Phase 6's 4 short requests in its tight paged pool at chunk 8:
+    every request finishes and every page comes back; aborts and
+    preemptions reported.  Returns (records, the wrappers' launches)."""
+    runs, total = [], {}
+    specs = [(f"chunk{CHUNK}_dense", "dense", dict(kv_mode="dense")),
+             (f"chunk{CHUNK}_paged_bf16", "paged_bf16",
+              dict(kv_mode="paged")),
+             (f"chunk{CHUNK}_paged_int8", "paged_int8",
+              dict(kv_mode="paged", kv_dtype="int8")),
+             (f"chunk{CHUNK}_paged_int4", "paged_int4",
+              dict(kv_mode="paged", kv_dtype="int4"))]
+    for budget in SLOTS * FUSED_STEPS + CHUNK, 136:
+        specs += [(f"chunk{CHUNK}_fused_dense_st{budget}", "dense",
+                   dict(kv_mode="dense", step_tokens=budget)),
+                  (f"chunk{CHUNK}_fused_paged_bf16_st{budget}", "paged_bf16",
+                   dict(kv_mode="paged", step_tokens=budget))]
+    with FiniteLogits(torch, dev) as finite:
+        for label, ref_label, kw in specs:
+            if "fused" in label:
+                kw = dict(kw, decode_steps=FUSED_STEPS)
+            rec, toks, launches = serve_continuous(
+                torch, dev, model, finite, label, prompts, 32, trace=False,
+                prefill_chunk=CHUNK, **kw)
+            check_chunk_run(model, rec, prompts)
+            if "step_tokens" in kw:
+                roomy = kw["step_tokens"] >= ((SLOTS - 1) * FUSED_STEPS
+                                              + CHUNK)
+                require((rec["prefill_deferrals"] == 0) == roomy,
+                        f"{label}: {rec['prefill_deferrals']} deferrals")
+            rec["tokens_equal_to_chunk0"] = token_agreement(
+                np, toks, tokens[ref_label])
+            _add(total, launches)
+            runs.append(rec)
+        rec, toks, launches = serve_continuous(
+            torch, dev, model, finite,
+            f"chunk{CHUNK_SPLIT}_short_paged_bf16_tight", short, 32,
+            kv_mode="paged", num_pages=tight, prefill_chunk=CHUNK_SPLIT)
+        rec["tokens_equal_to_chunk0"] = token_agreement(
+            np, toks, tokens["short_paged_bf16"])
+        _add(total, launches)
+    return runs, rec, total
+
+
+def chunk_witness(torch, np, dev, m32, reqs, new, tokens, logs):
+    """(b) The fp32 witness: phase 7's 4 requests on its fp32 weights at
+    chunk 128, in the dense pool and in fp32 pages, against phase 7's
+    chunk-0 runs: tokens bit for bit, each request's prompt gate log and
+    decode gate columns identical, the same KV accounting (per request
+    and, paged, the store's entries stored and dense, history hit rates).
+    Returns (records, the wrappers' launches, seconds)."""
+    runs, total, t = [], {}, time.perf_counter()
+    with FiniteLogits(torch, dev) as finite:
+        for label in ("fp32_dense", "fp32_paged"):
+            log = {}
+            rec, toks, launches = serve_continuous(
+                torch, dev, m32, finite, f"chunk{CHUNK}_{label}", reqs, new,
+                log=log, kv_mode=label.split("_")[1], prefill_chunk=CHUNK)
+            check_chunk_run(m32, rec, reqs)
+            require(all(np.array_equal(a, b) for a, b in zip(
+                toks, tokens[label])), f"{label}: chunk {CHUNK} tokens "
+                "differ from chunk 0")
+            ref = logs[label]
+            for uid, (pg, cols) in ref["log"]["gates"].items():
+                pg2, cols2 = log["gates"][uid]
+                require(np.array_equal(pg, pg2) and len(cols) == len(cols2)
+                        and all(np.array_equal(a, b)
+                                for a, b in zip(cols, cols2)),
+                        f"{label}: request {uid}'s gate log differs at "
+                        f"chunk {CHUNK}")
+            keys = ["kv_saved_fraction", "attn_keep_frac"] + (
+                ["kv_entries_stored", "kv_entries_dense", "history_hit_rate",
+                 "history_hits_per_layer", "kv_entries_saved_fraction"]
+                if label == "fp32_paged" else [])
+            diff = {k: (ref["rec"][k], rec[k]) for k in keys
+                    if ref["rec"][k] != rec[k]}
+            require(not diff, f"{label}: KV accounting differs at chunk "
+                    f"{CHUNK}: {diff}")
+            rec.update(tokens_identical_to_chunk0=True,
+                       gate_logs_identical_to_chunk0=True,
+                       kv_accounting_identical_to_chunk0=keys)
+            _add(total, launches)
+            runs.append(rec)
+    return runs, total, time.perf_counter() - t
 
 
 # ---------------------------------------------------------------------------
@@ -2476,7 +2877,8 @@ def _forced_paged_aligned(model, prompts, forced):
 def witness(torch, np, dev, model, prompts, bf16_tokens):
     """The same weights in fp32 (the bf16 weights upcast, so only the
     arithmetic differs): the continuous engine in the dense pool and in
-    fp32 pages on the first 4 phase-6 requests must give identical tokens;
+    fp32 pages on the first 4 phase-6 requests must give identical tokens
+    (and, at chunk 128, phase 12's ``chunk_witness`` on the same copy);
     teacher-forced decode steps (2 prompts × 256 tokens, 16 forced tokens)
     of the dense and the paged path in fp32 must give identical gates and
     logits within 1e-4·max; and the bf16 paged path may flip at most twice
@@ -2486,14 +2888,17 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     cfg32 = dataclasses.replace(model.cfg, dtype="float32")
     m32 = LanguageModel(cfg32, _upcast(torch, model.params()), device=dev)
     new, reqs = 32, prompts[:SLOTS]
-    runs, tokens = [], {}
+    runs, tokens, logs = [], {}, {}
     with FiniteLogits(torch, dev) as finite:
         for label, kw in (("fp32_dense", dict(kv_mode="dense")),
                           ("fp32_paged", dict(kv_mode="paged"))):
+            log = {}
             rec, toks, launches = serve_continuous(torch, dev, m32, finite,
-                                                   label, reqs, new, **kw)
+                                                   label, reqs, new, log=log,
+                                                   **kw)
             runs.append(rec)
             tokens[label] = toks
+            logs[label] = {"rec": rec, "log": log}
     require(all(np.array_equal(a, b) for a, b in zip(
         tokens["fp32_dense"], tokens["fp32_paged"])),
         "fp32 paged tokens differ from fp32 dense at full width")
@@ -2520,6 +2925,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
         routing.gate_from_logits = orig
     dist = {"fp32_paged": _forced_distance(
         torch, ref, _forced_paged_aligned(m32, list(toks), forced))}
+    chunk = chunk_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     del m32
     torch.cuda.empty_cache()
     dist["bf16_dense"] = _forced_distance(
@@ -2544,7 +2950,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "phase6_tokens_vs_fp32_dense": agree,
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
-                       "vs_fp32_dense": dist}}, launches
+                       "vs_fp32_dense": dist}}, launches, chunk
 
 
 # ---------------------------------------------------------------------------
@@ -2600,6 +3006,13 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
     fused, fused_launches = serve_fused(torch, np, dev, m4, [
         ("fused_int4_dense", prompts, int4_tokens["int4_dense"],
          dict(kv_mode="dense"))])
+    with FiniteLogits(torch, dev) as finite:   # phase 12: int4 at chunk 128
+        crec, ctoks, claunch = serve_continuous(
+            torch, dev, m4, finite, f"chunk{CHUNK}_int4_dense", prompts, 32,
+            kv_mode="dense", prefill_chunk=CHUNK)
+    check_chunk_run(m4, crec, prompts)
+    crec["tokens_equal_to_chunk0"] = token_agreement(
+        np, ctoks, int4_tokens["int4_dense"])
     rec = {"phase": "int4", "config": cfg.name, "dtype": cfg.dtype,
            "group_size": cfg.quant.group_size,
            "pow2_scales": cfg.quant.pow2_scales, "int4_linears": n_int4,
@@ -2609,7 +3022,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
            "runs": runs, "tokens_equal_to_bf16": same}
     del m4, p4
     torch.cuda.empty_cache()
-    return rec, total, (fused, fused_launches)
+    return rec, total, (fused, fused_launches), (crec, claunch)
 
 
 # ---------------------------------------------------------------------------
@@ -2799,12 +3212,20 @@ def serve_mamba(torch, np, dev):
     except ValueError:
         paged_raises = True
     require(paged_raises, "a paged mamba engine did not raise")
+    from repro_torch.serve.errors import ConfigError
+    try:                                   # phase 12 (e)
+        ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                                 prefill_chunk=CHUNK)
+        chunk_raises = False
+    except ConfigError:
+        chunk_raises = True
+    require(chunk_raises, "a chunked mamba engine did not raise")
     p = model.params()
     rec = {"phase": "mamba", "config": cfg.name, "dtype": cfg.dtype,
            "layers": cfg.num_layers, "weight_bytes": _tree_bytes(p),
            "params": sum(t.numel() for t in model.parameters()),
            "prompt_lens": lens.tolist(), "runs": [lock, cont],
-           "paged_raises": True}
+           "paged_raises": True, "chunked_raises": True}
     del model, p
     torch.cuda.empty_cache()
     return rec, total, fused
@@ -2898,16 +3319,25 @@ def main() -> int:
          dict(kv_mode="paged", num_pages=tight)),
         ("fused_dense_temperature", prompts[:4], None,
          dict(kv_mode="dense", temperature=FUSED_TEMPERATURE))])
-    wit, wit_launches = witness(torch, np, dev, model, prompts, tokens)
+    t12 = time.perf_counter()          # phase 12 on the bf16 weights
+    chunk_k = chunk_kernels(torch, dev, timer, cfg, floor)
+    chunk_runs, chunk_tight, chunk_launches = chunked_full_width(
+        torch, np, dev, model, prompts, tokens, short, tight)
+    chunk_s = time.perf_counter() - t12
+    wit, wit_launches, (wit_chunk, more, wit_chunk_s) = witness(
+        torch, np, dev, model, prompts, tokens)
     emit(wit)            # its fp32 paged run: the paged SIMT route's launches
     launches["paged_attention_simt"] += wit_launches["paged_attention_simt"]
-    int4, int4_launches, (runs, more) = serve_int4(
-        torch, np, dev, model, lock_tokens, tokens, prompts)
+    _add(chunk_launches, more)
+    int4, int4_launches, (runs, more), (int4_chunk, int4_chunk_launches) = \
+        serve_int4(torch, np, dev, model, lock_tokens, tokens, prompts)
     emit(int4)
     for k, v in int4_launches.items():
         launches[k] += v
     fused_runs += runs
     _add(fused_launches, more)
+    _add(chunk_launches, int4_chunk_launches)
+    chunk_runs.append(int4_chunk)
     del model
     torch.cuda.empty_cache()
 
@@ -2928,8 +3358,19 @@ def main() -> int:
           "graphs_captured": sum(r["graphs_captured"] for r in fused_runs),
           "runs": fused_runs, "launches": fused_launches,
           "graph_launches_derived": derived,
-          "traced_epochs_device_kernels": traced})
+          "traced_epochs_device_kernels": traced,
+          "short_traces": sum(len(r["traced_epoch"]["short_traces"])
+                              for r in fused_runs),
+          "trace_seconds": sum(r["traced_epoch"]["seconds"]
+                               for r in fused_runs)})
     _add(launches, fused_launches)
+    emit({"phase": "chunked", "chunk": CHUNK, "staging_rows": CHUNK_CAP,
+          "split_chunk": CHUNK_SPLIT, "split_staging_rows": CHUNK_SPLIT_CAP,
+          "seconds": chunk_s + wit_chunk_s + int4_chunk["wall_s"],
+          "kernels": chunk_k, "witness_fp32": wit_chunk, "runs": chunk_runs,
+          "pressure": chunk_tight, "mamba_chunked_raises": True,
+          "launches": chunk_launches})
+    _add(launches, chunk_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

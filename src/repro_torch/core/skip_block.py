@@ -125,7 +125,8 @@ def routed_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# Decode (one new token per sequence, per-layer dense KV cache)
+# Decode (one new token per sequence, per-layer dense KV cache) and
+# chunked prefill (C new tokens per sequence on the same cache)
 # ---------------------------------------------------------------------------
 
 def _decode_output_epilogue(inner: Params, o: torch.Tensor, x: torch.Tensor,
@@ -147,6 +148,57 @@ def _row_update(cache: torch.Tensor, new: torch.Tensor,
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, t.long()] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def _rows_update(cache: torch.Tensor, new: torch.Tensor,
+                 t0: torch.Tensor) -> torch.Tensor:
+    """Write C consecutive entries per batch row at [t0, t0 + C) of its
+    time axis, in place.  cache: [B, Tcap, ...]; new: [B, C, ...]; t0:
+    [B]."""
+    B, C = new.shape[:2]
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cols = t0.long()[:, None] + torch.arange(C, device=cache.device)[None]
+    cache[rows, cols] = new.to(cache.dtype)
+    return cache
+
+
+def routed_attention_chunk(p: Params, x: torch.Tensor,
+                           k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           t0: torch.Tensor,
+                           kv_prev: Optional[kv_reuse.KVPair],
+                           positions: torch.Tensor, cfg: ModelConfig, *,
+                           carried_sq: Optional[torch.Tensor] = None):
+    """One chunk of resumable prefill: C tokens at offsets [t0, t0 + C).
+    x: [B, C, D]; k/v_cache: [B, Tcap, Hkv, dh], time-major, holding this
+    layer's view of positions [0, t0) and updated IN PLACE at the chunk's
+    rows; t0: [B] int32; kv_prev: the previous layer's merged view of the
+    chunk's tokens; positions: [B, C].  Attention runs over the cached
+    prefix and the chunk under kv_valid_len = t0 + C (causal masking keeps
+    a right-padded final chunk's pads out of every real token).  Returns
+    (x, k_cache, v_cache, the chunk's merged view, stats with
+    ``attn_gate`` [B, C] and the Σy²/D carry ``res_sq``)."""
+    B, C, D = x.shape
+    routed = cfg.skip.enabled and cfg.skip.route_attention
+    logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
+    gate, p_keep = _gate(logits, (B, C), routed, x.device)
+    inner = p["inner"]
+    q, k_new, v_new = attn_mod.project_qkv(inner, x, positions, cfg,
+                                           norm=p["norm"], stats=nstats)
+    if routed and cfg.skip.kv_reuse:
+        k_t, v_t = kv_reuse.merge_view(kv_prev, k_new, v_new, gate)
+    else:
+        k_t, v_t = kv_reuse.init_view(k_new, v_new)
+    _rows_update(k_cache, k_t, t0)
+    _rows_update(v_cache, v_t, t0)
+    o = attn_mod.attention_core(q, k_cache, v_cache, q_positions=positions,
+                                cfg=cfg, kv_valid_len=t0 + C)
+    x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
+                                       gate_mul=gate if routed else None,
+                                       emit_sq=True)
+    stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    stats["attn_gate"] = gate
+    stats["res_sq"] = sq / D
+    return x, k_cache, v_cache, (k_t, v_t), stats
 
 
 def routed_attention_decode(p: Params, x: torch.Tensor,

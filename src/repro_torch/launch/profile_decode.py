@@ -4,8 +4,9 @@ weights quantized to int4-BFP, one after the other in one process (a
 Mamba stack, whose int4 weights are not served yet, in bf16 only); with
 ``--paged``, teacher-forced paged decode steps of the bf16 weights over a
 store packed from the prefill, in bf16, int8 and int4 pages; with
-``--prefill``, one lock-step prefill of the bf16 weights instead; with
-``--decode-steps N``, fused N-step decode epochs (``model.DecodeEpoch``: on
+``--prefill``, one lock-step prefill of the bf16 weights instead (with
+``--prefill-chunk C``, one request's prompt in chunks of C, as the
+continuous engine prefills it); with ``--decode-steps N``, fused N-step decode epochs (``model.DecodeEpoch``: on
 the card a CUDA graph of one decode iteration, replayed) beside the eager
 steps, in the same process.
 
@@ -17,6 +18,8 @@ steps, in the same process.
       --arch mamba2-2.7b                                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch mamba2-2.7b --prefill                             # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --prefill --prefill-chunk 128 --batch 1 # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --decode-steps 8                        # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
@@ -50,6 +53,18 @@ router's (names with ``router_``), the kernels
 with the most device time, and the PyTorch operators (``aten::``) with the
 most device time of their own.  On the CPU there is no device trace: busy
 and idle are null.
+
+``--prefill --prefill-chunk C`` (with ``--batch 1``: the engine's chunks
+are one request's) runs the ``--prompt-len`` prompt as the continuous
+engine does: a staging cache of max_len (``--prompt-len`` + 32) rounded up
+to a chunk multiple, then ``model.prefill_chunk`` per chunk of C tokens,
+the final one right-padded (its inputs made on the device beforehand; the
+engine copies them through pinned memory).  Warm-up, timed, profiled as
+above, and the line adds the chunk count, the host's enqueue ms (the run
+without its final synchronize) and per chunk: wall ms, enqueue ms, device
+busy ms and launches.  The engine reads back nothing between a prompt's
+chunks, so a chunk that is not the last costs its enqueue in ``prefill_s``
+and its device time lands in the next decode sync.
 
 ``--decode-steps N`` prints, for each weight type, the eager line above and
 then a fused line: the prefill's cache becomes a dense pool of ``--batch``
@@ -293,6 +308,70 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
     return rec
 
 
+def profile_prefill_chunks(model, prompt_len: int, chunk: int,
+                           top: int = 8, new_tokens: int = 32) -> dict:
+    """One request's ``prompt_len`` seeded tokens prefilled ``chunk`` at a
+    time through a staging cache, as the continuous engine runs them:
+    warm-up, timed, profiled."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as model_mod
+
+    cfg, dev = model.cfg, model.device
+    cuda = dev.type == "cuda"
+    n = -(-prompt_len // chunk)
+    cap = -(-(prompt_len + new_tokens) // chunk) * chunk
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, n * chunk)), device=dev)
+    starts = [torch.tensor([i * chunk], dtype=torch.int32, device=dev)
+              for i in range(n)]
+    lasts = [torch.tensor([min(chunk, prompt_len - i * chunk) - 1],
+                          device=dev) for i in range(n)]
+
+    def run():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            cache = model_mod.init_chunk_cache(cfg, 1, cap, dev)
+            for i in range(n):
+                _, cache, _ = model.prefill_chunk(
+                    cache, toks[:, i * chunk:(i + 1) * chunk], starts[i],
+                    last_index=lasts[i])
+        enqueue = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, enqueue
+
+    run()                                               # warm-up
+    wall_s, enq_s = run()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        prof_s, _ = run()
+    rec = {"arch": cfg.name, "weights": _weights(model), "batch": 1,
+           "prompt_len": prompt_len, "prefill_chunk": chunk, "chunks": n,
+           "staging_rows": cap, "wall_ms": wall_s * 1e3,
+           "enqueue_ms": enq_s * 1e3, "profiled_wall_ms": prof_s * 1e3,
+           "wall_ms_per_chunk": wall_s * 1e3 / n,
+           "enqueue_ms_per_chunk": enq_s * 1e3 / n,
+           "device_busy_ms": None, "device_busy_ms_per_chunk": None,
+           "idle_share": None, "device_launches_per_chunk": None,
+           "top_kernels": None}
+    by_name = _kernel_times(prof)
+    if by_name:
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        rec.update(
+            device_busy_ms=busy, device_busy_ms_per_chunk=busy / n,
+            idle_share=1.0 - busy / rec["wall_ms"],
+            device_launches_per_chunk=sum(
+                cnt for _, cnt in by_name.values()) / n,
+            top_kernels=[{"name": name[:80], "ms_per_chunk": us / 1e3 / n,
+                          "per_chunk": cnt / n}
+                         for name, (us, cnt) in sorted(
+                             by_name.items(), key=lambda kv: -kv[1][0])[:top]])
+    return rec
+
+
 def _weights(model) -> str:
     return ("int4" if "w_int" in model.params().get("lm_head", {})
             else model.cfg.dtype)
@@ -389,6 +468,9 @@ def main(argv=None) -> None:
                     help="paged decode steps in bf16, int8 and int4 pages")
     ap.add_argument("--prefill", action="store_true",
                     help="one lock-step prefill of the bf16 weights")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="with --prefill: one request's prompt in chunks "
+                         "of C (needs --batch 1)")
     ap.add_argument("--decode-steps", type=int, default=0,
                     help="also fused epochs of N decode steps (CUDA graphs "
                          "on the card) beside the eager steps")
@@ -397,6 +479,10 @@ def main(argv=None) -> None:
                                  and (args.paged or args.prefill)):
         raise SystemExit("--decode-steps takes N >= 1 and neither --paged "
                          "nor --prefill")
+    if args.prefill_chunk and (args.prefill_chunk < 0 or not args.prefill
+                               or args.batch != 1):
+        raise SystemExit("--prefill-chunk takes C >= 1 with --prefill and "
+                         "--batch 1")
 
     import torch
 
@@ -413,8 +499,10 @@ def main(argv=None) -> None:
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=args.device)
     if args.prefill:
-        print(json.dumps(profile_prefill(model, args.batch, args.prompt_len)),
-              flush=True)
+        print(json.dumps(
+            profile_prefill_chunks(model, args.prompt_len, args.prefill_chunk)
+            if args.prefill_chunk else
+            profile_prefill(model, args.batch, args.prompt_len)), flush=True)
         return
     if args.paged:
         if transformer.is_ssm_stack(cfg):

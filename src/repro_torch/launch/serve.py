@@ -12,6 +12,8 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --batch 4 --prompt-len 512 --continuous            # dense slot pool
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --continuous --decode-steps 8                # CUDA graph epochs
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --batch 4 --prompt-len 512 --continuous --prefill-chunk 128
 
 Weights are random, drawn from seed 0 on the chosen device; ``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
@@ -20,7 +22,9 @@ the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
 requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
 ``--batch`` slots; ``--decode-steps N`` > 1 decodes in device-resident
 epochs of up to N steps, one host sync each (on CUDA one captured graph
-of a decode iteration, replayed).  ``mamba2-2.7b`` (attention-free) serves lock-step or
+of a decode iteration, replayed); ``--prefill-chunk C`` > 0 prefills C
+tokens an iteration, interleaved with the residents' decode steps.
+``mamba2-2.7b`` (attention-free) serves lock-step or
 from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
 raises for it (no KV to page), and so does ``--int4`` (not ported yet).
 """
@@ -56,6 +60,11 @@ def main(argv=None) -> None:
                          "epoch (default: the config's "
                          "decode_steps_per_dispatch; 1 = single-step; "
                          "requires --continuous)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: process prompts this many "
+                         "tokens at a time, interleaved with resident "
+                         "decode steps (0 = monolithic; requires "
+                         "--continuous)")
     ap.add_argument("--int4", action="store_true",
                     help="int4-BFP weights: quantize_params at the config's "
                          "QuantConfig (group size, pow2 scales)")
@@ -66,6 +75,8 @@ def main(argv=None) -> None:
         raise SystemExit("--kv-dtype/--num-pages require --paged-kv")
     if args.decode_steps is not None and not args.continuous:
         raise SystemExit("--decode-steps requires --continuous")
+    if args.prefill_chunk and not args.continuous:
+        raise SystemExit("--prefill-chunk requires --continuous")
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -97,6 +108,7 @@ def main(argv=None) -> None:
                         kv_dtype=args.kv_dtype),
             scheduling=SchedulingConfig(max_slots=args.batch,
                                         max_len=max_len,
+                                        prefill_chunk=args.prefill_chunk,
                                         decode_steps=args.decode_steps),
             temperature=args.temperature))
         for _ in range(2 * args.batch):
@@ -115,6 +127,11 @@ def main(argv=None) -> None:
               f"{s.decode_iterations} steps | graphs captured "
               f"{s.compiles}, replays {s.graph_replays} | host "
               f"{s.host_s:.2f}s, blocked on the device {s.device_s:.2f}s")
+        if args.prefill_chunk:
+            worst = max(r.max_decode_stall_s for r in out["results"].values())
+            print(f"chunked prefill: {s.prefill_chunks} chunks | "
+                  f"{s.interleaved_steps} interleaved steps | worst "
+                  f"decode stall {worst*1e3:.1f}ms")
         if s.kv_mode == "paged":
             print(f"paged KV: peak {s.pages_peak}/{s.pages_total} pages "
                   f"(×{s.page_size} entries) | live entry saving "

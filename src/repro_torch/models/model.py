@@ -1,5 +1,6 @@
-"""LanguageModel: init / prefill / decode step over the layer stack, with
-SkipGPT routing and cross-layer KV reuse threaded through every layer.
+"""LanguageModel: init / prefill / prefill chunk / decode step over the
+layer stack, with SkipGPT routing and cross-layer KV reuse threaded
+through every layer.
 
 Counterpart of the JAX package's ``models/model.py`` (inference entry
 points).  Parameters are a nested dict named after the reference's pytree
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.kvcache import history
 from repro_torch.kvcache import paged as paged_mod
 from repro_torch.models import layers, transformer
@@ -105,6 +106,79 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                             cfg)[:, 0]
     if pad_to is not None and pad_to > T:
         cache = _pad_cache_to(cache, T, pad_to)
+    return logits, cache, stats
+
+
+def init_chunk_cache(cfg: ModelConfig, batch: int, cap_len: int,
+                     device, dtype: Optional[torch.dtype] = None
+                     ) -> List[Dict]:
+    """Staging cache of chunked prefill: per layer {"k", "v"} [batch,
+    cap_len, Hkv, dh] zeros, time-major (the layout ``prefill`` collects,
+    which ``serve.engine.pool_insert`` and ``kvcache.paged.pack_prefill``
+    take).  ``cap_len`` is normally max_len rounded up to a chunk
+    multiple, so a right-padded final chunk fits.  Raises ``ValueError``
+    for a stack that is not all global attention."""
+    for i in range(cfg.num_layers):
+        if cfg.block_kind(i) != ATTN:
+            raise ValueError("chunked prefill requires an all-global-attn "
+                             f"stack; got a {cfg.block_kind(i)!r} layer")
+    dt = dtype or layers.torch_dtype(cfg)
+    shape = (batch, cap_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return [{"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def slice_cache_time(cache: List[Dict], length: int) -> List[Dict]:
+    """Each layer's KV views cut to ``length`` along time (views, no copy):
+    a staging cache's chunk-multiple overhang shed before a pool insert."""
+    return [{name: (kv[:, :length] if name in ("k", "v") else kv)
+             for name, kv in ce.items()} for ce in cache]
+
+
+def _chunk_stack(params: Dict, cache: List[Dict], tokens: torch.Tensor,
+                 t0, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Dict]:
+    """The stack pass of ``prefill_chunk``: C tokens at offset ``t0`` over
+    the staging cache, each layer's merged view written at [t0, t0 + C).
+    Returns (the last block's activations [B, C, D], its Σy²/D carry,
+    stats with ``attn_gate`` [L, B, C]); the final norm is the caller's."""
+    transformer.check_supported(cfg)
+    B, C = tokens.shape
+    dev = tokens.device
+    t0 = torch.as_tensor(t0, dtype=torch.int32, device=dev)
+    t0 = t0.reshape(-1).expand(B).contiguous()
+    pos = t0[:, None] + torch.arange(C, dtype=torch.int32, device=dev)[None]
+    x = layers.embed(params["embed"], tokens)
+    x, _, stats, sq = transformer.stack_prefill_chunk(
+        params["blocks"], cache, x, t0, pos, cfg)
+    return x, sq, stats
+
+
+def prefill_chunk(params: Dict, cache: List[Dict], tokens: torch.Tensor,
+                  t0, cfg: ModelConfig,
+                  last_index: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, List[Dict], Dict]:
+    """One chunk of resumable prefill: tokens [B, C] appended at offset
+    ``t0`` ([B] or scalar).  ``cache`` (from ``init_chunk_cache``) holds
+    every layer's view of positions [0, t0) and is updated IN PLACE at
+    [t0, t0 + C).  Returns (logits [B, V] at ``last_index`` within the
+    chunk (default: its last column), cache, stats) with ``attn_gate``
+    [L, B, C], the monolithic prefill's gate log column slice by column
+    slice.  A right-padded final chunk passes ``last_index`` = real length
+    − 1; its pad columns compute values that causal masking keeps out of
+    every real token."""
+    x, sq, stats = _chunk_stack(params, cache, tokens, t0, cfg)
+    B = x.shape[0]
+    if last_index is None:
+        xl, sql = x[:, -1:], sq[:, -1:]
+    else:
+        rows = torch.arange(B, device=x.device)
+        idx = torch.as_tensor(last_index, device=x.device).long()
+        xl, sql = x[rows, idx][:, None], sq[rows, idx][:, None]
+    x = layers.norm_apply(params["final_norm"], xl, cfg, stats=sql)
+    logits = layers.unembed(params["embed"], params.get("lm_head"), x,
+                            cfg)[:, 0]
     return logits, cache, stats
 
 
@@ -546,6 +620,12 @@ class LanguageModel(nn.Module):
                 last_index=None):
         return prefill(self.params(), tokens.to(self.device), self.cfg,
                        pad_to=pad_to, last_index=last_index)
+
+    @torch.no_grad()
+    def prefill_chunk(self, cache, tokens: torch.Tensor, t0,
+                      last_index=None):
+        return prefill_chunk(self.params(), cache, tokens.to(self.device),
+                             t0, self.cfg, last_index=last_index)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, t):

@@ -2,8 +2,8 @@
 ``lax.scan`` over ``stack.stages``): all-global-attention stacks, or
 attention-free Mamba-2 stacks.
 
-Counterpart of ``stage_forward`` / ``stage_decode`` in the JAX package's
-``models/transformer.py``.  An attention block is {"mixer": routed
+Counterpart of ``stage_forward`` / ``stage_decode`` /
+``stage_prefill_chunk`` in the JAX package's ``models/transformer.py``.  An attention block is {"mixer": routed
 attention, "ffn": routed GLU MLP}; the KV view and the Σy²/D carry thread
 from block to block exactly as they thread through the reference's stages.
 A Mamba block is {"mixer": routed SSM}; it consumes the Σy²/D carry but
@@ -123,6 +123,38 @@ def stack_decode(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
         gates.append(s["attn_gate"])
         stats = _acc_stats(stats, s, cfg.skip.route_attention)
         x, s = skip_block.routed_mlp_decode(bp["ffn"], x, cfg, carried_sq=sq)
+        sq = s.pop("res_sq")
+        stats = _acc_stats(stats, s, cfg.skip.route_mlp)
+    stats["attn_gate"] = torch.stack(gates)
+    return x, cache, stats, sq
+
+
+def stack_prefill_chunk(blocks: List[Params], cache: List[Dict],
+                        x: torch.Tensor, t0: torch.Tensor,
+                        positions: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, List[Dict], Dict,
+                                   torch.Tensor]:
+    """One prefill chunk of C tokens over every block (counterpart of
+    ``stage_prefill_chunk`` over all stages).  ``cache`` holds each
+    layer's time-major {"k", "v"} view of the prefix [0, t0); the chunk's
+    merged views are written at [t0, t0 + C) in place.  The KV view and
+    the Σy²/D carry thread from block to block over the chunk's tokens
+    only.  Returns (x, cache, stats with ``attn_gate`` [L, B, C], the
+    final Σy²/D carry)."""
+    stats = _zero_stats(x.device)
+    gates: List[torch.Tensor] = []
+    kv_prev, sq = None, None
+    for i, (bp, ce) in enumerate(zip(blocks, cache)):
+        if cfg.block_kind(i) != ATTN:
+            raise ValueError("chunked prefill requires an all-global-attn "
+                             f"stack; layer {i} is {cfg.block_kind(i)!r}")
+        x, ce["k"], ce["v"], kv_prev, s = skip_block.routed_attention_chunk(
+            bp["mixer"], x, ce["k"], ce["v"], t0, kv_prev, positions, cfg,
+            carried_sq=sq)
+        sq = s.pop("res_sq")
+        gates.append(s["attn_gate"])
+        stats = _acc_stats(stats, s, cfg.skip.route_attention)
+        x, s = skip_block.routed_mlp(bp["ffn"], x, cfg, carried_sq=sq)
         sq = s.pop("res_sq")
         stats = _acc_stats(stats, s, cfg.skip.route_mlp)
     stats["attn_gate"] = torch.stack(gates)

@@ -10,7 +10,10 @@ Counterpart of the JAX package's ``serve/engine.py``:
 ``ContinuousBatchingEngine``
     Slot-based continuous batching with monolithic prefill
     (length-bucketed where ``can_bucket``, else at the exact prompt
-    length), over either KV mode: the dense slot pool (``max_slots ×
+    length) or chunked prefill (``prefill_chunk`` C > 0: C tokens per
+    iteration through a staging cache, interleaved with the residents'
+    decode steps, an optional ``step_tokens`` budget deferring a chunk),
+    over either KV mode: the dense slot pool (``max_slots ×
     max_len`` rows per layer, allocated once; a Mamba stack's conv
     histories and SSM state per slot) or the paged §4.4 entry stream
     (``kvcache/paged.py``) with alloc-on-demand pages, proactive headroom
@@ -33,6 +36,7 @@ from repro_torch.core import kv_reuse
 from repro_torch.kvcache import history as history_mod
 from repro_torch.kvcache import paged as paged_mod
 from repro_torch.models import layers, transformer
+from repro_torch.models import model as model_mod
 from repro_torch.models.model import DecodeEpoch, LanguageModel
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
@@ -40,7 +44,7 @@ from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
 from repro_torch.serve.sampling import sample
 from repro_torch.serve.scheduler import (ActiveRequest, PrefillChunk,
                                          Request, Scheduler, can_bucket,
-                                         default_buckets)
+                                         can_chunk_prefill, default_buckets)
 
 
 @dataclasses.dataclass
@@ -52,9 +56,21 @@ class ServeStats:
       prefill_tokens    — prompt tokens prefilled (padding excluded).
       decode_tokens     — tokens emitted (the first, from prefill, included).
       prefill_s / decode_s — wall time of prefill work / decode steps.
-      prefill_chunks    — prefill work units (one per prompt: monolithic).
-      interleaved_steps — iterations in which a prefill ran while requests
-                          were resident.
+                          A chunk that is not its prompt's last is only
+                          enqueued: ``prefill_s`` holds its host time, and
+                          the device work it queued is waited for at the
+                          next decode sync, in ``decode_s`` (and
+                          ``device_s``).
+      prefill_chunks    — prefill work units run: one per chunk with
+                          ``prefill_chunk > 0``, one per prompt otherwise
+                          (a prompt prefilled again after a preemption or
+                          an aborted chunked prefill counts again).
+      interleaved_steps — iterations in which a prefill work unit ran
+                          while requests were resident.
+      prefill_aborts    — in-flight chunked prefills aborted under page
+                          pressure (the port's; each is also a preemption).
+      prefill_deferrals — plans that deferred the in-flight prompt's next
+                          work unit under ``step_tokens`` (the port's).
       attn_keep_frac    — mean decode-time keep rate over routed submodules.
       kv_saved_fraction — measured compact-KV storage saving over the gate
                           log; ``kv_saved_analytic`` is the configured-
@@ -92,6 +108,8 @@ class ServeStats:
     decode_s: float = 0.0
     prefill_chunks: int = 0
     interleaved_steps: int = 0
+    prefill_aborts: int = 0
+    prefill_deferrals: int = 0
     attn_keep_frac: float = 1.0
     kv_saved_fraction: float = 0.0
     kv_saved_analytic: float = 0.0
@@ -308,11 +326,7 @@ def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
     """Levers of the reference engine this port does not serve yet, each
     with the ROADMAP queue 1 item that will port it."""
     sch, rob, obs = config.scheduling, config.robustness, config.obs
-    chunk = cfg.prefill_chunk if sch.prefill_chunk is None \
-        else sch.prefill_chunk
     out = []
-    if chunk:
-        out.append("prefill_chunk > 0 (item 9)")
     if config.spec.spec_k or config.spec.draft_keep is not None:
         out.append("spec_k / draft_keep (item 11)")
     if config.kv.prefix_cache:
@@ -325,8 +339,6 @@ def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
         out.append("load shedding (item 12)")
     if rob.max_preemptions is not None:
         out.append("max_preemptions (item 12)")
-    if sch.step_tokens is not None:
-        out.append("step_tokens (item 9)")
     if obs.trace:
         out.append("trace (item 12)")
     if obs.mesh is not None or obs.sharding_policy is not None:
@@ -353,6 +365,11 @@ class _RunState:
     # shrink (0 = uncapped) and the clean-epoch streak that grows it back
     epoch_cap: int = 0
     clean_epochs: int = 0
+    # chunked prefill: the in-flight prompt's staging cache (per layer
+    # {"k", "v"} [1, cap, Hkv, dh]) and its chunks' gate logs [L, 1, C]
+    stage_cache: Optional[List[Dict[str, torch.Tensor]]] = None
+    stage_gates: List[torch.Tensor] = dataclasses.field(
+        default_factory=list)
 
 
 class ContinuousBatchingEngine:
@@ -360,7 +377,10 @@ class ContinuousBatchingEngine:
 
     Requests are admitted into free slots, prefilled monolithically
     (right-padded to a length bucket where that is exact, logits taken at
-    the real last token), decoded concurrently — each sequence at its own
+    the real last token) or, with ``prefill_chunk`` C > 0, C tokens per
+    iteration (``model.prefill_chunk`` into a staging cache that the last
+    chunk inserts into the pool or packs into pages; only where
+    ``can_chunk_prefill``, else ``ConfigError``), decoded concurrently — each sequence at its own
     position — one ragged decode step per iteration (or, with
     ``decode_steps`` N > 1, one device-resident epoch of up to N steps),
     and evicted on stop token, length or ``max_len``.
@@ -388,14 +408,22 @@ class ContinuousBatchingEngine:
     double it back.  At temperature 0 the tokens equal the single-step
     engine's.
 
+    ``step_tokens`` caps an iteration's tokens (each decode slot costs
+    the epoch length, a chunk its length): an over-budget chunk waits one
+    iteration, never two.  A paged chunked (or budgeted) prompt reserves
+    its worst case at admission; under page pressure an in-flight chunked
+    prefill is aborted and requeued before any resident is preempted.
+
     ``model`` is a ``LanguageModel``; its device is the engine's.  An
     attention-free Mamba stack serves from the dense pool only (paged mode
     raises ``ValueError``, as do ``prefill_buckets``: it prefills at the
     exact prompt length, and admission overwrites the slot's conv
-    histories and state whole).  Pass an
+    histories and state whole; ``prefill_chunk`` > 0 raises
+    ``ConfigError``).  Pass an
     ``EngineConfig`` or its flat kwargs (``max_slots``, ``max_len``,
     ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
-    ``temperature``, ``prefill_buckets``, ``decode_steps``).  The
+    ``temperature``, ``prefill_buckets``, ``prefill_chunk``,
+    ``decode_steps``, ``step_tokens``).  The
     reference's other levers raise ``ConfigError`` naming the ROADMAP item that will
     port them.  Sampling at ``temperature > 0`` draws from the
     ``torch.Generator`` given to ``run``."""
@@ -432,16 +460,33 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"{cfg.name}: paged KV requires an all-global-attention "
                 "stack with masked-mode routing — use kv_mode='dense'")
+        self.prefill_chunk = int(cfg.prefill_chunk
+                                 if sch.prefill_chunk is None
+                                 else sch.prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0 (0 = monolithic)")
+        if self.prefill_chunk and not can_chunk_prefill(cfg):
+            raise ConfigError(
+                f"{cfg.name}: chunked prefill requires an all-global-"
+                "attention stack with masked-mode routing (resumable "
+                "cache state) — use prefill_chunk=0")
+        # the staging cache: max_len rounded up to a chunk multiple, so a
+        # right-padded final chunk always fits
+        C = self.prefill_chunk
+        self._chunk_cap = -(-self.max_len // C) * C if C else 0
+        self.step_tokens = sch.step_tokens
         buckets = sch.prefill_buckets
         if buckets is not None and not can_bucket(cfg):
             raise ValueError(
                 f"{cfg.name}: prefill bucketing pads prompts, which corrupts "
                 "ring-buffer/SSM state and gather-mode capacity — this "
                 "config requires exact-length prefill (prefill_buckets=None)")
-        if buckets is None and can_bucket(cfg):
+        if buckets is None and can_bucket(cfg) and not self.prefill_chunk:
+            # chunks set their own shapes; buckets serve monolithic prefill
             buckets = default_buckets(self.max_len)
         self.scheduler = Scheduler(self.max_slots, self.max_len,
-                                   buckets=buckets)
+                                   buckets=buckets,
+                                   prefill_chunk=self.prefill_chunk)
         self.kv_dtype = kvc.kv_dtype
         if self.kv_mode == "paged":
             self.n_attn = paged_mod.num_attention_layers(cfg)
@@ -571,31 +616,41 @@ class ContinuousBatchingEngine:
             pos[slot] = st.pos
         return self._tensor(feed), self._tensor(pos, torch.int32)
 
+    def _plan_dense(self, rs: _RunState, pool, n_steps: int,
+                    defer: bool = False) -> None:
+        """The dense pool's prefill work of one iteration, from the step
+        planner: with chunking off every placeable queued request prefills
+        whole (the budget may defer one); with ``prefill_chunk`` > 0 one
+        chunk runs, so the residents decode between a prompt's chunks."""
+        sched = self.scheduler
+        pre_active = bool(sched.active)
+        did_prefill = False
+        while True:
+            plan = sched.plan_step(token_budget=self.step_tokens,
+                                   decode_steps=n_steps)
+            if plan.prefill is None:
+                if sched.prefilling is not None:
+                    rs.stats.prefill_deferrals += 1
+                break
+            self._prefill_work_dense(rs, plan.prefill, pool,
+                                     defer=defer
+                                     and plan.prefill.req.max_new_tokens > 1)
+            did_prefill = True
+            if self.prefill_chunk:
+                break
+        if did_prefill and pre_active:
+            rs.stats.interleaved_steps += 1
+
     def _run_dense(self, rs: _RunState) -> None:
-        """Fixed ``max_slots × max_len`` pool.  Per iteration: every
-        placeable queued request prefills (monolithic), then one ragged
-        decode step over the pool."""
+        """Fixed ``max_slots × max_len`` pool.  Per iteration: the
+        planner's prefill work (every placeable prompt, or one chunk), then
+        one ragged decode step over the pool."""
         sched, cfg = self.scheduler, self.cfg
         L = max(len(cfg.attention_layers), 1)
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
         while sched.has_work():
-            pre_active = bool(sched.active)
-            did_prefill = False
-            while True:
-                plan = sched.plan_step()
-                if plan.prefill is None:
-                    break
-                work = plan.prefill
-                t0 = perf_counter()
-                tok, gates, cache = self._prefill(rs, work.req,
-                                                  pad_to=self.max_len)
-                pool_insert(pool, cache, work.slot)
-                del cache
-                self._finish_prefill(rs, work, tok, t0, gates)
-                did_prefill = True
-            if did_prefill and pre_active:
-                rs.stats.interleaved_steps += 1
+            self._plan_dense(rs, pool, 1)
             if not sched.active:
                 continue
             feed, pos = self._feed()
@@ -635,12 +690,7 @@ class ContinuousBatchingEngine:
                             "rejected it", slot=slot,
                             free_pages=alloc.free_pages,
                             pages_total=self.num_pages)
-            pre_active = bool(sched.active)
-            plan = sched.plan_step(can_place=self._can_place)
-            if plan.prefill is not None:
-                self._prefill_paged(rs, plan.prefill, store, reuse)
-                if pre_active:
-                    rs.stats.interleaved_steps += 1
+            self._plan_paged(rs, store, reuse, 1)
             if not sched.active:
                 continue
             feed, pos = self._feed()
@@ -664,14 +714,112 @@ class ContinuousBatchingEngine:
                 rs.hist.on_decode_step(slot, g)
             self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, nA)
 
-    def _prefill_paged(self, rs: _RunState, work: PrefillChunk, store,
-                       reuse: bool) -> None:
-        """Prefill one prompt at its bucketed length, reserve pages for its
-        measured entries plus one decode step, and pack them."""
+    def _plan_paged(self, rs: _RunState, store, reuse: bool,
+                    n_steps: int) -> None:
+        """The paged store's prefill work of one iteration: one
+        ``plan_step`` plan, admission gated on spare pages by
+        ``_can_place``, at most one work unit.  A chunked (or budgeted)
+        prompt reserves its worst case in the iteration that admits it:
+        its chunks span iterations whose headroom passes also draw from
+        the free list."""
+        sched, alloc, nA = self.scheduler, self.allocator, self.n_attn
+        pre_active = bool(sched.active)
+        plan = sched.plan_step(can_place=self._can_place,
+                               token_budget=self.step_tokens,
+                               decode_steps=n_steps)
+        pf = sched.prefilling
+        if plan.prefill is None and pf is not None:
+            rs.stats.prefill_deferrals += 1
+        if (pf is not None and pf.done == 0
+                and (self.prefill_chunk or self.step_tokens is not None)):
+            if not alloc.ensure(pf.slot, pf.req.prompt_len * nA + nA):
+                raise RuntimeError(
+                    "worst-case page reservation failed in the same "
+                    "iteration as a successful _can_place admission "
+                    "check — allocator bug")
+        if plan.prefill is not None:
+            self._prefill_work_paged(rs, plan.prefill, store, reuse)
+            if pre_active:
+                rs.stats.interleaved_steps += 1
+
+    def _chunk_work(self, rs: _RunState, work: PrefillChunk, t0: float,
+                    defer: bool):
+        """One chunk through the staging cache (allocated at the prompt's
+        first chunk), right-padded to C, its gate log kept on the device;
+        inputs go through pinned memory.  A chunk that is not its prompt's
+        last is only enqueued and counted (its device work is waited for
+        by the next sync, a decode step's or epoch's): returns None.  The
+        last returns (its first token, the prompt's gate log [L, Tp] (the
+        chunks' logs side by side; Tp a chunk multiple ≥ T0), the staging
+        cache), token and log on the host or, with ``defer``, as device
+        tensors, and clears the run's staging state."""
+        C = self.prefill_chunk
+        if work.is_first:
+            rs.stage_cache = model_mod.init_chunk_cache(
+                self.cfg, 1, self._chunk_cap, self.device)
+            rs.stage_gates = []
+        c = len(work.tokens)
+        padded = np.pad(work.tokens, (0, C - c))
+        logits, rs.stage_cache, cstats = self.model.prefill_chunk(
+            rs.stage_cache, self._tensor(padded[None]),
+            self._tensor([work.start], torch.int32),
+            last_index=self._tensor([c - 1]))
+        rs.stage_gates.append(cstats["attn_gate"])
+        if not work.is_last:
+            rs.stats.prefill_chunks += 1
+            rs.stats.prefill_s += perf_counter() - t0
+            self.scheduler.prefill_advance(work)
+            return None
+        tok = sample(logits, rs.generator, self.temperature)
+        gates = torch.cat(rs.stage_gates, dim=2)[:, 0]
+        cache = rs.stage_cache
+        rs.stage_cache, rs.stage_gates = None, []
+        if defer:
+            return tok, gates, cache
+        t_sync = perf_counter()
+        tok, gates = _to_host(tok, gates)
+        rs.stats.device_s += perf_counter() - t_sync
+        return int(tok[0]), gates, cache
+
+    def _prefill_work_dense(self, rs: _RunState, work: PrefillChunk, pool,
+                            defer: bool = False) -> None:
+        """One dense-pool prefill work unit: a monolithic (bucketed)
+        prefill and pool insert, or one staging-cache chunk, the last of
+        which inserts the staging cache (cut to max_len) into the pool's
+        own tensors in place.  ``defer`` (fused mode) leaves the first
+        token and the gate log on the device, with no host sync."""
+        t0 = perf_counter()
+        if not self.prefill_chunk:
+            tok, gates, cache = self._prefill(rs, work.req,
+                                              pad_to=self.max_len,
+                                              defer=defer)
+        else:
+            staged = self._chunk_work(rs, work, t0, defer)
+            if staged is None:
+                return
+            tok, gates, cache = staged
+            cache = model_mod.slice_cache_time(cache, self.max_len)
+        pool_insert(pool, cache, work.slot)
+        del cache
+        self._finish_prefill(rs, work, tok, t0, gates, defer=defer)
+
+    def _prefill_work_paged(self, rs: _RunState, work: PrefillChunk, store,
+                            reuse: bool) -> None:
+        """One paged prefill work unit: a monolithic prefill at the
+        bucketed length, or one staging-cache chunk; on the prompt's last
+        work unit reserve pages for its measured entries plus one decode
+        step (a chunked prompt reserved its worst case at admission) and
+        pack them from the gate log [nA, Tp]."""
         alloc, nA, slot = self.allocator, self.n_attn, work.slot
         T0 = work.req.prompt_len
         t0 = perf_counter()
-        tok, gates, cache = self._prefill(rs, work.req)
+        if not self.prefill_chunk:
+            tok, gates, cache = self._prefill(rs, work.req)
+        else:
+            staged = self._chunk_work(rs, work, t0, defer=False)
+            if staged is None:
+                return
+            tok, gates, cache = staged
         n_ent = paged_mod.prefill_entry_count(gates, T0, reuse)
         if not alloc.ensure(slot, n_ent + nA):
             raise PageExhausted(
@@ -813,24 +961,7 @@ class ContinuousBatchingEngine:
                     if act[slot]:
                         ep.feed[slot].copy_(tok_dev[0])
                 self._launch_epoch(rs, ep, n_eff)
-            pre_active = bool(sched.active)
-            did_prefill = False
-            while True:
-                plan = sched.plan_step(decode_steps=n_eff)
-                if plan.prefill is None:
-                    break
-                work = plan.prefill
-                t0 = perf_counter()
-                defer = work.req.max_new_tokens > 1
-                tok, gates, cache = self._prefill(rs, work.req,
-                                                  pad_to=self.max_len,
-                                                  defer=defer)
-                pool_insert(pool, cache, work.slot)
-                del cache
-                self._finish_prefill(rs, work, tok, t0, gates, defer=defer)
-                did_prefill = True
-            if did_prefill and pre_active:
-                rs.stats.interleaved_steps += 1
+            self._plan_dense(rs, pool, n_eff, defer=True)
             if t_disp is not None:
                 self._process_epoch(rs, ep, n_eff, slots, t_disp)
 
@@ -907,13 +1038,7 @@ class ContinuousBatchingEngine:
                         block_table=alloc.block_table[:, :j_step])
                 self._launch_epoch(rs, ep, n_eff)
             # admission sees the free list net of the epoch's reservation
-            pre_active = bool(sched.active)
-            plan = sched.plan_step(can_place=self._can_place,
-                                   decode_steps=n_eff)
-            if plan.prefill is not None:
-                self._prefill_paged(rs, plan.prefill, store, reuse)
-                if pre_active:
-                    rs.stats.interleaved_steps += 1
+            self._plan_paged(rs, store, reuse, n_eff)
             if t_disp is not None:
                 self._process_epoch(rs, ep, n_eff, slots, t_disp,
                                     per_step=per_step)
@@ -933,6 +1058,7 @@ class ContinuousBatchingEngine:
         st.prefill_s += now - t0
         st.prefill_tokens += work.req.prompt_len
         st.decode_tokens += 1
+        self.scheduler.prefill_advance(work)
         if defer:
             rs.pending[work.slot], tok = tok, 0
         act = ActiveRequest(req=work.req, slot=work.slot,
@@ -1046,13 +1172,25 @@ class ContinuousBatchingEngine:
         rs.stats.requests_completed += 1
 
     def _preempt_youngest(self, rs: _RunState, exclude: int) -> bool:
-        """OOM backpressure (paged mode): evict the youngest resident by
-        original submission time (≠ ``exclude``) and requeue it at its
-        age-ordered position; it re-prefills from scratch when pages free
-        up.  (Monolithic prefill completes within its iteration, so no
-        prefill is ever in flight here.)  Returns False when there is no
-        victim."""
+        """OOM backpressure (paged mode).  An in-flight chunked prefill is
+        always the newest admission and holds its worst-case reservation
+        without being a resident, so it goes first: aborted, its pages and
+        slot released, its staging state dropped, the request requeued to
+        prefill again from its first chunk (no decode progress is lost,
+        and the residents decode between the abort and the retry).  Else
+        evict the youngest resident by original submission time (≠
+        ``exclude``) and requeue it at its age-ordered position; it
+        re-prefills from scratch when pages free up.  Returns False when
+        there is no victim."""
         sched = self.scheduler
+        pf = sched.prefilling
+        if pf is not None and pf.slot != exclude:
+            sched.abort_prefill()
+            self.allocator.release(pf.slot)
+            rs.stage_cache, rs.stage_gates = None, []
+            rs.stats.preemptions += 1
+            rs.stats.prefill_aborts += 1
+            return True
         victims = [s for s in sched.active if s != exclude]
         if not victims:
             return False

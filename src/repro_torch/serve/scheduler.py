@@ -1,6 +1,6 @@
 """Request scheduler for the continuous-batching serve engine (after the
 JAX package's ``serve/scheduler.py``, which cannot be imported without
-JAX; its chunked-prefill planner waits for the port of chunked prefill).
+JAX).
 
 The scheduler is the software realization of SkipOPU's dynamically
 allocated compute: a fixed pool of KV-cache *slots* (the on-chip KV
@@ -19,6 +19,13 @@ masked-mode global-attention stacks — pads sit *after* the real tokens, so
 causal masking keeps every real position byte-identical (``can_bucket``).
 A Mamba stack's state would absorb the pads, so it prefills at the exact
 prompt length (``buckets=None``).
+
+Chunked prefill (``prefill_chunk > 0``): ``plan_step`` metes an admitted
+prompt out ``prefill_chunk`` tokens at a time, one chunk per engine
+iteration, so resident decode steps run between the chunks of a long
+prompt; a ``token_budget`` may defer a chunk by one iteration, never two.
+Chunking is exact on the same stacks as bucketing
+(``can_chunk_prefill``).
 """
 from __future__ import annotations
 
@@ -110,18 +117,36 @@ def can_bucket(cfg: ModelConfig) -> bool:
     return all_global and not gather
 
 
+def can_chunk_prefill(cfg: ModelConfig) -> bool:
+    """Chunk-exactness condition: the cached prefix must fully determine
+    the next chunk's state, and a right-padded final chunk's pads must be
+    inert.  Both hold exactly for the bucketable stacks (all global
+    attention, masked-mode routing): the per-layer KV views are the whole
+    cross-layer reuse state, and causal masking kills the pads.  An SSM
+    scan carries state that cannot be split at an arbitrary offset."""
+    return can_bucket(cfg)
+
+
 @dataclasses.dataclass
 class PrefillChunk:
-    """One unit of prefill work handed to the engine by ``plan_step``: the
-    whole prompt of a request just admitted into ``slot``."""
+    """One unit of prefill work handed to the engine by ``plan_step``.
+
+    With chunking off this is the whole prompt (``is_first and is_last``);
+    with ``prefill_chunk > 0`` it is one C-token slice (the final slice
+    may be shorter: the engine right-pads it to C and takes the logits at
+    its last real token)."""
     req: Request
     slot: int
+    start: int                       # token offset of this chunk
+    tokens: np.ndarray               # [c] real tokens (c <= prefill_chunk)
+    is_first: bool
+    is_last: bool
 
 
 @dataclasses.dataclass
 class StepPlan:
     """One engine iteration's worth of work: every resident decode slot
-    plus at most one prefill.
+    plus at most one prefill chunk.
 
     ``decode_steps`` is the iteration's *epoch length*: with the fused
     device-resident decode loop (``decode_steps_per_dispatch > 1``) each
@@ -135,29 +160,46 @@ class StepPlan:
     def tokens(self) -> int:
         """Tokens this step computes (the planner's budget currency)."""
         n = len(self.decode_slots) * self.decode_steps
-        return n + (len(self.prefill.req.tokens) if self.prefill else 0)
+        return n + (len(self.prefill.tokens) if self.prefill else 0)
+
+
+@dataclasses.dataclass
+class _InflightPrefill:
+    """Host-side progress of the one prompt currently being prefilled."""
+    req: Request
+    slot: int
+    done: int = 0                    # tokens already prefilled
+    deferred: int = 0                # consecutive budget deferrals
 
 
 class Scheduler:
-    """FIFO queue + slot free-list + prefill length-bucketing.
+    """FIFO queue + slot free-list + prefill length-bucketing + the
+    chunked-prefill step planner.
 
     The engine drives one iteration as: (paged-memory headroom pass) →
-    ``plan_step()`` → prefill the returned prompt, if any, and activate
-    it → one ragged decode step over the resident slots.  ``plan_step``
-    owns admission: it pops the FIFO head into a free slot, gated on the
-    engine's ``can_place`` memory predicate.
+    ``plan_step()`` → run the returned prefill chunk, if any, and
+    ``prefill_advance`` it (the last chunk activates the request) → one
+    ragged decode step over the resident slots.  ``plan_step`` owns
+    admission: it pops the FIFO head into a free slot, gated on the
+    engine's ``can_place`` memory predicate, and then metes the prompt
+    out one chunk per call.
     """
 
     def __init__(self, max_slots: int, max_len: int,
-                 buckets: Optional[Sequence[int]] = None):
+                 buckets: Optional[Sequence[int]] = None,
+                 prefill_chunk: int = 0):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
+        if prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0 (0 = monolithic)")
         self.max_slots = max_slots
         self.max_len = max_len
         self.buckets = tuple(sorted(buckets)) if buckets else None
+        self.prefill_chunk = prefill_chunk
         self.queue: Deque[Request] = deque()
         self._free: List[int] = list(range(max_slots - 1, -1, -1))
         self.active: Dict[int, ActiveRequest] = {}
+        self._prefilling: Optional[_InflightPrefill] = None
 
     # -- queue -------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -177,33 +219,86 @@ class Scheduler:
         return len(self._free)
 
     def has_work(self) -> bool:
-        return bool(self.queue or self.active)
+        return bool(self.queue or self.active or self._prefilling)
 
     # -- step planning ------------------------------------------------------
-    def plan_step(self, can_place=None, decode_steps: int = 1) -> StepPlan:
-        """Plan one engine iteration: the FIFO head is popped into a free
-        slot iff ``can_place(request)`` passes (the paged engine's
-        free-page gate; FIFO order is preserved — a blocked head
-        back-pressures the queue) and returned as the step's prefill.
-        The engine prefills it within the iteration and activates it, so
-        it joins the decode set on the next plan.
+    def plan_step(self, can_place=None,
+                  token_budget: Optional[int] = None,
+                  decode_steps: int = 1) -> StepPlan:
+        """Plan one engine iteration.
 
-        N-step epoch contract (``decode_steps > 1``, the fused
-        device-resident decode loop): one plan covers an *epoch* of up to
-        ``decode_steps`` decode iterations in one device dispatch.  The
-        scheduler sees the world only at epoch boundaries — finished
-        slots are released, admissions happen and preemption victims are
-        chosen once per dispatch, not once per token; a slot stays
-        resident (its pages reserved) for the whole epoch even if it
-        finishes mid-loop, where the device-side active mask stops it
-        from appending KV."""
-        chunk: Optional[PrefillChunk] = None
-        if self.queue and self._free:
+        Admission: when no prefill is in flight, the FIFO head is popped
+        into a free slot iff ``can_place(request)`` passes (the paged
+        engine's free-page gate; FIFO order is preserved — a blocked head
+        back-pressures the queue).  The in-flight prompt then yields one
+        ``PrefillChunk`` per call (the whole prompt when chunking is off).
+
+        ``token_budget`` caps the step's token count (decode slots each
+        cost ``decode_steps``; the chunk costs its length).  An
+        over-budget chunk is deferred — a decode-only step — but never
+        twice in a row, and never when there is no decode work to
+        prioritize, so prefill cannot starve.  A request whose last chunk
+        ran joins the decode set on the next plan.
+
+        N-step epochs (``decode_steps > 1``): one plan covers an epoch of
+        up to ``decode_steps`` decode iterations in one device dispatch;
+        the scheduler sees the world only at epoch boundaries, and a slot
+        stays resident (its pages reserved) for the whole epoch even if it
+        finishes mid-loop, where the device's active mask stops it from
+        appending KV."""
+        if self._prefilling is None and self.queue and self._free:
             if can_place is None or can_place(self.queue[0]):
-                chunk = PrefillChunk(req=self.queue.popleft(),
-                                     slot=self._free.pop())
-        return StepPlan(decode_slots=sorted(self.active), prefill=chunk,
+                self._prefilling = _InflightPrefill(
+                    req=self.queue.popleft(), slot=self._free.pop())
+        decode_slots = sorted(self.active)
+        chunk: Optional[PrefillChunk] = None
+        if self._prefilling is not None:
+            pf = self._prefilling
+            T0 = pf.req.prompt_len
+            C = self.prefill_chunk if self.prefill_chunk else T0
+            c = min(C, T0 - pf.done)
+            over = (token_budget is not None and decode_slots
+                    and len(decode_slots) * decode_steps + c > token_budget)
+            if over and pf.deferred < 1:
+                pf.deferred += 1
+            else:
+                pf.deferred = 0
+                toks = np.asarray(pf.req.tokens, np.int32)
+                chunk = PrefillChunk(
+                    req=pf.req, slot=pf.slot, start=pf.done,
+                    tokens=toks[pf.done:pf.done + c],
+                    is_first=pf.done == 0, is_last=pf.done + c >= T0)
+        return StepPlan(decode_slots=decode_slots, prefill=chunk,
                         decode_steps=decode_steps)
+
+    def prefill_advance(self, chunk: PrefillChunk) -> None:
+        """Record that ``chunk`` ran; the in-flight state clears on the
+        last chunk (the engine then activates the request)."""
+        pf = self._prefilling
+        assert pf is not None and pf.slot == chunk.slot, "no such prefill"
+        pf.done += len(chunk.tokens)
+        if pf.done >= pf.req.prompt_len:
+            self._prefilling = None
+
+    @property
+    def prefilling(self) -> Optional[_InflightPrefill]:
+        """The in-flight prefill, if any (a chunked prefill spans engine
+        iterations; a monolithic one completes within its own)."""
+        return self._prefilling
+
+    def abort_prefill(self) -> _InflightPrefill:
+        """Cancel the in-flight prefill: its slot returns to the free list
+        and the request goes back into the FIFO at its age-ordered
+        position, to re-prefill from scratch.  The paged engine uses this
+        as OOM backpressure: the in-flight prompt is the newest admission
+        and has no decode progress to lose.  (The reference's
+        ``requeue=False``, cancellation, comes with ROADMAP item 12.)"""
+        pf = self._prefilling
+        assert pf is not None, "no prefill in flight"
+        self._prefilling = None
+        self._free.append(pf.slot)
+        self.requeue(pf.req)
+        return pf
 
     # -- admission / eviction ---------------------------------------------
     def admit(self, can_place=None,

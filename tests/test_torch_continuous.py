@@ -222,10 +222,10 @@ def test_scheduler_matches_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    {"prefill_chunk": 4}, {"spec_k": 2},
+    {"spec_k": 2},
     {"kv_mode": "paged", "prefix_cache": True}, {"faults": []},
     {"snapshot_dir": "snap"}, {"max_queue_depth": 1},
-    {"max_preemptions": 1}, {"step_tokens": 8}, {"trace": True},
+    {"max_preemptions": 1}, {"trace": True},
     {"mesh": object()}])
 def test_unported_knob_raises_config_error(world, knob):
     _, model, _ = world

@@ -412,3 +412,26 @@ def test_profile_decode_on_cpu(capsys):
     assert [r["weights"] for r in recs] == ["bfloat16", "int4"]
     for r in recs:
         assert r["wall_ms_per_step"] > 0 and r["idle_share"] is None
+
+
+def test_profile_prefill_chunks_on_cpu(capsys):
+    """The chunked-prefill profiler runs one request's prompt in chunks
+    (10 tokens at chunk 4: 3 chunks over a staging cache of 44 rows, the
+    last chunk right-padded); on the CPU there is no device trace, so busy
+    and idle are null.  It refuses a chunk without ``--prefill`` or with
+    more than one request."""
+    import json
+
+    from repro_torch.launch import profile_decode
+    base = ["--arch", "llama2-7b", "--smoke", "--device", "cpu"]
+    profile_decode.main(base + ["--prefill", "--prefill-chunk", "4",
+                                "--batch", "1", "--prompt-len", "10"])
+    (rec,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("{")]
+    assert (rec["chunks"], rec["staging_rows"]) == (3, 44)
+    assert rec["wall_ms"] >= rec["enqueue_ms"] > 0
+    assert rec["device_busy_ms"] is None and rec["idle_share"] is None
+    for argv in (["--prefill-chunk", "4", "--batch", "1"],
+                 ["--prefill", "--prefill-chunk", "4"]):
+        with pytest.raises(SystemExit):
+            profile_decode.main(base + argv)
