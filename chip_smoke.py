@@ -175,8 +175,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 preemptions reported (the engine's ``prefill_aborts`` and
                 ``preemptions``); (e) a chunked mamba2-2.7b engine
                 raises ``ConfigError`` (checked in phase 10).
+ 13. prefix   — the prefix cache on phase 6's bf16 weights (and for its
+                witness phase 7's fp32 copy), its line emitted after phase
+                12's: one request with a 1024-token shared system prompt
+                and its own 32-128-token tail publishes, then 8 more run
+                on the same engine (7 fresh tails, the 8th the first
+                prompt again: a suffix of at most 16 tokens), 4 slots,
+                max_len 1280, pages and blocks of 16; single-step
+                monolithic in bf16, int8 and int4 pages, fused 8-step
+                epochs and chunk 128 in bf16 pages, each beside the same
+                runs with the cache off: hits and saved tokens as worked
+                out on the host, a copy on write taken, exact launch counts
+                (a warm suffix of ≤ 16 rows on the split-K stream and the
+                split-KV walk, wider ones on the tiles, no SIMT launch in
+                bf16), pages conserved with the records' pins after every
+                run, pages_peak lower with the cache; a tight pool where
+                records are evicted and no resident is preempted while an
+                unpinned record is left; the fp32 witness (4 requests over
+                a 256-token prefix, monolithic and chunk 128): warm ≡ cold
+                tokens, gate logs and KV accounting bit for bit; warm and
+                cold prefill_s, times to first token and the share of
+                bf16 tokens equal to cold reported, not checked.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11 and 12 (its fp32 witness runs included),
+runs of phases 5, 6, 8, 10, 11, 12 and 13 (their fp32 witness runs
+included),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's and 12's replayed launches stand in their own lines,
 derived, and in no sum; for the paged SIMT route, which only fp32 serving
@@ -194,6 +216,7 @@ counters), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2167,7 +2190,6 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
     replay's port kernels, counted by name in its device trace, must
     equal its capture delta (``trace_epoch``).  Returns (record,
     per-request tokens, the wrappers' launches)."""
-    from repro_torch.kernels import ops
     from repro_torch.kvcache import paged
     from repro_torch.models import layers, ssm, transformer
     from repro_torch.serve.engine import ContinuousBatchingEngine
@@ -2175,6 +2197,7 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
     eng = ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
                                    page_size=PAGE, **kw)
     uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    seen = {}
     if eng.decode_steps > 1:
         # a preemption storm (the reference's youngest-other policy can
         # evict two residents in turn forever) fails here, not at the limit
@@ -2187,60 +2210,19 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
             return process(*a, **k)
 
         eng._process_epoch = guarded
-        launch_epoch, seen = eng._launch_epoch, {}
-
-        def kept(rs, ep, n):               # the run's DecodeEpoch
-            seen["ep"] = ep
-            return launch_epoch(rs, ep, n)
-
-        eng._launch_epoch = kept
         if eng.kv_mode == "dense":
             eng._prefill_work_dense = unsynced_prefill(
                 torch, eng._prefill_work_dense, seen)
     if log is not None:
         watch_engine(eng, log)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     finite.reset()
-    rows, prefill, chunk = [], model.prefill, model.prefill_chunk
-
-    def recorded(toks, *a, **k):      # the shape of each prefill it runs
-        rows.append(tuple(toks.shape))
-        return prefill(toks, *a, **k)
-
-    def recorded_chunk(cache, toks, *a, **k):   # (B, C, staging rows)
-        rows.append(tuple(toks.shape) + (cache[0]["k"].shape[1],))
-        return chunk(cache, toks, *a, **k)
-
-    model.prefill, model.prefill_chunk = recorded, recorded_chunk
-    ops.reset_kernel_launches()
-    t = time.perf_counter()
-    try:
-        out = eng.run()
-    finally:
-        del model.prefill, model.prefill_chunk
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t
-    launches = ops.kernel_launches()
+    out, rows, launches, wall, derived = counted_run(
+        torch, dev, model, eng, label, seen)
     s = out["stats"]
     n_pf, n_st = s.prefill_chunks, s.decode_iterations
-    require(len(rows) == n_pf, f"{label}: {len(rows)} prefills seen, "
-            f"{n_pf} counted")
     paged_run = eng.kv_mode == "paged"
     graph_rec = {}
-    if eng.decode_steps > 1:
-        cap = (len(table_widths(eng.allocator.pages_per_slot))
-               if paged_run else 1)
-        require(1 <= s.compiles <= cap, f"{label}: {s.compiles} graphs "
-                f"captured, want 1..{cap}")
-        require(s.graph_replays == n_st - s.compiles,
-                f"{label}: {s.graph_replays} replays of {n_st} iterations "
-                f"and {s.compiles} captures (an iteration ran eagerly)")
-        derived = seen["ep"].graph_launches()
-        want = expected_launches(model, [], s.graph_replays, SLOTS,
-                                 paged_run)
-        require(derived == want, f"{label}: capture deltas × replays "
-                f"{derived} != the replayed iterations' {want}")
+    if derived is not None:
         graph_rec = {"graph_launches_derived": derived}
         if eng.kv_mode == "dense":
             require(seen.get("deferred", 0) >= 1 and not seen["syncs"],
@@ -2248,14 +2230,6 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
                     f"{seen.get('deferred')} deferred prefills")
             graph_rec.update(deferred_prefills=seen["deferred"],
                              deferred_prefill_syncs=seen["syncs"])
-        n_eager = s.compiles          # each capture's eager warm-up
-    else:
-        require(s.compiles == s.graph_replays == 0 and n_st == s.
-                decode_dispatches, f"{label}: single-step run captured")
-        n_eager = n_st
-    expected = expected_launches(model, rows, n_eager, SLOTS, paged_run)
-    require(launches == expected, f"{label}: kernel launches "
-            f"{launches} != expected {expected}")
     res = [out["results"][u] for u in uids]
     require(s.requests_completed == len(prompts) and all(
         r.finish_reason == "length" and r.decode_tokens == new
@@ -2315,6 +2289,80 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
             rec["traced_epoch"] = trace_epoch(torch, dev, label, seen["ep"],
                                               eng.decode_steps)
     return rec, [r.tokens for r in res], launches
+
+
+def counted_run(torch, dev, model, eng, label, seen, on_chunk=None):
+    """``eng.run()`` with the wrappers' launches counted from 0 and the
+    shape of each prefill (B, T) and chunk (B, C, staging rows) it runs
+    recorded (``on_chunk`` sees each chunk's): one prefill seen for each
+    counted; a fused run's captures bounded (one for the dense pool, one
+    per block-table width for the paged store), every iteration past a
+    capture's warm-up a replay, and the capture deltas × replays (derived;
+    ``seen["ep"]`` gets the run's DecodeEpoch) equal to the replayed
+    iterations' expected launches; the launches equal to the prefills' and
+    the eagerly run decode iterations' (single-step: all of them; fused:
+    each capture's warm-up).  Returns (the run's output, the shapes, the
+    launches, wall seconds, the derived launches or None single-step)."""
+    from repro_torch.kernels import ops
+    if eng.decode_steps > 1:
+        launch_epoch = eng._launch_epoch
+
+        def kept(rs, ep, n):               # the run's DecodeEpoch
+            seen["ep"] = ep
+            return launch_epoch(rs, ep, n)
+
+        eng._launch_epoch = kept
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, prefill, chunk = [], model.prefill, model.prefill_chunk
+
+    def recorded(toks, *a, **k):
+        rows.append(tuple(toks.shape))
+        return prefill(toks, *a, **k)
+
+    def recorded_chunk(cache, toks, *a, **k):
+        rows.append(tuple(toks.shape) + (cache[0]["k"].shape[1],))
+        if on_chunk is not None:
+            on_chunk(rows[-1])
+        return chunk(cache, toks, *a, **k)
+
+    model.prefill, model.prefill_chunk = recorded, recorded_chunk
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    try:
+        out = eng.run()
+    finally:
+        del model.prefill, model.prefill_chunk
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    launches = ops.kernel_launches()
+    s = out["stats"]
+    n_st = s.decode_iterations
+    require(len(rows) == s.prefill_chunks, f"{label}: {len(rows)} "
+            f"prefills seen, {s.prefill_chunks} counted")
+    paged_run, derived = eng.kv_mode == "paged", None
+    if eng.decode_steps > 1:
+        cap = (len(table_widths(eng.allocator.pages_per_slot))
+               if paged_run else 1)
+        require(1 <= s.compiles <= cap, f"{label}: {s.compiles} graphs "
+                f"captured, want 1..{cap}")
+        require(s.graph_replays == n_st - s.compiles,
+                f"{label}: {s.graph_replays} replays of {n_st} iterations "
+                f"and {s.compiles} captures (an iteration ran eagerly)")
+        derived = seen["ep"].graph_launches()
+        want = expected_launches(model, [], s.graph_replays, SLOTS,
+                                 paged_run)
+        require(derived == want, f"{label}: capture deltas × replays "
+                f"{derived} != the replayed iterations' {want}")
+        n_eager = s.compiles          # each capture's eager warm-up
+    else:
+        require(s.compiles == s.graph_replays == 0 and n_st == s.
+                decode_dispatches, f"{label}: single-step run captured")
+        n_eager = n_st
+    expected = expected_launches(model, rows, n_eager, SLOTS, paged_run)
+    require(launches == expected, f"{label}: kernel launches "
+            f"{launches} != expected {expected}")
+    return out, rows, launches, wall, derived
 
 
 def watch_engine(eng, log):
@@ -2833,6 +2881,366 @@ def chunk_witness(torch, np, dev, m32, reqs, new, tokens, logs):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the prefix cache (warm admissions over shared prompt pages)
+# ---------------------------------------------------------------------------
+
+PREFIX_LEN = 1024          # the shared system prompt's tokens
+PREFIX_TAILS = (32, 128)   # each request's own tail: its least, most tokens
+PREFIX_REQUESTS = 8
+PREFIX_MAX_LEN = 1280
+PREFIX_BLOCK = 16
+PREFIX_NEW = 32
+PREFIX_WITNESS_LEN = 256   # the fp32 witness's shared prefix
+PREFIX_MARGIN = 64         # the tight pool's pages past one worst case
+
+
+def prefix_traffic(np, vocab):
+    """A chat or agent service with one long system prompt: a 1024-token
+    preamble (seeded) shared by every request, each with its own tail of
+    32-128 tokens.  Returns (the publisher's prompt, the 8 requests'): the
+    first 7 have fresh tails, the 8th repeats the publisher's prompt (a
+    regenerate), so its warm suffix is at most a block of 16 tokens and
+    takes the decode routes."""
+    rng = np.random.default_rng(13)
+    head = rng.integers(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+
+    def one():
+        n = int(rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1))
+        return np.concatenate([head, rng.integers(0, vocab, (n,)).astype(
+            np.int32)])
+
+    first = one()
+    return first, [one() for _ in range(PREFIX_REQUESTS - 1)] + [first]
+
+
+def prefix_expected(earlier, prompts, block=PREFIX_BLOCK):
+    """The tokens each of ``prompts`` finds published, worked out on the
+    host: every prompt prefilled before it (``earlier``, then the ones
+    ahead of it in the queue) published each ``block``-token boundary of
+    its prompt, and a lookup takes the longest boundary below the
+    prompt's length.  Returns [Ts] (0 = cold)."""
+    published = {tuple(p[:ts].tolist()) for p in earlier
+                 for ts in range(block, len(p) + 1, block)}
+    out = []
+    for p in prompts:
+        top = (len(p) - 1) // block * block
+        out.append(next((ts for ts in range(top, 0, -block)
+                         if tuple(p[:ts].tolist()) in published), 0))
+        published |= {tuple(p[:ts].tolist())
+                      for ts in range(block, len(p) + 1, block)}
+    return out
+
+
+def free_engine(torch, eng):
+    """Drop an engine's stashed store now: the wrappers a run installs on
+    the engine refer back to it, so only the cycle collector frees it."""
+    eng._store = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefix_engine(model, **kw):
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(
+        model, kv_mode="paged", max_slots=SLOTS, page_size=PAGE,
+        prefix_block=PREFIX_BLOCK, **{"max_len": PREFIX_MAX_LEN, **kw})
+
+
+def prefix_run(torch, np, dev, model, finite, eng, label, prompts, new,
+               log=None):
+    """One ``run()`` of ``prompts`` on ``eng`` (a paged engine, its prefix
+    cache on or off, possibly holding records of earlier runs), its
+    launches and graphs held by ``counted_run`` (a warm suffix is a chunk
+    forward at its dispatch width over the staging cache); each warm
+    forward on the routes its width gives (bf16: ≤ 16 rows on the split-K
+    stream and the split-KV walk, wider on the tiles; fp32 on the SIMT
+    kernels) and, in bf16, no SIMT launch at all; every request complete;
+    finite logits; the allocator conserved with the records' pins and
+    free + pinned pages = the pool.  Returns (record, tokens, results, the
+    wrappers' launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_linear as fl
+    cfg, L = model.cfg, model.cfg.num_layers
+    G = cfg.num_heads // cfg.num_kv_heads
+    bf16 = cfg.dtype != "float32"
+    uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    seen, warm = {}, []
+    if eng.prefix is not None:
+        work_warm = eng._prefill_work_warm
+
+        def warm_work(rs, work, store, reuse):
+            w = eng._warm_pending[work.slot]
+            if work.is_first:
+                warm.append({"uid": work.req.uid, "tokens": w.rec.length,
+                             "entries": w.rec.entries,
+                             "cow": w.copy is not None, "rows": []})
+            seen["warm"] = warm[-1]
+            try:
+                return work_warm(rs, work, store, reuse)
+            finally:
+                seen.pop("warm")
+        eng._prefill_work_warm = warm_work
+    if log is not None:
+        watch_engine(eng, log)
+    finite.reset()
+
+    def warm_rows(shape):
+        if "warm" in seen:
+            seen["warm"]["rows"].append(shape)
+
+    out, rows, launches, wall, _ = counted_run(torch, dev, model, eng, label,
+                                               seen, warm_rows)
+    s = out["stats"]
+    for w in warm:
+        for r in w["rows"]:
+            per = expected_launches(model, [r], 0, SLOTS)
+            route = ("simt" if not bf16 else
+                     "wgmma" if r[1] > fl.SPLITK_MAX_M else "splitk")
+            flash = ("simt" if not bf16 else
+                     "wgmma" if G * r[1] > fa.SPLITKV_MAX_R else "splitkv")
+            want = {"router_stats": 1, f"fused_linear_{route}": 4 * L,
+                    f"flash_attention_{flash}": L}
+            moved = {k: v for k, v in per.items() if v and "_" in k
+                     and k not in ("fused_linear", "flash_attention")}
+            require(moved == want, f"{label}: a warm forward of {r[1]} "
+                    f"rows launches {moved}, want {want}")
+    if bf16:
+        simt = {k: v for k, v in launches.items() if k.endswith("_simt")
+                and v}
+        require(not simt, f"{label}: bf16 launches on SIMT routes {simt}")
+    res = [out["results"][u] for u in uids]
+    require(s.requests_completed == len(prompts) and all(
+        r.finish_reason == "length" and r.decode_tokens == new
+        for r in res), f"{label}: not every request completed")
+    require(bool(finite.all.item()), f"{label}: non-finite logits")
+    alloc = eng.allocator
+    pins = eng.prefix.page_pins() if eng.prefix is not None else {}
+    alloc.check_conservation(pins)
+    require(alloc.free_pages + len(pins) == eng.num_pages,
+            f"{label}: {alloc.free_pages} free + {len(pins)} pinned pages "
+            f"of {eng.num_pages}")
+    rec = {"run": label, "dtype": cfg.dtype, "kv_dtype": eng.kv_dtype,
+           "prefix_cache": eng.prefix is not None,
+           "prefill_chunk": eng.prefill_chunk,
+           "steps_per_dispatch": eng.decode_steps, "requests": len(prompts),
+           "prefill_s": s.prefill_s, "prefill_tokens": s.prefill_tokens,
+           "prefills": s.prefill_chunks, "decode_s": s.decode_s,
+           "decode_steps": s.decode_iterations, "wall_s": wall,
+           "ttft_s": [r.ttft_s for r in res],
+           "mean_ttft_s": sum(r.ttft_s for r in res) / len(res),
+           "prefix_hits": s.prefix_hits, "prefix_misses": s.prefix_misses,
+           "prefix_tokens_saved": s.prefix_tokens_saved,
+           "prefix_records": s.prefix_records,
+           "warm": [{k: v for k, v in w.items()} for w in warm],
+           "cow_copies": sum(w["cow"] for w in warm),
+           "pages_peak": s.pages_peak, "pages_total": s.pages_total,
+           "pinned_pages": len(pins), "preemptions": s.preemptions,
+           "kv_entries_stored": s.kv_entries_stored,
+           "kv_entries_dense": s.kv_entries_dense,
+           "history_hit_rate": s.history_hit_rate,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "launches": launches}
+    return rec, [r.tokens for r in res], res, launches
+
+
+def prefix_pair(torch, np, dev, model, finite, label, first, prompts, kw,
+                total):
+    """One configuration with the cache on, fed the publisher's run and
+    then the 8 requests, beside the same 8 requests with the cache off:
+    hits and saved tokens as worked out on the host (every admission
+    warm), at least as many records as the publisher's boundaries,
+    pages_peak lower with the cache.  Returns the record."""
+    eng = prefix_engine(model, prefix_cache=True, **kw)
+    p1, _, _, l1 = prefix_run(torch, np, dev, model, finite, eng,
+                              f"{label}_publish", [first], PREFIX_NEW)
+    w2, wt, _, l2 = prefix_run(torch, np, dev, model, finite, eng,
+                               f"{label}_warm", prompts, PREFIX_NEW)
+    free_engine(torch, eng)
+    eng = prefix_engine(model, prefix_cache=False, **kw)
+    c2, ct, _, l3 = prefix_run(torch, np, dev, model, finite, eng,
+                               f"{label}_cold", prompts, PREFIX_NEW)
+    free_engine(torch, eng)
+    for launches in (l1, l2, l3):
+        _add(total, launches)
+    want = prefix_expected([first], prompts)
+    require(p1["prefix_hits"] == 0 and p1["prefix_misses"] == 1
+            and p1["prefix_records"] >= len(first) // PREFIX_BLOCK,
+            f"{label}: publisher's run {p1}")
+    require(w2["prefix_hits"] == sum(1 for t in want if t)
+            == len(prompts) and w2["prefix_misses"] == 0
+            and w2["prefix_tokens_saved"] == sum(want),
+            f"{label}: {w2['prefix_hits']} hits saving "
+            f"{w2['prefix_tokens_saved']} tokens, want {want}")
+    require([w["tokens"] for w in w2["warm"]] == want,
+            f"{label}: warm admissions {w2['warm']}, want {want}")
+    require(w2["pages_peak"] < c2["pages_peak"], f"{label}: pages_peak "
+            f"{w2['pages_peak']} with the cache, {c2['pages_peak']} without")
+    return {"run": label, "warm": w2, "cold": c2, "publish": p1,
+            "expected_warm_tokens": want,
+            "prefill_s_warm_over_cold": w2["prefill_s"] / c2["prefill_s"],
+            "mean_ttft_warm_over_cold": w2["mean_ttft_s"]
+            / c2["mean_ttft_s"],
+            "tokens_equal_to_cold": token_agreement(np, wt, ct)}
+
+
+def prefix_tight(torch, np, dev, model, finite, first, prompts, pins,
+                 total):
+    """The 8 requests in a pool one worst case (and ``PREFIX_MARGIN``
+    pages) past the publisher's pinned pages: records must be evicted,
+    and no resident may be preempted while an unpinned record is left;
+    every request completes and every page comes back (free + pinned =
+    pool, then none once the records are cleared)."""
+    worst = max(-(-max(min(PREFIX_MAX_LEN, len(p) + PREFIX_NEW - 1),
+                       len(p) + 1) * model.cfg.num_layers // PAGE)
+                for p in [first] + prompts)
+    pool = worst + pins + PREFIX_MARGIN
+    eng = prefix_engine(model, prefix_cache=True, num_pages=pool)
+    events = []
+    evict, preempt = eng.prefix.evict_one, eng._preempt_youngest
+
+    def evicted():
+        freed = evict()
+        if freed is not None:
+            events.append(("evict", freed))
+        return freed
+
+    def preempted(rs, exclude):
+        idle = sum(1 for r in eng.prefix._records.values() if not r.in_use)
+        events.append(("preempt", idle))
+        return preempt(rs, exclude)
+
+    eng.prefix.evict_one, eng._preempt_youngest = evicted, preempted
+    r1, _, _, l1 = prefix_run(torch, np, dev, model, finite, eng,
+                              "prefix_tight_publish", [first], PREFIX_NEW)
+    r2, toks, _, l2 = prefix_run(torch, np, dev, model, finite, eng,
+                                 "prefix_tight", prompts, PREFIX_NEW)
+    _add(total, l1)
+    _add(total, l2)
+    n_evict = sum(1 for e in events if e[0] == "evict")
+    late = [e for e in events if e[0] == "preempt" and e[1]]
+    require(n_evict >= 1, f"prefix_tight: no record evicted in a pool of "
+            f"{pool} pages")
+    require(not late, f"prefix_tight: residents preempted while "
+            f"{late} unpinned records were left")
+    eng.prefix.clear()
+    eng.allocator.check_conservation()
+    require(eng.allocator.free_pages == pool,
+            "prefix_tight: pages in use once the records are cleared")
+    free_engine(torch, eng)
+    return {"run": "prefix_tight", "pool_pages": pool,
+            "worst_case_pages": worst, "publisher_pins": pins,
+            "publish": r1, "run8": r2, "records_evicted": n_evict,
+            "preemptions": r2["preemptions"],
+            "events": [e[0] for e in events][:64]}, toks
+
+
+def prefix_full_width(torch, np, dev, model):
+    """Phase 13's bf16 part on phase 6's weights: each configuration with
+    and without the cache (``prefix_pair``), then the tight pool.
+    Returns (record, the wrappers' launches)."""
+    from repro_torch.kernels import fused_linear as fl
+    gc.collect()            # earlier phases' engines: a clean memory peak
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    first, prompts = prefix_traffic(np, model.cfg.vocab_size)
+    total, runs = {}, []
+    specs = [("prefix_bf16", {}), ("prefix_int8", dict(kv_dtype="int8")),
+             ("prefix_int4", dict(kv_dtype="int4")),
+             ("prefix_fused_bf16", dict(decode_steps=FUSED_STEPS)),
+             (f"prefix_chunk{CHUNK}_bf16", dict(prefill_chunk=CHUNK))]
+    with FiniteLogits(torch, dev) as finite:
+        for label, kw in specs:
+            runs.append(prefix_pair(torch, np, dev, model, finite, label,
+                                    first, prompts, kw, total))
+        tight, toks = prefix_tight(torch, np, dev, model, finite, first,
+                                   prompts, runs[0]["publish"]["pinned_pages"],
+                                   total)
+    torch.cuda.empty_cache()
+    cows = sum(r["warm"]["cow_copies"] for r in runs)
+    require(cows >= 1, "no warm admission took the copy on write")
+    widths = [r[1] for run in runs for w in run["warm"]["warm"]
+              for r in w["rows"]]
+    require(min(widths) <= fl.SPLITK_MAX_M < max(widths),
+            f"warm forwards of {sorted(set(widths))} rows: want both "
+            f"routes")
+    return {"prefix_len": PREFIX_LEN, "tails": PREFIX_TAILS,
+            "requests": PREFIX_REQUESTS, "max_len": PREFIX_MAX_LEN,
+            "block": PREFIX_BLOCK, "new_tokens": PREFIX_NEW,
+            "prompt_lens": [len(first)] + [len(p) for p in prompts],
+            "runs": runs, "tight": tight, "cow_copies": cows,
+            "warm_widths": sorted(set(widths)),
+            "seconds": time.perf_counter() - t}, total
+
+
+def prefix_witness(torch, np, dev, m32):
+    """Phase 13's fp32 witness on phase 7's fp32 weights: 4 requests
+    sharing a 256-token prefix in fp32 pages, single-step, monolithic and
+    at chunk 128, the cache on against the cache off: tokens bit for bit,
+    each request's gate log (the warm ones' stitched from the record and
+    the suffix) and decode gate columns identical, each request's KV
+    accounting and the history hit rates identical, and the stored and
+    dense entry counts short by exactly the warm admissions' shared
+    entries.  Returns (record, the wrappers' launches, seconds)."""
+    t = time.perf_counter()
+    rng = np.random.default_rng(14)
+    head = rng.integers(0, m32.cfg.vocab_size, (PREFIX_WITNESS_LEN,))
+    reqs = [np.concatenate([head, rng.integers(
+        0, m32.cfg.vocab_size, (int(n),))]).astype(np.int32)
+        for n in rng.integers(16, 65, SLOTS)]
+    want = prefix_expected([], reqs)
+    nA = m32.cfg.num_layers
+    total, runs = {}, []
+    with FiniteLogits(torch, dev) as finite:
+        for chunk in (0, CHUNK):
+            out = {}
+            for on in (True, False):
+                eng = prefix_engine(m32, prefix_cache=on, max_len=MAX_LEN,
+                                    prefill_chunk=chunk)
+                log = {}
+                rec, toks, res, launches = prefix_run(
+                    torch, np, dev, m32, finite, eng,
+                    f"prefix_fp32_chunk{chunk}_{'warm' if on else 'cold'}",
+                    reqs, PREFIX_NEW, log=log)
+                _add(total, launches)
+                out[on] = (rec, toks, res, log)
+                free_engine(torch, eng)
+            (w, wt, wr, wl), (c, ct, cr, cl) = out[True], out[False]
+            label = f"prefix_fp32_chunk{chunk}"
+            require(w["prefix_hits"] == sum(1 for x in want if x)
+                    and w["prefix_tokens_saved"] == sum(want),
+                    f"{label}: hits {w['prefix_hits']}, saved "
+                    f"{w['prefix_tokens_saved']}, want {want}")
+            require(all(np.array_equal(a, b) for a, b in zip(wt, ct)),
+                    f"{label}: warm tokens differ from cold")
+            for uid, (pg, cols) in cl["gates"].items():
+                pg2, cols2 = wl["gates"][uid]
+                require(np.array_equal(pg, pg2) and len(cols) == len(cols2)
+                        and all(np.array_equal(a, b)
+                                for a, b in zip(cols, cols2)),
+                        f"{label}: request {uid}'s gate log differs warm")
+            require([(r.kv_stored, r.kv_dense) for r in wr]
+                    == [(r.kv_stored, r.kv_dense) for r in cr]
+                    and w["history_hit_rate"] == c["history_hit_rate"],
+                    f"{label}: KV accounting differs warm")
+            shared = sum(x["entries"] for x in w["warm"])
+            require(c["kv_entries_stored"] - w["kv_entries_stored"] == shared
+                    and c["kv_entries_dense"] - w["kv_entries_dense"]
+                    == nA * w["prefix_tokens_saved"],
+                    f"{label}: entries stored {w['kv_entries_stored']} / "
+                    f"{c['kv_entries_stored']}, dense "
+                    f"{w['kv_entries_dense']} / {c['kv_entries_dense']}, "
+                    f"shared {shared}")
+            runs.append({"run": label, "warm": w, "cold": c,
+                         "tokens_identical": True,
+                         "gate_logs_identical": True,
+                         "kv_accounting_identical": True,
+                         "shared_entries": shared})
+    return {"prefix_len": PREFIX_WITNESS_LEN, "requests": len(reqs),
+            "expected_warm_tokens": want, "runs": runs}, total, \
+        time.perf_counter() - t
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the bf16 divergence of paged from dense, held against fp32
 # ---------------------------------------------------------------------------
 
@@ -2878,7 +3286,8 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     """The same weights in fp32 (the bf16 weights upcast, so only the
     arithmetic differs): the continuous engine in the dense pool and in
     fp32 pages on the first 4 phase-6 requests must give identical tokens
-    (and, at chunk 128, phase 12's ``chunk_witness`` on the same copy);
+    (and, at chunk 128, phase 12's ``chunk_witness`` on the same copy, and
+    phase 13's ``prefix_witness``);
     teacher-forced decode steps (2 prompts × 256 tokens, 16 forced tokens)
     of the dense and the paged path in fp32 must give identical gates and
     logits within 1e-4·max; and the bf16 paged path may flip at most twice
@@ -2926,6 +3335,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     dist = {"fp32_paged": _forced_distance(
         torch, ref, _forced_paged_aligned(m32, list(toks), forced))}
     chunk = chunk_witness(torch, np, dev, m32, reqs, new, tokens, logs)
+    prefix = prefix_witness(torch, np, dev, m32)
     del m32
     torch.cuda.empty_cache()
     dist["bf16_dense"] = _forced_distance(
@@ -2950,7 +3360,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "phase6_tokens_vs_fp32_dense": agree,
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
-                       "vs_fp32_dense": dist}}, launches, chunk
+                       "vs_fp32_dense": dist}}, launches, chunk, prefix
 
 
 # ---------------------------------------------------------------------------
@@ -3324,8 +3734,11 @@ def main() -> int:
     chunk_runs, chunk_tight, chunk_launches = chunked_full_width(
         torch, np, dev, model, prompts, tokens, short, tight)
     chunk_s = time.perf_counter() - t12
-    wit, wit_launches, (wit_chunk, more, wit_chunk_s) = witness(
-        torch, np, dev, model, prompts, tokens)
+    prefix_rec, prefix_launches = prefix_full_width(torch, np, dev, model)
+    wit, wit_launches, (wit_chunk, more, wit_chunk_s), \
+        (wit_prefix, more_prefix, wit_prefix_s) = witness(
+            torch, np, dev, model, prompts, tokens)
+    _add(prefix_launches, more_prefix)
     emit(wit)            # its fp32 paged run: the paged SIMT route's launches
     launches["paged_attention_simt"] += wit_launches["paged_attention_simt"]
     _add(chunk_launches, more)
@@ -3371,6 +3784,10 @@ def main() -> int:
           "pressure": chunk_tight, "mamba_chunked_raises": True,
           "launches": chunk_launches})
     _add(launches, chunk_launches)
+    emit({"phase": "prefix", **prefix_rec, "witness_fp32": wit_prefix,
+          "seconds": prefix_rec["seconds"] + wit_prefix_s,
+          "launches": prefix_launches})
+    _add(launches, prefix_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

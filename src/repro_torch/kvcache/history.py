@@ -54,12 +54,13 @@ def next_fresh_layer(fresh: torch.Tensor) -> torch.Tensor:
 
 def effective_positions(pos: torch.Tensor, l0: torch.Tensor,
                         l1: torch.Tensor, in_fill: torch.Tensor,
-                        layer: int) -> torch.Tensor:
+                        layer) -> torch.Tensor:
     """Entry metadata -> per-layer effective KV positions.
 
     pos/l0/l1/in_fill: [S, E] gathered entry metadata (logical order);
-    ``layer``: attention-layer index.  Valid entries keep their token
-    position; everything else becomes MASKED_POS."""
+    ``layer``: attention-layer index (or a column of them, [nA, 1] against
+    [1, E] metadata, for every layer at once).  Valid entries keep their
+    token position; everything else becomes MASKED_POS."""
     valid = in_fill & (l0 <= layer) & (layer < l1)
     return torch.where(valid, pos, torch.full_like(pos, MASKED_POS)).to(
         torch.int32)

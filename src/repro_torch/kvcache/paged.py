@@ -20,9 +20,11 @@ instead, so a commit needs no host sync to filter its targets.  Build
 stores with ``init_store`` (or ``bridge.store_from_numpy``), which
 allocate that row.
 
-Prefix-cache and chunk helpers (``copy_page_masked``, ``views_from_pages``,
-``chunk_cache_from_views``) are not ported yet (ROADMAP queue 1 items
-9–10).
+The prefix cache's device helpers (``copy_page_masked``,
+``views_from_pages``, ``chunk_cache_from_views``) are plain tensor code
+(the reference computes them in jnp, outside any Pallas kernel); the
+copy-on-write writes the store in place too, so a CUDA graph captured on
+the store's addresses stays valid.
 """
 from __future__ import annotations
 
@@ -552,6 +554,92 @@ def prefill_entry_count(gates: np.ndarray, valid_len: int,
                         reuse: bool) -> int:
     """Host-side mirror of ``pack_prefill``'s entry count."""
     return int(history.fresh_counts(gates, valid_len, reuse).sum())
+
+
+# ---------------------------------------------------------------------------
+# Prefix sharing: copy-on-write + warm-prefix reconstruction
+# ---------------------------------------------------------------------------
+
+def copy_page_masked(store: Store, src: int, dst: int, keep: int) -> Store:
+    """Copy page ``src`` into private page ``dst`` IN PLACE, keeping only
+    the first ``keep`` in-page entries (the shared-prefix part of a partial
+    boundary page).  Entries past ``keep`` are blanked (position
+    MASKED_POS, payload, scales and l0/l1 zero), so the copy carries
+    nothing of the donor slot's divergent suffix.  Every leaf is written
+    through its own storage, never rebound, and the drop row is not
+    touched."""
+    ps = store["pos_pages"].shape[1]
+    m = torch.arange(ps, device=store["pos_pages"].device) < keep
+    for key, leaf in store.items():
+        row = leaf[src]
+        mask = m.reshape((ps,) + (1,) * (row.ndim - 1))
+        blank = torch.full_like(row, history.MASKED_POS if
+                                key == "pos_pages" else 0)
+        leaf[dst].copy_(torch.where(mask, row, blank))
+    return store
+
+
+def views_from_pages(store: Store, block_table: torch.Tensor, fill: int,
+                     cfg: ModelConfig, cap: int,
+                     kv_dtype: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Invert one slot's entry stream into per-layer prefill views.
+
+    block_table: [J] the slot's page chain (its first ``pages_for(fill)``
+    pages are enough); fill: the entry count; cap: the time extent of the
+    views.  For each attention layer the entry valid at that layer goes
+    back to its token position — the exact inverse of ``pack_prefill``
+    (cross-layer reuse means one physical entry may serve many layers).
+    Quantized stores are dequantized on the way (``gather_view``), so the
+    views are full precision.  Returns (k_views, v_views): [nA, cap, Hkv,
+    dh]; positions the stream does not cover stay zero (as in a fresh
+    ``init_chunk_cache``).
+
+    The reference scatters each layer's rows (``mode="drop"`` losing
+    MASKED_POS and positions ≥ cap).  Here one scatter of entry indices,
+    every layer at once, builds a [nA, cap] map (dropped targets land in
+    a spare column past ``cap``; uncovered positions keep index E, a zero
+    row), and one gather reads the rows: the same values, a few launches
+    and no host sync, and only nA·cap rows written instead of nA·E."""
+    view = gather_view(store, block_table.reshape(1, -1), with_kv=True,
+                       kv_dtype=kv_dtype)
+    k, v = view["k"][0], view["v"][0]                 # [E, Hkv, dh]
+    E, nA, dev = k.shape[0], num_attention_layers(cfg), k.device
+    layer = torch.arange(nA, device=dev)[:, None]
+    in_fill = (torch.arange(E, device=dev) < fill)[None]
+    eff = history.effective_positions(view["pos"], view["l0"], view["l1"],
+                                      in_fill, layer).long()   # [nA, E]
+    col = torch.where((eff >= 0) & (eff < cap), eff,
+                      torch.full_like(eff, cap))
+    flat = (layer * (cap + 1) + col).reshape(-1)
+    if dev.type == "cpu":
+        hits = torch.zeros(nA * (cap + 1), dtype=torch.int64).index_add_(
+            0, flat, torch.ones_like(flat)).view(nA, cap + 1)[:, :cap]
+        assert int(hits.max()) <= 1, \
+            "two admitted entries share a position within a layer"
+    src = torch.full((nA * (cap + 1),), E, dtype=torch.int64, device=dev)
+    src.index_put_((flat,), torch.arange(E, device=dev).expand(nA, E)
+                   .reshape(-1))
+    src = src.view(nA, cap + 1)[:, :cap].reshape(-1)
+
+    def rows(x):
+        x = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+        return x.index_select(0, src).view((nA, cap) + tuple(x.shape[1:]))
+
+    return rows(k), rows(v)
+
+
+def chunk_cache_from_views(k_views: torch.Tensor, v_views: torch.Tensor,
+                           cfg: ModelConfig, dtype=None) -> List[Dict]:
+    """Per-layer views [nA, cap, Hkv, dh] -> a batch-1 staging cache in
+    ``model.init_chunk_cache``'s layout (a list of per-layer {"k", "v"}
+    [1, cap, Hkv, dh]), so a warm admission resumes chunked prefill where
+    the shared prefix's prefill left off."""
+    assert k_views.shape[0] == cfg.num_layers == num_attention_layers(cfg), (
+        k_views.shape, cfg.num_layers)
+    dt = dtype or _TORCH_DTYPES[cfg.dtype]
+    return [{"k": k_views[a].to(dt)[None], "v": v_views[a].to(dt)[None]}
+            for a in range(k_views.shape[0])]
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ Mamba stack, whose int4 weights are not served yet, in bf16 only); with
 store packed from the prefill, in bf16, int8 and int4 pages; with
 ``--prefill``, one lock-step prefill of the bf16 weights instead (with
 ``--prefill-chunk C``, one request's prompt in chunks of C, as the
-continuous engine prefills it); with ``--decode-steps N``, fused N-step decode epochs (``model.DecodeEpoch``: on
+continuous engine prefills it; with ``--prefix warm|cold``, one admission
+of the paged engine with the prefix cache on or off); with
+``--decode-steps N``, fused N-step decode epochs (``model.DecodeEpoch``: on
 the card a CUDA graph of one decode iteration, replayed) beside the eager
 steps, in the same process.
 
@@ -20,6 +22,9 @@ steps, in the same process.
       --arch mamba2-2.7b --prefill                             # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --prefill --prefill-chunk 128 --batch 1 # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --prefill --prefix warm --prompt-len 1024 \
+      --prefix-tail 64 --batch 1                               # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --decode-steps 8                        # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
@@ -65,6 +70,26 @@ without its final synchronize) and per chunk: wall ms, enqueue ms, device
 busy ms and launches.  The engine reads back nothing between a prompt's
 chunks, so a chunk that is not the last costs its enqueue in ``prefill_s``
 and its device time lands in the next decode sync.
+
+``--prefill --prefix warm|cold`` (with ``--batch 1``) profiles one
+admission of the paged continuous engine (4 slots, pages and prefix
+blocks of 16, max_len the prompt + 32) of a prompt made of a
+``--prompt-len``-token shared prefix and a ``--prefix-tail``-token tail of
+its own, as a ``run()`` of that one request with one new token (the
+prefill's own): ``warm``, with the prefix cache on and the prefix
+published beforehand by another request's run, is the warm admission (the
+boundary page's copy on write, the staging cache restored from the shared
+pages, the suffix forward at its power-of-two width, the suffix's pack,
+the republish); ``cold``, the cache off, is the monolithic prefill of the
+whole prompt and its pack.  Every admission takes a fresh tail of the
+same length, so every warm one hits the same record: a warm-up, three
+timed (the median's wall, and its host ms and the ms it was blocked on
+the device from ``ServeStats``), one profiled, and one with a
+synchronize around each part.  One JSON line: those, prefill ms, device
+busy ms, idle share, device launches, the kernels with the most device
+time, and each part's wall ms (warm: ``cow``, ``restore``, ``forward``,
+``pack``; cold: ``forward``, ``pack``).  One process each: run ``warm``
+and ``cold`` as two commands.
 
 ``--decode-steps N`` prints, for each weight type, the eager line above and
 then a fused line: the prefill's cache becomes a dense pool of ``--batch``
@@ -372,6 +397,102 @@ def profile_prefill_chunks(model, prompt_len: int, chunk: int,
     return rec
 
 
+def profile_prefix(model, prefix_len: int, tail: int, warm: bool,
+                   top: int = 8, new_tokens: int = 32) -> dict:
+    """One warm (or cold) admission of a ``prefix_len`` + ``tail`` prompt
+    through the paged engine: warm-up, timed, profiled, and one more with
+    its parts synchronized and timed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kvcache import paged
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    cfg, dev = model.cfg, model.device
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(0)
+    head = rng.integers(0, cfg.vocab_size, (prefix_len,)).astype(np.int32)
+
+    def prompt():
+        return np.concatenate([head, rng.integers(
+            0, cfg.vocab_size, (tail,)).astype(np.int32)])
+
+    eng = ContinuousBatchingEngine(
+        model, kv_mode="paged", max_slots=4, page_size=16, prefix_block=16,
+        prefix_cache=warm, max_len=prefix_len + tail + new_tokens)
+    eng.submit(prompt(), max_new_tokens=1)
+    eng.run()                                   # publishes the prefix
+
+    def admit():
+        eng.submit(prompt(), max_new_tokens=1)
+        t0 = time.perf_counter()
+        out = eng.run()
+        return time.perf_counter() - t0, out["stats"]
+
+    admit()                                             # warm-up
+    timed = sorted((admit() for _ in range(3)), key=lambda r: r[0])
+    wall_s, st = timed[1]                               # the median
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        prof_s, _ = admit()
+    parts = {}
+
+    def part(label, fn):
+        def timed(*a, **k):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            parts[label] = parts.get(label, 0.0) + (
+                time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+    names = (("cow", paged, "copy_page_masked"),
+             ("restore", paged, "views_from_pages"),
+             ("restore", paged, "chunk_cache_from_views"),
+             ("forward", model, "prefill_chunk" if warm else "prefill"),
+             ("pack", paged, "pack_prefill"))
+    saved = [(obj, attr, getattr(obj, attr)) for _, obj, attr in names]
+    for (label, obj, attr), (_, _, fn) in zip(names, saved):
+        setattr(obj, attr, part(label, fn))
+    try:
+        admit()
+    finally:
+        for obj, attr, fn in saved:
+            if obj is model:
+                delattr(model, attr)
+            else:
+                setattr(obj, attr, fn)
+    if st.prefix_hits != int(warm):
+        raise RuntimeError(f"--prefix {'warm' if warm else 'cold'}: "
+                           f"{st.prefix_hits} warm admissions in a run")
+    rec = {"arch": cfg.name, "weights": _weights(model), "batch": 1,
+           "prefix": "warm" if warm else "cold", "prefix_len": prefix_len,
+           "tail": tail, "prompt_len": prefix_len + tail,
+           "wall_ms": wall_s * 1e3,
+           "wall_ms_timed": [w * 1e3 for w, _ in timed],
+           "host_ms": st.host_s * 1e3,
+           "blocked_ms": st.device_s * 1e3, "prefill_ms": st.prefill_s * 1e3,
+           "profiled_wall_ms": prof_s * 1e3, "parts_ms": parts,
+           "prefix_tokens_saved": st.prefix_tokens_saved,
+           "device_busy_ms": None, "idle_share": None,
+           "device_launches": None, "top_kernels": None}
+    by_name = _kernel_times(prof)
+    if by_name:
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        rec.update(
+            device_busy_ms=busy, idle_share=1.0 - busy / rec["wall_ms"],
+            device_launches=sum(cnt for _, cnt in by_name.values()),
+            top_kernels=[{"name": name[:80], "ms": us / 1e3, "launches": cnt}
+                         for name, (us, cnt) in sorted(
+                             by_name.items(), key=lambda kv: -kv[1][0])[:top]])
+    return rec
+
+
 def _weights(model) -> str:
     return ("int4" if "w_int" in model.params().get("lm_head", {})
             else model.cfg.dtype)
@@ -471,6 +592,13 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="with --prefill: one request's prompt in chunks "
                          "of C (needs --batch 1)")
+    ap.add_argument("--prefix", choices=("warm", "cold"), default=None,
+                    help="with --prefill: one admission of the paged "
+                         "engine with the prefix cache on (warm, the "
+                         "--prompt-len prefix published) or off (cold)")
+    ap.add_argument("--prefix-tail", type=int, default=64,
+                    help="with --prefix: the prompt's own tail past the "
+                         "shared --prompt-len prefix")
     ap.add_argument("--decode-steps", type=int, default=0,
                     help="also fused epochs of N decode steps (CUDA graphs "
                          "on the card) beside the eager steps")
@@ -483,6 +611,10 @@ def main(argv=None) -> None:
                                or args.batch != 1):
         raise SystemExit("--prefill-chunk takes C >= 1 with --prefill and "
                          "--batch 1")
+    if args.prefix and (not args.prefill or args.batch != 1
+                        or args.prefill_chunk or args.prefix_tail < 1):
+        raise SystemExit("--prefix takes --prefill, --batch 1, no "
+                         "--prefill-chunk and --prefix-tail >= 1")
 
     import torch
 
@@ -498,6 +630,11 @@ def main(argv=None) -> None:
     model = LanguageModel(cfg, device=args.device, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=args.device)
+    if args.prefix:
+        print(json.dumps(profile_prefix(
+            model, args.prompt_len, args.prefix_tail,
+            args.prefix == "warm")), flush=True)
+        return
     if args.prefill:
         print(json.dumps(
             profile_prefill_chunks(model, args.prompt_len, args.prefill_chunk)

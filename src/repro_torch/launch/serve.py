@@ -14,6 +14,8 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --continuous --decode-steps 8                # CUDA graph epochs
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --batch 4 --prompt-len 512 --continuous --prefill-chunk 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --paged-kv --prefix-cache        # shared prompt prefix
 
 Weights are random, drawn from seed 0 on the chosen device; ``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
@@ -24,6 +26,9 @@ requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
 epochs of up to N steps, one host sync each (on CUDA one captured graph
 of a decode iteration, replayed); ``--prefill-chunk C`` > 0 prefills C
 tokens an iteration, interleaved with the residents' decode steps.
+``--prefix-cache`` (with ``--paged-kv``) shares published prompt prefixes
+as refcounted pages; the requests then open with one shared system prompt
+of half their length, so every request after the first is admitted warm.
 ``mamba2-2.7b`` (attention-free) serves lock-step or
 from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
 raises for it (no KV to page), and so does ``--int4`` (not ported yet).
@@ -55,6 +60,12 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-dtype", default=None, choices=("int8", "int4"),
                     help="quantize paged-KV page payloads (per-entry pow2 "
                          "scales; requires --paged-kv)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted prompt-prefix sharing with "
+                         "copy-on-write pages: warm admissions skip the "
+                         "shared prefill (requires --paged-kv)")
+    ap.add_argument("--prefix-block", type=int, default=16,
+                    help="prefix-cache publish granularity in tokens")
     ap.add_argument("--decode-steps", type=int, default=None,
                     help="decode iterations fused into one device-resident "
                          "epoch (default: the config's "
@@ -73,6 +84,8 @@ def main(argv=None) -> None:
         raise SystemExit("--paged-kv requires --continuous")
     if (args.kv_dtype or args.num_pages) and not args.paged_kv:
         raise SystemExit("--kv-dtype/--num-pages require --paged-kv")
+    if args.prefix_cache and not args.paged_kv:
+        raise SystemExit("--prefix-cache requires --paged-kv")
     if args.decode_steps is not None and not args.continuous:
         raise SystemExit("--decode-steps requires --continuous")
     if args.prefill_chunk and not args.continuous:
@@ -105,18 +118,23 @@ def main(argv=None) -> None:
         eng = ContinuousBatchingEngine(model, config=EngineConfig(
             kv=KVConfig(kv_mode="paged" if args.paged_kv else "dense",
                         page_size=args.page_size, num_pages=args.num_pages,
-                        kv_dtype=args.kv_dtype),
+                        kv_dtype=args.kv_dtype,
+                        prefix_cache=args.prefix_cache,
+                        prefix_block=args.prefix_block),
             scheduling=SchedulingConfig(max_slots=args.batch,
                                         max_len=max_len,
                                         prefill_chunk=args.prefill_chunk,
                                         decode_steps=args.decode_steps),
             temperature=args.temperature))
+        shared = (rng.integers(0, cfg.vocab_size, (args.prompt_len // 2,),
+                               dtype=np.int32) if args.prefix_cache
+                  else np.zeros((0,), np.int32))
         for _ in range(2 * args.batch):
             ln = int(rng.integers(max(args.prompt_len // 4, 1),
                                   args.prompt_len + 1))
-            eng.submit(rng.integers(0, cfg.vocab_size, (ln,),
-                                    dtype=np.int32),
-                       max_new_tokens=args.new_tokens)
+            eng.submit(np.concatenate([shared, rng.integers(
+                0, cfg.vocab_size, (max(ln - len(shared), 1),),
+                dtype=np.int32)]), max_new_tokens=args.new_tokens)
         out = eng.run()
         s = out["stats"]
         print(f"prefill: {s.prefill_tokens} tok in {s.prefill_s:.2f}s | "
@@ -138,6 +156,11 @@ def main(argv=None) -> None:
                   f"{s.kv_entries_saved_fraction:.1%} | history hit rate "
                   f"{s.history_hit_rate:.1%} | preemptions "
                   f"{s.preemptions}")
+        if args.prefix_cache:
+            print(f"prefix cache: {s.prefix_hits} warm / "
+                  f"{s.prefix_misses} cold admissions | "
+                  f"{s.prefix_tokens_saved} prefill tokens skipped | "
+                  f"{s.prefix_records} records resident")
         if args.kv_dtype:
             print(f"quantized KV: {args.kv_dtype} page payloads "
                   "(pow2 per-entry scales)")

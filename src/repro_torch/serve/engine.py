@@ -17,7 +17,10 @@ Counterpart of the JAX package's ``serve/engine.py``:
     max_len`` rows per layer, allocated once; a Mamba stack's conv
     histories and SSM state per slot) or the paged §4.4 entry stream
     (``kvcache/paged.py``) with alloc-on-demand pages, proactive headroom
-    and preemption of the youngest resident.  Decode runs one step per
+    and preemption of the youngest resident, and optionally the prefix
+    cache (``kvcache/prefix.py``: published prompt prefixes shared as
+    refcounted pages, a warm admission prefilling only its cold suffix).
+    Decode runs one step per
     dispatch or, with ``decode_steps > 1``, device-resident N-step epochs
     (``models.model.DecodeEpoch``: on CUDA a captured graph of one
     iteration, replayed).
@@ -35,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kv_reuse
 from repro_torch.kvcache import history as history_mod
 from repro_torch.kvcache import paged as paged_mod
+from repro_torch.kvcache import prefix as prefix_mod
 from repro_torch.models import layers, transformer
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import DecodeEpoch, LanguageModel
@@ -100,8 +104,12 @@ class ServeStats:
     Paged mode (``kv_mode == "paged"``): page pool geometry, the live
     footprint's peak ``pages_peak``, ``preemptions``, the entry-stream write
     counters (``kv_entries_stored`` vs the per-layer-dense baseline
-    ``kv_entries_dense``) and the history-buffer hit rates measured from
-    the gate log."""
+    ``kv_entries_dense``; a warm admission writes only its suffix) and the
+    history-buffer hit rates measured from the gate log.  With the prefix
+    cache: ``prefix_hits`` (warm admissions whose first suffix work unit
+    ran), ``prefix_misses`` (cold admissions), ``prefix_tokens_saved``
+    (prompt tokens they did not prefill) and ``prefix_records`` (records
+    resident at the run's end)."""
     prefill_tokens: int = 0
     decode_tokens: int = 0
     prefill_s: float = 0.0
@@ -132,6 +140,11 @@ class ServeStats:
     history_hit_rate: float = 0.0         # reads served by the history buf
     history_hits_per_layer: List[float] = dataclasses.field(
         default_factory=list)
+    # -- prefix cache (kv.prefix_cache) ------------------------------------
+    prefix_hits: int = 0                  # warm-prefix admissions
+    prefix_misses: int = 0                # cold admissions with cache on
+    prefix_tokens_saved: int = 0          # prompt tokens skipped at prefill
+    prefix_records: int = 0               # records resident at run end
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -329,8 +342,6 @@ def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
     out = []
     if config.spec.spec_k or config.spec.draft_keep is not None:
         out.append("spec_k / draft_keep (item 11)")
-    if config.kv.prefix_cache:
-        out.append("prefix_cache (item 10)")
     if rob.faults is not None or rob.watchdog is not None:
         out.append("faults / watchdog (item 12)")
     if rob.snapshot_dir is not None:
@@ -370,6 +381,20 @@ class _RunState:
     stage_cache: Optional[List[Dict[str, torch.Tensor]]] = None
     stage_gates: List[torch.Tensor] = dataclasses.field(
         default_factory=list)
+    # the prefix cache's miss count when the run started
+    misses0: int = 0
+
+
+@dataclasses.dataclass
+class _WarmAdmission:
+    """Host state of one warm-prefix admission between the scheduler's
+    probe (allocator work done, device work deferred) and the slot's first
+    suffix work unit (COW copy + staging-cache restore)."""
+    rec: prefix_mod.PrefixRecord
+    # the boundary page's copy on write: (shared source page, private
+    # destination page, entries kept); None when the prefix's entries end
+    # on a page boundary
+    copy: Optional[tuple] = None
 
 
 class ContinuousBatchingEngine:
@@ -414,6 +439,26 @@ class ContinuousBatchingEngine:
     its worst case at admission; under page pressure an in-flight chunked
     prefill is aborted and requeued before any resident is preempted.
 
+    ``prefix_cache`` (paged only, and only where ``can_chunk_prefill``,
+    else ``ConfigError``): every completed paged prefill publishes its
+    prompt at each ``prefix_block``-token boundary (``PrefixCache``,
+    pinning the pages that hold those entries).  Admission probes the
+    cache: the longest published prefix (at most the prompt's length − 1)
+    is aliased into the new slot's chain by reference, its partial
+    boundary page queued for a copy on write, and only the cold suffix is
+    prefilled: at its first work unit the boundary page is copied
+    (``paged.copy_page_masked``) and the staging cache restored from the
+    shared entries (``views_from_pages`` + ``chunk_cache_from_views``);
+    the suffix then runs through ``model.prefill_chunk`` (chunk C, or one
+    power-of-two-padded forward with chunking off) and only its entries
+    are packed.  Under page pressure least-recently-used records are
+    evicted before an admission is refused or anyone is preempted.  The
+    paged store outlives a ``run()``: each paged loop takes the store the
+    last run stashed at its clean exit (records alias its pages); a run
+    that raised stashes nothing, so the next run starts from a zeroed
+    store, requeues what the dead run left in flight and clears the prefix
+    cache.
+
     ``model`` is a ``LanguageModel``; its device is the engine's.  An
     attention-free Mamba stack serves from the dense pool only (paged mode
     raises ``ValueError``, as do ``prefill_buckets``: it prefills at the
@@ -423,10 +468,11 @@ class ContinuousBatchingEngine:
     ``EngineConfig`` or its flat kwargs (``max_slots``, ``max_len``,
     ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
     ``temperature``, ``prefill_buckets``, ``prefill_chunk``,
-    ``decode_steps``, ``step_tokens``).  The
-    reference's other levers raise ``ConfigError`` naming the ROADMAP item that will
-    port them.  Sampling at ``temperature > 0`` draws from the
-    ``torch.Generator`` given to ``run``."""
+    ``decode_steps``, ``step_tokens``, ``prefix_cache``,
+    ``prefix_block``).  The reference's other levers raise ``ConfigError``
+    naming the ROADMAP item that will port them.  Sampling at
+    ``temperature > 0`` draws from the ``torch.Generator`` given to
+    ``run``."""
 
     def __init__(self, model: LanguageModel,
                  config: Optional[EngineConfig] = None, **kwargs):
@@ -488,6 +534,9 @@ class ContinuousBatchingEngine:
                                    buckets=buckets,
                                    prefill_chunk=self.prefill_chunk)
         self.kv_dtype = kvc.kv_dtype
+        self.prefix: Optional[prefix_mod.PrefixCache] = None
+        # the paged store a run stashed at its clean exit, for the next
+        self._store: Optional[Dict[str, torch.Tensor]] = None
         if self.kv_mode == "paged":
             self.n_attn = paged_mod.num_attention_layers(cfg)
             self.page_size = kvc.page_size
@@ -500,6 +549,22 @@ class ContinuousBatchingEngine:
             self.allocator = paged_mod.PageAllocator(
                 self.num_pages, self.page_size, self.max_slots,
                 slot_entry_capacity=cap)
+            if kvc.prefix_cache:
+                if not can_chunk_prefill(cfg):
+                    raise ConfigError(
+                        f"{cfg.name}: prefix_cache resumes prefill from a "
+                        "reconstructed staging cache — it requires the "
+                        "chunk-resumable stack chunked prefill needs")
+                self.prefix = prefix_mod.PrefixCache(
+                    self.allocator, block=kvc.prefix_block,
+                    reuse=paged_mod.reuse_enabled(cfg),
+                    max_records=kvc.prefix_max_records)
+                self.scheduler.prefix_probe = self._prefix_probe
+                # in-flight warm admissions: slot -> _WarmAdmission
+                self._warm_pending: Dict[int, _WarmAdmission] = {}
+                # a warm suffix resumes mid-sequence through the staging
+                # cache even with chunking off; its rows cover the prompt
+                self._warm_cap = self._chunk_cap if C else self.max_len
         self._uid = 0
 
     # -- submission ----------------------------------------------------------
@@ -542,12 +607,90 @@ class ContinuousBatchingEngine:
         """Admission gate: free pages for the prompt's worst-case entries
         plus one decode step of headroom (the residents' next-step headroom
         is reserved before admission, so the free list is genuinely
-        spare)."""
+        spare).  Prefix records hold pages too: least-recently-used ones
+        are evicted (never pinned ones) before the pool counts as full."""
         need = req.prompt_len * self.n_attn + self.n_attn
         pages = self.allocator.pages_for(need)
         if pages > self.allocator.pages_per_slot:
             return False
+        while pages > self.allocator.free_pages and self._reclaim_pages():
+            pass
         return pages <= self.allocator.free_pages
+
+    def _reclaim_pages(self) -> bool:
+        """Page-pressure valve: drop one LRU prefix record.  True when a
+        record went (its unshared pages back on the free list): callers
+        loop until their reservation fits or this gives False, and only
+        then preempt."""
+        return (self.prefix is not None
+                and self.prefix.evict_one() is not None)
+
+    def _acquire_store(self) -> Dict[str, torch.Tensor]:
+        """The page store of one paged run: the one the last run stashed at
+        its clean exit (published records alias its pages; stale entries
+        in pages handed out again are masked by the chain fill, as within
+        a run).  The stash is taken at once, so a run that raises leaves
+        none.  Without one (the first run, or the last raised) the store
+        is fresh and zeroed, so what aliased the old one goes: the dead
+        run's in-flight prefill and residents are released and requeued to
+        prefill again, warm admissions unpinned, the prefix cache
+        cleared."""
+        store, self._store = self._store, None
+        if store is not None:
+            return store
+        sched, alloc = self.scheduler, self.allocator
+        if sched.prefilling is not None:
+            alloc.release(sched.abort_prefill().slot)
+        for slot in sorted(sched.active):
+            sched.requeue(sched.release(slot).req)
+            alloc.release(slot)
+        if self.prefix is not None:
+            for slot in list(self._warm_pending):
+                self._abort_warm(slot)
+            self.prefix.clear()
+        return paged_mod.init_store(self.cfg, self.num_pages, self.page_size,
+                                    kv_dtype=self.kv_dtype,
+                                    device=self.device)
+
+    # -- prefix sharing ------------------------------------------------------
+    def _prefix_probe(self, req: Request, slot: int) -> int:
+        """The scheduler's admission hook: find the longest published
+        prefix of ``req``'s prompt and alias its full pages into ``slot``
+        by reference; the partial boundary page's copy on write is
+        deferred to the slot's first suffix work unit (nothing reads the
+        slot's pages before it).  The cold suffix's worst-case pages are
+        reserved here, inside the plan that passed ``_can_place``.
+        Returns the prompt tokens covered (0 = cold admission)."""
+        rec = self.prefix.lookup(req.tokens)
+        if rec is None:
+            return 0
+        alloc, nA = self.allocator, self.n_attn
+        n_full, rem = divmod(rec.entries, alloc.page_size)
+        worst = rec.entries + (req.prompt_len - rec.length) * nA + nA
+        alloc.alias_into(slot, rec.pages[:n_full])
+        if not alloc.ensure(slot, worst):
+            # not after _can_place's whole-prompt worst case (worst less
+            # the aliased entries is below it); admit cold all the same
+            alloc.release(slot)
+            return 0
+        alloc.seed_fill(slot, rec.entries)
+        self.prefix.pin(rec)
+        copy = None
+        if rem:
+            copy = (int(rec.pages[n_full]),
+                    int(alloc.block_table[slot, n_full]), rem)
+        self._warm_pending[slot] = _WarmAdmission(rec=rec, copy=copy)
+        return rec.length
+
+    def _abort_warm(self, slot: int) -> None:
+        """Drop the warm-admission state of an aborted in-flight prefill
+        (the caller's ``allocator.release`` already dropped the chain's
+        references): the record is unpinned, evictable again."""
+        if self.prefix is None:
+            return
+        warm = self._warm_pending.pop(slot, None)
+        if warm is not None:
+            self.prefix.unpin(warm.rec)
 
     # -- main loop ---------------------------------------------------------
     @torch.no_grad()
@@ -568,7 +711,8 @@ class ContinuousBatchingEngine:
         else:
             stats, hist = ServeStats(), None
         rs = _RunState(stats=stats, results={}, t_run=perf_counter(),
-                       generator=generator, hist=hist)
+                       generator=generator, hist=hist,
+                       misses0=self.prefix.misses if self.prefix else 0)
         if self.decode_steps > 1:
             run = self._run_paged_fused if paged else self._run_dense_fused
         else:
@@ -670,19 +814,21 @@ class ContinuousBatchingEngine:
         spare pages by ``_can_place``, at most one prefill; (3) one ragged
         decode step over all slots, the walk bounded to a power-of-two
         bucket of the live chains; (4) append the measured fresh entries
-        and the history-buffer accounting from the step's gate log."""
+        and the history-buffer accounting from the step's gate log.  Page
+        pressure evicts prefix records before anyone is preempted; a clean
+        exit stashes the store for the next run."""
         sched, alloc, cfg = self.scheduler, self.allocator, self.cfg
         nA = self.n_attn
         reuse = paged_mod.reuse_enabled(cfg)
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
-        store = paged_mod.init_store(cfg, self.num_pages, self.page_size,
-                                     kv_dtype=self.kv_dtype,
-                                     device=self.device)
+        store = self._acquire_store()
         while sched.has_work():
             for slot in sorted(sched.active):
                 if slot not in sched.active:      # preempted below
                     continue
                 while not alloc.ensure(slot, int(alloc.fill[slot]) + nA):
+                    if self._reclaim_pages():
+                        continue
                     if not self._preempt_youngest(rs, exclude=slot):
                         raise PageExhausted(
                             f"page pool exhausted with a single resident "
@@ -713,6 +859,7 @@ class ContinuousBatchingEngine:
                 alloc.append(slot, fresh_n, nA)
                 rs.hist.on_decode_step(slot, g)
             self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, nA)
+        self._store = store
 
     def _plan_paged(self, rs: _RunState, store, reuse: bool,
                     n_steps: int) -> None:
@@ -743,18 +890,20 @@ class ContinuousBatchingEngine:
                 rs.stats.interleaved_steps += 1
 
     def _chunk_work(self, rs: _RunState, work: PrefillChunk, t0: float,
-                    defer: bool):
+                    defer: bool, width: Optional[int] = None):
         """One chunk through the staging cache (allocated at the prompt's
-        first chunk), right-padded to C, its gate log kept on the device;
-        inputs go through pinned memory.  A chunk that is not its prompt's
-        last is only enqueued and counted (its device work is waited for
-        by the next sync, a decode step's or epoch's): returns None.  The
+        first chunk unless a warm admission restored it), right-padded to
+        C (or ``width``: a warm suffix's dispatch), its gate log kept on
+        the device; inputs go through pinned memory.  A chunk that is not
+        its prompt's last is only enqueued and counted (its device work is
+        waited for by the next sync, a decode step's or epoch's): returns
+        None.  The
         last returns (its first token, the prompt's gate log [L, Tp] (the
         chunks' logs side by side; Tp a chunk multiple ≥ T0), the staging
         cache), token and log on the host or, with ``defer``, as device
         tensors, and clears the run's staging state."""
-        C = self.prefill_chunk
-        if work.is_first:
+        C = width or self.prefill_chunk
+        if work.is_first and rs.stage_cache is None:
             rs.stage_cache = model_mod.init_chunk_cache(
                 self.cfg, 1, self._chunk_cap, self.device)
             rs.stage_gates = []
@@ -811,6 +960,8 @@ class ContinuousBatchingEngine:
         step (a chunked prompt reserved its worst case at admission) and
         pack them from the gate log [nA, Tp]."""
         alloc, nA, slot = self.allocator, self.n_attn, work.slot
+        if self.prefix is not None and slot in self._warm_pending:
+            return self._prefill_work_warm(rs, work, store, reuse)
         T0 = work.req.prompt_len
         t0 = perf_counter()
         if not self.prefill_chunk:
@@ -833,6 +984,74 @@ class ContinuousBatchingEngine:
         del cache
         alloc.append(slot, n_ent, nA * T0)
         rs.hist.on_prefill(slot, gates, T0)
+        if self.prefix is not None:
+            self.prefix.publish(work.req.tokens, gates, alloc.chain(slot))
+        self._finish_prefill(rs, work, tok, t0, gates)
+
+    def _prefill_work_warm(self, rs: _RunState, work: PrefillChunk, store,
+                           reuse: bool) -> None:
+        """A warm admission's work unit: the scheduler cut the prompt to
+        its cold suffix (``work.start`` is the record's length), so nothing
+        runs forward over the shared prefix.  The first suffix work unit
+        does what the probe deferred: the boundary page's copy on write,
+        then the staging cache restored from the shared entries (int8 and
+        int4 pages dequantize exactly: their scales are powers of two).
+        The suffix runs through ``_chunk_work``: chunks of C or, with
+        chunking off, one dispatch padded to a power of two (at least 8,
+        clamped to the suffix where it would run past the staging cache;
+        a chunk is clamped the same way).  The last packs only the
+        suffix's entries (``start_token``/``start_entry``), stitches the
+        record's gate log to the suffix's so accounting and publishing see
+        the whole prompt, republishes the longer chain and unpins."""
+        alloc, nA, slot = self.allocator, self.n_attn, work.slot
+        warm = self._warm_pending[slot]
+        rec = warm.rec
+        Ts, E_s = rec.length, rec.entries
+        t0 = perf_counter()
+        if work.is_first:
+            if warm.copy is not None:
+                paged_mod.copy_page_masked(store, *warm.copy)
+            chain = alloc.block_table[slot, :alloc.pages_for(E_s)]
+            k_views, v_views = paged_mod.views_from_pages(
+                store, self._tensor(chain, torch.int32), E_s, self.cfg,
+                self._warm_cap, kv_dtype=self.kv_dtype)
+            rs.stage_cache = paged_mod.chunk_cache_from_views(
+                k_views, v_views, self.cfg)
+            del k_views, v_views
+            rs.stage_gates = []
+            rs.stats.prefix_hits += 1
+            rs.stats.prefix_tokens_saved += Ts
+        c = len(work.tokens)
+        if self.prefill_chunk:
+            width = self.prefill_chunk
+        else:
+            width = 1 << max(3, (c - 1).bit_length())
+        if work.start + width > self._warm_cap:
+            width = c
+        staged = self._chunk_work(rs, work, t0, defer=False, width=width)
+        if staged is None:
+            return
+        tok, suffix_gates, cache = staged
+        T0 = work.req.prompt_len
+        gates = np.concatenate([np.asarray(rec.gates, np.float32),
+                                suffix_gates], axis=1)
+        n_suffix = int(history_mod.host_fresh_mask(
+            suffix_gates, reuse)[:, :T0 - Ts].sum())
+        if not alloc.ensure(slot, E_s + n_suffix + nA):
+            raise PageExhausted(
+                "warm-suffix page reservation failed after the probe's "
+                "worst-case reservation — allocator bug", slot=slot,
+                free_pages=alloc.free_pages, pages_total=self.num_pages)
+        paged_mod.pack_prefill(
+            store, cache, self._tensor(gates, torch.float32), T0,
+            self._tensor(alloc.block_table[slot], torch.int32), self.cfg,
+            start_token=Ts, start_entry=E_s, kv_dtype=self.kv_dtype)
+        del cache
+        alloc.append(slot, n_suffix, nA * (T0 - Ts))
+        rs.hist.on_prefill(slot, gates, T0)
+        self.prefix.publish(work.req.tokens, gates, alloc.chain(slot))
+        self.prefix.unpin(rec)
+        del self._warm_pending[slot]
         self._finish_prefill(rs, work, tok, t0, gates)
 
     # -- fused-epoch run loops (decode_steps > 1) --------------------------
@@ -971,15 +1190,14 @@ class ContinuousBatchingEngine:
         history accounting are replayed from the epoch's gate log at its
         one sync.  OOM safety is per epoch: before launch every resident's
         worst case for the whole epoch (fill + min(n, horizon) · n_attn
-        entries) is reserved; when the free list cannot cover it the epoch
-        halves, and only at one step is the youngest resident preempted.
+        entries) is reserved; when the free list cannot cover it prefix
+        records are evicted, then the epoch halves, and only at one step is
+        the youngest resident preempted.
         After a shrink the length that fit caps later epochs, and two
         clean epochs in a row double the cap back."""
         sched, alloc, nA = self.scheduler, self.allocator, self.n_attn
         reuse = paged_mod.reuse_enabled(self.cfg)
-        store = paged_mod.init_store(self.cfg, self.num_pages,
-                                     self.page_size, kv_dtype=self.kv_dtype,
-                                     device=self.device)
+        store = self._acquire_store()
         ep = self._epoch(store, rs, paged=True)
 
         def per_step(slot, g):
@@ -1008,6 +1226,8 @@ class ContinuousBatchingEngine:
                             break
                     if failed is None:
                         break
+                    if self._reclaim_pages():
+                        continue
                     if n_eff > 1:
                         n_eff //= 2
                         shrunk = True
@@ -1042,6 +1262,7 @@ class ContinuousBatchingEngine:
             if t_disp is not None:
                 self._process_epoch(rs, ep, n_eff, slots, t_disp,
                                     per_step=per_step)
+        self._store = store
 
     # -- bookkeeping shared by both KV modes -------------------------------
     def _finish_prefill(self, rs: _RunState, work: PrefillChunk, tok,
@@ -1175,7 +1396,8 @@ class ContinuousBatchingEngine:
         """OOM backpressure (paged mode).  An in-flight chunked prefill is
         always the newest admission and holds its worst-case reservation
         without being a resident, so it goes first: aborted, its pages and
-        slot released, its staging state dropped, the request requeued to
+        slot released, its staging state dropped (a warm admission's
+        record unpinned), the request requeued to
         prefill again from its first chunk (no decode progress is lost,
         and the residents decode between the abort and the retry).  Else
         evict the youngest resident by original submission time (≠
@@ -1187,6 +1409,7 @@ class ContinuousBatchingEngine:
         if pf is not None and pf.slot != exclude:
             sched.abort_prefill()
             self.allocator.release(pf.slot)
+            self._abort_warm(pf.slot)
             rs.stage_cache, rs.stage_gates = None, []
             rs.stats.preemptions += 1
             rs.stats.prefill_aborts += 1
@@ -1219,4 +1442,7 @@ class ContinuousBatchingEngine:
             stats.kv_entries_dense = alloc.stats.entries_dense
             stats.history_hit_rate = rs.hist.hit_rate
             stats.history_hits_per_layer = rs.hist.per_layer_hit_rate
+            if self.prefix is not None:
+                stats.prefix_misses = self.prefix.misses - rs.misses0
+                stats.prefix_records = len(self.prefix)
         return {"results": results, "stats": stats}

@@ -170,6 +170,9 @@ class _InflightPrefill:
     slot: int
     done: int = 0                    # tokens already prefilled
     deferred: int = 0                # consecutive budget deferrals
+    # warm-prefix admission: tokens adopted from a shared prefix-cache
+    # record (``done`` starts here: those tokens never prefill); 0 cold
+    warm: int = 0
 
 
 class Scheduler:
@@ -200,6 +203,12 @@ class Scheduler:
         self._free: List[int] = list(range(max_slots - 1, -1, -1))
         self.active: Dict[int, ActiveRequest] = {}
         self._prefilling: Optional[_InflightPrefill] = None
+        # warm-prefix hook, set by the paged engine when its prefix cache
+        # is on: ``prefix_probe(request, slot) -> int`` gives the number of
+        # prompt tokens a published prefix already covers (0 = cold);
+        # ``plan_step`` starts the in-flight prefill there, so only the
+        # cold suffix is chunked or charged against the token budget
+        self.prefix_probe = None
 
     # -- queue -------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -248,8 +257,12 @@ class Scheduler:
         appending KV."""
         if self._prefilling is None and self.queue and self._free:
             if can_place is None or can_place(self.queue[0]):
+                req = self.queue.popleft()
+                slot = self._free.pop()
+                warm = (int(self.prefix_probe(req, slot))
+                        if self.prefix_probe is not None else 0)
                 self._prefilling = _InflightPrefill(
-                    req=self.queue.popleft(), slot=self._free.pop())
+                    req=req, slot=slot, done=warm, warm=warm)
         decode_slots = sorted(self.active)
         chunk: Optional[PrefillChunk] = None
         if self._prefilling is not None:
@@ -267,7 +280,7 @@ class Scheduler:
                 chunk = PrefillChunk(
                     req=pf.req, slot=pf.slot, start=pf.done,
                     tokens=toks[pf.done:pf.done + c],
-                    is_first=pf.done == 0, is_last=pf.done + c >= T0)
+                    is_first=pf.done == pf.warm, is_last=pf.done + c >= T0)
         return StepPlan(decode_slots=decode_slots, prefill=chunk,
                         decode_steps=decode_steps)
 

@@ -223,7 +223,7 @@ def test_scheduler_matches_reference():
 
 @pytest.mark.parametrize("knob", [
     {"spec_k": 2},
-    {"kv_mode": "paged", "prefix_cache": True}, {"faults": []},
+    {"kv_mode": "paged", "draft_keep": 0.5}, {"faults": []},
     {"snapshot_dir": "snap"}, {"max_queue_depth": 1},
     {"max_preemptions": 1}, {"trace": True},
     {"mesh": object()}])
