@@ -196,11 +196,34 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 tokens, gate logs and KV accounting bit for bit; warm and
                 cold prefill_s, times to first token and the share of
                 bf16 tokens equal to cold reported, not checked.
+ 14. speculative — self-speculative decoding (``spec_k`` 4) on phase 6's
+                bf16 weights (and for its witness phase 7's fp32 copy, and
+                phase 8's int4 weights), its line emitted after phase 13's:
+                (a) phase 6's 8 requests, 4 slots, 32 greedy tokens, draft
+                keep unset, on the dense pool and on bf16, int8 and int4
+                pages, and on the dense pool with int4 weights; (b) a
+                draft_keep 0.5 run on the dense pool; (c) the fp32 witness
+                (phase 7's 4 requests, dense and fp32 pages, spec_k 1 and
+                4): tokens, each request's gate logs and the KV accounting
+                bit for bit the plain engine's, rolled-back entries in a
+                paged run.  Checked in every run: windows ran, accepted ≤
+                drafted, drafted = Σ γ × active slots, each verify
+                window's launches exactly those of a chunk forward of
+                slots·(γ + 1) rows at the routes ``plan`` gives them (every
+                column unembedded: int4, the lm head's rows through the
+                int4 matmul), the draft graphs bounded like phase 11's
+                (one for the dense pool, one per block-table width), every
+                draft iteration past a capture's warm-up a replay, the
+                capture deltas × replays (derived) equal to the replayed
+                iterations' launches, no bf16 SIMT launch, finite draft and
+                verify logits, pages conserved with none in use; reported:
+                acceptance, window ms, tok/s beside phase 6's (8's) plain
+                run and the share of tokens equal to it.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12 and 13 (their fp32 witness runs
+runs of phases 5, 6, 8, 10, 11, 12, 13 and 14 (their fp32 witness runs
 included),
 each counted from 0 by the wrappers, which a graph replay does not pass
-through: phase 11's and 12's replayed launches stand in their own lines,
+through: phase 11's, 12's and 14's replayed launches stand in their own lines,
 derived, and in no sum; for the paged SIMT route, which only fp32 serving
 takes, over phase 7's and phase 12's fp32 paged runs, and for the SSD
 scan's SIMT route over phase 9's fp32 cuda runs, all counted from 0 too;
@@ -2216,15 +2239,21 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
     if log is not None:
         watch_engine(eng, log)
     finite.reset()
-    out, rows, launches, wall, derived = counted_run(
-        torch, dev, model, eng, label, seen)
+    if eng.spec_k:
+        name = spec_watch(torch, model, eng, finite, seen)
+    try:
+        out, rows, launches, wall, derived = counted_run(
+            torch, dev, model, eng, label, seen)
+    finally:
+        if eng.spec_k:
+            delattr(model, name)
     s = out["stats"]
     n_pf, n_st = s.prefill_chunks, s.decode_iterations
     paged_run = eng.kv_mode == "paged"
     graph_rec = {}
     if derived is not None:
         graph_rec = {"graph_launches_derived": derived}
-        if eng.kv_mode == "dense":
+        if eng.kv_mode == "dense" and eng.decode_steps > 1:
             require(seen.get("deferred", 0) >= 1 and not seen["syncs"],
                     f"{label}: {seen.get('syncs')} host syncs in "
                     f"{seen.get('deferred')} deferred prefills")
@@ -2288,6 +2317,9 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
         if trace:
             rec["traced_epoch"] = trace_epoch(torch, dev, label, seen["ep"],
                                               eng.decode_steps)
+    if eng.spec_k:
+        rec.update(spec_record(cfg, eng, s, seen["windows"], launches,
+                               label))
     return rec, [r.tokens for r in res], launches
 
 
@@ -2341,6 +2373,36 @@ def counted_run(torch, dev, model, eng, label, seen, on_chunk=None):
     require(len(rows) == s.prefill_chunks, f"{label}: {len(rows)} "
             f"prefills seen, {s.prefill_chunks} counted")
     paged_run, derived = eng.kv_mode == "paged", None
+    if eng.spec_k:
+        # speculative: each capture's eager warm-up and every verify
+        # window, held one by one at the route its rows give
+        wins = seen["windows"]
+        drafted = sum(w["gamma"] for w in wins)
+        cap = (len(table_widths(eng.allocator.pages_per_slot))
+               if paged_run else 1)
+        require((1 if drafted else 0) <= s.compiles <= cap,
+                f"{label}: {s.compiles} draft graphs captured, want "
+                f"{'1' if drafted else '0'}..{cap}")
+        require(s.graph_replays == drafted - s.compiles,
+                f"{label}: {s.graph_replays} replays of {drafted} draft "
+                f"iterations and {s.compiles} captures")
+        derived = seen["ep"].graph_launches() if drafted else {}
+        want = expected_launches(model, [], s.graph_replays, SLOTS,
+                                 paged_run)
+        require(not drafted or derived == want, f"{label}: capture deltas "
+                f"× replays {derived} != the replayed draft iterations' "
+                f"{want}")
+        expected = expected_launches(model, rows, s.compiles, SLOTS,
+                                     paged_run)
+        for i, w in enumerate(wins):
+            want = verify_expected(model, *w["rows"], w["key_rows"])
+            require(w["launches"] == want, f"{label}: verify window {i} "
+                    f"of {w['rows']} over {w['key_rows']} key rows launched "
+                    f"{w['launches']}, want {want}")
+            _add(expected, want)
+        require(launches == expected, f"{label}: kernel launches "
+                f"{launches} != expected {expected}")
+        return out, rows, launches, wall, derived
     if eng.decode_steps > 1:
         cap = (len(table_widths(eng.allocator.pages_per_slot))
                if paged_run else 1)
@@ -3241,6 +3303,327 @@ def prefix_witness(torch, np, dev, m32):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: self-speculative decoding (draft graphs, verify windows, commit)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_KEEP = 0.5      # (b)'s draft_keep: router skip biases raised by 2.0
+
+
+def verify_expected(model, S, C, Tk):
+    """Exact launches of one verify window: a chunk forward of C columns
+    for S slots over Tk key rows (the dense pool's rows, or the paged
+    staging cache's), with every column unembedded (int4 weights: the lm
+    head's S·C rows through the int4 matmul, where a prefill takes S)."""
+    want = expected_launches(model, [(S, C, Tk)], 0, SLOTS)
+    if is_int4(model):
+        from repro_torch.kernels import fused_linear as fl
+        from repro_torch.models import layers
+        cfg, lm = model.cfg, model.params()["lm_head"]
+        n_grp = lm["scale"].shape[0]
+        Kw, V = lm["w_int"].shape
+
+        def route(rows):
+            return fl.plan_int4(rows, cfg.d_model, V, Kw // n_grp, n_grp,
+                                False, layers.torch_dtype(cfg)).route
+
+        want["int4_matmul_" + route(S)] -= 1
+        want["int4_matmul_" + route(S * C)] += 1
+    return want
+
+
+def spec_watch(torch, model, eng, finite, seen):
+    """Wrap a speculative engine: ``seen["ep"]`` gets its draft epoch,
+    ``seen["windows"]`` per window γ, the active slots, the verify's rows
+    (S, C), its key rows and the wrappers' launches it made; the verify
+    logits join the finite flag.  Returns the model attribute to delete
+    after the run (the verify wrapper)."""
+    from repro_torch.kernels import ops
+    windows = seen["windows"] = []
+    epoch, draft = eng._draft_epoch, eng._draft
+
+    def kept(kv, rs, paged):
+        seen["ep"] = epoch(kv, rs, paged)
+        return seen["ep"]
+
+    def drafted(rs, ep, feed, feed_dev, pos_dev, act, gamma, **k):
+        windows.append({"gamma": gamma, "active": int(act.sum())})
+        return draft(rs, ep, feed, feed_dev, pos_dev, act, gamma, **k)
+
+    eng._draft_epoch, eng._draft = kept, drafted
+    paged_run = eng.kv_mode == "paged"
+    name = "paged_verify_chunk" if paged_run else "verify_chunk"
+    verify = getattr(model, name)
+
+    def counted(kv, toks, *a, **k):
+        before = ops.kernel_launches()
+        out = verify(kv, toks, *a, **k)
+        after = ops.kernel_launches()
+        finite.all &= torch.isfinite(out[0]).all()
+        w = windows[-1]
+        w["rows"] = tuple(toks.shape)
+        w["key_rows"] = k["cap"] if paged_run else kv[0]["k"].shape[1]
+        w["launches"] = {x: after[x] - before[x] for x in after}
+        return out
+
+    setattr(model, name, counted)
+    return name
+
+
+def spec_record(cfg, eng, s, windows, launches, label):
+    """A speculative run's checks and figures: windows ran, accepted ≤
+    drafted, drafted = Σ γ × active slots over the windows, no bf16 SIMT
+    launch; the acceptance rate, window wall ms, the verify rows' routes."""
+    from repro_torch.kernels import fused_linear as fl
+    drafted = sum(w["gamma"] * w["active"] for w in windows)
+    require(s.spec_windows == len(windows) > 0,
+            f"{label}: {s.spec_windows} windows counted, {len(windows)} seen")
+    require(s.spec_tokens_accepted <= s.spec_tokens_drafted == drafted,
+            f"{label}: accepted {s.spec_tokens_accepted}, drafted "
+            f"{s.spec_tokens_drafted}, Σ γ × active {drafted}")
+    if cfg.dtype != "float32":
+        simt = {k: v for k, v in launches.items() if k.endswith("_simt")
+                and v}
+        require(not simt, f"{label}: bf16 launches on SIMT routes {simt}")
+    rows = sorted({w["rows"][0] * w["rows"][1] for w in windows})
+    return {"spec_k": eng.spec_k, "draft_keep": eng.draft_keep,
+            "spec_windows": s.spec_windows,
+            "spec_tokens_drafted": s.spec_tokens_drafted,
+            "spec_tokens_accepted": s.spec_tokens_accepted,
+            "spec_acceptance_rate": s.spec_acceptance_rate,
+            "spec_entries_rolled_back": s.spec_entries_rolled_back,
+            "window_ms": 1e3 * s.decode_s / s.spec_windows,
+            "gammas": [w["gamma"] for w in windows],
+            "verify_rows": rows,
+            "verify_on_tile": [m for m in rows if m > fl.SPLITK_MAX_M],
+            "verify_on_stream": [m for m in rows if m <= fl.SPLITK_MAX_M]}
+
+
+def spec_beside(np, rec, toks, plain_rec, plain_toks):
+    """A speculative run's figures beside the plain run of the same
+    requests on the same weights in this process (reported)."""
+    same, first = token_agreement(np, toks, plain_toks)
+    rec.update(plain_decode_tok_per_s=plain_rec["decode_tok_per_s"],
+               speedup_decode_tok_per_s=(rec["decode_tok_per_s"]
+                                         / plain_rec["decode_tok_per_s"]),
+               tokens_equal_to_plain=same, first_divergence=first)
+    return rec
+
+
+SPEC_T0 = (130, 261, 392, 539)   # a window's per-slot positions (Tk 544)
+
+
+def spec_kernels(torch, dev, timer, cfg, floor):
+    """The kernels at a verify window's geometries, each timed beside its
+    plain version and, where there is one, the library call: the dense
+    fused linear's four linears at M = 20 (4 slots × γ 4 + 1: the
+    tensor-core tile) and M = 8 and 16 (γ 1 and 3: the split-K stream);
+    flash's split-KV walk at R = 5 (4 slots, 5 columns at per-slot
+    positions SPEC_T0 over 544 rows, beside SDPA with a boolean mask of the
+    same keys); the int4 lm head at M = 20 on the s8 tile.  Then the fp32
+    SIMT rows' library calls on the same Timer: ``torch.matmul`` in fp32
+    (TF32 off) beside the SIMT fused linear at M 2048 and 4, and fp32 SDPA
+    beside the SIMT flash at the 4 × 512 prefill and the B 4 decode."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_linear as fl, int4_matmul as im
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(27)
+    linears, simt = [], []
+    for M, want in ((20, "wgmma"), (8, "splitk"), (16, "splitk")):
+        for name, K, N, glu, pro, epi in linear_shapes(cfg):
+            F = N // 2 if glu else N
+            w = (torch.randn((K, N), generator=g, device=dev)
+                 / math.sqrt(K)).to(torch.bfloat16)
+            x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
+            what = f"fused_linear {name} M={M}"
+            rec = fused_linear_call(torch, x, w, kw, f"{what} bf16")
+            require(rec["route"] == want, f"{what}: route {rec['route']}")
+            _, rkw = _cast(torch, kw, torch.bfloat16)
+            b, by = bound_ms((M * K + K * N + M * F) * 2 + (
+                (K * 2 + M * 4) if pro else 0) + (
+                (M * F * 2 + M * 8) if epi else 0), 2.0 * M * K * N)
+            linears.append({
+                "shape": f"{name} M={M} K={K} N={N}", "route": want,
+                "ms": timer(lambda: fl.fused_linear_cuda(x, w, **kw)),
+                "plain_ms": timer(lambda: ref.fused_linear_ref(x, w,
+                                                               **rkw)),
+                "library_ms": timer(lambda: torch.matmul(x, w)),
+                "bound_ms": b, "bound_by": by, "errors": {"bfloat16": rec}})
+            del x, w, kw
+    for M in (2048, 4):
+        for name, K, N, glu, pro, epi in linear_shapes(cfg):
+            F = N // 2 if glu else N
+            w = torch.randn((K, N), generator=g, device=dev) / math.sqrt(K)
+            x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
+            f32, _ = _cast(torch, kw, torch.float32)
+            x = x.float()
+            b, by = bound_ms((M * K + K * N + M * F) * 4, 2.0 * M * K * N,
+                             FP32_OPS_PER_S)
+            simt.append({
+                "shape": f"fused_linear {name} M={M} K={K} N={N} fp32",
+                "ms": timer(lambda: fl.fused_linear_cuda(x, w, **f32)),
+                "library_ms": timer(lambda: torch.matmul(x, w)),
+                "library": "torch.matmul fp32 (TF32 off)",
+                "bound_ms": b, "bound_by": by})
+            del x, w, kw, f32
+    B, H, dh = SLOTS, cfg.num_heads, cfg.resolved_head_dim
+    Hkv, C, Tk = cfg.num_kv_heads, SPEC_K + 1, MAX_LEN
+    scale = 1.0 / math.sqrt(dh)
+    bf = torch.bfloat16
+    q = torch.randn((B, C, H, dh), generator=g, device=dev).to(bf)
+    k = torch.randn((B, Tk, Hkv, dh), generator=g, device=dev).to(bf)
+    v = torch.randn((B, Tk, Hkv, dh), generator=g, device=dev).to(bf)
+    t0 = torch.as_tensor(SPEC_T0, dtype=torch.int32, device=dev)
+    qpos = t0[:, None] + torch.arange(C, dtype=torch.int32, device=dev)
+    kvl = t0 + C
+    what = f"flash verify window B={B} C={C} Tk={Tk}"
+    errs = {str(dt).split(".")[-1]: flash_call(
+        torch, *[t.to(dt) for t in (q, k, v)], qpos, kvl, f"{what} {dt}",
+        scale=scale) for dt in (bf, torch.float32)}
+    require(errs["bfloat16"]["route"] == "splitkv",
+            f"{what}: route {errs['bfloat16']['route']}")
+    keys = torch.arange(Tk, device=dev)
+    mask = ((keys[None, None, :] <= qpos[:, :, None])
+            & (keys[None, None, :] < kvl[:, None, None]))[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = H * sum(C * t + C * (C + 1) // 2 for t in SPEC_T0)
+    nbytes = (2 * B * C * H * dh + 2 * sum(t + C for t in SPEC_T0)
+              * Hkv * dh) * 2
+    b, by = bound_ms(nbytes, 4.0 * pairs * dh)
+    flash = {"shape": f"B={B} C={C} t0={list(SPEC_T0)} Tk={Tk} H={H} "
+                      f"dh={dh}", "route": "splitkv",
+             "ms": timer(lambda: fa.flash_attention_cuda(q, k, v, qpos, kvl,
+                                                         scale=scale)),
+             "plain_ms": timer(lambda: fa.flash_attention_plain(
+                 q, k, v, qpos, kvl, scale=scale)),
+             "library_ms": timer(lambda: Fn.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask)),
+             "library": "SDPA, boolean mask of the same keys",
+             "bound_ms": b, "bound_by": by, "errors": errs}
+    for label, Tq, t_last in (("prefill", 512, None), ("decode", 1, 543)):
+        qf = torch.randn((B, Tq, H, dh), generator=g, device=dev)
+        kf = torch.randn((B, Tk if t_last else Tq, Hkv, dh), generator=g,
+                         device=dev)
+        vf = torch.randn_like(kf)
+        if t_last is None:
+            pos = torch.arange(Tq, dtype=torch.int32,
+                               device=dev)[None].expand(B, Tq)
+            kl = None
+        else:
+            pos = torch.full((B, 1), t_last, dtype=torch.int32, device=dev)
+            kl = torch.full((B,), t_last + 1, dtype=torch.int32, device=dev)
+        n_keys = t_last + 1 if t_last else Tq
+        pairs = B * H * (n_keys if t_last else Tq * (Tq + 1) // 2)
+        b, by = bound_ms((2 * B * Tq * H * dh + 2 * B * n_keys * Hkv * dh)
+                         * 4, 4.0 * pairs * dh, FP32_OPS_PER_S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+        kt, vt = kt[:, :, :n_keys], vt[:, :, :n_keys]
+        simt.append({
+            "shape": f"flash {label} B={B} Tq={Tq} Tk={kf.shape[1]} fp32",
+            "ms": timer(lambda: fa.flash_attention_cuda(qf, kf, vf, pos, kl,
+                                                        scale=scale)),
+            "library_ms": timer(lambda: Fn.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=t_last is None)),
+            "library": "SDPA fp32", "bound_ms": b, "bound_by": by})
+        del qf, kf, vf, qt, kt, vt
+    K, N, G = cfg.d_model, cfg.vocab_size, cfg.quant.group_size
+    codes, sc, _, w = int4_weight(torch, dev, g, K, N, G)
+    M = SLOTS * (SPEC_K + 1)
+    x = torch.randn((M, K), generator=g, device=dev).to(bf)
+    rec, p = int4_call(torch, x, codes, sc, {}, f"int4_matmul M={M}",
+                       matmul=True)
+    require(p.route == "tc", f"int4 lm head M={M}: route {p.route}")
+    Kw, Cg = codes.shape[0], sc.shape[0]
+    b, by = bound_ms(M * K * 2 + Kw * N + Cg * N * 4 + M * N * 2,
+                     2.0 * M * Kw * N, INT8_OPS_PER_S)
+    split = p.group_split or None
+    head = {"shape": f"lm head M={M} K={K} N={N} G={G}", "route": p.route,
+            "ms": timer(lambda: im.int4_matmul_cuda(x, codes, sc)),
+            "plain_ms": timer(lambda: ref.bfp_matmul_ref(x, codes, sc,
+                                                         split)),
+            "library_ms": None,
+            "bf16_dense_ms": timer(lambda: torch.matmul(x, w)),
+            "bound_ms": b, "bound_by": by, "errors": {"bfloat16": rec}}
+    return {"launch_floor_ms": floor, "fused_linear": linears,
+            "flash": flash, "int4_lm_head": head, "fp32_library": simt}
+
+
+def spec_full_width(torch, np, dev, model, prompts, plain):
+    """(a) phase 6's 8 requests at spec_k 4 (draft_keep unset) on the
+    dense pool and on bf16, int8 and int4 pages, and (b) a draft_keep 0.5
+    run on the dense pool; each beside phase 6's plain run (``plain``:
+    label -> (record, tokens)).  Returns (records, the wrappers' launches,
+    the draft graphs' derived launches)."""
+    total, derived, runs = {}, {}, []
+    with FiniteLogits(torch, dev) as finite:
+        for label, ref, kw in (
+                ("spec_dense", "dense", dict(kv_mode="dense")),
+                ("spec_paged_bf16", "paged_bf16", dict(kv_mode="paged")),
+                ("spec_paged_int8", "paged_int8",
+                 dict(kv_mode="paged", kv_dtype="int8")),
+                ("spec_paged_int4", "paged_int4",
+                 dict(kv_mode="paged", kv_dtype="int4")),
+                (f"spec_dense_keep{SPEC_KEEP}", "dense",
+                 dict(kv_mode="dense", draft_keep=SPEC_KEEP))):
+            rec, toks, launches = serve_continuous(
+                torch, dev, model, finite, label, prompts, 32,
+                spec_k=SPEC_K, **kw)
+            runs.append(spec_beside(np, rec, toks, *plain[ref]))
+            _add(total, launches)
+            _add(derived, rec["graph_launches_derived"])
+    return runs, total, derived
+
+
+def spec_witness(torch, np, dev, m32, reqs, new, tokens, logs):
+    """(c) The fp32 witness: phase 7's 4 requests on its fp32 weights at
+    spec_k 1 and 4, in the dense pool and in fp32 pages, against phase 7's
+    plain runs: tokens bit for bit, each request's prompt gate log and
+    decode gate columns identical, the same KV accounting (entries stored
+    and dense, history hit rates); rolled-back entries in at least one
+    paged run.  Returns (records, the wrappers' launches, derived
+    launches, seconds)."""
+    runs, total, derived, t = [], {}, {}, time.perf_counter()
+    with FiniteLogits(torch, dev) as finite:
+        for k in (1, SPEC_K):
+            for label in ("fp32_dense", "fp32_paged"):
+                log = {}
+                rec, toks, launches = serve_continuous(
+                    torch, dev, m32, finite, f"spec{k}_{label}", reqs, new,
+                    log=log, kv_mode=label.split("_")[1], spec_k=k)
+                require(all(np.array_equal(a, b) for a, b in zip(
+                    toks, tokens[label])), f"spec{k}_{label}: tokens differ "
+                    "from the plain engine's")
+                ref = logs[label]
+                for uid, (pg, cols) in ref["log"]["gates"].items():
+                    pg2, cols2 = log["gates"][uid]
+                    require(np.array_equal(pg, pg2)
+                            and len(cols) == len(cols2)
+                            and all(np.array_equal(a, b)
+                                    for a, b in zip(cols, cols2)),
+                            f"spec{k}_{label}: request {uid}'s gate log "
+                            "differs from the plain engine's")
+                keys = ["kv_saved_fraction", "attn_keep_frac"] + (
+                    ["kv_entries_stored", "kv_entries_dense",
+                     "history_hit_rate", "history_hits_per_layer",
+                     "kv_entries_saved_fraction"]
+                    if label == "fp32_paged" else [])
+                diff = {x: (ref["rec"][x], rec[x]) for x in keys
+                        if ref["rec"][x] != rec[x]}
+                require(not diff, f"spec{k}_{label}: KV accounting differs "
+                        f"from the plain engine's: {diff}")
+                rec.update(tokens_identical_to_plain=True,
+                           gate_logs_identical_to_plain=True,
+                           kv_accounting_identical_to_plain=keys)
+                _add(total, launches)
+                _add(derived, rec["graph_launches_derived"])
+                runs.append(rec)
+    require(any(r["spec_entries_rolled_back"] > 0 for r in runs
+                if "paged" in r["run"]), "no paged fp32 run rolled back")
+    return runs, total, derived, time.perf_counter() - t
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the bf16 divergence of paged from dense, held against fp32
 # ---------------------------------------------------------------------------
 
@@ -3336,6 +3719,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
         torch, ref, _forced_paged_aligned(m32, list(toks), forced))}
     chunk = chunk_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     prefix = prefix_witness(torch, np, dev, m32)
+    spec = spec_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     del m32
     torch.cuda.empty_cache()
     dist["bf16_dense"] = _forced_distance(
@@ -3360,7 +3744,8 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "phase6_tokens_vs_fp32_dense": agree,
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
-                       "vs_fp32_dense": dist}}, launches, chunk, prefix
+                       "vs_fp32_dense": dist}}, launches, chunk, prefix, \
+        spec
 
 
 # ---------------------------------------------------------------------------
@@ -3423,6 +3808,11 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
     check_chunk_run(m4, crec, prompts)
     crec["tokens_equal_to_chunk0"] = token_agreement(
         np, ctoks, int4_tokens["int4_dense"])
+    with FiniteLogits(torch, dev) as finite:   # phase 14: int4 weights
+        srec, stoks, slaunch = serve_continuous(
+            torch, dev, m4, finite, "spec_int4_dense", prompts, 32,
+            kv_mode="dense", spec_k=SPEC_K)
+    spec_beside(np, srec, stoks, runs[1], int4_tokens["int4_dense"])
     rec = {"phase": "int4", "config": cfg.name, "dtype": cfg.dtype,
            "group_size": cfg.quant.group_size,
            "pow2_scales": cfg.quant.pow2_scales, "int4_linears": n_int4,
@@ -3432,7 +3822,8 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
            "runs": runs, "tokens_equal_to_bf16": same}
     del m4, p4
     torch.cuda.empty_cache()
-    return rec, total, (fused, fused_launches), (crec, claunch)
+    return rec, total, (fused, fused_launches), (crec, claunch), \
+        (srec, slaunch)
 
 
 # ---------------------------------------------------------------------------
@@ -3735,15 +4126,25 @@ def main() -> int:
         torch, np, dev, model, prompts, tokens, short, tight)
     chunk_s = time.perf_counter() - t12
     prefix_rec, prefix_launches = prefix_full_width(torch, np, dev, model)
+    t14 = time.perf_counter()          # phase 14 on the bf16 weights
+    spec_k = spec_kernels(torch, dev, timer, cfg, floor)
+    spec_runs, spec_launches, spec_derived = spec_full_width(
+        torch, np, dev, model, prompts,
+        {r["run"]: (r, tokens[r["run"]]) for r in cont["runs"]})
+    spec_s = time.perf_counter() - t14
     wit, wit_launches, (wit_chunk, more, wit_chunk_s), \
-        (wit_prefix, more_prefix, wit_prefix_s) = witness(
+        (wit_prefix, more_prefix, wit_prefix_s), \
+        (wit_spec, more_spec, more_derived, wit_spec_s) = witness(
             torch, np, dev, model, prompts, tokens)
     _add(prefix_launches, more_prefix)
+    _add(spec_launches, more_spec)
+    _add(spec_derived, more_derived)
     emit(wit)            # its fp32 paged run: the paged SIMT route's launches
     launches["paged_attention_simt"] += wit_launches["paged_attention_simt"]
     _add(chunk_launches, more)
-    int4, int4_launches, (runs, more), (int4_chunk, int4_chunk_launches) = \
-        serve_int4(torch, np, dev, model, lock_tokens, tokens, prompts)
+    int4, int4_launches, (runs, more), (int4_chunk, int4_chunk_launches), \
+        (int4_spec, int4_spec_launches) = serve_int4(
+            torch, np, dev, model, lock_tokens, tokens, prompts)
     emit(int4)
     for k, v in int4_launches.items():
         launches[k] += v
@@ -3751,6 +4152,9 @@ def main() -> int:
     _add(fused_launches, more)
     _add(chunk_launches, int4_chunk_launches)
     chunk_runs.append(int4_chunk)
+    spec_runs.append(int4_spec)
+    _add(spec_launches, int4_spec_launches)
+    _add(spec_derived, int4_spec["graph_launches_derived"])
     del model
     torch.cuda.empty_cache()
 
@@ -3788,6 +4192,13 @@ def main() -> int:
           "seconds": prefix_rec["seconds"] + wit_prefix_s,
           "launches": prefix_launches})
     _add(launches, prefix_launches)
+    emit({"phase": "speculative", "spec_k": SPEC_K,
+          "draft_keep_b": SPEC_KEEP,
+          "seconds": spec_s + wit_spec_s + int4_spec["wall_s"],
+          "kernels": spec_k, "runs": spec_runs, "witness_fp32": wit_spec,
+          "launches": spec_launches,
+          "graph_launches_derived": spec_derived})
+    _add(launches, spec_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

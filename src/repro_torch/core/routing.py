@@ -51,6 +51,41 @@ def neutral_router_bias(params):
     return params
 
 
+# Logit units of skip bias per unit of keep dropped by the draft lever
+# below: the decision is ``logits[1] > logits[0]``, so raising the skip
+# bias by a few logits flips most marginal keep decisions; 4.0 saturates
+# well past trained decision margins.
+DRAFT_BIAS_SCALE = 4.0
+
+
+def draft_router_bias(params, draft_keep: float):
+    """The self-speculative draft model: a view of ``params`` whose router
+    skip biases are raised by ``DRAFT_BIAS_SCALE * (1 - draft_keep)``, so
+    the routed forward skips more.  Every other leaf is the same tensor
+    (no copy); ``draft_keep = 1.0`` returns ``params`` itself, so the draft
+    forward is the verifier's."""
+    shift = DRAFT_BIAS_SCALE * (1.0 - float(draft_keep))
+    if shift == 0.0:
+        return params
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if k == "router" and isinstance(v, dict):
+                    b = v["b"]
+                    out[k] = dict(v, b=b + torch.tensor(
+                        [shift, 0.0], dtype=b.dtype, device=b.device))
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(params)
+
+
 def router_stats(p_keep: torch.Tensor, gate: torch.Tensor,
                  cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Per-submodule keep fraction and the sparsity-control aux loss."""

@@ -593,40 +593,66 @@ def views_from_pages(store: Store, block_table: torch.Tensor, fill: int,
     Quantized stores are dequantized on the way (``gather_view``), so the
     views are full precision.  Returns (k_views, v_views): [nA, cap, Hkv,
     dh]; positions the stream does not cover stay zero (as in a fresh
-    ``init_chunk_cache``).
+    ``init_chunk_cache``).  ``views_from_pages_batch`` does it for every
+    slot of a block table at once."""
+    fill = torch.full((1,), int(fill), dtype=torch.int32,
+                      device=store["pos_pages"].device)
+    k, v = views_from_pages_batch(store, block_table.reshape(1, -1), fill,
+                                  cfg, cap, kv_dtype=kv_dtype)
+    return k[:, 0], v[:, 0]
+
+
+def views_from_pages_batch(store: Store, block_table: torch.Tensor,
+                           fill: torch.Tensor, cfg: ModelConfig, cap: int,
+                           kv_dtype: Optional[str] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``views_from_pages`` over S slots: block_table [S, J], fill [S] (each
+    slot's entry count: a speculative verify passes the pre-draft fill, so
+    the draft's tentative entries above it stay out).  Returns (k_views,
+    v_views): [nA, S, cap, Hkv, dh], layer-major, so ``[a]`` is layer a's
+    time-major staging cache for the S slots.
 
     The reference scatters each layer's rows (``mode="drop"`` losing
     MASKED_POS and positions ≥ cap).  Here one scatter of entry indices,
-    every layer at once, builds a [nA, cap] map (dropped targets land in
-    a spare column past ``cap``; uncovered positions keep index E, a zero
-    row), and one gather reads the rows: the same values, a few launches
-    and no host sync, and only nA·cap rows written instead of nA·E."""
-    view = gather_view(store, block_table.reshape(1, -1), with_kv=True,
-                       kv_dtype=kv_dtype)
-    k, v = view["k"][0], view["v"][0]                 # [E, Hkv, dh]
-    E, nA, dev = k.shape[0], num_attention_layers(cfg), k.device
-    layer = torch.arange(nA, device=dev)[:, None]
-    in_fill = (torch.arange(E, device=dev) < fill)[None]
-    eff = history.effective_positions(view["pos"], view["l0"], view["l1"],
-                                      in_fill, layer).long()   # [nA, E]
+    every layer and slot at once, builds an [nA, S, cap] map (dropped
+    targets land in a spare column past ``cap``; uncovered positions keep
+    the index of a zero row), and one gather reads the rows: the same
+    values, a few launches and no host sync, and only nA·S·cap rows
+    written instead of nA·S·E."""
+    view = gather_view(store, block_table, with_kv=True, kv_dtype=kv_dtype)
+    S, E = view["pos"].shape
+    nA, dev = num_attention_layers(cfg), view["pos"].device
+    fill = fill.to(device=dev, dtype=torch.int32)
+    layer = torch.arange(nA, device=dev)[None, :, None]
+    in_fill = (torch.arange(E, device=dev)[None] < fill[:, None])[:, None]
+    eff = history.effective_positions(
+        view["pos"][:, None], view["l0"][:, None], view["l1"][:, None],
+        in_fill, layer).transpose(0, 1).long()              # [nA, S, E]
     col = torch.where((eff >= 0) & (eff < cap), eff,
                       torch.full_like(eff, cap))
-    flat = (layer * (cap + 1) + col).reshape(-1)
+    lane = (torch.arange(nA, device=dev)[:, None] * S
+            + torch.arange(S, device=dev)[None])[..., None]   # [nA, S, 1]
+    flat = (lane * (cap + 1) + col).reshape(-1)
     if dev.type == "cpu":
-        hits = torch.zeros(nA * (cap + 1), dtype=torch.int64).index_add_(
-            0, flat, torch.ones_like(flat)).view(nA, cap + 1)[:, :cap]
+        hits = torch.zeros(nA * S * (cap + 1), dtype=torch.int64).index_add_(
+            0, flat, torch.ones_like(flat)).view(nA, S, cap + 1)[..., :cap]
         assert int(hits.max()) <= 1, \
             "two admitted entries share a position within a layer"
-    src = torch.full((nA * (cap + 1),), E, dtype=torch.int64, device=dev)
-    src.index_put_((flat,), torch.arange(E, device=dev).expand(nA, E)
-                   .reshape(-1))
-    src = src.view(nA, cap + 1)[:, :cap].reshape(-1)
+    # row s·(E + 1) + e of the slots' rows, each slot followed by a zero row
+    row = (torch.arange(S, device=dev)[:, None] * (E + 1)
+           + torch.arange(E, device=dev)[None])                # [S, E]
+    src = (torch.arange(S, device=dev)[None, :, None] * (E + 1) + E
+           ).expand(nA, S, cap + 1).reshape(-1).clone()
+    src.index_put_((flat,), row[None].expand(nA, S, E).reshape(-1))
+    src = src.view(nA, S, cap + 1)[..., :cap].reshape(-1)
 
     def rows(x):
-        x = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
-        return x.index_select(0, src).view((nA, cap) + tuple(x.shape[1:]))
+        x = torch.cat([x, x.new_zeros((S, 1) + tuple(x.shape[2:]))], dim=1)
+        x = x.reshape((S * (E + 1),) + tuple(x.shape[2:]))
+        return x.index_select(0, src).view((nA, S, cap)
+                                           + tuple(x.shape[1:]))
 
-    return rows(k), rows(v)
+    return rows(view["k"]), rows(view["v"])
 
 
 def chunk_cache_from_views(k_views: torch.Tensor, v_views: torch.Tensor,

@@ -10,7 +10,9 @@ continuous engine prefills it; with ``--prefix warm|cold``, one admission
 of the paged engine with the prefix cache on or off); with
 ``--decode-steps N``, fused N-step decode epochs (``model.DecodeEpoch``: on
 the card a CUDA graph of one decode iteration, replayed) beside the eager
-steps, in the same process.
+steps, in the same process; with ``--spec-k K``, steady windows of the
+speculative continuous engine (the dense pool, or ``--paged`` bf16 pages),
+split into draft, verify and commit.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --batch 4 --prompt-len 512 --steps 8   # on the card
@@ -27,6 +29,8 @@ steps, in the same process.
       --prefix-tail 64 --batch 1                               # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --decode-steps 8                        # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --spec-k 4 [--paged] [--draft-keep 0.5] # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
 
@@ -106,6 +110,17 @@ step and idle share as above, the timed window's device time on CUDA
 events a step, graph replays and device launches a step, decode tok/s
 (batch / wall a step) and the top kernels.  The eager line's tok/s is
 batch / its wall a step too.
+
+``--spec-k K`` (``--draft-keep``, ``--paged``) serves ``--batch``
+requests of ``--prompt-len`` tokens (48 new tokens each, admitted
+together) through the speculative engine and prints one JSON line of its
+steady windows (``profile_spec``): window 2 timed (wall ms, the host's
+enqueue ms up to the window's sync and each part's), window 3 traced as
+it runs (device busy ms, idle share against window 2's wall, launches,
+top kernels), window 4 traced with a synchronize after each part (each
+part's wall, busy ms and launches); parts ``draft``, ``verify``,
+``commit`` (paged) and ``other``; and the run's acceptance rate and
+tokens a window.
 """
 import argparse
 import json
@@ -493,6 +508,164 @@ def profile_prefix(model, prefix_len: int, tail: int, warm: bool,
     return rec
 
 
+SPEC_TIMED, SPEC_PROFILED, SPEC_SPLIT = 2, 3, 4   # window indices
+
+
+def profile_spec(model, batch: int, prompt_len: int, spec_k: int,
+                 draft_keep, paged: bool, top: int = 8,
+                 new_tokens: int = 48) -> dict:
+    """Steady windows of the speculative continuous engine (``batch``
+    slots, ``batch`` requests of ``prompt_len`` tokens admitted together,
+    ``new_tokens`` each): window SPEC_TIMED timed (wall, the host's enqueue
+    up to the sync, each part's enqueue), SPEC_PROFILED traced as it runs
+    (busy, idle, launches), SPEC_SPLIT traced with a synchronize after each
+    part (each part's wall, busy ms and launches: the kernels that start
+    inside the part's ``record_function`` range).  Parts: ``draft`` (the
+    draft epoch: on the card graph replays), ``verify`` (the verify chunk
+    forward, paged: with the staging cache's restore), ``commit`` (paged:
+    ``commit_verified``), ``other`` (the rest up to the sync: argmax, the
+    greedy accept on the device, transfers)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    cfg, dev = model.cfg, model.device
+    cuda = dev.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    eng = ContinuousBatchingEngine(
+        model, kv_mode="paged" if paged else "dense", max_slots=batch,
+        max_len=prompt_len + new_tokens, page_size=16, spec_k=spec_k,
+        draft_keep=draft_keep)
+    rng = np.random.default_rng(0)
+    for _ in range(batch):
+        eng.submit(rng.integers(0, cfg.vocab_size, (prompt_len,)).astype(
+            np.int32), max_new_tokens=new_tokens)
+    st = {"win": -1, "t0": 0.0, "enqueue": {}, "split_ms": {}, "prof": None}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def part(name, fn):
+        def run(*a, **k):
+            w = st["win"]
+            if w == SPEC_SPLIT:
+                sync()
+                t0 = time.perf_counter()
+                with record_function(f"spec_{name}"):
+                    out = fn(*a, **k)
+                    sync()
+                st["split_ms"][name] = (st["split_ms"].get(name, 0.0)
+                                        + (time.perf_counter() - t0) * 1e3)
+                return out
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if w == SPEC_TIMED:
+                st["enqueue"][name] = (st["enqueue"].get(name, 0.0)
+                                       + (time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    inputs, keep, fetch = eng._spec_inputs, eng._spec_bookkeep, \
+        engine_mod._fetch
+
+    def window_start():
+        st["win"] += 1
+        if st["win"] in (SPEC_PROFILED, SPEC_SPLIT):
+            sync()
+            st["prof"] = profile(activities=acts)
+            st["prof"].start()
+        st["t0"] = time.perf_counter()
+        return inputs()
+
+    def fetched(*a):
+        if st["win"] == SPEC_TIMED:
+            st["sync_at_ms"] = (time.perf_counter() - st["t0"]) * 1e3
+        return fetch(*a)
+
+    def bookkeep(rs, cur, gamma, plan_emit, accepted, gates, window_s,
+                 *a, **k):
+        w = st["win"]
+        if w == SPEC_TIMED:
+            st["wall_ms"], st["gamma"] = window_s * 1e3, gamma
+        elif w in (SPEC_PROFILED, SPEC_SPLIT):
+            st["prof"].stop()
+            st[w] = (st["prof"], window_s * 1e3, gamma)
+        return keep(rs, cur, gamma, plan_emit, accepted, gates, window_s,
+                    *a, **k)
+
+    verify = "paged_verify_chunk" if paged else "verify_chunk"
+    commit = model_mod.commit_verified
+    eng._spec_inputs, eng._spec_bookkeep = window_start, bookkeep
+    eng._draft = part("draft", eng._draft)
+    setattr(model, verify, part("verify", getattr(model, verify)))
+    engine_mod._fetch = fetched
+    model_mod.commit_verified = part("commit", commit)
+    try:
+        out = eng.run()
+    finally:
+        engine_mod._fetch, model_mod.commit_verified = fetch, commit
+        delattr(model, verify)
+    s = out["stats"]
+    if st["win"] < SPEC_SPLIT:
+        raise RuntimeError(f"--spec-k: only {st['win'] + 1} windows ran; "
+                           "raise the new tokens")
+    enq = dict(st["enqueue"])
+    enq["other"] = st["sync_at_ms"] - sum(enq.values())
+    rec = {"arch": cfg.name, "weights": _weights(model), "batch": batch,
+           "prompt_len": prompt_len, "kv": "paged" if paged else "dense",
+           "spec_k": spec_k, "draft_keep": eng.draft_keep,
+           "gamma": st["gamma"], "wall_ms": st["wall_ms"],
+           "host_enqueue_ms": st["sync_at_ms"], "enqueue_ms_parts": enq,
+           "tokens_per_window": None,
+           "acceptance_rate": s.spec_acceptance_rate,
+           "spec_windows": s.spec_windows, "graphs_captured": s.compiles,
+           "device_busy_ms": None, "idle_share": None,
+           "device_launches": None, "top_kernels": None,
+           "split_wall_ms": st["split_ms"], "split_busy_ms": None,
+           "split_launches": None}
+    rec["tokens_per_window"] = (s.decode_tokens - batch) / s.spec_windows
+    prof, prof_wall, _ = st[SPEC_PROFILED]
+    by_name = _kernel_times(prof)
+    if by_name:
+        busy = sum(us for us, _ in by_name.values()) / 1e3
+        rec.update(
+            profiled_wall_ms=prof_wall, device_busy_ms=busy,
+            idle_share=1.0 - busy / rec["wall_ms"],
+            device_launches=sum(cnt for _, cnt in by_name.values()),
+            top_kernels=[{"name": name[:80], "ms": us / 1e3, "launches": cnt}
+                         for name, (us, cnt) in sorted(
+                             by_name.items(), key=lambda kv: -kv[1][0])[:top]])
+        rec.update(_split(st[SPEC_SPLIT][0]))
+    return rec
+
+
+def _split(prof) -> dict:
+    """Per part of a window traced with a synchronize after each part: the
+    device ms and launches of the kernels that start inside the part's
+    ``record_function`` range (the rest under ``other``; the ranges' own
+    device-side annotations are no kernels and are left out)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    ranges = [(e.name[len("spec_"):], e.time_range.start, e.time_range.end)
+              for e in events if e.device_type == DeviceType.CPU
+              and e.name.startswith("spec_")]
+    busy, launches = {}, {}
+    for e in events:
+        # the device side of a record_function range is a CUDA event too
+        if e.device_type != DeviceType.CUDA or e.name.startswith("spec_"):
+            continue
+        at = e.time_range.start
+        name = next((n for n, lo, hi in ranges if lo <= at <= hi), "other")
+        busy[name] = busy.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        launches[name] = launches.get(name, 0) + 1
+    return {"split_busy_ms": busy, "split_launches": launches}
+
+
 def _weights(model) -> str:
     return ("int4" if "w_int" in model.params().get("lm_head", {})
             else model.cfg.dtype)
@@ -602,7 +775,19 @@ def main(argv=None) -> None:
     ap.add_argument("--decode-steps", type=int, default=0,
                     help="also fused epochs of N decode steps (CUDA graphs "
                          "on the card) beside the eager steps")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="steady windows of the speculative continuous "
+                         "engine instead (dense pool, or --paged bf16 "
+                         "pages), split into draft, verify and commit")
+    ap.add_argument("--draft-keep", type=float, default=None,
+                    help="with --spec-k: the draft pass's keep lever")
     args = ap.parse_args(argv)
+    if args.spec_k < 0 or (args.spec_k and (args.prefill
+                                            or args.decode_steps)):
+        raise SystemExit("--spec-k takes K >= 1 and neither --prefill nor "
+                         "--decode-steps")
+    if args.draft_keep is not None and not args.spec_k:
+        raise SystemExit("--draft-keep requires --spec-k")
     if args.decode_steps < 0 or (args.decode_steps
                                  and (args.paged or args.prefill)):
         raise SystemExit("--decode-steps takes N >= 1 and neither --paged "
@@ -630,6 +815,11 @@ def main(argv=None) -> None:
     model = LanguageModel(cfg, device=args.device, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=args.device)
+    if args.spec_k:
+        print(json.dumps(profile_spec(
+            model, args.batch, args.prompt_len, args.spec_k,
+            args.draft_keep, args.paged)), flush=True)
+        return
     if args.prefix:
         print(json.dumps(profile_prefix(
             model, args.prompt_len, args.prefix_tail,

@@ -16,8 +16,11 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --batch 4 --prompt-len 512 --continuous --prefill-chunk 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --continuous --paged-kv --prefix-cache        # shared prompt prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --spec-k 4 [--draft-keep 0.5]    # self-speculative
 
-Weights are random, drawn from seed 0 on the chosen device; ``--int4``
+``--arch`` defaults to llama2-7b.  Weights are random, drawn from seed 0
+on the chosen device; ``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
 int4 codes with the config's group size and power-of-2 scales, served by
 the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
@@ -26,6 +29,10 @@ requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
 epochs of up to N steps, one host sync each (on CUDA one captured graph
 of a decode iteration, replayed); ``--prefill-chunk C`` > 0 prefills C
 tokens an iteration, interleaved with the residents' decode steps.
+``--spec-k K`` decodes in self-speculative windows: up to K draft
+iterations under router biases raised by ``--draft-keep`` (a captured
+graph on CUDA), one verify chunk of the full model, the accepted prefix
+and a correction emitted per slot.
 ``--prefix-cache`` (with ``--paged-kv``) shares published prompt prefixes
 as refcounted pages; the requests then open with one shared system prompt
 of half their length, so every request after the first is admitted warm.
@@ -40,7 +47,7 @@ import numpy as np
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default="llama2-7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -71,6 +78,17 @@ def main(argv=None) -> None:
                          "epoch (default: the config's "
                          "decode_steps_per_dispatch; 1 = single-step; "
                          "requires --continuous)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative decoding: draft this many "
+                         "tokens a window with the layer-skip draft pass, "
+                         "verify them in one chunk forward (0 = off; "
+                         "requires --continuous, incompatible with "
+                         "--decode-steps)")
+    ap.add_argument("--draft-keep", type=float, default=None,
+                    help="draft-pass router keep-rate lever in (0, 1]: "
+                         "lower = more aggressively skipped drafts at "
+                         "lower acceptance (default: the serve keep rate; "
+                         "requires --spec-k)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: process prompts this many "
                          "tokens at a time, interleaved with resident "
@@ -90,12 +108,19 @@ def main(argv=None) -> None:
         raise SystemExit("--decode-steps requires --continuous")
     if args.prefill_chunk and not args.continuous:
         raise SystemExit("--prefill-chunk requires --continuous")
+    if args.spec_k and not args.continuous:
+        raise SystemExit("--spec-k requires --continuous")
+    if args.spec_k and args.decode_steps is not None:
+        raise SystemExit("--spec-k and --decode-steps are mutually "
+                         "exclusive (both own the decode cadence)")
+    if args.draft_keep is not None and not args.spec_k:
+        raise SystemExit("--draft-keep requires --spec-k")
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.model import LanguageModel
     from repro_torch.serve.config import (EngineConfig, KVConfig,
-                                          SchedulingConfig)
+                                          SchedulingConfig, SpecConfig)
     from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
     from repro_torch.serve.errors import ConfigError
 
@@ -125,6 +150,7 @@ def main(argv=None) -> None:
                                         max_len=max_len,
                                         prefill_chunk=args.prefill_chunk,
                                         decode_steps=args.decode_steps),
+            spec=SpecConfig(spec_k=args.spec_k, draft_keep=args.draft_keep),
             temperature=args.temperature))
         shared = (rng.integers(0, cfg.vocab_size, (args.prompt_len // 2,),
                                dtype=np.int32) if args.prefix_cache
@@ -150,6 +176,12 @@ def main(argv=None) -> None:
             print(f"chunked prefill: {s.prefill_chunks} chunks | "
                   f"{s.interleaved_steps} interleaved steps | worst "
                   f"decode stall {worst*1e3:.1f}ms")
+        if args.spec_k:
+            print(f"speculative: {s.spec_windows} windows | drafted "
+                  f"{s.spec_tokens_drafted}, accepted "
+                  f"{s.spec_tokens_accepted} (rate "
+                  f"{s.spec_acceptance_rate:.1%}) | rolled back "
+                  f"{s.spec_entries_rolled_back} paged entries")
         if s.kv_mode == "paged":
             print(f"paged KV: peak {s.pages_peak}/{s.pages_total} pages "
                   f"(×{s.page_size} entries) | live entry saving "

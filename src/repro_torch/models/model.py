@@ -1,6 +1,7 @@
 """LanguageModel: init / prefill / prefill chunk / decode step over the
 layer stack, with SkipGPT routing and cross-layer KV reuse threaded
-through every layer.
+through every layer; the fused decode epochs, and the speculative draft
+loops, verify windows and verified commit.
 
 Counterpart of the JAX package's ``models/model.py`` (inference entry
 points).  Parameters are a nested dict named after the reference's pytree
@@ -182,6 +183,26 @@ def prefill_chunk(params: Dict, cache: List[Dict], tokens: torch.Tensor,
     return logits, cache, stats
 
 
+def verify_chunk(params: Dict, cache: List[Dict], tokens: torch.Tensor,
+                 t0, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, List[Dict], Dict]:
+    """Speculative verification: ``prefill_chunk`` with *every* column
+    unembedded.  Feeding the window [f0, d_1..d_k] at positions [t0, t0 +
+    k] (t0 [B] or scalar) returns logits [B, k+1, V] whose column j is the
+    verifier's next-token distribution after the prefix ending at the
+    j-th fed token, so column j judges draft d_{j+1} and column ``a``
+    gives the correction after accepting ``a`` drafts.  The window's KV
+    lands at [t0, t0 + C) of ``cache`` (the dense pool, or a staging
+    cache) IN PLACE, as a prefill chunk's does: rows past the accepted
+    prefix are dead until the next window overwrites them, masked until
+    then by decode's ``kv_valid_len``.  Returns (logits, cache, stats with
+    ``attn_gate`` [L, B, C])."""
+    x, sq, stats = _chunk_stack(params, cache, tokens, t0, cfg)
+    x = layers.norm_apply(params["final_norm"], x, cfg, stats=sq)
+    logits = layers.unembed(params["embed"], params.get("lm_head"), x, cfg)
+    return logits, cache, stats
+
+
 def decode_step(params: Dict, cache: List[Dict], tokens: torch.Tensor,
                 t, cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict], Dict]:
     """One token per sequence.  tokens [B, 1]; t: [B] or scalar position
@@ -327,12 +348,20 @@ class DecodeEpoch:
     ``sampler(logits, generator, temperature)`` draws the tokens (by
     default ``serve.sampling.sample``); at temperature > 0 the run's
     generator is registered with each graph, so every replay draws
-    afresh."""
+    afresh.
+
+    ``draft`` makes it the speculative draft loop's (``draft_loop``,
+    ``paged_draft_loop``): an iteration proposes a token for every slot
+    and advances (feed, t) unconditionally, with no stop, budget or length
+    test (the host clamps the window and truncates emission at
+    acceptance), the paged fill advancing where ``active``; it also keeps
+    each step's logits [n_max, S, V] (fp32) for the temperature > 0
+    accept test.  ``budget`` and ``stop`` are loaded but not read."""
 
     def __init__(self, params: Dict, kv, cfg: ModelConfig, *, slots: int,
                  n_max: int, max_len: int, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 paged: bool = False, sampler=None):
+                 paged: bool = False, sampler=None, draft: bool = False):
         if sampler is None:
             from repro_torch.serve.sampling import sample as sampler
         self.params, self.kv, self.cfg = params, kv, cfg
@@ -358,6 +387,10 @@ class DecodeEpoch:
         self.gates = (torch.zeros((n_max, n_attn, slots),
                                   dtype=torch.float32, device=dev)
                       if n_attn else None)
+        self.draft = draft
+        self.logits = (torch.zeros((n_max, slots, cfg.vocab_size),
+                                   dtype=torch.float32, device=dev)
+                       if draft else None)
         self._tables: Dict[int, torch.Tensor] = {}   # width -> [S, width]
         self._width: Optional[int] = None
         self._graphs: Dict[Optional[int], torch.cuda.CUDAGraph] = {}
@@ -459,6 +492,14 @@ class DecodeEpoch:
                         ce[name] = leaf
             gates = stats.get("attn_gate")
         tok = self.sampler(logits, self.generator, self.temperature)
+        if self.draft:
+            self.tokens.index_copy_(0, self.step, tok[None])
+            self.logits.index_copy_(0, self.step,
+                                    logits[None].to(self.logits.dtype))
+            self.feed.copy_(tok)
+            self.t.add_(1)
+            self.step.add_(1)
+            return
         self.emitted.add_(self.active.to(torch.int32))
         nxt = _loop_finish(tok, self.t, self.emitted, self.active,
                            self.budget, self.stop, self.max_len)
@@ -485,6 +526,8 @@ class DecodeEpoch:
                "emitted": self.emitted.clone()}
         if self.paged:
             out["fill"] = self.fill.clone()
+        if self.draft:
+            out["logits"] = self.logits[:n].clone()
         return out
 
     def fetch(self, n: int):
@@ -563,6 +606,153 @@ def paged_decode_loop(params: Dict, store: Dict, feed, t, fill, active,
 
 
 # ---------------------------------------------------------------------------
+# Speculative decoding: draft loops, paged verify, verified commit
+# ---------------------------------------------------------------------------
+
+def draft_loop(params: Dict, cache: List[Dict], feed, t,
+               generator: Optional[torch.Generator] = None, *,
+               n_steps: int, cfg: ModelConfig,
+               temperature: float = 0.0) -> Tuple[List[Dict], Dict]:
+    """Speculative draft: ``n_steps`` decode iterations under the (usually
+    skip-biased, ``core.routing.draft_router_bias``) draft parameters over
+    the dense pool, proposing one token per slot and step (on CUDA one
+    captured graph of an iteration, replayed; see ``DecodeEpoch``).
+
+    Unlike ``decode_loop`` there is no stop, budget or length masking: a
+    window is short (the host clamps γ so every write stays below the
+    pool's rows) and the host truncates emission at acceptance, so a draft
+    running past a stop token proposes on.  Draft KV lands in the pool
+    rows the verify window overwrites at once.  Returns (cache, updated in
+    place, out): ``tokens`` [n, B], ``logits`` [n, B, V] (fp32: the
+    distributions the temperature > 0 accept test reconstructs), and the
+    final ``feed``/``t``."""
+    # max_len 0: a draft iteration tests no length
+    epoch = DecodeEpoch(params, cache, cfg, slots=len(feed), n_max=n_steps,
+                        max_len=0, temperature=temperature,
+                        generator=generator, draft=True)
+    S = len(feed)
+    epoch.load(feed, t, np.ones((S,), bool), np.zeros((S,), np.int32),
+               np.full((S,), -1, np.int64))
+    epoch.run(n_steps)
+    return cache, epoch.outputs(n_steps)
+
+
+def paged_draft_loop(params: Dict, store: Dict, feed, t, fill, active,
+                     generator: Optional[torch.Generator] = None,
+                     block_table=None, *, n_steps: int, cfg: ModelConfig,
+                     temperature: float = 0.0) -> Tuple[Dict, Dict]:
+    """``draft_loop`` against the paged store: tentative entries append at
+    the live fill (the committed prefix below the window's entry count
+    stays untouched), the fill advancing on the device by the measured
+    fresh-entry count of the ``active`` slots (commit mask ``active &
+    (fill > 0)``).  Every entry appended here is tentative:
+    ``paged_verify_chunk`` reads only the pre-draft prefix, and
+    ``commit_verified`` rewrites the stream from the pre-draft fill with
+    the verifier's KV for the accepted columns only.  The host must have
+    reserved pages for ``n_steps`` worst-case appends per active slot
+    (``block_table`` [B, J] must span them).  Returns (store, updated in
+    place, out) as ``draft_loop`` plus the final ``fill``, so the host can
+    count rolled-back entries."""
+    epoch = DecodeEpoch(params, store, cfg, slots=len(feed), n_max=n_steps,
+                        max_len=0, temperature=temperature,
+                        generator=generator, paged=True, draft=True)
+    S = len(feed)
+    epoch.load(feed, t, active, np.zeros((S,), np.int32),
+               np.full((S,), -1, np.int64), fill=fill,
+               block_table=block_table)
+    epoch.run(n_steps)
+    return store, epoch.outputs(n_steps)
+
+
+def paged_verify_chunk(params: Dict, store: Dict, tokens: torch.Tensor,
+                       t0, block_table: torch.Tensor, fill: torch.Tensor,
+                       cfg: ModelConfig, cap: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """Speculative verification against the paged store, read-only.
+
+    The window's C = k+1 fed tokens (tokens [B, C] at positions [t0, t0 +
+    C), t0 [B]) attend over the *committed* entry prefix of each slot (the
+    entries below ``fill`` [B]: the engine passes the pre-draft fill, so
+    the draft loop's tentative entries are invisible) plus the window's
+    own KV.  The reference attends in jnp over the gathered stream with
+    explicit key positions; here the committed prefix is restored into a
+    staging cache ([B, cap, Hkv, dh] per layer, ``views_from_pages_batch``:
+    exact as a set of keys, since layer 0 is always fresh, so each
+    committed position has exactly one admitted entry at every layer;
+    quantized pages dequantized) and the window runs through the chunk
+    path over it (``transformer.stack_verify_paged``), whose attention is
+    the flash kernel.  ``cap`` (default max(t0) + C, one host read) must
+    cover every slot's t0 + C.  Nothing is committed: each layer's window
+    views come back in ``stats['kv_token']`` ([L, B, C, Hkv, dh] each) for
+    ``commit_verified``.  Returns (logits [B, C, V], stats with
+    ``attn_gate`` [L, B, C])."""
+    transformer.check_supported(cfg)
+    if not paged_mod.can_page(cfg):
+        raise ValueError(f"{cfg.name}: not a pageable stack")
+    B, C = tokens.shape
+    dev = tokens.device
+    t0 = torch.as_tensor(t0, dtype=torch.int32, device=dev)
+    t0 = t0.reshape(-1).expand(B).contiguous()
+    if cap is None:
+        cap = int(t0.max()) + C
+    kv_dtype = paged_mod.infer_kv_dtype(store, cfg)
+    k_views, v_views = paged_mod.views_from_pages_batch(
+        store, block_table.to(device=dev, dtype=torch.int32), fill, cfg,
+        cap, kv_dtype=kv_dtype)
+    dt = layers.torch_dtype(cfg)
+    stage = [{"k": k_views[a].to(dt), "v": v_views[a].to(dt)}
+             for a in range(k_views.shape[0])]
+    del k_views, v_views
+    pos = t0[:, None] + torch.arange(C, dtype=torch.int32, device=dev)[None]
+    x = layers.embed(params["embed"], tokens)
+    x, kv_token, stats, sq = transformer.stack_verify_paged(
+        params["blocks"], stage, x, t0, pos, cfg)
+    del stage
+    stats["kv_token"] = kv_token
+    x = layers.norm_apply(params["final_norm"], x, cfg, stats=sq)
+    logits = layers.unembed(params["embed"], params.get("lm_head"), x, cfg)
+    return logits, stats
+
+
+def commit_verified(store: Dict, buf_k: torch.Tensor, buf_v: torch.Tensor,
+                    gates: torch.Tensor, t0: torch.Tensor,
+                    block_table: torch.Tensor, fill0: torch.Tensor,
+                    committed: torch.Tensor, active: torch.Tensor,
+                    cfg: ModelConfig) -> Tuple[Dict, torch.Tensor]:
+    """Post-acceptance paged commit: rewrite the entry stream from the
+    pre-draft ``fill0`` with the *verifier's* KV for exactly the leading
+    ``committed`` columns of the window (per slot), column by column in
+    the token-major order a never-speculated engine appends
+    (``paged.commit_decode`` once per column), so the committed stream is
+    the plain engine's and every tentative draft entry at or above the
+    new fill is dead (masked by the fill at read time, overwritten by the
+    next window's draft).
+
+    buf_k/buf_v: [L, S, C, Hkv, dh] (``paged_verify_chunk``'s views);
+    gates: [L, S, C]; t0/fill0/committed: [S]; ``active`` [S] masks slots
+    outside the window.  The store is written IN PLACE.  Returns (store,
+    the per-slot fill after the commit)."""
+    reuse = paged_mod.reuse_enabled(cfg)
+    dev = gates.device
+    kv_dtype = paged_mod.infer_kv_dtype(store, cfg)
+    block_table = block_table.to(device=dev, dtype=torch.int32)
+    fill = fill0.to(device=dev, dtype=torch.int32).clone()
+    committed = committed.to(device=dev, dtype=torch.int32)
+    active = active.to(device=dev, dtype=torch.bool)
+    t0 = t0.to(device=dev, dtype=torch.int32)
+    for j in range(gates.shape[-1]):
+        g = gates[..., j]
+        mask = active & (j < committed)
+        paged_mod.commit_decode(store, buf_k[:, :, j], buf_v[:, :, j], g,
+                                t0 + j, block_table, fill, mask, cfg,
+                                kv_dtype=kv_dtype)
+        n_fresh = history.fresh_mask(g, reuse).to(torch.int32).sum(
+            0, dtype=torch.int32)
+        fill = fill + torch.where(mask, n_fresh, 0)
+    return store, fill
+
+
+# ---------------------------------------------------------------------------
 # nn.Module owner
 # ---------------------------------------------------------------------------
 
@@ -626,6 +816,18 @@ class LanguageModel(nn.Module):
                       last_index=None):
         return prefill_chunk(self.params(), cache, tokens.to(self.device),
                              t0, self.cfg, last_index=last_index)
+
+    @torch.no_grad()
+    def verify_chunk(self, cache, tokens: torch.Tensor, t0):
+        return verify_chunk(self.params(), cache, tokens.to(self.device),
+                            t0, self.cfg)
+
+    @torch.no_grad()
+    def paged_verify_chunk(self, store, tokens: torch.Tensor, t0,
+                           block_table, fill, cap=None):
+        return paged_verify_chunk(self.params(), store,
+                                  tokens.to(self.device), t0, block_table,
+                                  fill, self.cfg, cap=cap)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, t):

@@ -3,9 +3,11 @@
 attention-free Mamba-2 stacks.
 
 Counterpart of ``stage_forward`` / ``stage_decode`` /
-``stage_prefill_chunk`` in the JAX package's ``models/transformer.py``.  An attention block is {"mixer": routed
-attention, "ffn": routed GLU MLP}; the KV view and the Σy²/D carry thread
-from block to block exactly as they thread through the reference's stages.
+``stage_prefill_chunk`` / ``stage_decode_paged`` / ``stage_verify_paged``
+in the JAX package's ``models/transformer.py``.  An attention block is
+{"mixer": routed attention, "ffn": routed GLU MLP}; the KV view and the
+Σy²/D carry thread from block to block exactly as they thread through the
+reference's stages.
 A Mamba block is {"mixer": routed SSM}; it consumes the Σy²/D carry but
 emits none, and its cache entry is {"conv_x", "conv_bc", "ssm"}.
 """
@@ -141,8 +143,42 @@ def stack_prefill_chunk(blocks: List[Params], cache: List[Dict],
     the Σy²/D carry thread from block to block over the chunk's tokens
     only.  Returns (x, cache, stats with ``attn_gate`` [L, B, C], the
     final Σy²/D carry)."""
+    x, stats, sq, _ = _chunk_layers(blocks, cache, x, t0, positions, cfg)
+    return x, cache, stats, sq
+
+
+def stack_verify_paged(blocks: List[Params], stage: List[Dict],
+                       x: torch.Tensor, t0: torch.Tensor,
+                       positions: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                      torch.Tensor],
+                                  Dict, torch.Tensor]:
+    """A speculative verify window of C tokens over every block against
+    the paged store (counterpart of ``stage_verify_paged`` over all
+    stages), read-only: ``stage`` is the staging cache that
+    ``kvcache.paged.views_from_pages_batch`` restored from the committed
+    entry prefix (per layer {"k", "v"} [B, cap, Hkv, dh], positions [0,
+    t0) per slot), and the window runs through the chunk path over it,
+    its rows written at [t0, t0 + C) of the staging cache, never the
+    store.  Returns (x, each layer's window views (k, v) [L, B, C, Hkv,
+    dh] for ``model.commit_verified``, stats with ``attn_gate`` [L, B,
+    C], the final Σy²/D carry)."""
+    x, stats, sq, views = _chunk_layers(blocks, stage, x, t0, positions,
+                                        cfg, collect=True)
+    k_win = torch.stack([k for k, _ in views])
+    v_win = torch.stack([v for _, v in views])
+    return x, (k_win, v_win), stats, sq
+
+
+def _chunk_layers(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
+                  t0: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, collect: bool = False):
+    """The chunk pass shared by chunked prefill and the verify window:
+    (x, stats, Σy²/D carry, and with ``collect`` each layer's merged
+    window view (k, v) [B, C, Hkv, dh], else None)."""
     stats = _zero_stats(x.device)
     gates: List[torch.Tensor] = []
+    views: Optional[List] = [] if collect else None
     kv_prev, sq = None, None
     for i, (bp, ce) in enumerate(zip(blocks, cache)):
         if cfg.block_kind(i) != ATTN:
@@ -151,6 +187,8 @@ def stack_prefill_chunk(blocks: List[Params], cache: List[Dict],
         x, ce["k"], ce["v"], kv_prev, s = skip_block.routed_attention_chunk(
             bp["mixer"], x, ce["k"], ce["v"], t0, kv_prev, positions, cfg,
             carried_sq=sq)
+        if collect:
+            views.append(kv_prev)
         sq = s.pop("res_sq")
         gates.append(s["attn_gate"])
         stats = _acc_stats(stats, s, cfg.skip.route_attention)
@@ -158,7 +196,7 @@ def stack_prefill_chunk(blocks: List[Params], cache: List[Dict],
         sq = s.pop("res_sq")
         stats = _acc_stats(stats, s, cfg.skip.route_mlp)
     stats["attn_gate"] = torch.stack(gates)
-    return x, cache, stats, sq
+    return x, stats, sq, views
 
 
 def _ssm_forward(blocks: List[Params], x: torch.Tensor, cfg: ModelConfig):

@@ -23,7 +23,10 @@ Counterpart of the JAX package's ``serve/engine.py``:
     Decode runs one step per
     dispatch or, with ``decode_steps > 1``, device-resident N-step epochs
     (``models.model.DecodeEpoch``: on CUDA a captured graph of one
-    iteration, replayed).
+    iteration, replayed), or, with ``spec_k`` > 0, self-speculative
+    draft + verify windows (a draft epoch under skip-biased router
+    parameters, one verify chunk of the full model, host acceptance, and
+    in the paged store the verified commit and its rollback).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import kv_reuse
+from repro_torch.core import kv_reuse, routing
 from repro_torch.kvcache import history as history_mod
 from repro_torch.kvcache import paged as paged_mod
 from repro_torch.kvcache import prefix as prefix_mod
@@ -45,10 +48,12 @@ from repro_torch.models.model import DecodeEpoch, LanguageModel
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
                                       PageExhausted)
+from repro_torch.serve import sampling as sampling_mod
 from repro_torch.serve.sampling import sample
 from repro_torch.serve.scheduler import (ActiveRequest, PrefillChunk,
                                          Request, Scheduler, can_bucket,
-                                         can_chunk_prefill, default_buckets)
+                                         can_chunk_prefill, can_speculate,
+                                         default_buckets)
 
 
 @dataclasses.dataclass
@@ -109,7 +114,15 @@ class ServeStats:
     cache: ``prefix_hits`` (warm admissions whose first suffix work unit
     ran), ``prefix_misses`` (cold admissions), ``prefix_tokens_saved``
     (prompt tokens they did not prefill) and ``prefix_records`` (records
-    resident at the run's end)."""
+    resident at the run's end).
+
+    Speculative decoding (``spec_k`` > 0): ``spec_windows`` (draft +
+    verify windows), ``spec_tokens_drafted`` (γ per active slot and
+    window), ``spec_tokens_accepted``, ``spec_acceptance_rate`` (accepted
+    / drafted), ``spec_entries_rolled_back`` (paged: tentative draft
+    entries above the committed fill).  A window counts two decode
+    dispatches (one with γ = 0) and γ + 1 decode iterations; ``compiles``
+    and ``graph_replays`` are the draft epoch's."""
     prefill_tokens: int = 0
     decode_tokens: int = 0
     prefill_s: float = 0.0
@@ -145,6 +158,12 @@ class ServeStats:
     prefix_misses: int = 0                # cold admissions with cache on
     prefix_tokens_saved: int = 0          # prompt tokens skipped at prefill
     prefix_records: int = 0               # records resident at run end
+    # -- speculative decoding (spec_k > 0) ---------------------------------
+    spec_windows: int = 0                 # draft+verify windows dispatched
+    spec_tokens_drafted: int = 0          # draft proposals fed to verify
+    spec_tokens_accepted: int = 0         # proposals the verifier kept
+    spec_entries_rolled_back: int = 0     # tentative paged entries discarded
+    spec_acceptance_rate: float = 0.0     # accepted / drafted (0 when off)
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -323,16 +342,23 @@ def pool_insert(pool: List[Dict], cache: List[Dict], slot: int
     return pool
 
 
-def _to_host(tok: torch.Tensor, gates: Optional[torch.Tensor]):
-    """One device-to-host transfer for a step's tokens and gate log (token
-    ids are exact in float32).  Returns (int64 tokens, float32 gates or
-    None for a stack without attention)."""
-    if gates is None:
-        return tok.cpu().numpy().astype(np.int64), None
-    n = tok.numel()
-    flat = torch.cat([tok.reshape(-1).float(),
-                      gates.reshape(-1).float()]).cpu().numpy()
-    return flat[:n].astype(np.int64), flat[n:].reshape(tuple(gates.shape))
+def _fetch(*tensors):
+    """Read device tensors back in one transfer (each as float32: token ids
+    and counts are exact in it, logits too); None stays None.  Returns
+    one numpy array per argument, in its shape."""
+    live = [t for t in tensors if t is not None]
+    if not live:
+        return [None] * len(tensors)
+    flat = torch.cat([t.reshape(-1).float() for t in live]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        n = t.numel()
+        out.append(flat[at:at + n].reshape(tuple(t.shape)))
+        at += n
+    return out
 
 
 def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
@@ -340,8 +366,6 @@ def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
     with the ROADMAP queue 1 item that will port it."""
     sch, rob, obs = config.scheduling, config.robustness, config.obs
     out = []
-    if config.spec.spec_k or config.spec.draft_keep is not None:
-        out.append("spec_k / draft_keep (item 11)")
     if rob.faults is not None or rob.watchdog is not None:
         out.append("faults / watchdog (item 12)")
     if rob.snapshot_dir is not None:
@@ -459,6 +483,19 @@ class ContinuousBatchingEngine:
     store, requeues what the dead run left in flight and clears the prefix
     cache.
 
+    ``spec_k`` K > 0 (only where ``can_speculate``, and not with
+    ``decode_steps`` > 1, else ``ValueError``) decodes in self-speculative
+    windows: γ ≤ K draft iterations (``_window_gamma`` clamps γ so the
+    window's writes stay below ``max_len``) under ``draft_params``, the
+    params with router skip biases raised by ``draft_keep``
+    (``core.routing.draft_router_bias``; a ``DecodeEpoch`` in draft mode,
+    on CUDA a captured graph), then one verify chunk of the full model
+    over the fed token and the drafts, host acceptance, and emission of
+    the accepted prefix plus a correction per slot (``_run_dense_spec``,
+    ``_run_paged_spec``; the paged store commits only the emitted
+    columns' verifier KV and trims the rest).  At temperature 0 the tokens
+    are the plain engine's.
+
     ``model`` is a ``LanguageModel``; its device is the engine's.  An
     attention-free Mamba stack serves from the dense pool only (paged mode
     raises ``ValueError``, as do ``prefill_buckets``: it prefills at the
@@ -469,10 +506,10 @@ class ContinuousBatchingEngine:
     ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
     ``temperature``, ``prefill_buckets``, ``prefill_chunk``,
     ``decode_steps``, ``step_tokens``, ``prefix_cache``,
-    ``prefix_block``).  The reference's other levers raise ``ConfigError``
-    naming the ROADMAP item that will port them.  Sampling at
-    ``temperature > 0`` draws from the ``torch.Generator`` given to
-    ``run``."""
+    ``prefix_block``, ``spec_k``, ``draft_keep``).  The reference's other
+    levers raise ``ConfigError`` naming the ROADMAP item that will port
+    them.  Sampling at ``temperature > 0`` draws from the
+    ``torch.Generator`` given to ``run``."""
 
     def __init__(self, model: LanguageModel,
                  config: Optional[EngineConfig] = None, **kwargs):
@@ -501,6 +538,33 @@ class ContinuousBatchingEngine:
                                 else sch.decode_steps)
         if self.decode_steps < 1:
             raise ValueError("decode_steps must be >= 1 (1 = single-step)")
+        self.spec_k = int(config.spec.spec_k)
+        if self.spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 = off)")
+        dk = config.spec.draft_keep
+        self.draft_keep = 1.0 if dk is None else float(dk)
+        # test hook: callable (uid, drafts [γ]) -> [γ] replacing a slot's
+        # draft proposals before verification (it syncs the drafts: a test
+        # lever for forcing accept/reject patterns, not a serving one)
+        self.draft_override = None
+        self.draft_params = None
+        if self.spec_k:
+            if not can_speculate(cfg):
+                raise ValueError(
+                    f"{cfg.name}: speculative decoding reuses the chunked-"
+                    "prefill stack pass for verification — it requires an "
+                    "all-global-attention stack with masked-mode routing "
+                    "and the bthd cache layout (spec_k=0)")
+            if self.decode_steps > 1:
+                raise ValueError(
+                    "spec_k and decode_steps > 1 are mutually exclusive — "
+                    "both amortize host overhead over multi-token "
+                    "dispatches; pick one")
+            if not 0.0 < self.draft_keep <= 1.0:
+                raise ValueError("draft_keep must be in (0, 1]")
+            # built once: the draft graphs hold its tensors' addresses
+            self.draft_params = routing.draft_router_bias(model.params(),
+                                                          self.draft_keep)
         self.kv_mode = kvc.kv_mode
         if self.kv_mode == "paged" and not paged_mod.can_page(cfg):
             raise ValueError(
@@ -713,7 +777,9 @@ class ContinuousBatchingEngine:
         rs = _RunState(stats=stats, results={}, t_run=perf_counter(),
                        generator=generator, hist=hist,
                        misses0=self.prefix.misses if self.prefix else 0)
-        if self.decode_steps > 1:
+        if self.spec_k:
+            run = self._run_paged_spec if paged else self._run_dense_spec
+        elif self.decode_steps > 1:
             run = self._run_paged_fused if paged else self._run_dense_fused
         else:
             run = self._run_paged if paged else self._run_dense
@@ -746,7 +812,7 @@ class ContinuousBatchingEngine:
         if defer:
             return tok, gates, cache
         t_sync = perf_counter()
-        tok, gates = _to_host(tok, gates)
+        tok, gates = _fetch(tok, gates)
         rs.stats.device_s += perf_counter() - t_sync
         return int(tok[0]), gates, cache
 
@@ -802,7 +868,7 @@ class ContinuousBatchingEngine:
             logits, pool, dstats = self.model.decode_step(pool, feed, pos)
             tok = sample(logits, rs.generator, self.temperature)
             t_sync = perf_counter()
-            toks, gates = _to_host(tok, dstats.get("attn_gate"))
+            toks, gates = _fetch(tok, dstats.get("attn_gate"))
             rs.stats.device_s += perf_counter() - t_sync
             self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, L)
 
@@ -823,19 +889,7 @@ class ContinuousBatchingEngine:
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         store = self._acquire_store()
         while sched.has_work():
-            for slot in sorted(sched.active):
-                if slot not in sched.active:      # preempted below
-                    continue
-                while not alloc.ensure(slot, int(alloc.fill[slot]) + nA):
-                    if self._reclaim_pages():
-                        continue
-                    if not self._preempt_youngest(rs, exclude=slot):
-                        raise PageExhausted(
-                            f"page pool exhausted with a single resident "
-                            f"request (slot {slot}) — submit() should have "
-                            "rejected it", slot=slot,
-                            free_pages=alloc.free_pages,
-                            pages_total=self.num_pages)
+            self._ensure_window(rs, 0)
             self._plan_paged(rs, store, reuse, 1)
             if not sched.active:
                 continue
@@ -851,7 +905,7 @@ class ContinuousBatchingEngine:
                 self._tensor(alloc.fill, torch.int32))
             tok = sample(logits, rs.generator, self.temperature)
             t_sync = perf_counter()
-            toks, gates = _to_host(tok, dstats["attn_gate"])
+            toks, gates = _fetch(tok, dstats["attn_gate"])
             rs.stats.device_s += perf_counter() - t_sync
             for slot in sched.active:
                 g = gates[:, slot]
@@ -926,7 +980,7 @@ class ContinuousBatchingEngine:
         if defer:
             return tok, gates, cache
         t_sync = perf_counter()
-        tok, gates = _to_host(tok, gates)
+        tok, gates = _fetch(tok, gates)
         rs.stats.device_s += perf_counter() - t_sync
         return int(tok[0]), gates, cache
 
@@ -1264,6 +1318,395 @@ class ContinuousBatchingEngine:
                                     per_step=per_step)
         self._store = store
 
+    # -- speculative decoding (spec_k > 0) ---------------------------------
+    def _window_gamma(self) -> int:
+        """Draft length of this window, clamped so (a) every active slot
+        holds the window's C = γ + 1 KV writes below ``max_len`` (a dense
+        verify row written past the last would land on a committed row)
+        and (b) the window is not all waste when every resident is nearly
+        out of budget.  0 = verify-only: a C = 1 window, one plain decode
+        step."""
+        g = self.spec_k
+        rem_max = 1
+        for st in self.scheduler.active.values():
+            g = min(g, self.max_len - st.pos - 1)
+            rem_max = max(rem_max,
+                          st.req.max_new_tokens - len(st.out_tokens))
+        return max(0, min(g, rem_max - 1))
+
+    def _ensure_window(self, rs: _RunState, gamma: int) -> None:
+        """Grow every resident's page chain to a window's worst case (fill
+        + (γ + 1)·n_attn entries; γ = 0 is one decode step's headroom)
+        BEFORE the block table is read for the device: an append past the
+        ensured chain would read a block-table zero and scatter into
+        physical page 0, another slot's data.  Under pressure prefix
+        records are evicted first, then the youngest resident preempted."""
+        alloc, sched = self.allocator, self.scheduler
+        need_per = (gamma + 1) * self.n_attn
+        for slot in sorted(sched.active):
+            if slot not in sched.active:          # preempted below
+                continue
+            while not alloc.ensure(slot, int(alloc.fill[slot]) + need_per):
+                if self._reclaim_pages():
+                    continue
+                if not self._preempt_youngest(rs, exclude=slot):
+                    raise PageExhausted(
+                        f"page pool exhausted with a single resident "
+                        f"request (slot {slot}) — submit() should have "
+                        "rejected it", slot=slot,
+                        free_pages=alloc.free_pages,
+                        pages_total=self.num_pages)
+
+    def _draft_epoch(self, kv, rs: _RunState, paged: bool) -> DecodeEpoch:
+        """The run's draft loop over the pool or the store, under the draft
+        parameters: on CUDA one captured graph of a draft iteration (one
+        per block-table width paged), replayed γ times a window."""
+        return DecodeEpoch(self.draft_params, kv, self.cfg,
+                           slots=self.max_slots, n_max=self.spec_k,
+                           max_len=0,
+                           temperature=self.temperature,
+                           generator=rs.generator, paged=paged,
+                           sampler=sample, draft=True)
+
+    def _spec_inputs(self):
+        """This window's host (feed [S], pos [S], active [S], the active
+        slots in order); free slots feed token 0 at position 0."""
+        feed, pos, act = self._epoch_args({})[:3]
+        return feed, pos, act, sorted(self.scheduler.active)
+
+    def _draft(self, rs: _RunState, ep: DecodeEpoch, feed: np.ndarray,
+               feed_dev: torch.Tensor, pos_dev: torch.Tensor,
+               act: np.ndarray, gamma: int, fill=None, bt=None):
+        """The window's draft: γ draft iterations, then the verify feed
+        [S, C] on the device (the fed token and the proposals; with the
+        ``draft_override`` hook, rebuilt on the host).  γ = 0 drafts
+        nothing."""
+        if not gamma:
+            return feed_dev[:, None]
+        S = self.max_slots
+        ep.load(feed_dev, pos_dev, act, np.zeros((S,), np.int32),
+                np.full((S,), -1, np.int64), fill=fill, block_table=bt)
+        ep.run(gamma)
+        rs.stats.compiles, rs.stats.graph_replays = ep.captures, ep.replays
+        if self.draft_override is not None:
+            d = ep.tokens[:gamma].T.cpu().numpy().copy()       # [S, γ]
+            for slot, st in self.scheduler.active.items():
+                d[slot] = np.asarray(
+                    self.draft_override(st.req.uid, d[slot].copy()),
+                    np.int64)
+            return self._tensor(np.concatenate([feed[:, None], d], axis=1))
+        return torch.cat([feed_dev[:, None], ep.tokens[:gamma].T], dim=1)
+
+    def _accept_windows(self, rs: _RunState, cur: List[int], gamma: int,
+                        drafts: np.ndarray, tgt: np.ndarray,
+                        vlog: Optional[np.ndarray],
+                        dlog: Optional[np.ndarray]):
+        """Host acceptance of one window: ({slot: emitted tokens, before
+        truncation}, {slot: accepted drafts}).  Temperature 0 takes the
+        greedy prefix match (the chain plain greedy decoding gives);
+        temperature > 0 the exact accept / resample test per slot, its
+        uniforms drawn from the run's generator."""
+        emitted: Dict[int, List[int]] = {}
+        accepted: Dict[int, int] = {}
+        if self.temperature <= 0.0:
+            acc, corr = sampling_mod.greedy_verify(tgt, drafts)
+            for slot in cur:
+                a = int(acc[slot])
+                emitted[slot] = ([int(x) for x in drafts[slot, :a]]
+                                 + [int(corr[slot])])
+                accepted[slot] = a
+            return emitted, accepted
+        S, gen = drafts.shape[0], rs.generator
+        u_acc = torch.rand((S, max(gamma, 1)), generator=gen,
+                           dtype=torch.float64, device=gen.device)
+        u_fin = torch.rand((S, gamma + 1), generator=gen,
+                           dtype=torch.float64, device=gen.device)
+        u_acc, u_fin = u_acc.cpu().numpy(), u_fin.cpu().numpy()
+        p_t = sampling_mod.softmax_probs(vlog, self.temperature)
+        p_d = (sampling_mod.softmax_probs(dlog, self.temperature)
+               if gamma else None)
+        for slot in cur:
+            if gamma:
+                a, toks = sampling_mod.speculative_accept_window(
+                    drafts[slot], p_d[slot], p_t[slot], u_acc[slot],
+                    u_fin[slot])
+            else:
+                a, toks = 0, [sampling_mod.inverse_cdf_sample(
+                    p_t[slot, 0], float(u_fin[slot, 0]))]
+            emitted[slot] = toks
+            accepted[slot] = a
+        return emitted, accepted
+
+    def _plan_emission(self, st: ActiveRequest,
+                       toks: List[int]) -> List[int]:
+        """A window's emitted tokens cut to what ``_advance_slot`` will
+        append: a stop token, the budget and ``max_len`` each end the
+        request mid-window.  The paged engine commits exactly this many
+        verify columns (the plain engine's fill trajectory, entry for
+        entry)."""
+        keep: List[int] = []
+        for tok in toks:
+            keep.append(tok)
+            if st.req.stop_token is not None and tok == st.req.stop_token:
+                break
+            if len(st.out_tokens) + len(keep) >= st.req.max_new_tokens:
+                break
+            if st.pos + len(keep) >= self.max_len:
+                break
+        return keep
+
+    def _emission_caps(self, cur: List[int]):
+        """[S] bounds of ``_plan_emission`` for the fused greedy commit:
+        budget left, positions left to ``max_len``, stop token (-1 none);
+        slots outside ``cur`` keep harmless defaults (``active`` masks
+        them)."""
+        S = self.max_slots
+        budget = np.ones((S,), np.int32)
+        length = np.ones((S,), np.int32)
+        stop = np.full((S,), -1, np.int64)
+        for s in cur:
+            st = self.scheduler.active[s]
+            budget[s] = st.req.max_new_tokens - len(st.out_tokens)
+            length[s] = self.max_len - st.pos
+            if st.req.stop_token is not None:
+                stop[s] = st.req.stop_token
+        return (self._tensor(budget, torch.int32),
+                self._tensor(length, torch.int32), self._tensor(stop))
+
+    def _spec_verify_commit(self, store, chunk: torch.Tensor,
+                            pos_dev: torch.Tensor, bt: torch.Tensor,
+                            fill_dev: torch.Tensor, act_dev: torch.Tensor,
+                            caps, cap: int):
+        """Paged verify, greedy accept and the verified commit with no host
+        sync between them (temperature 0): the greedy rule and
+        ``_plan_emission``'s truncation (stop token, budget, ``max_len``)
+        are elementwise over the verifier's argmax chain, so the device
+        decides each slot's committed column count and rewrites the stream
+        before the host reads anything; the host replays the acceptance
+        from the argmax chain and requires the same counts.  Returns
+        (argmax [S, C], gates [L, S, C], committed [S]) on the device."""
+        logits, vstats = self.model.paged_verify_chunk(
+            store, chunk, pos_dev, bt, fill_dev, cap=cap)
+        tgt = torch.argmax(logits, dim=-1)                        # [S, C]
+        C = tgt.shape[1]
+        match = chunk[:, 1:] == tgt[:, :-1]
+        acc = torch.cumprod(match.to(torch.int32), dim=1).sum(
+            1, dtype=torch.int32)
+        budget_cap, len_cap, stop = caps
+        cols = torch.arange(C, dtype=torch.int32, device=tgt.device)[None]
+        is_stop = (stop[:, None] >= 0) & (tgt == stop[:, None])
+        stop_n = torch.where(is_stop, cols, C).amin(1) + 1
+        n = torch.minimum(torch.minimum(acc + 1, stop_n),
+                          torch.minimum(budget_cap, len_cap))
+        committed = torch.where(act_dev, n.clamp(min=1),
+                                0).to(torch.int32)
+        bk, bv = vstats["kv_token"]
+        model_mod.commit_verified(store, bk, bv, vstats["attn_gate"],
+                                  pos_dev, bt, fill_dev, committed, act_dev,
+                                  self.cfg)
+        return tgt, vstats["attn_gate"], committed
+
+    def _spec_bookkeep(self, rs: _RunState, cur: List[int], gamma: int,
+                       plan_emit: Dict[int, List[int]],
+                       accepted: Dict[int, int],
+                       gates: Optional[np.ndarray], window_s: float,
+                       measure: bool, n_layers: int, per_tok=None) -> None:
+        """Walk each slot's truncated emission in token order with exactly
+        the plain loops' per-token accounting: emitted token i pairs with
+        verify gate column i (the gates of processing the token that
+        produced it).  ``per_tok`` is the paged hook (allocator append and
+        history replay)."""
+        stats, sched = rs.stats, self.scheduler
+        stats.spec_windows += 1
+        stats.decode_s += window_s
+        stats.decode_dispatches += 2 if gamma else 1
+        stats.decode_iterations += gamma + 1
+        for slot in cur:
+            st = sched.active[slot]
+            keep = plan_emit[slot]
+            if gamma:
+                stats.spec_tokens_drafted += gamma
+                stats.spec_tokens_accepted += accepted[slot]
+            share = window_s / len(keep)
+            reason = None
+            for i, tok in enumerate(keep):
+                g = gates[:, slot, i] if gates is not None else None
+                if g is not None:
+                    rs.keep_acc += float(g.sum())
+                    rs.keep_n += n_layers
+                if per_tok is not None:
+                    per_tok(slot, g)
+                reason = self._advance_slot(rs, st, int(tok), g, share,
+                                            measure, n_layers)
+                if reason and i != len(keep) - 1:
+                    raise RuntimeError(
+                        f"speculative window divergence on slot {slot}: "
+                        f"_advance_slot finished ({reason!r}) at emitted "
+                        f"token {i} but _plan_emission kept {len(keep)} — "
+                        "the truncation rules no longer mirror the finish "
+                        "conditions")
+            if reason:
+                self._finish(rs, slot, reason)
+
+    def _run_dense_spec(self, rs: _RunState) -> None:
+        """Dense-pool speculative loop.  Per iteration: the planner's
+        prefill work as ``_run_dense``, then ONE window instead of a
+        decode step: (1) γ draft iterations under ``draft_params`` propose
+        tokens (their KV rows tentative); (2) one ``verify_chunk`` runs the
+        full model over [feed, drafts], rewriting every window row with
+        the verifier's KV (dense rollback is free: rows past the accepted
+        prefix stay dead until the next window overwrites them); (3) one
+        sync reads the per-column argmax, the drafts and the gates (and at
+        temperature > 0 both logit sets); (4) host acceptance emits the
+        accepted prefix and a correction per slot.  Up to γ + 1 tokens a
+        slot a window; at temperature 0 the tokens are ``_run_dense``'s."""
+        sched, cfg = self.scheduler, self.cfg
+        L = max(len(cfg.attention_layers), 1)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        sampled = self.temperature > 0.0
+        pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
+        ep = self._draft_epoch(pool, rs, paged=False)
+        while sched.has_work():
+            self._plan_dense(rs, pool, 1)
+            if not sched.active:
+                continue
+            feed, pos, act, cur = self._spec_inputs()
+            gamma = self._window_gamma()
+            t0 = perf_counter()
+            feed_dev = self._tensor(feed)
+            pos_dev = self._tensor(pos, torch.int32)
+            chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act, gamma)
+            logits, pool, vstats = self.model.verify_chunk(pool, chunk,
+                                                           pos_dev)
+            t_sync = perf_counter()
+            tgt, drafts, gates, dlog, vlog = _fetch(
+                torch.argmax(logits, dim=-1), chunk[:, 1:],
+                vstats.get("attn_gate"),
+                ep.logits[:gamma].transpose(0, 1)
+                if (gamma and sampled) else None,
+                logits if sampled else None)
+            now = perf_counter()
+            rs.stats.device_s += now - t_sync
+            emitted, accepted = self._accept_windows(
+                rs, cur, gamma, drafts.astype(np.int64),
+                tgt.astype(np.int64), vlog, dlog)
+            plan_emit = {s: self._plan_emission(sched.active[s], emitted[s])
+                         for s in cur}
+            self._spec_bookkeep(rs, cur, gamma, plan_emit, accepted, gates,
+                                now - t0, measure, L)
+
+    def _run_paged_spec(self, rs: _RunState) -> None:
+        """Paged-store speculative loop, ``_run_dense_spec``'s twin with the
+        tentative-commit protocol: (1) the residents' window headroom is
+        reserved (``_ensure_window``) before admission, so ``_can_place``
+        sees the free list net of it, and again after it, so a request
+        activated by this iteration's prefill is covered too; (2) the
+        draft loop appends tentative entries above the pre-draft fill;
+        (3) the verifier reads the committed prefix only (restored below
+        the pre-draft fill) and returns every window column's KV; (4)
+        ``commit_verified`` rewrites the stream from the pre-draft fill
+        with exactly the emitted columns, in the plain engine's
+        token-major order, while the host replays the allocator and
+        history accounting per emitted token and ``trim`` returns the
+        rejected tail's pages (only private ones: an aliased prefix page
+        keeps its other references).  At temperature 0 verify, accept and
+        commit run with no sync between them (``_spec_verify_commit``) and
+        the host replay must give the device's counts; at temperature > 0
+        the host accepts first and the commit follows."""
+        sched, alloc, cfg = self.scheduler, self.allocator, self.cfg
+        nA = self.n_attn
+        reuse = paged_mod.reuse_enabled(cfg)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        sampled = self.temperature > 0.0
+        store = self._acquire_store()
+        ep = self._draft_epoch(store, rs, paged=True)
+
+        def per_tok(slot, g):
+            fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
+            alloc.append(slot, fresh_n, nA)
+            rs.hist.on_decode_step(slot, g)
+
+        while sched.has_work():
+            self._ensure_window(
+                rs, self._window_gamma() if sched.active else 0)
+            self._plan_paged(rs, store, reuse, 1)
+            if not sched.active:
+                continue
+            gamma = self._window_gamma()
+            self._ensure_window(rs, gamma)
+            feed, pos, act, cur = self._spec_inputs()
+            fill0 = alloc.fill.copy()
+            j_live = max(1, alloc.max_chain_pages())
+            j_step = min(1 << (j_live - 1).bit_length(), alloc.pages_per_slot)
+            bt = alloc.block_table[:, :j_step]
+            t0 = perf_counter()
+            feed_dev = self._tensor(feed)
+            pos_dev = self._tensor(pos, torch.int32)
+            fill_dev = self._tensor(fill0, torch.int32)
+            bt_dev = self._tensor(bt, torch.int32)
+            act_dev = self._tensor(act, torch.bool)
+            chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act, gamma,
+                                fill=fill0, bt=bt)
+            cap = int(pos.max()) + gamma + 1
+            dfill = ep.fill if gamma else fill_dev
+            if not sampled:
+                tgt_dev, gates_dev, committed_dev = self._spec_verify_commit(
+                    store, chunk, pos_dev, bt_dev, fill_dev, act_dev,
+                    self._emission_caps(cur), cap)
+                logits = None
+            else:
+                logits, vstats = self.model.paged_verify_chunk(
+                    store, chunk, pos_dev, bt_dev, fill_dev, cap=cap)
+                tgt_dev, gates_dev = (torch.argmax(logits, dim=-1),
+                                      vstats["attn_gate"])
+                committed_dev = None
+            t_sync = perf_counter()
+            tgt, drafts, gates, dfill, committed_np, dlog, vlog = _fetch(
+                tgt_dev, chunk[:, 1:], gates_dev, dfill, committed_dev,
+                ep.logits[:gamma].transpose(0, 1)
+                if (gamma and sampled) else None, logits)
+            now = perf_counter()
+            rs.stats.device_s += now - t_sync
+            emitted, accepted = self._accept_windows(
+                rs, cur, gamma, drafts.astype(np.int64),
+                tgt.astype(np.int64), vlog, dlog)
+            plan_emit = {s: self._plan_emission(sched.active[s], emitted[s])
+                         for s in cur}
+            committed = np.zeros((self.max_slots,), np.int32)
+            for s in cur:
+                committed[s] = len(plan_emit[s])
+            if not sampled:
+                if not np.array_equal(committed_np.astype(np.int32),
+                                      committed):
+                    raise RuntimeError(
+                        "fused spec commit divergence: device committed "
+                        f"{committed_np.astype(int).tolist()} vs host plan "
+                        f"{committed.tolist()} — greedy accept replay bug")
+            else:
+                bk, bv = vstats["kv_token"]
+                model_mod.commit_verified(
+                    store, bk, bv, vstats["attn_gate"], pos_dev, bt_dev,
+                    fill_dev, self._tensor(committed, torch.int32), act_dev,
+                    cfg)
+                del vstats, bk, bv
+            # rolled back: the draft's tentative entries the commit does
+            # not cover (the draft's fresh counts come from the draft's
+            # gates, the commit's from the verifier's)
+            rolled = 0
+            for s in cur:
+                cf = int(fill0[s])
+                for i in range(len(plan_emit[s])):
+                    g = gates[:, s, i]
+                    cf += int(1 + (g[1:] > 0.5).sum()) if reuse else nA
+                rolled += max(0, int(dfill[s]) - cf)
+            rs.stats.spec_entries_rolled_back += rolled
+            self._spec_bookkeep(rs, cur, gamma, plan_emit, accepted, gates,
+                                now - t0, measure, nA, per_tok=per_tok)
+            for slot in cur:
+                if slot in sched.active:
+                    alloc.trim(slot)
+        self._store = store
+
     # -- bookkeeping shared by both KV modes -------------------------------
     def _finish_prefill(self, rs: _RunState, work: PrefillChunk, tok,
                         t0: float, gates, defer: bool = False) -> None:
@@ -1435,6 +1878,9 @@ class ContinuousBatchingEngine:
         stats.kv_saved_fraction = (1.0 - tot_stored / tot_dense
                                    if tot_dense else 0.0)
         stats.kv_saved_analytic = analytic_kv_saved(self.cfg)
+        if stats.spec_tokens_drafted:
+            stats.spec_acceptance_rate = (stats.spec_tokens_accepted
+                                          / stats.spec_tokens_drafted)
         if self.kv_mode == "paged":
             alloc = self.allocator
             stats.pages_peak = alloc.stats.pages_peak

@@ -127,6 +127,15 @@ def can_chunk_prefill(cfg: ModelConfig) -> bool:
     return can_bucket(cfg)
 
 
+def can_speculate(cfg: ModelConfig) -> bool:
+    """Self-speculative decoding's exactness condition: the verify window
+    reuses the chunked-prefill stack pass (``model.verify_chunk`` is
+    ``prefill_chunk`` with every column unembedded), so the stack must be
+    chunk-exact, and the dense verify rewrites the pool's window rows along
+    the time axis, which assumes the ``bthd`` cache layout."""
+    return can_chunk_prefill(cfg) and cfg.kv_cache_layout == "bthd"
+
+
 @dataclasses.dataclass
 class PrefillChunk:
     """One unit of prefill work handed to the engine by ``plan_step``.

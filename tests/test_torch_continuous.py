@@ -222,8 +222,8 @@ def test_scheduler_matches_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    {"spec_k": 2},
-    {"kv_mode": "paged", "draft_keep": 0.5}, {"faults": []},
+    {"max_queue_delay_s": 1.0},
+    {"kv_mode": "paged", "watchdog": object()}, {"faults": []},
     {"snapshot_dir": "snap"}, {"max_queue_depth": 1},
     {"max_preemptions": 1}, {"trace": True},
     {"mesh": object()}])
