@@ -219,9 +219,37 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 verify logits, pages conserved with none in use; reported:
                 acceptance, window ms, tok/s beside phase 6's (8's) plain
                 run and the share of tokens equal to it.
+ 15. lifecycle — observability and the request lifecycle on phase 6's bf16
+                weights (and for (d) phase 7's fp32 copy), its line
+                emitted after phase 14's: (a) phase 6's 8 requests with
+                tracing off, on, on, off (on: a ``Tracer`` saving to a
+                temporary file), on the dense pool single-step and on bf16
+                pages in fused 8-step epochs: tokens, per-route launch counts,
+                captures and replays bit for bit equal, every registry
+                counter equal to its ``ServeStats`` field, the trace
+                balanced on every track (``tools/trace_summary.py``) with
+                no span open; tok/s on beside off, the trace's share of a
+                step in plan / prefill / dispatch / sync / bookkeep and
+                ``profile_decode.py``'s idle share of the loop (PERF.md
+                §5) reported; (b) two handles' ``tokens()`` consumed in
+                turn, then ``run()``: the plain run's tokens; (c) bf16
+                pages, fused epochs, prefix cache, chunk 32, phase 13's
+                traffic: a resident cancelled after its 4th streamed
+                token, a request with ``deadline_s`` 0, a warm admission
+                whose deadline fires in flight, a 9th submission shed at
+                ``max_queue_depth`` 8; ``max_preemptions`` 0 in phase 6's
+                tight pool (partial tokens a prefix of phase 6's, the
+                others phase 6's); finish reasons, partial tokens, every
+                page free but the records' and no record pinned after
+                each run; (d) fp32, dense and fp32 pages: one of the
+                witness's 4 requests cancelled after its 2nd streamed
+                token, the other 3 bit for bit the witness's tokens.
+                Phase 4 also holds the cpu and cuda paged engines'
+                registries (count-valued metrics) and a streamed
+                request's tokens equal.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12, 13 and 14 (their fp32 witness runs
-included),
+runs of phases 5, 6, 8, 10, 11, 12, 13, 14 and 15 (their fp32 witness
+runs included),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's, 12's and 14's replayed launches stand in their own lines,
 derived, and in no sum; for the paged SIMT route, which only fp32 serving
@@ -1887,14 +1915,19 @@ def _forced_paged(model, prompts, forced, ps=8, num_pages=32,
 
 
 def _paged_engine(model, prompts, new):
+    """The paged continuous engine on ``prompts``, its first request's
+    tokens streamed (``RequestHandle.tokens()``) before ``run()`` drains
+    the rest.  Returns (results, stats, registry, streamed tokens)."""
     from repro_torch.serve.engine import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, max_slots=2, max_len=48,
                                    kv_mode="paged", page_size=8)
-    uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    hs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    streamed = [int(t) for t, _ in hs[0].tokens()]
     out = eng.run()
     eng.allocator.check_conservation()
     require(eng.allocator.free_pages == eng.num_pages, "pages leaked")
-    return [out["results"][u] for u in uids], out["stats"]
+    return ([out["results"][int(h)] for h in hs], out["stats"],
+            out["metrics"], streamed)
 
 
 def parity(torch, np, dev, int4=False):
@@ -1969,7 +2002,7 @@ def parity(torch, np, dev, int4=False):
     routing.gate_from_logits = recording
     try:
         plc, pgc = _forced_paged(m_cpu, ppr[:2], pforced)
-        rc, sc = _paged_engine(m_cpu, ppr, 6)
+        rc, sc, mc, stc = _paged_engine(m_cpu, ppr, 6)
     finally:
         routing.gate_from_logits = orig
     require(min(margins) >= MIN_MARGIN,
@@ -1984,7 +2017,11 @@ def parity(torch, np, dev, int4=False):
         require(d <= TOL_LOGITS, f"paged logits differ: {d} > {TOL_LOGITS}")
         require(torch.equal(a.argmax(-1), b.argmax(-1)),
                 "paged greedy tokens differ between cpu and cuda")
-    rg, sg = _paged_engine(m_gpu, ppr, 6)
+    rg, sg, mg, stg = _paged_engine(m_gpu, ppr, 6)
+    require(count_metrics(mc) == count_metrics(mg),
+            "paged engine registries differ between cpu and cuda")
+    require(stc == stg == rc[0].tokens.tolist(),
+            "streamed tokens differ between cpu and cuda or from run()")
     for a, b in zip(rc, rg):
         require(np.array_equal(a.tokens, b.tokens)
                 and (a.kv_stored, a.kv_dense) == (b.kv_stored, b.kv_dense),
@@ -2005,6 +2042,8 @@ def parity(torch, np, dev, int4=False):
             "paged_min_gate_margin": min(margins),
             "paged_logits_max_rel_diff": pworst,
             "paged_engine_tokens_identical": True,
+            "paged_engine_registry_identical": True,
+            "paged_engine_streamed_tokens": len(stg),
             "paged_kv_entries_saved_fraction": sg.kv_entries_saved_fraction,
             "paged_history_hit_rate": sg.history_hit_rate}
 
@@ -2435,13 +2474,13 @@ def watch_engine(eng, log):
     gates = log.setdefault("gates", {})
     account, advance = eng._account_prefill, eng._advance_slot
 
-    def accounted(st):
+    def accounted(rs, st):
         g = st.pf_gates
         if g is not None:
             g = g.float().cpu().numpy() if hasattr(g, "cpu") else g
             gates.setdefault(st.req.uid, [None, []])[0] = np.asarray(
                 g, np.float32)[:, :st.req.prompt_len]
-        return account(st)
+        return account(rs, st)
 
     def advanced(rs, st, tok, g, *a):
         if g is not None:
@@ -3720,6 +3759,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     chunk = chunk_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     prefix = prefix_witness(torch, np, dev, m32)
     spec = spec_witness(torch, np, dev, m32, reqs, new, tokens, logs)
+    life = lifecycle_witness(torch, np, dev, m32, reqs, new, tokens)
     del m32
     torch.cuda.empty_cache()
     dist["bf16_dense"] = _forced_distance(
@@ -3745,7 +3785,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
                        "vs_fp32_dense": dist}}, launches, chunk, prefix, \
-        spec
+        spec, life
 
 
 # ---------------------------------------------------------------------------
@@ -4032,6 +4072,400 @@ def serve_mamba(torch, np, dev):
     return rec, total, fused
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: observability and the request lifecycle
+# ---------------------------------------------------------------------------
+
+LIFE_CHUNK = 32   # (c)'s chunk: a warm suffix of 32-128 tokens spans 1-4
+#                   iterations, so one can expire in flight
+# profile_decode.py's idle share of the same loop, for the trace's split
+# to stand beside (PERF.md §5, H100 80GB HBM3 at 700 W: the eager llama
+# bf16 decode step, PR 24); the paged fused loop was not profiled
+PROFILED_IDLE = {"traced_dense": 0.81, "traced_fused_paged_bf16": None}
+TRACE_PHASES = ("plan", "prefill", "dispatch", "sync", "bookkeep")
+# each registry counter's ServeStats field
+COUNTER_FIELDS = {
+    "prefill_tokens_total": "prefill_tokens",
+    "decode_tokens_total": "decode_tokens",
+    "prefill_seconds_total": "prefill_s",
+    "decode_seconds_total": "decode_s",
+    "prefill_chunks_total": "prefill_chunks",
+    "interleaved_steps_total": "interleaved_steps",
+    "requests_completed_total": "requests_completed",
+    "decode_dispatches_total": "decode_dispatches",
+    "device_seconds_total": "device_s",
+    "host_seconds_total": "host_s",
+    "preemptions_total": "preemptions",
+    "compiles_total": "compiles",
+    "epoch_shrinks_total": "epoch_shrinks",
+    "requests_cancelled_total": "requests_cancelled",
+    "deadline_exceeded_total": "deadline_exceeded",
+    "requests_shed_total": "requests_shed",
+    "preempt_budget_exhausted_total": "preempt_budget_exhausted",
+    "prefix_hits_total": "prefix_hits",
+    "prefix_misses_total": "prefix_misses",
+    "prefix_tokens_saved_total": "prefix_tokens_saved",
+    "spec_windows_total": "spec_windows",
+    "spec_tokens_drafted_total": "spec_tokens_drafted",
+    "spec_tokens_accepted_total": "spec_tokens_accepted",
+    "spec_entries_rolled_back_total": "spec_entries_rolled_back"}
+
+
+def count_metrics(m):
+    """A registry's count-valued part: every counter, gauge and series,
+    each histogram's count; time-valued metrics (``*_seconds*``) reduced
+    to their presence and ``compiles_total`` (CUDA graphs captured) left
+    out."""
+    out = {}
+    for kind, fams in m.snapshot().items():
+        view = out[kind] = {}
+        for name, children in fams.items():
+            if name == "compiles_total":
+                continue
+            timed = "_seconds" in name
+            if kind == "histograms":
+                view[name] = {k: (h["count"] if timed else h)
+                              for k, h in children.items()}
+            else:
+                view[name] = None if timed else children
+    return out
+
+
+def check_counters(out, label):
+    """Every counter of the run's registry equals its ServeStats field; with
+    no preemption (which drops a victim's decode accounting with its
+    state) the measured KV entries equal the per-request sums."""
+    s, results = out["stats"], out["results"].values()
+    for name, children in out["metrics"].snapshot()["counters"].items():
+        v = children[""]
+        if name in COUNTER_FIELDS:
+            want = getattr(s, COUNTER_FIELDS[name])
+        elif name in ("kv_entries_dense_measured_total",
+                      "kv_entries_stored_measured_total"):
+            if s.preemptions:
+                continue
+            field = "kv_dense" if "dense" in name else "kv_stored"
+            want = sum(getattr(r, field) for r in results)
+        else:
+            require(False, f"{label}: counter {name} has no ServeStats "
+                    "field")
+        require(v == want, f"{label}: counter {name} {v} != its "
+                f"ServeStats field {want}")
+
+
+def life_engine(model, tracer=None, **kw):
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                                    page_size=PAGE, trace=tracer, **kw)
+
+
+def life_run(torch, dev, eng, prompts, new):
+    """Submit ``prompts`` and ``run()`` with the wrappers' counts from 0.
+    Returns (output, uids, launches, wall seconds)."""
+    from repro_torch.kernels import ops
+    uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    torch.cuda.synchronize(dev)
+    ops.reset_kernel_launches()
+    t = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize(dev)
+    return out, uids, ops.kernel_launches(), time.perf_counter() - t
+
+
+def pages_back(eng, label) -> int:
+    """Every page is on the free list but those the prefix records hold,
+    and no record is pinned.  Returns the pinned pages."""
+    alloc = eng.allocator
+    pins = eng.prefix.page_pins() if eng.prefix is not None else {}
+    alloc.check_conservation(pins)
+    require(alloc.free_pages == eng.num_pages - len(pins),
+            f"{label}: pages in use at the end")
+    if eng.prefix is not None:
+        require(not eng._warm_pending and not any(
+            r.in_use for r in eng.prefix._records.values()),
+            f"{label}: a prefix record is still pinned")
+    return len(pins)
+
+
+TRACE_ORDER = (False, True, True, False)   # (a)'s runs: tracing off/on
+
+
+def traced_pair(torch, np, dev, model, label, prompts, new, tmpdir, total,
+                **kw):
+    """(a): one configuration run four times, tracing off, on, on, off (on:
+    a ``Tracer`` saving to a temporary file), so host drift falls on both
+    sides: tokens, the wrappers' launches per route, captures and replays
+    bit for bit equal; each run's counters equal its ServeStats fields,
+    pages back; each trace balanced on every track
+    (``tools/trace_summary.py``), no span left open.  Returns the record
+    and the tokens."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import trace_summary
+    from repro_torch.obs import Tracer
+    runs = []
+    for i, on in enumerate(TRACE_ORDER):
+        tracer = Tracer(path=os.path.join(tmpdir, f"{label}{i}.json")) \
+            if on else None
+        eng = life_engine(model, tracer, **kw)
+        out, uids, launches, wall = life_run(torch, dev, eng, prompts, new)
+        s = out["stats"]
+        check_counters(out, label)
+        require(s.requests_completed == len(prompts),
+                f"{label}: not every request completed")
+        if eng.kv_mode == "paged":
+            pages_back(eng, label)
+        run = {"on": on, "tokens": [out["results"][u].tokens for u in uids],
+               "launches": launches, "graphs": (s.compiles, s.graph_replays),
+               "tok_per_s": s.decode_tok_per_s, "wall_s": wall}
+        _add(total, launches)
+        if on:
+            require(tracer.open_spans() == {},
+                    f"{label}: spans left open {tracer.open_spans()}")
+            events = trace_summary.load_events(str(tracer.path))
+            trace_summary.pair_spans(events)       # raises if unbalanced
+            summ = trace_summary.summarize(events)
+            step = summ["step_wall_us"]
+            run.update(events=len(events), steps=summ["n_steps"],
+                       shares={p: summ["phase_us"].get(p, 0.0) / step
+                               for p in TRACE_PHASES})
+        runs.append(run)
+        free_engine(torch, eng)
+    first = runs[0]
+    for r in runs[1:]:
+        require(all(np.array_equal(a, b) for a, b in zip(first["tokens"],
+                                                         r["tokens"])),
+                f"{label}: tracing changed the tokens")
+        require(r["launches"] == first["launches"] and r["graphs"]
+                == first["graphs"], f"{label}: tracing changed the launches "
+                f"{first['launches']} {first['graphs']} -> {r['launches']} "
+                f"{r['graphs']}")
+    traced = [r for r in runs if r["on"]]
+    return {"run": label, "order_on": list(TRACE_ORDER),
+            "decode_tok_per_s": [r["tok_per_s"] for r in runs],
+            "wall_s": [r["wall_s"] for r in runs],
+            "on_over_off": (sum(r["tok_per_s"] for r in traced)
+                            / sum(r["tok_per_s"] for r in runs
+                                  if not r["on"])),
+            "graphs_captured": first["graphs"][0],
+            "trace_events": [r["events"] for r in traced],
+            "trace_steps": traced[0]["steps"],
+            "step_shares": [r["shares"] for r in traced],
+            "profile_decode_idle_share": PROFILED_IDLE[label],
+            "launches": first["launches"]}, first["tokens"]
+
+
+def stream_interleaved(torch, np, dev, model, prompts, new, plain, total):
+    """(b): two handles' ``tokens()`` consumed a token at a time in turn,
+    then ``run()`` drains the rest: every request's tokens equal the plain
+    run's, and each stream holds its request's tokens, each index once."""
+    from repro_torch.kernels import ops
+    eng = life_engine(model, kv_mode="dense")
+    hs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    pair = (hs[1], hs[5])
+    got = {int(h): [] for h in pair}
+    ops.reset_kernel_launches()
+    live = [(h, h.tokens()) for h in pair]
+    while live:
+        for h, it in list(live):
+            try:
+                got[int(h)].append(int(next(it)[0]))
+            except StopIteration:
+                live.remove((h, it))
+    out = eng.run()
+    torch.cuda.synchronize(dev)
+    _add(total, ops.kernel_launches())
+    toks = [out["results"][int(h)].tokens for h in hs]
+    require(all(np.array_equal(a, b) for a, b in zip(toks, plain)),
+            "streamed run's tokens differ from the plain run's")
+    for h in pair:
+        require(got[int(h)] == out["results"][int(h)].tokens.tolist(),
+                f"request {int(h)}: streamed tokens differ from its result")
+    return {"handles": [int(h) for h in pair],
+            "streamed": {int(h): len(v) for h, v in got.items()},
+            "tokens_identical_to_plain": True}
+
+
+def lifecycle_prefix(torch, np, dev, model, total):
+    """(c) on bf16 pages in fused epochs with the prefix cache on, chunk
+    LIFE_CHUNK, phase 13's traffic: the publisher's run, then its 8
+    requests with ``max_queue_depth`` 8: the 4th submitted with deadline 0,
+    a 9th submission shed, the 1st cancelled after its 4th streamed token,
+    and a warm admission with a tail past one chunk whose deadline is made
+    to fire in flight (shortened to what it has waited once its first
+    suffix chunk ran).  Finish reasons and partial tokens checked; after
+    each run every page is free but the records', and none is pinned."""
+    from repro_torch.serve.errors import AdmissionRejected
+    first, prompts = prefix_traffic(np, model.cfg.vocab_size)
+    eng = prefix_engine(model, prefix_cache=True, decode_steps=FUSED_STEPS,
+                        prefill_chunk=LIFE_CHUNK,
+                        max_queue_depth=PREFIX_REQUESTS)
+    out, _, launches, _ = life_run(torch, dev, eng, [first], PREFIX_NEW)
+    _add(total, launches)
+    pages_back(eng, "life_publish")
+    w = max(i for i, p in enumerate(prompts[:-1])
+            if len(p) - PREFIX_LEN > LIFE_CHUNK)
+    require(w not in (0, 3), f"no warm tail past a chunk but request {w}")
+    hs = [eng.submit(p, max_new_tokens=PREFIX_NEW,
+                     deadline_s=0.0 if i == 3 else
+                     3600.0 if i == w else None)
+          for i, p in enumerate(prompts)]
+    try:
+        eng.submit(first, max_new_tokens=PREFIX_NEW)
+        shed = None
+    except AdmissionRejected as e:
+        shed = e.reason
+    require(shed == "queue_depth", f"the 9th submission was not shed: "
+            f"{shed}")
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize(dev)
+    ops.reset_kernel_launches()
+    it = hs[0].tokens()
+    seen = [int(next(it)[0]) for _ in range(4)]
+    eng.cancel(hs[0])
+
+    def in_flight():
+        pf = eng.scheduler.prefilling
+        return (pf is not None and pf.req.uid == int(hs[w])
+                and pf.slot in eng._warm_pending and pf.done > PREFIX_LEN)
+
+    for _ in range(256):
+        if in_flight():
+            break
+        require(eng._pump(), "the warm admission never went in flight")
+    require(in_flight(), "the warm admission never went in flight")
+    pf = eng.scheduler.prefilling
+    pinned = sum(r.in_use for r in eng.prefix._records.values())
+    pf.req.deadline_s = time.perf_counter() - pf.req.submit_s
+    out = eng.run()
+    torch.cuda.synchronize(dev)
+    _add(total, ops.kernel_launches())
+    s, res = out["stats"], out["results"]
+    reasons = [res[int(h)].finish_reason for h in hs]
+    a = res[int(hs[0])].tokens.tolist()
+    require(reasons[0] == "cancelled" and 4 <= len(a) < PREFIX_NEW
+            and a[:4] == seen, f"cancelled request: {reasons[0]}, "
+            f"{len(a)} tokens, streamed {seen} vs {a[:4]}")
+    for i in (3, w):
+        require(reasons[i] == "deadline" and not len(res[int(hs[i])].tokens),
+                f"request {i}: {reasons[i]}, want a deadline, no tokens")
+    rest = [i for i in range(len(hs)) if i not in (0, 3, w)]
+    require(all(reasons[i] == "length" and len(res[int(hs[i])].tokens)
+                == PREFIX_NEW for i in rest), f"survivors: {reasons}")
+    require((s.requests_cancelled, s.deadline_exceeded, s.requests_shed)
+            == (1, 2, 1), f"lifecycle counters {s.requests_cancelled}, "
+            f"{s.deadline_exceeded}, {s.requests_shed}")
+    check_counters(out, "life_prefix")
+    pins = pages_back(eng, "life_prefix")
+    rec = {"reasons": reasons, "cancelled_tokens": len(a),
+           "warm_expired": w, "warm_pins_at_expiry": pinned,
+           "shed": shed, "prefix_hits": s.prefix_hits,
+           "pinned_pages_after": pins, "epoch_shrinks": s.epoch_shrinks}
+    free_engine(torch, eng)
+    return rec
+
+
+def budget_run(torch, np, dev, model, short, tight, want, total):
+    """(c) ``max_preemptions`` 0 in phase 6's tight pool: a request evicted
+    once finishes "preempt_budget" with its partial tokens, a prefix of
+    its phase-6 tokens; the others give phase 6's tokens; pages back."""
+    eng = life_engine(model, kv_mode="paged", num_pages=tight,
+                      max_preemptions=0)
+    out, uids, launches, _ = life_run(torch, dev, eng, short, 32)
+    _add(total, launches)
+    s = out["stats"]
+    spent = 0
+    for u, full in zip(uids, want):
+        r = out["results"][u]
+        toks = r.tokens.tolist()
+        if r.finish_reason == "preempt_budget":
+            spent += 1
+            require(len(toks) < 32 and toks == full.tolist()[:len(toks)],
+                    f"request {u}: partial tokens are not a prefix")
+        else:
+            require(r.finish_reason == "length" and toks == full.tolist(),
+                    f"request {u}: {r.finish_reason}, tokens differ")
+    require(spent >= 1 and s.preempt_budget_exhausted == spent
+            == s.preemptions, f"preempt budget: {spent} finished, "
+            f"{s.preempt_budget_exhausted} counted, {s.preemptions} "
+            "preemptions")
+    check_counters(out, "life_budget")
+    pages_back(eng, "life_budget")
+    free_engine(torch, eng)
+    return {"pool_pages": tight, "preempt_budget": spent,
+            "reasons": [out["results"][u].finish_reason for u in uids]}
+
+
+def lifecycle_full_width(torch, np, dev, model, prompts, tokens, short,
+                         tight):
+    """Phase 15's bf16 part on phase 6's weights: (a) tracing on beside
+    off, dense single-step and bf16 pages in fused epochs; (b) streaming;
+    (c) the lifecycle levers.  Returns (record, the wrappers' launches)."""
+    import shutil
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    total = {}
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        dense, plain = traced_pair(torch, np, dev, model, "traced_dense",
+                                   prompts, 32, tmpdir, total,
+                                   kv_mode="dense")
+        fused, _ = traced_pair(torch, np, dev, model,
+                               "traced_fused_paged_bf16", prompts, 32,
+                               tmpdir, total, kv_mode="paged",
+                               decode_steps=FUSED_STEPS)
+    finally:
+        shutil.rmtree(tmpdir)
+    require(all(np.array_equal(a, b) for a, b in zip(plain,
+                                                     tokens["dense"])),
+            "traced_dense: tokens differ from phase 6's dense run")
+    stream = stream_interleaved(torch, np, dev, model, prompts, 32, plain,
+                                total)
+    life = lifecycle_prefix(torch, np, dev, model, total)
+    budget = budget_run(torch, np, dev, model, short, tight,
+                        tokens["short_paged_bf16"], total)
+    return {"traced": [dense, fused], "streaming": stream,
+            "lifecycle": life, "preempt_budget": budget,
+            "seconds": time.perf_counter() - t}, total
+
+
+def lifecycle_witness(torch, np, dev, m32, reqs, new, tokens):
+    """(d) on phase 7's fp32 weights: one of the witness's 4 requests
+    cancelled after its 2nd streamed token, dense and in fp32 pages: the
+    other 3 give the witness's uncancelled tokens bit for bit, the
+    cancelled one a prefix of its own.  Returns (record, launches)."""
+    from repro_torch.kernels import ops
+    rec, total = {}, {}
+    for label, kw in (("fp32_dense", dict(kv_mode="dense")),
+                      ("fp32_paged", dict(kv_mode="paged"))):
+        eng = life_engine(m32, **kw)
+        hs = [eng.submit(p, max_new_tokens=new) for p in reqs]
+        torch.cuda.synchronize(dev)
+        ops.reset_kernel_launches()
+        it = hs[1].tokens()
+        seen = [int(next(it)[0]) for _ in range(2)]
+        eng.cancel(hs[1])
+        out = eng.run()
+        torch.cuda.synchronize(dev)
+        _add(total, ops.kernel_launches())
+        res = [out["results"][int(h)] for h in hs]
+        want = [t.tolist() for t in tokens[label]]
+        part = res[1].tokens.tolist()
+        require(res[1].finish_reason == "cancelled" and 2 <= len(part)
+                < new and part == want[1][:len(part)] and part[:2] == seen,
+                f"{label}: the cancelled request gave {len(part)} tokens, "
+                f"{res[1].finish_reason}")
+        require(all(res[i].tokens.tolist() == want[i] for i in (0, 2, 3)),
+                f"{label}: a survivor's tokens differ from the witness's")
+        if eng.kv_mode == "paged":
+            pages_back(eng, label)
+        free_engine(torch, eng)
+        rec[label] = {"cancelled_tokens": len(part),
+                      "survivors_identical": True}
+    return rec, total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -4132,10 +4566,14 @@ def main() -> int:
         torch, np, dev, model, prompts,
         {r["run"]: (r, tokens[r["run"]]) for r in cont["runs"]})
     spec_s = time.perf_counter() - t14
+    life_rec, life_launches = lifecycle_full_width(
+        torch, np, dev, model, prompts, tokens, short, tight)
     wit, wit_launches, (wit_chunk, more, wit_chunk_s), \
         (wit_prefix, more_prefix, wit_prefix_s), \
-        (wit_spec, more_spec, more_derived, wit_spec_s) = witness(
+        (wit_spec, more_spec, more_derived, wit_spec_s), \
+        (wit_life, more_life) = witness(
             torch, np, dev, model, prompts, tokens)
+    _add(life_launches, more_life)
     _add(prefix_launches, more_prefix)
     _add(spec_launches, more_spec)
     _add(spec_derived, more_derived)
@@ -4199,6 +4637,9 @@ def main() -> int:
           "launches": spec_launches,
           "graph_launches_derived": spec_derived})
     _add(launches, spec_launches)
+    emit({"phase": "lifecycle", **life_rec, "witness_fp32": wit_life,
+          "launches": life_launches})
+    _add(launches, life_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

@@ -18,6 +18,10 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --continuous --paged-kv --prefix-cache        # shared prompt prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --continuous --spec-k 4 [--draft-keep 0.5]    # self-speculative
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --trace-out trace.json --metrics-out metrics.prom
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --deadline-s 2 --max-queue-depth 6 --max-preemptions 1
 
 ``--arch`` defaults to llama2-7b.  Weights are random, drawn from seed 0
 on the chosen device; ``--int4``
@@ -36,6 +40,16 @@ and a correction emitted per slot.
 ``--prefix-cache`` (with ``--paged-kv``) shares published prompt prefixes
 as refcounted pages; the requests then open with one shared system prompt
 of half their length, so every request after the first is admitted warm.
+``--trace-out FILE`` writes the run's Chrome trace (host-time spans:
+``step`` ⊃ plan / prefill / dispatch / sync / bookkeep, one track per
+request; ``tools/trace_summary.py FILE`` summarizes it), ``--metrics-out
+FILE`` its metrics registry (``.prom``: Prometheus text, else JSON) and
+``--results-out FILE`` each request's tokens and finish reason as JSON.
+``--deadline-s`` gives every request a wall-clock budget (past it:
+finish reason "deadline", partial tokens kept), ``--max-queue-depth`` /
+``--max-queue-delay-s`` shed submissions (counted, not served) and
+``--max-preemptions`` retires a request preempted more often (finish
+reason "preempt_budget").  These need ``--continuous``.
 ``mamba2-2.7b`` (attention-free) serves lock-step or
 from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
 raises for it (no KV to page), and so does ``--int4`` (not ported yet).
@@ -97,6 +111,32 @@ def main(argv=None) -> None:
     ap.add_argument("--int4", action="store_true",
                     help="int4-BFP weights: quantize_params at the config's "
                          "QuantConfig (group size, pow2 scales)")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(host-time spans; tools/trace_summary.py reads "
+                         "it; requires --continuous)")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE",
+                    help="write the run's metrics snapshot (.prom suffix "
+                         "= Prometheus text format, else JSON; requires "
+                         "--continuous)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request wall-clock budget from submission; "
+                         "past it a request finishes with reason "
+                         "'deadline' and releases its slot/pages at the "
+                         "next step boundary")
+    ap.add_argument("--max-queue-depth", type=int, default=None,
+                    help="shed new submissions once the queue is this "
+                         "deep")
+    ap.add_argument("--max-queue-delay-s", type=float, default=None,
+                    help="shed new submissions once the queue head has "
+                         "waited past this bound")
+    ap.add_argument("--max-preemptions", type=int, default=None,
+                    help="per-request eviction retry budget; past it a "
+                         "victim keeps its partial tokens (reason "
+                         "'preempt_budget') instead of requeueing")
+    ap.add_argument("--results-out", default=None, metavar="FILE",
+                    help="write per-request results (tokens, finish "
+                         "reason) as JSON")
     args = ap.parse_args(argv)
     if args.paged_kv and not args.continuous:
         raise SystemExit("--paged-kv requires --continuous")
@@ -115,14 +155,22 @@ def main(argv=None) -> None:
                          "exclusive (both own the decode cadence)")
     if args.draft_keep is not None and not args.spec_k:
         raise SystemExit("--draft-keep requires --spec-k")
+    lifecycle = (args.trace_out, args.metrics_out, args.deadline_s,
+                 args.max_queue_depth, args.max_queue_delay_s,
+                 args.max_preemptions, args.results_out)
+    if any(v is not None for v in lifecycle) and not args.continuous:
+        raise SystemExit("--trace-out/--metrics-out/--deadline-s/"
+                         "--max-queue-*/--max-preemptions/--results-out "
+                         "require --continuous")
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.models.model import LanguageModel
-    from repro_torch.serve.config import (EngineConfig, KVConfig,
-                                          SchedulingConfig, SpecConfig)
+    from repro_torch.serve.config import (EngineConfig, KVConfig, ObsConfig,
+                                          RobustnessConfig, SchedulingConfig,
+                                          SpecConfig)
     from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
-    from repro_torch.serve.errors import ConfigError
+    from repro_torch.serve.errors import AdmissionRejected, ConfigError
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -151,6 +199,11 @@ def main(argv=None) -> None:
                                         prefill_chunk=args.prefill_chunk,
                                         decode_steps=args.decode_steps),
             spec=SpecConfig(spec_k=args.spec_k, draft_keep=args.draft_keep),
+            robustness=RobustnessConfig(
+                max_queue_depth=args.max_queue_depth,
+                max_queue_delay_s=args.max_queue_delay_s,
+                max_preemptions=args.max_preemptions),
+            obs=ObsConfig(trace=args.trace_out),
             temperature=args.temperature))
         shared = (rng.integers(0, cfg.vocab_size, (args.prompt_len // 2,),
                                dtype=np.int32) if args.prefix_cache
@@ -158,9 +211,13 @@ def main(argv=None) -> None:
         for _ in range(2 * args.batch):
             ln = int(rng.integers(max(args.prompt_len // 4, 1),
                                   args.prompt_len + 1))
-            eng.submit(np.concatenate([shared, rng.integers(
-                0, cfg.vocab_size, (max(ln - len(shared), 1),),
-                dtype=np.int32)]), max_new_tokens=args.new_tokens)
+            try:
+                eng.submit(np.concatenate([shared, rng.integers(
+                    0, cfg.vocab_size, (max(ln - len(shared), 1),),
+                    dtype=np.int32)]), max_new_tokens=args.new_tokens,
+                    deadline_s=args.deadline_s)
+            except AdmissionRejected as e:
+                print(f"shed: {e}")
         out = eng.run()
         s = out["stats"]
         print(f"prefill: {s.prefill_tokens} tok in {s.prefill_s:.2f}s | "
@@ -196,9 +253,15 @@ def main(argv=None) -> None:
         if args.kv_dtype:
             print(f"quantized KV: {args.kv_dtype} page payloads "
                   "(pow2 per-entry scales)")
+        if (s.requests_cancelled or s.deadline_exceeded or s.requests_shed
+                or s.preempt_budget_exhausted):
+            print(f"lifecycle: deadline {s.deadline_exceeded} | cancelled "
+                  f"{s.requests_cancelled} | shed {s.requests_shed} | "
+                  f"preempt budget {s.preempt_budget_exhausted}")
         for uid, r in sorted(out["results"].items()):
             print(f"  req {uid}: T0={r.prompt_len} +{r.decode_tokens} "
                   f"TTFT {r.ttft_s*1e3:.1f}ms ({r.finish_reason})")
+        _write_outputs(args, out)
         return
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len), dtype=np.int32)
@@ -211,6 +274,31 @@ def main(argv=None) -> None:
           f"KV storage saved≈{s.kv_saved_fraction:.1%} (measured; "
           f"analytic≈{s.kv_saved_analytic:.1%})")
     print("sample:", out["tokens"][0, :16])
+
+
+def _write_outputs(args, out) -> None:
+    """--results-out, --metrics-out; the engine saved --trace-out."""
+    import json
+    import pathlib
+    if args.results_out:
+        path = pathlib.Path(args.results_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(
+            {str(uid): {"tokens": [int(t) for t in r.tokens],
+                        "prompt_len": r.prompt_len,
+                        "finish_reason": r.finish_reason}
+             for uid, r in sorted(out["results"].items())}, indent=1))
+        print(f"results written to {args.results_out}")
+    if args.trace_out:
+        print(f"trace written to {args.trace_out}")
+    if args.metrics_out:
+        path = pathlib.Path(args.metrics_out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if path.suffix == ".prom":
+            path.write_text(out["metrics"].to_prometheus())
+        else:
+            path.write_text(json.dumps(out["metrics"].snapshot(), indent=2))
+        print(f"metrics written to {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ path to path).  ``LanguageModel`` owns them as ``nn.Module`` parameters.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -418,24 +419,30 @@ class DecodeEpoch:
             self._width = width
             _upload(self.fill, fill)
 
-    def run(self, n: int) -> None:
-        """n iterations from the loaded carry (the entry check first)."""
+    def run(self, n: int, annotate=contextlib.nullcontext) -> None:
+        """n iterations from the loaded carry (the entry check first).
+        ``annotate()`` (a context, e.g. the tracer's
+        ``torch.profiler.record_function``) wraps the eager iterations and
+        the replays, never a capture."""
         if not 1 <= n <= self.n_max:
             raise ValueError(f"epoch length {n} outside 1..{self.n_max}")
         self.active.copy_(_entry_active(self.feed, self.active, self.stop))
         self.emitted.zero_()
         self.step.zero_()
         if self.feed.device.type != "cuda":
-            for _ in range(n):
-                self._iterate()
+            with annotate():
+                for _ in range(n):
+                    self._iterate()
             return
         key = self._width
         graph, done = self._graphs.get(key), 0
         if graph is None:
-            self._iterate()                 # the warm-up: a real iteration
+            with annotate():
+                self._iterate()             # the warm-up: a real iteration
             graph, done = self._capture(key), 1
-        for _ in range(n - done):
-            graph.replay()
+        with annotate():
+            for _ in range(n - done):
+                graph.replay()
         self._replays[key] += n - done
         self.replays += n - done
 

@@ -79,8 +79,8 @@ class RobustnessConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """Tracing and distributed placement.  ``trace`` accepts a bool, a
-    Tracer, or an output path."""
+    """Tracing and distributed placement.  ``trace`` accepts None (off), a
+    ``repro_torch.obs.Tracer``, or an output path."""
     trace: Any = None
     mesh: Any = None
     sharding_policy: Any = None

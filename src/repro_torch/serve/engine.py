@@ -26,11 +26,18 @@ Counterpart of the JAX package's ``serve/engine.py``:
     iteration, replayed), or, with ``spec_k`` > 0, self-speculative
     draft + verify windows (a draft epoch under skip-biased router
     parameters, one verify chunk of the full model, host acceptance, and
-    in the paged store the verified commit and its rollback).
+    in the paged store the verified commit and its rollback).  Each run
+    fills a ``MetricsRegistry`` (``obs/metrics.py``) and, when asked, a span
+    trace (``obs/trace.py``); its run loops are generators that yield once
+    per engine iteration, so ``RequestHandle.tokens()`` streams a request's
+    tokens while it runs, and a lifecycle sweep at each iteration's top
+    retires cancelled and expired requests.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from time import perf_counter
 from typing import Dict, List, Optional
 
@@ -45,6 +52,8 @@ from repro_torch.kvcache import prefix as prefix_mod
 from repro_torch.models import layers, transformer
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import DecodeEpoch, LanguageModel
+from repro_torch.obs import (MetricsRegistry, as_tracer, graphs_captured,
+                             request_tid)
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
                                       PageExhausted)
@@ -60,7 +69,12 @@ from repro_torch.serve.scheduler import (ActiveRequest, PrefillChunk,
 class ServeStats:
     """Engine statistics for one ``generate()`` or ``run()`` (names as in
     the reference).  Times are host wall seconds around work that ends in a
-    device synchronize.
+    device synchronize.  On the continuous engine this is a *derived view*:
+    every counter field is read out of the run's ``MetricsRegistry`` at
+    ``_finalize`` (``run()["metrics"]``, which also holds the histograms,
+    per-layer and per-step series the flat fields cannot), except the
+    port's own ``prefill_aborts``, ``prefill_deferrals``,
+    ``decode_iterations`` and ``graph_replays``.
 
       prefill_tokens    — prompt tokens prefilled (padding excluded).
       decode_tokens     — tokens emitted (the first, from prefill, included).
@@ -105,6 +119,10 @@ class ServeStats:
                           block-table width for the paged store);
                           ``graph_replays`` — their replays.
       epoch_shrinks     — paged fused epochs halved under page pressure.
+      requests_cancelled / deadline_exceeded / preempt_budget_exhausted —
+                          requests finished "cancelled", "deadline" and
+                          "preempt_budget"; ``requests_shed`` — submissions
+                          refused by load shedding since the last run.
 
     Paged mode (``kv_mode == "paged"``): page pool geometry, the live
     footprint's peak ``pages_peak``, ``preemptions``, the entry-stream write
@@ -164,6 +182,11 @@ class ServeStats:
     spec_tokens_accepted: int = 0         # proposals the verifier kept
     spec_entries_rolled_back: int = 0     # tentative paged entries discarded
     spec_acceptance_rate: float = 0.0     # accepted / drafted (0 when off)
+    # -- request lifecycle -------------------------------------------------
+    requests_cancelled: int = 0           # finish_reason == "cancelled"
+    deadline_exceeded: int = 0            # finish_reason == "deadline"
+    requests_shed: int = 0                # submit()-time load shedding
+    preempt_budget_exhausted: int = 0     # finish_reason == "preempt_budget"
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -185,7 +208,12 @@ class RequestResult:
       ttft_s        — wall seconds from ``run()`` start to the first token.
       decode_s      — wall seconds inside decode steps this request took
                       part in.
-      finish_reason — "length" (budget), "stop" (stop token) or "max_len".
+      finish_reason — "length" (budget), "stop" (stop token), "max_len";
+                      or a lifecycle outcome with the tokens so far:
+                      "deadline" (``deadline_s`` elapsed), "cancelled"
+                      (``cancel``), "preempt_budget" (preempted more than
+                      ``max_preemptions`` times).  A request retired
+                      before it held a slot has no tokens.
       kv_stored / kv_dense — measured compact-store entries vs the
                       per-layer-dense baseline over the whole request.
       max_decode_stall_s — longest gap between two consecutive emissions."""
@@ -364,18 +392,12 @@ def _fetch(*tensors):
 def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
     """Levers of the reference engine this port does not serve yet, each
     with the ROADMAP queue 1 item that will port it."""
-    sch, rob, obs = config.scheduling, config.robustness, config.obs
+    rob, obs = config.robustness, config.obs
     out = []
     if rob.faults is not None or rob.watchdog is not None:
-        out.append("faults / watchdog (item 12)")
+        out.append("faults / watchdog (item 12b)")
     if rob.snapshot_dir is not None:
-        out.append("snapshots (item 12)")
-    if rob.max_queue_depth is not None or rob.max_queue_delay_s is not None:
-        out.append("load shedding (item 12)")
-    if rob.max_preemptions is not None:
-        out.append("max_preemptions (item 12)")
-    if obs.trace:
-        out.append("trace (item 12)")
+        out.append("snapshots (item 12b)")
     if obs.mesh is not None or obs.sharding_policy is not None:
         out.append("mesh / sharding_policy (item 14)")
     return out
@@ -383,13 +405,24 @@ def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
 
 @dataclasses.dataclass
 class _RunState:
-    """Host-side state of one ``run()``."""
+    """Host-side state of one ``run()``.  ``metrics`` is the run's
+    source-of-truth registry: ``stats``' counter fields are derived from
+    it at ``_finalize``."""
     stats: ServeStats
     results: Dict[int, RequestResult]
     t_run: float
     generator: torch.Generator
+    metrics: MetricsRegistry = dataclasses.field(
+        default_factory=MetricsRegistry)
     keep_acc: float = 0.0
     keep_n: float = 0.0
+    # -- observability bookkeeping -----------------------------------------
+    step_idx: int = 0                     # cumulative decode iterations
+    disp_idx: int = 0                     # engine iterations that decoded
+    compiled_seen: int = 0                # CUDA graphs captured so far
+    epochs: List[DecodeEpoch] = dataclasses.field(default_factory=list)
+    traced: set = dataclasses.field(default_factory=set)     # request spans
+    admitted: set = dataclasses.field(default_factory=set)   # prefill spans
     hist: Optional[history_mod.HistoryAccounting] = None
     # fused mode: first tokens sampled by a dense prefill that the host has
     # not read yet ({slot: device [1] tensor}); the next epoch feeds them
@@ -405,8 +438,6 @@ class _RunState:
     stage_cache: Optional[List[Dict[str, torch.Tensor]]] = None
     stage_gates: List[torch.Tensor] = dataclasses.field(
         default_factory=list)
-    # the prefix cache's miss count when the run started
-    misses0: int = 0
 
 
 @dataclasses.dataclass
@@ -419,6 +450,40 @@ class _WarmAdmission:
     # destination page, entries kept); None when the prefix's entries end
     # on a page boundary
     copy: Optional[tuple] = None
+
+
+class RequestHandle(int):
+    """What ``submit()`` returns: the request uid (an ``int``, so callers
+    that compare or store uids keep working) plus the streaming surface.
+
+    ``tokens()`` yields ``(token, step)`` pairs as the engine emits them,
+    *driving the engine itself* when the buffer runs dry — iterating a
+    handle interleaves engine iterations with consumption, no thread
+    needed.  Emission granularity is the engine iteration (an epoch in
+    fused mode, a window in speculative mode)."""
+
+    def __new__(cls, uid: int, engine):
+        h = super().__new__(cls, uid)
+        h.engine = engine
+        return h
+
+    @property
+    def uid(self) -> int:
+        return int(self)
+
+    def done(self) -> bool:
+        """True once the request has a final :class:`RequestResult`."""
+        return int(self) in self.engine._stream_done
+
+    def result(self) -> Optional[RequestResult]:
+        """The final result, or None while the request is still running
+        (``tokens()`` / ``run()`` drive it to completion)."""
+        return self.engine._stream_results.get(int(self))
+
+    def tokens(self):
+        """Iterate ``(token, step)`` pairs for this request, pumping the
+        engine's run loop whenever no buffered token is ready."""
+        return self.engine._stream_tokens(int(self))
 
 
 class ContinuousBatchingEngine:
@@ -506,10 +571,32 @@ class ContinuousBatchingEngine:
     ``kv_mode``, ``page_size``, ``num_pages``, ``kv_dtype``,
     ``temperature``, ``prefill_buckets``, ``prefill_chunk``,
     ``decode_steps``, ``step_tokens``, ``prefix_cache``,
-    ``prefix_block``, ``spec_k``, ``draft_keep``).  The reference's other
-    levers raise ``ConfigError`` naming the ROADMAP item that will port
-    them.  Sampling at ``temperature > 0`` draws from the
-    ``torch.Generator`` given to ``run``."""
+    ``prefix_block``, ``spec_k``, ``draft_keep``, ``trace``,
+    ``max_queue_depth``, ``max_queue_delay_s``, ``max_preemptions``).  The
+    reference's other levers (faults, the watchdog, snapshots, a mesh)
+    raise ``ConfigError`` naming the ROADMAP item that will port them.
+    Sampling at ``temperature > 0`` draws from the ``torch.Generator``
+    given to ``run``.
+
+    Observability: every run fills a ``MetricsRegistry``
+    (``run()["metrics"]``, ``self.metrics``; ``ServeStats`` is derived
+    from it) and, with ``trace`` (a ``repro_torch.obs.Tracer``, or a path
+    the trace is saved to at the end of every run; None, the default, is a
+    no-op ``NullTracer``), a Chrome trace of host-time spans: a ``step``
+    per engine iteration split into ``plan`` / ``headroom`` / ``prefill``
+    / ``dispatch`` / ``sync`` / ``bookkeep`` (``draft`` / ``verify`` /
+    ``rollback`` in speculation), and a track per request.  On CUDA a
+    ``dispatch`` span is the host's enqueue and a ``sync`` span the wait
+    for the device; ``tools/trace_summary.py`` reads the file.
+
+    The run loops are generators yielding once per engine iteration;
+    ``run()`` and ``RequestHandle.tokens()`` pump the same driver.  At the
+    top of every iteration the lifecycle sweep retires requests that were
+    cancelled (``cancel``) or whose ``deadline_s`` elapsed, with their
+    partial tokens, releasing slots and pages.  ``max_queue_depth`` /
+    ``max_queue_delay_s`` shed submissions (``AdmissionRejected`` with
+    its ``reason``); ``max_preemptions`` retires a request preempted more
+    often than that ("preempt_budget") instead of requeueing it."""
 
     def __init__(self, model: LanguageModel,
                  config: Optional[EngineConfig] = None, **kwargs):
@@ -630,21 +717,50 @@ class ContinuousBatchingEngine:
                 # cache even with chunking off; its rows cover the prompt
                 self._warm_cap = self._chunk_cap if C else self.max_len
         self._uid = 0
+        # -- observability -------------------------------------------------
+        self.tracer = as_tracer(config.obs.trace)
+        self.metrics: Optional[MetricsRegistry] = None  # last run's registry
+        # -- streaming surface -----------------------------------------------
+        self._streams: Dict[int, List] = {}      # uid -> [(token, step), ..]
+        self._stream_pos: Dict[int, int] = {}    # uid -> emitted high-water
+        self._stream_done: set = set()           # uids with a final result
+        self._stream_results: Dict[int, RequestResult] = {}
+        self._driver = None                      # active run-loop generator
+        self._driver_gen: Optional[torch.Generator] = None
+        self._driver_out: Optional[Dict] = None
+        # -- request lifecycle -----------------------------------------------
+        rob = config.robustness
+        self.max_queue_depth = rob.max_queue_depth
+        self.max_queue_delay_s = rob.max_queue_delay_s
+        self.max_preemptions = rob.max_preemptions
+        self._cancelled: set = set()     # uids awaiting cooperative cancel
+        self._shed_pending: List[str] = []   # shed reasons since last run
 
-    # -- submission ----------------------------------------------------------
+    # -- submission and the request lifecycle ------------------------------
     def submit(self, tokens: np.ndarray, max_new_tokens: int,
                stop_token: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> int:
-        """Queue one prompt; returns its uid.  Raises ``AdmissionRejected``
-        when the request can never be served (empty prompt, no decode
-        headroom, paged worst-case KV over the pool)."""
-        if deadline_s is not None:
-            raise ConfigError("deadline_s is not ported to repro_torch yet "
-                              "(ROADMAP queue 1 item 12)")
+               deadline_s: Optional[float] = None) -> RequestHandle:
+        """Queue one prompt; returns its :class:`RequestHandle` (an ``int``
+        subclass carrying the uid).  Iterating ``handle.tokens()`` streams
+        ``(token, step)`` pairs and drives the run loop on demand; ``run()``
+        drains everything.
+
+        ``deadline_s`` is a wall-clock budget measured from submission:
+        past it the request finishes with ``finish_reason == "deadline"``
+        (partial tokens kept) and releases its slot and pages at the next
+        iteration's lifecycle sweep.  Raises ``AdmissionRejected`` when the
+        request can never be served (empty prompt, no decode headroom,
+        paged worst-case KV over the pool) or when the engine is shedding
+        load (``max_queue_depth`` / ``max_queue_delay_s``)."""
         uid = self._uid
         self._uid += 1
         req = Request(uid=uid, tokens=np.asarray(tokens, np.int32),
-                      max_new_tokens=max_new_tokens, stop_token=stop_token)
+                      max_new_tokens=max_new_tokens, stop_token=stop_token,
+                      deadline_s=deadline_s)
+        tr = self.tracer
+        tr.track(request_tid(uid), f"req {uid}")
+        tr.instant("submit", request_tid(uid), prompt_len=req.prompt_len,
+                   max_new=max_new_tokens)
         if self.kv_mode == "paged":
             # cover both the lifetime worst case and the admission gate's
             # requirement (prompt + one step of headroom): a request
@@ -657,8 +773,42 @@ class ContinuousBatchingEngine:
                     f"exceeds the page pool ({self.num_pages} pages × "
                     f"{self.page_size}) — OOM-safe admission impossible",
                     reason="kv_worst_case", uid=uid)
+        self._maybe_shed(req)
         self.scheduler.submit(req)
-        return uid
+        return RequestHandle(uid, self)
+
+    def _maybe_shed(self, req: Request) -> None:
+        """Load shedding at submit: refuse to grow a queue that is at the
+        depth bound or whose *head* has already waited past the delay bound
+        (the head's age is the least a newcomer would wait)."""
+        q = self.scheduler.queue
+        reason = detail = None
+        if (self.max_queue_depth is not None
+                and len(q) >= self.max_queue_depth):
+            reason = "queue_depth"
+            detail = (f"queue depth {len(q)} at the shed bound "
+                      f"{self.max_queue_depth}")
+        elif self.max_queue_delay_s is not None and q:
+            head_age = perf_counter() - q[0].submit_s
+            if head_age > self.max_queue_delay_s:
+                reason = "queue_delay"
+                detail = (f"queue head has waited {head_age:.3f}s > "
+                          f"bound {self.max_queue_delay_s:.3f}s")
+        if reason is not None:
+            self._shed_pending.append(reason)
+            self.tracer.instant("shed", request_tid(req.uid), reason=reason)
+            raise AdmissionRejected(
+                f"request {req.uid} shed: {detail}", reason=reason,
+                uid=req.uid)
+
+    def cancel(self, uid: int) -> None:
+        """Cooperative cancellation: mark ``uid`` for removal at the next
+        iteration's lifecycle sweep — a queued request is dropped, an
+        in-flight prefill aborted, a resident finishes with its partial
+        tokens (``finish_reason == "cancelled"``), its slot and pages
+        released.  Unknown or already-finished uids are a no-op."""
+        self._cancelled.add(uid)
+        self.tracer.instant("cancel", request_tid(uid))
 
     # -- paged-mode memory policy ------------------------------------------
     def _worst_case_entries(self, req: Request) -> int:
@@ -727,6 +877,8 @@ class ContinuousBatchingEngine:
         Returns the prompt tokens covered (0 = cold admission)."""
         rec = self.prefix.lookup(req.tokens)
         if rec is None:
+            if self.metrics is not None:
+                self.metrics.inc("prefix_misses_total")
             return 0
         alloc, nA = self.allocator, self.n_attn
         n_full, rem = divmod(rec.entries, alloc.page_size)
@@ -756,16 +908,126 @@ class ContinuousBatchingEngine:
         if warm is not None:
             self.prefix.unpin(warm.rec)
 
-    # -- main loop ---------------------------------------------------------
+    # -- main loop and the streaming driver ---------------------------------
     @torch.no_grad()
     def run(self, generator: Optional[torch.Generator] = None
             ) -> Dict[str, object]:
         """Drain the queue.  Returns {"results": {uid: RequestResult},
-        "stats": ServeStats}."""
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(0)
+        "stats": ServeStats, "metrics": MetricsRegistry} (stats is a view
+        derived from the registry; ``self.metrics`` is the last run's).
+
+        The run loops are generators that yield once per engine iteration
+        (the granularity ``RequestHandle.tokens`` observes); ``run()``
+        pumps the shared driver to its end, so a partly consumed
+        ``tokens()`` iteration resumes here — one driver serves both.  The
+        generator's draws come from the one given to the run that starts
+        the driver (by default one on the engine's device seeded with 0).
+        With a tracer built from a path, the trace is saved there at the
+        end of every run."""
+        if self._driver is None:
+            self._driver_gen = generator
+        while self._pump():
+            pass
+        out, self._driver_out = self._driver_out, None
+        return out
+
+    def _make_driver(self, generator):
+        """One generator wrapping the mode dispatch; ``yield`` marks engine
+        iterations, ``return`` carries the run's dict."""
         paged = self.kv_mode == "paged"
+        if self.spec_k:
+            loop = self._run_paged_spec if paged else self._run_dense_spec
+        elif self.decode_steps > 1:
+            loop = self._run_paged_fused if paged else self._run_dense_fused
+        else:
+            loop = self._run_paged if paged else self._run_dense
+        return (yield from loop(generator))
+
+    def _pump(self) -> bool:
+        """Advance the shared driver one engine iteration, under
+        ``torch.no_grad()`` whatever the caller's grad mode (a generator's
+        body runs under the mode of whoever calls ``next``).  Returns False
+        when the run completed (its dict lands in ``self._driver_out``).
+        An error tears the driver down before it re-raises, so the next
+        ``run()`` starts fresh."""
+        if self._driver is None:
+            self._driver = self._make_driver(self._driver_gen)
+        try:
+            with torch.no_grad():
+                next(self._driver)
+            return True
+        except StopIteration as e:
+            self._driver = self._driver_gen = None
+            self._driver_out = e.value
+            return False
+        except BaseException:
+            self._driver = self._driver_gen = None
+            raise
+
+    def _end_step(self, rs: _RunState):
+        """Close an engine iteration: captures polled, the step span
+        closed, the streams fed, then the driver's yield.  Nothing is left
+        in flight across it that the next iteration's lifecycle sweep could
+        free under the device: every launch is on the one stream, so work
+        enqueued later (a page handed out again) runs after it."""
+        self._poll_compiles(rs)
+        self.tracer.end()                 # step
+        self._drain_stream(rs)
+        yield
+
+    # -- streaming emission ------------------------------------------------
+    def _emit_stream(self, uid: int, out_tokens: List[int],
+                     step: int) -> None:
+        """Append tokens past the uid's high-water mark to its stream
+        buffer.  The mark survives preemption (out_tokens resets, the mark
+        does not), so every emitted index streams exactly once: at
+        temperature 0 a preempted request derives the same prefix again;
+        at temperature > 0 re-decoded tokens may differ from those already
+        streamed."""
+        w = self._stream_pos.get(uid, 0)
+        if len(out_tokens) > w:
+            buf = self._streams.setdefault(uid, [])
+            buf.extend((int(t), step) for t in out_tokens[w:])
+            self._stream_pos[uid] = len(out_tokens)
+
+    def _drain_stream(self, rs: _RunState) -> None:
+        """Per-iteration emission sweep over the residents.  A slot still
+        holding a deferred first token (``rs.pending``) is skipped: its
+        out_tokens[0] is a placeholder until the next epoch's sync resolves
+        it, and the next sweep emits it."""
+        for slot, st in self.scheduler.active.items():
+            if slot not in rs.pending:
+                self._emit_stream(st.req.uid, st.out_tokens, rs.step_idx)
+
+    def _record_result(self, rs: _RunState, res: RequestResult) -> None:
+        """Single choke point for finished requests: the run's dict and the
+        streaming surface see the same RequestResult."""
+        rs.results[res.uid] = res
+        self._stream_results[res.uid] = res
+        self._stream_done.add(res.uid)
+
+    def _stream_tokens(self, uid: int):
+        """Yield ``(token, step)`` for ``uid``, pumping the engine when the
+        buffer runs dry.  Ends when the request has a final result (or the
+        engine drains without ever placing it)."""
+        buf = self._streams.setdefault(uid, [])
+        sent = 0
+        while True:
+            while sent < len(buf):
+                yield buf[sent]
+                sent += 1
+            if uid in self._stream_done:
+                return
+            if not self._pump() and sent >= len(buf) \
+                    and uid not in self._stream_done:
+                return
+
+    # -- observability plumbing (shared by all six run loops) --------------
+    def _new_run_state(self, generator: Optional[torch.Generator],
+                       paged: bool) -> _RunState:
+        """Fresh per-run state: the stats shell, the metrics registry (this
+        run's source of truth), the load sheds since the last run, and the
+        ``request ⊃ queued`` spans of everything already queued."""
         if paged:
             stats = ServeStats(kv_mode="paged", page_size=self.page_size,
                                pages_total=self.num_pages)
@@ -774,19 +1036,162 @@ class ContinuousBatchingEngine:
                 paged_mod.reuse_enabled(self.cfg))
         else:
             stats, hist = ServeStats(), None
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
         rs = _RunState(stats=stats, results={}, t_run=perf_counter(),
-                       generator=generator, hist=hist,
-                       misses0=self.prefix.misses if self.prefix else 0)
-        if self.spec_k:
-            run = self._run_paged_spec if paged else self._run_dense_spec
-        elif self.decode_steps > 1:
-            run = self._run_paged_fused if paged else self._run_dense_fused
-        else:
-            run = self._run_paged if paged else self._run_dense
-        run(rs)
-        stats.host_s = perf_counter() - rs.t_run - stats.device_s
-        return self._finalize(rs)
+                       generator=generator, hist=hist)
+        self.metrics = rs.metrics
+        # credit submit-time load sheds to this run's registry (each one
+        # already emitted its "shed" trace instant at submit)
+        for _ in self._shed_pending:
+            rs.metrics.inc("requests_shed_total")
+        self._shed_pending.clear()
+        tr = self.tracer
+        for req in self.scheduler.queue:
+            rs.traced.add(req.uid)
+            tid = request_tid(req.uid)
+            tr.track(tid, f"req {req.uid}")
+            tr.begin("request", tid)
+            tr.begin("queued", tid)
+        return rs
 
+    def _step_gauges(self, rs: _RunState) -> None:
+        """Per-iteration scheduler/memory gauges + the trace counter row."""
+        sched, m = self.scheduler, rs.metrics
+        m.set("queue_depth", len(sched.queue))
+        m.set("resident_slots", len(sched.active))
+        vals = {"queue": len(sched.queue), "resident": len(sched.active)}
+        if self.kv_mode == "paged":
+            free = self.allocator.free_pages
+            m.set("free_pages", free)
+            m.set("pages_in_use", self.num_pages - free)
+            vals["free_pages"] = free
+        self.tracer.counter("sched", vals)
+
+    def _note_admission(self, rs: _RunState) -> None:
+        """Call right after ``plan_step``: if the FIFO head was just popped
+        into a slot, close its queued span, open its prefill-phase span and
+        observe its queue wait."""
+        pf = self.scheduler.prefilling
+        if pf is None or pf.req.uid in rs.admitted:
+            return
+        rs.admitted.add(pf.req.uid)
+        if pf.req.submit_s:
+            rs.metrics.observe("queue_wait_seconds",
+                               perf_counter() - pf.req.submit_s)
+        tid = request_tid(pf.req.uid)
+        tr = self.tracer
+        tr.end(tid)                       # queued
+        tr.instant("admit", tid, slot=pf.slot)
+        tr.begin("prefill", tid)
+
+    def _poll_compiles(self, rs: _RunState) -> None:
+        """Surface CUDA graph captures (a run's first epoch, a new
+        block-table width) as ``compiles_total`` + ``compile`` instants, so
+        a capture is attributable to the iteration that made it."""
+        n = graphs_captured(rs.epochs)
+        if n > rs.compiled_seen:
+            rs.metrics.inc("compiles_total", n - rs.compiled_seen)
+            self.tracer.instant("compile", n_new=n - rs.compiled_seen)
+            rs.compiled_seen = n
+
+    def _record_step_series(self, rs: _RunState, lay_keep) -> None:
+        """Per-step series: per-layer attention-gate keep rate
+        (``attn_keep_rate{layer=i}``) and the running measured KV-saved
+        fraction, both indexed by cumulative decode iteration."""
+        m = rs.metrics
+        if lay_keep is not None:
+            for i, v in enumerate(lay_keep):
+                m.record("attn_keep_rate", rs.step_idx, float(v), layer=i)
+        dense = m.value("kv_entries_dense_measured_total")
+        if dense:
+            m.record("kv_saved_fraction", rs.step_idx,
+                     1.0 - m.value("kv_entries_stored_measured_total")
+                     / dense)
+
+    # -- the lifecycle sweep -----------------------------------------------
+    def _boundary(self, rs: _RunState) -> None:
+        """The pass at the top of every iteration of all six run loops,
+        after the previous step's, epoch's or window's sync and before
+        anything is dispatched: the request-lifecycle sweep (cancellation
+        and deadline expiry release their resources within one
+        iteration).  The reference's also snapshots and injects host kills
+        (ROADMAP queue 1 item 12b)."""
+        self._lifecycle(rs)
+
+    def _expired(self, req: Request, now: float) -> Optional[str]:
+        """The request's lifecycle verdict at ``now``: "cancelled",
+        "deadline", or None (keep going)."""
+        if req.uid in self._cancelled:
+            return "cancelled"
+        if (req.deadline_s is not None and req.submit_s
+                and now - req.submit_s > req.deadline_s):
+            return "deadline"
+        return None
+
+    def _lifecycle(self, rs: _RunState) -> None:
+        """Sweep every request the engine holds — queued, mid-prefill,
+        resident — for cancellation or deadline expiry and retire the hits
+        (slot and pages released, a warm admission's record unpinned, typed
+        finish reason, trace spans closed).  A resident whose deferred
+        first token is still on the device has that one token read (a
+        sync on CUDA), so its partial result holds the real value."""
+        sched = self.scheduler
+        now = perf_counter()
+        for req in list(sched.queue):
+            reason = self._expired(req, now)
+            if reason is not None:
+                sched.remove_queued(req.uid)
+                self.tracer.end(request_tid(req.uid))    # queued span
+                self._finish_unplaced(rs, req, reason)
+        pf = sched.prefilling
+        if pf is not None:
+            reason = self._expired(pf.req, now)
+            if reason is not None:
+                sched.abort_prefill(requeue=False)
+                if self.kv_mode == "paged":
+                    self.allocator.release(pf.slot)
+                    self._abort_warm(pf.slot)
+                rs.stage_cache, rs.stage_gates = None, []
+                rs.admitted.discard(pf.req.uid)
+                self.tracer.end(request_tid(pf.req.uid))  # prefill span
+                self._finish_unplaced(rs, pf.req, reason)
+        for slot in sorted(sched.active):
+            st = sched.active[slot]
+            reason = self._expired(st.req, now)
+            if reason is not None:
+                tok_dev = rs.pending.pop(slot, None)
+                if tok_dev is not None:
+                    st.out_tokens[0] = st.next_token = int(tok_dev[0])
+                self._finish(rs, slot, reason)
+
+    def _finish_unplaced(self, rs: _RunState, req: Request,
+                         reason: str) -> None:
+        """Retire a request that never (or no longer) holds a slot —
+        removed from the queue, aborted mid-prefill or out of preemption
+        budget there — with an empty token result and a typed reason."""
+        self._cancelled.discard(req.uid)
+        self._record_result(rs, RequestResult(
+            uid=req.uid, tokens=np.zeros((0,), np.int32),
+            prompt_len=req.prompt_len, ttft_s=0.0, decode_s=0.0,
+            finish_reason=reason))
+        self._count_lifecycle(rs, reason)
+        tid = request_tid(req.uid)
+        self.tracer.instant("finish", tid, reason=reason, tokens=0)
+        if req.uid in rs.traced:
+            self.tracer.end(tid)          # close the request root span
+
+    @staticmethod
+    def _count_lifecycle(rs: _RunState, reason: str) -> None:
+        if reason == "cancelled":
+            rs.metrics.inc("requests_cancelled_total")
+        elif reason == "deadline":
+            rs.metrics.inc("deadline_exceeded_total")
+        elif reason == "preempt_budget":
+            rs.metrics.inc("preempt_budget_exhausted_total")
+
+    # -- prefill work units ------------------------------------------------
     def _tensor(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
         """A host array on the engine's device: on CUDA an asynchronous
         copy from pinned memory, so the host does not wait for the work in
@@ -813,7 +1218,7 @@ class ContinuousBatchingEngine:
             return tok, gates, cache
         t_sync = perf_counter()
         tok, gates = _fetch(tok, gates)
-        rs.stats.device_s += perf_counter() - t_sync
+        rs.metrics.inc("device_seconds_total", perf_counter() - t_sync)
         return int(tok[0]), gates, cache
 
     def _feed(self):
@@ -827,93 +1232,34 @@ class ContinuousBatchingEngine:
         return self._tensor(feed), self._tensor(pos, torch.int32)
 
     def _plan_dense(self, rs: _RunState, pool, n_steps: int,
-                    defer: bool = False) -> None:
+                    fused: bool = False) -> None:
         """The dense pool's prefill work of one iteration, from the step
         planner: with chunking off every placeable queued request prefills
         whole (the budget may defer one); with ``prefill_chunk`` > 0 one
-        chunk runs, so the residents decode between a prompt's chunks."""
-        sched = self.scheduler
+        chunk runs, so the residents decode between a prompt's chunks.
+        ``fused`` (the fused loop, which wraps the whole pass in one
+        ``plan`` span) leaves each first token on the device."""
+        sched, tr = self.scheduler, self.tracer
         pre_active = bool(sched.active)
         did_prefill = False
         while True:
-            plan = sched.plan_step(token_budget=self.step_tokens,
-                                   decode_steps=n_steps)
+            with contextlib.nullcontext() if fused else tr.span("plan"):
+                plan = sched.plan_step(token_budget=self.step_tokens,
+                                       decode_steps=n_steps)
+            self._note_admission(rs)
             if plan.prefill is None:
                 if sched.prefilling is not None:
                     rs.stats.prefill_deferrals += 1
                 break
-            self._prefill_work_dense(rs, plan.prefill, pool,
-                                     defer=defer
-                                     and plan.prefill.req.max_new_tokens > 1)
+            with tr.span("prefill"):
+                self._prefill_work_dense(
+                    rs, plan.prefill, pool,
+                    defer=fused and plan.prefill.req.max_new_tokens > 1)
             did_prefill = True
             if self.prefill_chunk:
                 break
         if did_prefill and pre_active:
-            rs.stats.interleaved_steps += 1
-
-    def _run_dense(self, rs: _RunState) -> None:
-        """Fixed ``max_slots × max_len`` pool.  Per iteration: the
-        planner's prefill work (every placeable prompt, or one chunk), then
-        one ragged decode step over the pool."""
-        sched, cfg = self.scheduler, self.cfg
-        L = max(len(cfg.attention_layers), 1)
-        measure = cfg.skip.enabled and cfg.skip.kv_reuse
-        pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
-        while sched.has_work():
-            self._plan_dense(rs, pool, 1)
-            if not sched.active:
-                continue
-            feed, pos = self._feed()
-            t0 = perf_counter()
-            logits, pool, dstats = self.model.decode_step(pool, feed, pos)
-            tok = sample(logits, rs.generator, self.temperature)
-            t_sync = perf_counter()
-            toks, gates = _fetch(tok, dstats.get("attn_gate"))
-            rs.stats.device_s += perf_counter() - t_sync
-            self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, L)
-
-    def _run_paged(self, rs: _RunState) -> None:
-        """Paged-pool mode.  Per iteration: (1) proactively guarantee one
-        decode step of page headroom for every resident, preempting the
-        youngest resident if the free list runs dry, so the step can never
-        run out of pages; (2) one ``plan_step`` plan, admission gated on
-        spare pages by ``_can_place``, at most one prefill; (3) one ragged
-        decode step over all slots, the walk bounded to a power-of-two
-        bucket of the live chains; (4) append the measured fresh entries
-        and the history-buffer accounting from the step's gate log.  Page
-        pressure evicts prefix records before anyone is preempted; a clean
-        exit stashes the store for the next run."""
-        sched, alloc, cfg = self.scheduler, self.allocator, self.cfg
-        nA = self.n_attn
-        reuse = paged_mod.reuse_enabled(cfg)
-        measure = cfg.skip.enabled and cfg.skip.kv_reuse
-        store = self._acquire_store()
-        while sched.has_work():
-            self._ensure_window(rs, 0)
-            self._plan_paged(rs, store, reuse, 1)
-            if not sched.active:
-                continue
-            feed, pos = self._feed()
-            # bound the walk to the live chains; power-of-two buckets keep
-            # the number of distinct walk widths logarithmic
-            j_live = max(1, alloc.max_chain_pages())
-            j_step = min(1 << (j_live - 1).bit_length(), alloc.pages_per_slot)
-            t0 = perf_counter()
-            logits, store, dstats = self.model.paged_decode_step(
-                store, feed, pos,
-                self._tensor(alloc.block_table[:, :j_step], torch.int32),
-                self._tensor(alloc.fill, torch.int32))
-            tok = sample(logits, rs.generator, self.temperature)
-            t_sync = perf_counter()
-            toks, gates = _fetch(tok, dstats["attn_gate"])
-            rs.stats.device_s += perf_counter() - t_sync
-            for slot in sched.active:
-                g = gates[:, slot]
-                fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
-                alloc.append(slot, fresh_n, nA)
-                rs.hist.on_decode_step(slot, g)
-            self._bookkeep(rs, toks, gates, perf_counter() - t0, measure, nA)
-        self._store = store
+            rs.metrics.inc("interleaved_steps_total")
 
     def _plan_paged(self, rs: _RunState, store, reuse: bool,
                     n_steps: int) -> None:
@@ -924,10 +1270,13 @@ class ContinuousBatchingEngine:
         its chunks span iterations whose headroom passes also draw from
         the free list."""
         sched, alloc, nA = self.scheduler, self.allocator, self.n_attn
+        tr = self.tracer
         pre_active = bool(sched.active)
-        plan = sched.plan_step(can_place=self._can_place,
-                               token_budget=self.step_tokens,
-                               decode_steps=n_steps)
+        with tr.span("plan"):
+            plan = sched.plan_step(can_place=self._can_place,
+                                   token_budget=self.step_tokens,
+                                   decode_steps=n_steps)
+        self._note_admission(rs)
         pf = sched.prefilling
         if plan.prefill is None and pf is not None:
             rs.stats.prefill_deferrals += 1
@@ -939,23 +1288,25 @@ class ContinuousBatchingEngine:
                     "iteration as a successful _can_place admission "
                     "check — allocator bug")
         if plan.prefill is not None:
-            self._prefill_work_paged(rs, plan.prefill, store, reuse)
+            with tr.span("prefill"):
+                self._prefill_work_paged(rs, plan.prefill, store, reuse)
             if pre_active:
-                rs.stats.interleaved_steps += 1
+                rs.metrics.inc("interleaved_steps_total")
 
     def _chunk_work(self, rs: _RunState, work: PrefillChunk, t0: float,
-                    defer: bool, width: Optional[int] = None):
+                    defer: bool, width: Optional[int] = None,
+                    warm: int = 0):
         """One chunk through the staging cache (allocated at the prompt's
         first chunk unless a warm admission restored it), right-padded to
-        C (or ``width``: a warm suffix's dispatch), its gate log kept on
-        the device; inputs go through pinned memory.  A chunk that is not
-        its prompt's last is only enqueued and counted (its device work is
-        waited for by the next sync, a decode step's or epoch's): returns
-        None.  The
-        last returns (its first token, the prompt's gate log [L, Tp] (the
-        chunks' logs side by side; Tp a chunk multiple ≥ T0), the staging
-        cache), token and log on the host or, with ``defer``, as device
-        tensors, and clears the run's staging state."""
+        C (or ``width``: a warm suffix's dispatch; ``warm`` is its record's
+        length), its gate log kept on the device; inputs go through pinned
+        memory.  A chunk that is not its prompt's last is only enqueued and
+        counted (its device work is waited for by the next sync, a decode
+        step's or epoch's): returns None.  The last returns (its first
+        token, the prompt's gate log [L, Tp] (the chunks' logs side by
+        side; Tp a chunk multiple ≥ T0), the staging cache), token and log
+        on the host or, with ``defer``, as device tensors, and clears the
+        run's staging state."""
         C = width or self.prefill_chunk
         if work.is_first and rs.stage_cache is None:
             rs.stage_cache = model_mod.init_chunk_cache(
@@ -963,14 +1314,24 @@ class ContinuousBatchingEngine:
             rs.stage_gates = []
         c = len(work.tokens)
         padded = np.pad(work.tokens, (0, C - c))
-        logits, rs.stage_cache, cstats = self.model.prefill_chunk(
-            rs.stage_cache, self._tensor(padded[None]),
-            self._tensor([work.start], torch.int32),
-            last_index=self._tensor([c - 1]))
+        tr = self.tracer
+        if warm:
+            idx = ((work.start - warm) // self.prefill_chunk
+                   if self.prefill_chunk else 0)
+            args = dict(tokens=c, warm=warm)
+        else:
+            idx = work.start // self.prefill_chunk
+            args = dict(tokens=c)
+        with tr.span(f"prefill[{idx}]", request_tid(work.req.uid), **args), \
+                tr.annotate("prefill_chunk"):
+            logits, rs.stage_cache, cstats = self.model.prefill_chunk(
+                rs.stage_cache, self._tensor(padded[None]),
+                self._tensor([work.start], torch.int32),
+                last_index=self._tensor([c - 1]))
         rs.stage_gates.append(cstats["attn_gate"])
         if not work.is_last:
-            rs.stats.prefill_chunks += 1
-            rs.stats.prefill_s += perf_counter() - t0
+            rs.metrics.inc("prefill_chunks_total")
+            rs.metrics.inc("prefill_seconds_total", perf_counter() - t0)
             self.scheduler.prefill_advance(work)
             return None
         tok = sample(logits, rs.generator, self.temperature)
@@ -981,7 +1342,7 @@ class ContinuousBatchingEngine:
             return tok, gates, cache
         t_sync = perf_counter()
         tok, gates = _fetch(tok, gates)
-        rs.stats.device_s += perf_counter() - t_sync
+        rs.metrics.inc("device_seconds_total", perf_counter() - t_sync)
         return int(tok[0]), gates, cache
 
     def _prefill_work_dense(self, rs: _RunState, work: PrefillChunk, pool,
@@ -993,16 +1354,20 @@ class ContinuousBatchingEngine:
         token and the gate log on the device, with no host sync."""
         t0 = perf_counter()
         if not self.prefill_chunk:
-            tok, gates, cache = self._prefill(rs, work.req,
-                                              pad_to=self.max_len,
-                                              defer=defer)
+            tr = self.tracer
+            with tr.span("prefill[0]", request_tid(work.req.uid),
+                         tokens=work.req.prompt_len), tr.annotate("prefill"):
+                tok, gates, cache = self._prefill(rs, work.req,
+                                                  pad_to=self.max_len,
+                                                  defer=defer)
+                pool_insert(pool, cache, work.slot)
         else:
             staged = self._chunk_work(rs, work, t0, defer)
             if staged is None:
                 return
             tok, gates, cache = staged
-            cache = model_mod.slice_cache_time(cache, self.max_len)
-        pool_insert(pool, cache, work.slot)
+            pool_insert(pool, model_mod.slice_cache_time(cache, self.max_len),
+                        work.slot)
         del cache
         self._finish_prefill(rs, work, tok, t0, gates, defer=defer)
 
@@ -1019,7 +1384,10 @@ class ContinuousBatchingEngine:
         T0 = work.req.prompt_len
         t0 = perf_counter()
         if not self.prefill_chunk:
-            tok, gates, cache = self._prefill(rs, work.req)
+            tr = self.tracer
+            with tr.span("prefill[0]", request_tid(work.req.uid),
+                         tokens=T0), tr.annotate("prefill_paged"):
+                tok, gates, cache = self._prefill(rs, work.req)
         else:
             staged = self._chunk_work(rs, work, t0, defer=False)
             if staged is None:
@@ -1060,21 +1428,27 @@ class ContinuousBatchingEngine:
         alloc, nA, slot = self.allocator, self.n_attn, work.slot
         warm = self._warm_pending[slot]
         rec = warm.rec
-        Ts, E_s = rec.length, rec.entries
+        Ts, E_s = int(rec.length), int(rec.entries)
         t0 = perf_counter()
         if work.is_first:
+            tr, tid = self.tracer, request_tid(work.req.uid)
             if warm.copy is not None:
-                paged_mod.copy_page_masked(store, *warm.copy)
-            chain = alloc.block_table[slot, :alloc.pages_for(E_s)]
-            k_views, v_views = paged_mod.views_from_pages(
-                store, self._tensor(chain, torch.int32), E_s, self.cfg,
-                self._warm_cap, kv_dtype=self.kv_dtype)
-            rs.stage_cache = paged_mod.chunk_cache_from_views(
-                k_views, v_views, self.cfg)
-            del k_views, v_views
+                with tr.span("cow_copy", tid, entries=int(warm.copy[2])), \
+                        tr.annotate("cow_copy"):
+                    paged_mod.copy_page_masked(store, *warm.copy)
+            with tr.span("warm_restore", tid, tokens=Ts, entries=E_s), \
+                    tr.annotate("warm_restore"):
+                chain = alloc.block_table[slot, :alloc.pages_for(E_s)]
+                k_views, v_views = paged_mod.views_from_pages(
+                    store, self._tensor(chain, torch.int32), E_s, self.cfg,
+                    self._warm_cap, kv_dtype=self.kv_dtype)
+                rs.stage_cache = paged_mod.chunk_cache_from_views(
+                    k_views, v_views, self.cfg)
+                del k_views, v_views
             rs.stage_gates = []
-            rs.stats.prefix_hits += 1
-            rs.stats.prefix_tokens_saved += Ts
+            rs.metrics.inc("prefix_hits_total")
+            rs.metrics.inc("prefix_tokens_saved_total", Ts)
+            tr.instant("prefix_hit", tid, warm_tokens=Ts, entries=E_s)
         c = len(work.tokens)
         if self.prefill_chunk:
             width = self.prefill_chunk
@@ -1082,7 +1456,8 @@ class ContinuousBatchingEngine:
             width = 1 << max(3, (c - 1).bit_length())
         if work.start + width > self._warm_cap:
             width = c
-        staged = self._chunk_work(rs, work, t0, defer=False, width=width)
+        staged = self._chunk_work(rs, work, t0, defer=False, width=width,
+                                  warm=Ts)
         if staged is None:
             return
         tok, suffix_gates, cache = staged
@@ -1108,6 +1483,131 @@ class ContinuousBatchingEngine:
         del self._warm_pending[slot]
         self._finish_prefill(rs, work, tok, t0, gates)
 
+    # -- single-step run loops ---------------------------------------------
+    def _run_dense(self, generator):
+        """Fixed ``max_slots × max_len`` pool.  Per iteration: the
+        lifecycle sweep, the planner's prefill work (every placeable
+        prompt, or one chunk), then one ragged decode step over the
+        pool."""
+        sched, cfg, tr = self.scheduler, self.cfg, self.tracer
+        rs = self._new_run_state(generator, paged=False)
+        m = rs.metrics
+        L = max(len(cfg.attention_layers), 1)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
+        t_loop = perf_counter()
+        while sched.has_work():
+            self._boundary(rs)
+            if not sched.has_work():      # the sweep drained the run
+                break
+            tr.begin("step", idx=rs.disp_idx)
+            self._step_gauges(rs)
+            self._plan_dense(rs, pool, 1)
+            if not sched.active:
+                yield from self._end_step(rs)
+                continue
+            feed, pos = self._feed()
+            t0 = perf_counter()
+            with tr.span("dispatch"), tr.annotate("decode_step"):
+                logits, pool, dstats = self.model.decode_step(pool, feed, pos)
+                tok = sample(logits, rs.generator, self.temperature)
+            m.inc("decode_dispatches_total")
+            t_sync = perf_counter()
+            with tr.span("sync"):
+                toks, gates = _fetch(tok, dstats.get("attn_gate"))
+            now = perf_counter()
+            self._step_times(rs, t0, t_sync, now)
+            with tr.span("bookkeep"):
+                self._bookkeep(rs, toks, gates, t0, now, measure, L)
+            rs.step_idx += 1
+            rs.disp_idx += 1
+            yield from self._end_step(rs)
+        m.inc("host_seconds_total",
+              perf_counter() - t_loop - m.value("device_seconds_total"))
+        return self._finalize(rs)
+
+    def _run_paged(self, generator):
+        """Paged-pool mode.  Per iteration: (1) the lifecycle sweep; (2)
+        proactively guarantee one decode step of page headroom for every
+        resident, preempting the youngest resident if the free list runs
+        dry, so the step can never run out of pages; (3) one
+        ``plan_step`` plan, admission gated on spare pages by
+        ``_can_place``, at most one prefill; (4) one ragged decode step
+        over all slots, the walk bounded to a power-of-two bucket of the
+        live chains; (5) append the measured fresh entries and the
+        history-buffer accounting from the step's gate log.  Page pressure
+        evicts prefix records before anyone is preempted; a clean exit
+        stashes the store for the next run."""
+        sched, alloc, cfg, tr = (self.scheduler, self.allocator, self.cfg,
+                                 self.tracer)
+        nA = self.n_attn
+        reuse = paged_mod.reuse_enabled(cfg)
+        measure = cfg.skip.enabled and cfg.skip.kv_reuse
+        store = self._acquire_store()
+        rs = self._new_run_state(generator, paged=True)
+        m = rs.metrics
+        per_step = functools.partial(self._paged_append, rs, reuse)
+        t_loop = perf_counter()
+        while sched.has_work():
+            self._boundary(rs)
+            if not sched.has_work():
+                break
+            tr.begin("step", idx=rs.disp_idx)
+            self._step_gauges(rs)
+            with tr.span("headroom"):
+                self._ensure_window(rs, 0)
+            self._plan_paged(rs, store, reuse, 1)
+            if not sched.active:
+                yield from self._end_step(rs)
+                continue
+            feed, pos = self._feed()
+            # bound the walk to the live chains; power-of-two buckets keep
+            # the number of distinct walk widths logarithmic
+            j_live = max(1, alloc.max_chain_pages())
+            j_step = min(1 << (j_live - 1).bit_length(), alloc.pages_per_slot)
+            t0 = perf_counter()
+            with tr.span("dispatch"), tr.annotate("paged_decode_step"):
+                logits, store, dstats = self.model.paged_decode_step(
+                    store, feed, pos,
+                    self._tensor(alloc.block_table[:, :j_step], torch.int32),
+                    self._tensor(alloc.fill, torch.int32))
+                tok = sample(logits, rs.generator, self.temperature)
+            m.inc("decode_dispatches_total")
+            t_sync = perf_counter()
+            with tr.span("sync"):
+                toks, gates = _fetch(tok, dstats["attn_gate"])
+            now = perf_counter()
+            self._step_times(rs, t0, t_sync, now)
+            with tr.span("bookkeep"):
+                self._bookkeep(rs, toks, gates, t0, now, measure, nA,
+                               per_slot=per_step)
+            rs.step_idx += 1
+            rs.disp_idx += 1
+            yield from self._end_step(rs)
+        m.inc("host_seconds_total",
+              perf_counter() - t_loop - m.value("device_seconds_total"))
+        self._store = store
+        return self._finalize(rs)
+
+    def _paged_append(self, rs: _RunState, reuse: bool, slot: int,
+                      g: np.ndarray) -> None:
+        """The paged hook of a decode iteration's per-slot bookkeeping: the
+        allocator append of its measured fresh entries and the history
+        replay."""
+        nA = self.n_attn
+        fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
+        self.allocator.append(slot, fresh_n, nA)
+        rs.hist.on_decode_step(slot, g)
+
+    def _step_times(self, rs: _RunState, t0: float, t_sync: float,
+                    now: float) -> None:
+        """A decode step's, epoch's or window's times: the sync's wait, and
+        its wall from dispatch to the end of the sync."""
+        m = rs.metrics
+        m.inc("device_seconds_total", now - t_sync)
+        m.inc("decode_seconds_total", now - t0)
+        m.observe("step_seconds", now - t0)
+
     # -- fused-epoch run loops (decode_steps > 1) --------------------------
     def _epoch(self, kv, rs: _RunState, paged: bool) -> DecodeEpoch:
         """The run's epoch over the dense pool or, ``paged``, the store: on
@@ -1116,12 +1616,14 @@ class ContinuousBatchingEngine:
         block-table width for the store (power-of-two buckets of the live
         chains clamped to pages_per_slot, so at most
         ceil(log2(pages_per_slot)) + 1)."""
-        return DecodeEpoch(self.model.params(), kv, self.cfg,
-                           slots=self.max_slots, n_max=self.decode_steps,
-                           max_len=self.max_len,
-                           temperature=self.temperature,
-                           generator=rs.generator, paged=paged,
-                           sampler=sample)
+        ep = DecodeEpoch(self.model.params(), kv, self.cfg,
+                         slots=self.max_slots, n_max=self.decode_steps,
+                         max_len=self.max_len,
+                         temperature=self.temperature,
+                         generator=rs.generator, paged=paged,
+                         sampler=sample)
+        rs.epochs.append(ep)
+        return ep
 
     def _epoch_args(self, rem: Dict[int, int]):
         """The epoch's inputs from the resident set; ``rem[slot]`` gets
@@ -1155,10 +1657,11 @@ class ContinuousBatchingEngine:
         return min(self.decode_steps, 1 << max(0, rem_max - 1).bit_length())
 
     def _launch_epoch(self, rs: _RunState, ep: DecodeEpoch, n: int) -> None:
-        ep.run(n)
-        rs.stats.decode_dispatches += 1
+        ep.run(n, annotate=functools.partial(
+            self.tracer.annotate,
+            "paged_decode_epoch" if ep.paged else "decode_epoch"))
+        rs.metrics.inc("decode_dispatches_total")
         rs.stats.decode_iterations += n
-        rs.stats.compiles, rs.stats.graph_replays = ep.captures, ep.replays
 
     def _process_epoch(self, rs: _RunState, ep: DecodeEpoch, n_run: int,
                        slots: List[int], t_disp: float,
@@ -1169,59 +1672,86 @@ class ContinuousBatchingEngine:
         mid-epoch).  ``per_step`` is the paged hook (allocator append +
         history replay).  A host/device disagreement on finishing raises
         instead of desyncing the KV state."""
-        cfg, sched = self.cfg, self.scheduler
+        cfg, sched, tr = self.cfg, self.scheduler, self.tracer
         L = max(len(cfg.attention_layers), 1)
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         t_sync = perf_counter()
-        toks, step_act, gates, fin_act = ep.fetch(n_run)
+        with tr.span("sync"):
+            toks, step_act, gates, fin_act = ep.fetch(n_run)
         now = perf_counter()
-        rs.stats.device_s += now - t_sync
-        epoch_s = now - t_disp
-        rs.stats.decode_s += epoch_s
-        step_s = epoch_s / n_run
-        # deferred first tokens first: their slots either join the replay
-        # below or were killed at the epoch's entry and finish here
-        self._resolve_pending(rs)
-        for slot in slots:
-            st = sched.active.get(slot)
-            if st is None:
-                continue
-            reason = None
-            for s in range(n_run):
-                if not step_act[s, slot]:
+        self._step_times(rs, t_disp, t_sync, now)
+        step_s = (now - t_disp) / n_run
+        with tr.span("bookkeep"):
+            # deferred first tokens first: their slots either join the
+            # replay below or were killed at the epoch's entry and finish
+            # here
+            self._resolve_pending(rs)
+            if tr.enabled:
+                t0u, t1u = tr.to_us(t_disp), tr.to_us(now)
+                for slot in slots:
+                    st = sched.active.get(slot)
+                    if st is not None:
+                        tr.span_at(f"decode[{rs.disp_idx}]",
+                                   request_tid(st.req.uid), t0u, t1u,
+                                   tokens=int(step_act[:, slot].sum()))
+            for slot in slots:
+                st = sched.active.get(slot)
+                if st is None:
                     continue
-                g = gates[s, :, slot] if gates is not None else None
-                if g is not None:
-                    rs.keep_acc += float(g.sum())
-                    rs.keep_n += L
-                if per_step is not None:
-                    per_step(slot, g)
-                reason = self._advance_slot(rs, st, int(toks[s, slot]), g,
-                                            step_s, measure, L)
-                if reason:
-                    self._finish(rs, slot, reason)
-                    break
-            if (reason is None) != bool(fin_act[slot]):
-                raise RuntimeError(
-                    f"fused-epoch divergence on slot {slot}: host finish "
-                    f"reason {reason!r} vs device active "
-                    f"{bool(fin_act[slot])} — the device loop's stop/length "
-                    "conditions no longer mirror _advance_slot")
+                reason = None
+                for s in range(n_run):
+                    if not step_act[s, slot]:
+                        continue
+                    g = gates[s, :, slot] if gates is not None else None
+                    if g is not None:
+                        rs.keep_acc += float(g.sum())
+                        rs.keep_n += L
+                    if per_step is not None:
+                        per_step(slot, g)
+                    reason = self._advance_slot(rs, st, int(toks[s, slot]),
+                                                g, step_s, measure, L)
+                    if reason:
+                        self._finish(rs, slot, reason)
+                        break
+                if (reason is None) != bool(fin_act[slot]):
+                    raise RuntimeError(
+                        f"fused-epoch divergence on slot {slot}: host finish "
+                        f"reason {reason!r} vs device active "
+                        f"{bool(fin_act[slot])} — the device loop's stop/"
+                        "length conditions no longer mirror _advance_slot")
+            lay = None
+            if gates is not None:
+                msum = float(step_act.sum())
+                if msum:
+                    # per-layer keep rate over every executed (step, slot)
+                    lay = (gates * step_act[:, None, :]).sum(axis=(0, 2)) \
+                        / msum
+            self._record_step_series(rs, lay)
+        rs.step_idx += n_run
+        rs.disp_idx += 1
 
-    def _run_dense_fused(self, rs: _RunState) -> None:
+    def _run_dense_fused(self, generator):
         """Dense pool with device-resident N-step epochs.  Per iteration:
-        (1) launch one epoch over the residents (sampling, stop/length
-        detection and position advance on the device; deferred first
-        tokens copied into the feed on the device); (2) while it runs,
-        admission, prefills (first token left on the device, inputs
-        copied from pinned memory) and pool inserts, enqueued behind it
-        on the same stream with no host sync; (3) one sync and the
-        epoch's bookkeeping.  Tokens equal ``_run_dense``'s at
+        (0) the lifecycle sweep; (1) launch one epoch over the residents
+        (sampling, stop/length detection and position advance on the
+        device; deferred first tokens copied into the feed on the device);
+        (2) while it runs, admission, prefills (first token left on the
+        device, inputs copied from pinned memory) and pool inserts,
+        enqueued behind it on the same stream with no host sync; (3) one
+        sync and the epoch's bookkeeping.  Tokens equal ``_run_dense``'s at
         temperature 0."""
-        sched = self.scheduler
+        sched, tr = self.scheduler, self.tracer
+        rs = self._new_run_state(generator, paged=False)
+        m = rs.metrics
         pool = init_pool(self.cfg, self.max_slots, self.max_len, self.device)
         ep = self._epoch(pool, rs, paged=False)
+        t_loop = perf_counter()
         while sched.has_work():
+            self._boundary(rs)
+            if not sched.has_work():
+                break
+            tr.begin("step", idx=rs.disp_idx)
+            self._step_gauges(rs)
             slots: List[int] = []
             n_eff, t_disp = 1, None
             if sched.active:
@@ -1229,16 +1759,22 @@ class ContinuousBatchingEngine:
                 feed, pos, act, budget, stop, slots = self._epoch_args(rem)
                 n_eff = self._epoch_len(rem)
                 t_disp = perf_counter()
-                ep.load(feed, pos, act, budget, stop)
-                for slot, tok_dev in rs.pending.items():
-                    if act[slot]:
-                        ep.feed[slot].copy_(tok_dev[0])
-                self._launch_epoch(rs, ep, n_eff)
-            self._plan_dense(rs, pool, n_eff, defer=True)
+                with tr.span("dispatch", n=n_eff):
+                    ep.load(feed, pos, act, budget, stop)
+                    for slot, tok_dev in rs.pending.items():
+                        if act[slot]:
+                            ep.feed[slot].copy_(tok_dev[0])
+                    self._launch_epoch(rs, ep, n_eff)
+            with tr.span("plan"):
+                self._plan_dense(rs, pool, n_eff, fused=True)
             if t_disp is not None:
                 self._process_epoch(rs, ep, n_eff, slots, t_disp)
+            yield from self._end_step(rs)
+        m.inc("host_seconds_total",
+              perf_counter() - t_loop - m.value("device_seconds_total"))
+        return self._finalize(rs)
 
-    def _run_paged_fused(self, rs: _RunState) -> None:
+    def _run_paged_fused(self, generator):
         """Paged store with device-resident N-step epochs: the entry
         stream's fill advances on the device, and the allocator and
         history accounting are replayed from the epoch's gate log at its
@@ -1250,16 +1786,20 @@ class ContinuousBatchingEngine:
         After a shrink the length that fit caps later epochs, and two
         clean epochs in a row double the cap back."""
         sched, alloc, nA = self.scheduler, self.allocator, self.n_attn
+        tr = self.tracer
         reuse = paged_mod.reuse_enabled(self.cfg)
         store = self._acquire_store()
+        rs = self._new_run_state(generator, paged=True)
+        m = rs.metrics
         ep = self._epoch(store, rs, paged=True)
-
-        def per_step(slot, g):
-            fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
-            alloc.append(slot, fresh_n, nA)
-            rs.hist.on_decode_step(slot, g)
-
+        per_step = functools.partial(self._paged_append, rs, reuse)
+        t_loop = perf_counter()
         while sched.has_work():
+            self._boundary(rs)
+            if not sched.has_work():
+                break
+            tr.begin("step", idx=rs.disp_idx)
+            self._step_gauges(rs)
             slots: List[int] = []
             n_eff, t_disp = 1, None
             if sched.active:
@@ -1270,32 +1810,34 @@ class ContinuousBatchingEngine:
                 if rs.epoch_cap:
                     n_eff = min(n_eff, rs.epoch_cap)
                 shrunk = False
-                while True:
-                    failed = None
-                    for slot in sorted(sched.active):
-                        need = (int(alloc.fill[slot])
-                                + min(n_eff, rem.get(slot, 1)) * nA)
-                        if not alloc.ensure(slot, need):
-                            failed = slot
+                with tr.span("headroom"):
+                    while True:
+                        failed = None
+                        for slot in sorted(sched.active):
+                            need = (int(alloc.fill[slot])
+                                    + min(n_eff, rem.get(slot, 1)) * nA)
+                            if not alloc.ensure(slot, need):
+                                failed = slot
+                                break
+                        if failed is None:
                             break
-                    if failed is None:
-                        break
-                    if self._reclaim_pages():
-                        continue
-                    if n_eff > 1:
-                        n_eff //= 2
-                        shrunk = True
-                        continue
-                    if not self._preempt_youngest(rs, exclude=failed):
-                        raise PageExhausted(
-                            f"page pool exhausted with a single resident "
-                            f"request (slot {failed}) — submit() should "
-                            "have rejected it", slot=failed,
-                            free_pages=alloc.free_pages,
-                            pages_total=self.num_pages)
+                        if self._reclaim_pages():
+                            continue
+                        if n_eff > 1:
+                            n_eff //= 2
+                            shrunk = True
+                            continue
+                        if not self._preempt_youngest(rs, exclude=failed):
+                            raise PageExhausted(
+                                f"page pool exhausted with a single resident "
+                                f"request (slot {failed}) — submit() should "
+                                "have rejected it", slot=failed,
+                                free_pages=alloc.free_pages,
+                                pages_total=self.num_pages)
                 if shrunk:
                     rs.epoch_cap, rs.clean_epochs = n_eff, 0
-                    rs.stats.epoch_shrinks += 1
+                    m.inc("epoch_shrinks_total")
+                    tr.instant("epoch_shrink", n_eff=n_eff)
                 elif rs.epoch_cap:
                     rs.clean_epochs += 1
                     if rs.clean_epochs >= 2:
@@ -1308,15 +1850,20 @@ class ContinuousBatchingEngine:
                 j_step = min(1 << (j_live - 1).bit_length(),
                              alloc.pages_per_slot)
                 t_disp = perf_counter()
-                ep.load(feed, pos, act, budget, stop, fill=alloc.fill,
-                        block_table=alloc.block_table[:, :j_step])
-                self._launch_epoch(rs, ep, n_eff)
+                with tr.span("dispatch", n=n_eff):
+                    ep.load(feed, pos, act, budget, stop, fill=alloc.fill,
+                            block_table=alloc.block_table[:, :j_step])
+                    self._launch_epoch(rs, ep, n_eff)
             # admission sees the free list net of the epoch's reservation
             self._plan_paged(rs, store, reuse, n_eff)
             if t_disp is not None:
                 self._process_epoch(rs, ep, n_eff, slots, t_disp,
                                     per_step=per_step)
+            yield from self._end_step(rs)
+        m.inc("host_seconds_total",
+              perf_counter() - t_loop - m.value("device_seconds_total"))
         self._store = store
+        return self._finalize(rs)
 
     # -- speculative decoding (spec_k > 0) ---------------------------------
     def _window_gamma(self) -> int:
@@ -1361,12 +1908,14 @@ class ContinuousBatchingEngine:
         """The run's draft loop over the pool or the store, under the draft
         parameters: on CUDA one captured graph of a draft iteration (one
         per block-table width paged), replayed γ times a window."""
-        return DecodeEpoch(self.draft_params, kv, self.cfg,
-                           slots=self.max_slots, n_max=self.spec_k,
-                           max_len=0,
-                           temperature=self.temperature,
-                           generator=rs.generator, paged=paged,
-                           sampler=sample, draft=True)
+        ep = DecodeEpoch(self.draft_params, kv, self.cfg,
+                         slots=self.max_slots, n_max=self.spec_k,
+                         max_len=0,
+                         temperature=self.temperature,
+                         generator=rs.generator, paged=paged,
+                         sampler=sample, draft=True)
+        rs.epochs.append(ep)
+        return ep
 
     def _spec_inputs(self):
         """This window's host (feed [S], pos [S], active [S], the active
@@ -1386,8 +1935,8 @@ class ContinuousBatchingEngine:
         S = self.max_slots
         ep.load(feed_dev, pos_dev, act, np.zeros((S,), np.int32),
                 np.full((S,), -1, np.int64), fill=fill, block_table=bt)
-        ep.run(gamma)
-        rs.stats.compiles, rs.stats.graph_replays = ep.captures, ep.replays
+        ep.run(gamma, annotate=functools.partial(self.tracer.annotate,
+                                                 "spec_draft"))
         if self.draft_override is not None:
             d = ep.tokens[:gamma].T.cpu().numpy().copy()       # [S, γ]
             for slot, st in self.scheduler.active.items():
@@ -1506,28 +2055,41 @@ class ContinuousBatchingEngine:
                                   self.cfg)
         return tgt, vstats["attn_gate"], committed
 
+
     def _spec_bookkeep(self, rs: _RunState, cur: List[int], gamma: int,
                        plan_emit: Dict[int, List[int]],
                        accepted: Dict[int, int],
                        gates: Optional[np.ndarray], window_s: float,
-                       measure: bool, n_layers: int, per_tok=None) -> None:
+                       measure: bool, n_layers: int, *, span,
+                       per_tok=None) -> int:
         """Walk each slot's truncated emission in token order with exactly
         the plain loops' per-token accounting: emitted token i pairs with
         verify gate column i (the gates of processing the token that
         produced it).  ``per_tok`` is the paged hook (allocator append and
-        history replay)."""
-        stats, sched = rs.stats, self.scheduler
-        stats.spec_windows += 1
-        stats.decode_s += window_s
-        stats.decode_dispatches += 2 if gamma else 1
-        stats.decode_iterations += gamma + 1
+        history replay); ``span`` the window's (dispatch, sync end) clock
+        readings for the requests' ``decode`` spans.  Returns the longest
+        emission (the window's step-equivalent count)."""
+        m, tr, sched = rs.metrics, self.tracer, self.scheduler
+        m.inc("spec_windows_total")
+        rs.stats.decode_iterations += gamma + 1
+        max_emit = 1
+        t0u, t1u = tr.to_us(span[0]), tr.to_us(span[1])
+        lay_sum, lay_n = None, 0
         for slot in cur:
             st = sched.active[slot]
             keep = plan_emit[slot]
+            a = accepted[slot]
+            tid = request_tid(st.req.uid)
             if gamma:
-                stats.spec_tokens_drafted += gamma
-                stats.spec_tokens_accepted += accepted[slot]
+                m.inc("spec_tokens_drafted_total", gamma)
+                m.inc("spec_tokens_accepted_total", a)
+                m.observe("spec_acceptance_rate", a / gamma)
+            tr.instant("accept", tid, drafted=gamma, accepted=a,
+                       emitted=len(keep))
+            tr.span_at(f"decode[{rs.disp_idx}]", tid, t0u, t1u,
+                       tokens=len(keep))
             share = window_s / len(keep)
+            max_emit = max(max_emit, len(keep))
             reason = None
             for i, tok in enumerate(keep):
                 g = gates[:, slot, i] if gates is not None else None
@@ -1545,57 +2107,87 @@ class ContinuousBatchingEngine:
                         f"token {i} but _plan_emission kept {len(keep)} — "
                         "the truncation rules no longer mirror the finish "
                         "conditions")
+            if gates is not None:
+                win = gates[:, slot, :len(keep)].sum(axis=1)
+                lay_sum = win if lay_sum is None else lay_sum + win
+                lay_n += len(keep)
             if reason:
                 self._finish(rs, slot, reason)
+        self._record_step_series(rs, lay_sum / lay_n if lay_n else None)
+        return max_emit
 
-    def _run_dense_spec(self, rs: _RunState) -> None:
-        """Dense-pool speculative loop.  Per iteration: the planner's
-        prefill work as ``_run_dense``, then ONE window instead of a
-        decode step: (1) γ draft iterations under ``draft_params`` propose
-        tokens (their KV rows tentative); (2) one ``verify_chunk`` runs the
-        full model over [feed, drafts], rewriting every window row with
-        the verifier's KV (dense rollback is free: rows past the accepted
-        prefix stay dead until the next window overwrites them); (3) one
-        sync reads the per-column argmax, the drafts and the gates (and at
-        temperature > 0 both logit sets); (4) host acceptance emits the
-        accepted prefix and a correction per slot.  Up to γ + 1 tokens a
-        slot a window; at temperature 0 the tokens are ``_run_dense``'s."""
-        sched, cfg = self.scheduler, self.cfg
+    def _run_dense_spec(self, generator):
+        """Dense-pool speculative loop.  Per iteration: the lifecycle sweep
+        and the planner's prefill work as ``_run_dense``, then ONE window
+        instead of a decode step: (1) γ draft iterations under
+        ``draft_params`` propose tokens (their KV rows tentative); (2) one
+        ``verify_chunk`` runs the full model over [feed, drafts], rewriting
+        every window row with the verifier's KV (dense rollback is free:
+        rows past the accepted prefix stay dead until the next window
+        overwrites them); (3) one sync reads the per-column argmax, the
+        drafts and the gates (and at temperature > 0 both logit sets); (4)
+        host acceptance emits the accepted prefix and a correction per
+        slot.  Up to γ + 1 tokens a slot a window; at temperature 0 the
+        tokens are ``_run_dense``'s."""
+        sched, cfg, tr = self.scheduler, self.cfg, self.tracer
+        rs = self._new_run_state(generator, paged=False)
+        m = rs.metrics
         L = max(len(cfg.attention_layers), 1)
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         sampled = self.temperature > 0.0
         pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
         ep = self._draft_epoch(pool, rs, paged=False)
+        t_loop = perf_counter()
         while sched.has_work():
+            self._boundary(rs)
+            if not sched.has_work():
+                break
+            tr.begin("step", idx=rs.disp_idx)
+            self._step_gauges(rs)
             self._plan_dense(rs, pool, 1)
             if not sched.active:
+                yield from self._end_step(rs)
                 continue
             feed, pos, act, cur = self._spec_inputs()
             gamma = self._window_gamma()
             t0 = perf_counter()
             feed_dev = self._tensor(feed)
             pos_dev = self._tensor(pos, torch.int32)
-            chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act, gamma)
-            logits, pool, vstats = self.model.verify_chunk(pool, chunk,
-                                                           pos_dev)
+            with tr.span("draft", k=gamma):
+                chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act,
+                                    gamma)
+            with tr.span("verify", k=gamma), tr.annotate("spec_verify"):
+                logits, pool, vstats = self.model.verify_chunk(pool, chunk,
+                                                               pos_dev)
+            m.inc("decode_dispatches_total", 2 if gamma else 1)
             t_sync = perf_counter()
-            tgt, drafts, gates, dlog, vlog = _fetch(
-                torch.argmax(logits, dim=-1), chunk[:, 1:],
-                vstats.get("attn_gate"),
-                ep.logits[:gamma].transpose(0, 1)
-                if (gamma and sampled) else None,
-                logits if sampled else None)
+            with tr.span("sync"):
+                tgt, drafts, gates, dlog, vlog = _fetch(
+                    torch.argmax(logits, dim=-1), chunk[:, 1:],
+                    vstats.get("attn_gate"),
+                    ep.logits[:gamma].transpose(0, 1)
+                    if (gamma and sampled) else None,
+                    logits if sampled else None)
             now = perf_counter()
-            rs.stats.device_s += now - t_sync
-            emitted, accepted = self._accept_windows(
-                rs, cur, gamma, drafts.astype(np.int64),
-                tgt.astype(np.int64), vlog, dlog)
-            plan_emit = {s: self._plan_emission(sched.active[s], emitted[s])
-                         for s in cur}
-            self._spec_bookkeep(rs, cur, gamma, plan_emit, accepted, gates,
-                                now - t0, measure, L)
+            self._step_times(rs, t0, t_sync, now)
+            with tr.span("bookkeep"):
+                emitted, accepted = self._accept_windows(
+                    rs, cur, gamma, drafts.astype(np.int64),
+                    tgt.astype(np.int64), vlog, dlog)
+                plan_emit = {s: self._plan_emission(sched.active[s],
+                                                    emitted[s])
+                             for s in cur}
+                max_emit = self._spec_bookkeep(
+                    rs, cur, gamma, plan_emit, accepted, gates, now - t0,
+                    measure, L, span=(t0, now))
+            rs.step_idx += max_emit
+            rs.disp_idx += 1
+            yield from self._end_step(rs)
+        m.inc("host_seconds_total",
+              perf_counter() - t_loop - m.value("device_seconds_total"))
+        return self._finalize(rs)
 
-    def _run_paged_spec(self, rs: _RunState) -> None:
+    def _run_paged_spec(self, generator):
         """Paged-store speculative loop, ``_run_dense_spec``'s twin with the
         tentative-commit protocol: (1) the residents' window headroom is
         reserved (``_ensure_window``) before admission, so ``_can_place``
@@ -1613,27 +2205,34 @@ class ContinuousBatchingEngine:
         commit run with no sync between them (``_spec_verify_commit``) and
         the host replay must give the device's counts; at temperature > 0
         the host accepts first and the commit follows."""
-        sched, alloc, cfg = self.scheduler, self.allocator, self.cfg
+        sched, alloc, cfg, tr = (self.scheduler, self.allocator, self.cfg,
+                                 self.tracer)
         nA = self.n_attn
         reuse = paged_mod.reuse_enabled(cfg)
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         sampled = self.temperature > 0.0
         store = self._acquire_store()
+        rs = self._new_run_state(generator, paged=True)
+        m = rs.metrics
         ep = self._draft_epoch(store, rs, paged=True)
-
-        def per_tok(slot, g):
-            fresh_n = int(1 + (g[1:] > 0.5).sum()) if reuse else nA
-            alloc.append(slot, fresh_n, nA)
-            rs.hist.on_decode_step(slot, g)
-
+        per_tok = functools.partial(self._paged_append, rs, reuse)
+        t_loop = perf_counter()
         while sched.has_work():
-            self._ensure_window(
-                rs, self._window_gamma() if sched.active else 0)
+            self._boundary(rs)
+            if not sched.has_work():
+                break
+            tr.begin("step", idx=rs.disp_idx)
+            self._step_gauges(rs)
+            with tr.span("headroom"):
+                self._ensure_window(
+                    rs, self._window_gamma() if sched.active else 0)
             self._plan_paged(rs, store, reuse, 1)
             if not sched.active:
+                yield from self._end_step(rs)
                 continue
             gamma = self._window_gamma()
-            self._ensure_window(rs, gamma)
+            with tr.span("headroom"):
+                self._ensure_window(rs, gamma)
             feed, pos, act, cur = self._spec_inputs()
             fill0 = alloc.fill.copy()
             j_live = max(1, alloc.max_chain_pages())
@@ -1645,67 +2244,83 @@ class ContinuousBatchingEngine:
             fill_dev = self._tensor(fill0, torch.int32)
             bt_dev = self._tensor(bt, torch.int32)
             act_dev = self._tensor(act, torch.bool)
-            chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act, gamma,
-                                fill=fill0, bt=bt)
+            with tr.span("draft", k=gamma):
+                chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act,
+                                    gamma, fill=fill0, bt=bt)
             cap = int(pos.max()) + gamma + 1
             dfill = ep.fill if gamma else fill_dev
-            if not sampled:
-                tgt_dev, gates_dev, committed_dev = self._spec_verify_commit(
-                    store, chunk, pos_dev, bt_dev, fill_dev, act_dev,
-                    self._emission_caps(cur), cap)
-                logits = None
-            else:
-                logits, vstats = self.model.paged_verify_chunk(
-                    store, chunk, pos_dev, bt_dev, fill_dev, cap=cap)
-                tgt_dev, gates_dev = (torch.argmax(logits, dim=-1),
-                                      vstats["attn_gate"])
-                committed_dev = None
+            with tr.span("verify", k=gamma), tr.annotate("spec_verify"):
+                if not sampled:
+                    tgt_dev, gates_dev, committed_dev = \
+                        self._spec_verify_commit(
+                            store, chunk, pos_dev, bt_dev, fill_dev, act_dev,
+                            self._emission_caps(cur), cap)
+                    logits = None
+                else:
+                    logits, vstats = self.model.paged_verify_chunk(
+                        store, chunk, pos_dev, bt_dev, fill_dev, cap=cap)
+                    tgt_dev, gates_dev = (torch.argmax(logits, dim=-1),
+                                          vstats["attn_gate"])
+                    committed_dev = None
+            m.inc("decode_dispatches_total", 2 if gamma else 1)
             t_sync = perf_counter()
-            tgt, drafts, gates, dfill, committed_np, dlog, vlog = _fetch(
-                tgt_dev, chunk[:, 1:], gates_dev, dfill, committed_dev,
-                ep.logits[:gamma].transpose(0, 1)
-                if (gamma and sampled) else None, logits)
+            with tr.span("sync"):
+                tgt, drafts, gates, dfill, committed_np, dlog, vlog = _fetch(
+                    tgt_dev, chunk[:, 1:], gates_dev, dfill, committed_dev,
+                    ep.logits[:gamma].transpose(0, 1)
+                    if (gamma and sampled) else None, logits)
             now = perf_counter()
-            rs.stats.device_s += now - t_sync
-            emitted, accepted = self._accept_windows(
-                rs, cur, gamma, drafts.astype(np.int64),
-                tgt.astype(np.int64), vlog, dlog)
-            plan_emit = {s: self._plan_emission(sched.active[s], emitted[s])
-                         for s in cur}
-            committed = np.zeros((self.max_slots,), np.int32)
-            for s in cur:
-                committed[s] = len(plan_emit[s])
-            if not sampled:
-                if not np.array_equal(committed_np.astype(np.int32),
-                                      committed):
-                    raise RuntimeError(
-                        "fused spec commit divergence: device committed "
-                        f"{committed_np.astype(int).tolist()} vs host plan "
-                        f"{committed.tolist()} — greedy accept replay bug")
-            else:
-                bk, bv = vstats["kv_token"]
-                model_mod.commit_verified(
-                    store, bk, bv, vstats["attn_gate"], pos_dev, bt_dev,
-                    fill_dev, self._tensor(committed, torch.int32), act_dev,
-                    cfg)
-                del vstats, bk, bv
-            # rolled back: the draft's tentative entries the commit does
-            # not cover (the draft's fresh counts come from the draft's
-            # gates, the commit's from the verifier's)
-            rolled = 0
-            for s in cur:
-                cf = int(fill0[s])
-                for i in range(len(plan_emit[s])):
-                    g = gates[:, s, i]
-                    cf += int(1 + (g[1:] > 0.5).sum()) if reuse else nA
-                rolled += max(0, int(dfill[s]) - cf)
-            rs.stats.spec_entries_rolled_back += rolled
-            self._spec_bookkeep(rs, cur, gamma, plan_emit, accepted, gates,
-                                now - t0, measure, nA, per_tok=per_tok)
-            for slot in cur:
-                if slot in sched.active:
-                    alloc.trim(slot)
+            self._step_times(rs, t0, t_sync, now)
+            with tr.span("bookkeep"):
+                emitted, accepted = self._accept_windows(
+                    rs, cur, gamma, drafts.astype(np.int64),
+                    tgt.astype(np.int64), vlog, dlog)
+                plan_emit = {s: self._plan_emission(sched.active[s],
+                                                    emitted[s])
+                             for s in cur}
+            with tr.span("rollback", k=gamma):
+                committed = np.zeros((self.max_slots,), np.int32)
+                for s in cur:
+                    committed[s] = len(plan_emit[s])
+                if not sampled:
+                    if not np.array_equal(committed_np.astype(np.int32),
+                                          committed):
+                        raise RuntimeError(
+                            "fused spec commit divergence: device committed "
+                            f"{committed_np.astype(int).tolist()} vs host "
+                            f"plan {committed.tolist()} — greedy accept "
+                            "replay bug")
+                else:
+                    bk, bv = vstats["kv_token"]
+                    model_mod.commit_verified(
+                        store, bk, bv, vstats["attn_gate"], pos_dev, bt_dev,
+                        fill_dev, self._tensor(committed, torch.int32),
+                        act_dev, cfg)
+                    del vstats, bk, bv
+                # rolled back: the draft's tentative entries the commit
+                # does not cover (the draft's fresh counts come from the
+                # draft's gates, the commit's from the verifier's)
+                rolled = 0
+                for s in cur:
+                    cf = int(fill0[s])
+                    for i in range(len(plan_emit[s])):
+                        g = gates[:, s, i]
+                        cf += int(1 + (g[1:] > 0.5).sum()) if reuse else nA
+                    rolled += max(0, int(dfill[s]) - cf)
+                m.inc("spec_entries_rolled_back_total", rolled)
+                max_emit = self._spec_bookkeep(
+                    rs, cur, gamma, plan_emit, accepted, gates, now - t0,
+                    measure, nA, per_tok=per_tok, span=(t0, now))
+                for slot in cur:
+                    if slot in sched.active:
+                        alloc.trim(slot)
+            rs.step_idx += max_emit
+            rs.disp_idx += 1
+            yield from self._end_step(rs)
+        m.inc("host_seconds_total",
+              perf_counter() - t_loop - m.value("device_seconds_total"))
         self._store = store
+        return self._finalize(rs)
 
     # -- bookkeeping shared by both KV modes -------------------------------
     def _finish_prefill(self, rs: _RunState, work: PrefillChunk, tok,
@@ -1717,11 +2332,11 @@ class ContinuousBatchingEngine:
         the next epoch sync, and the stop check runs on the device at the
         next epoch's entry."""
         now = perf_counter()
-        st = rs.stats
-        st.prefill_chunks += 1
-        st.prefill_s += now - t0
-        st.prefill_tokens += work.req.prompt_len
-        st.decode_tokens += 1
+        m = rs.metrics
+        m.inc("prefill_chunks_total")
+        m.inc("prefill_seconds_total", now - t0)
+        m.inc("prefill_tokens_total", work.req.prompt_len)
+        m.inc("decode_tokens_total")
         self.scheduler.prefill_advance(work)
         if defer:
             rs.pending[work.slot], tok = tok, 0
@@ -1731,6 +2346,7 @@ class ContinuousBatchingEngine:
                             first_token_s=now, last_emit_s=now)
         act.pf_gates = gates
         self.scheduler.activate(act)
+        self.tracer.end(request_tid(work.req.uid))    # prefill phase span
         req = work.req
         if defer:
             return
@@ -1757,40 +2373,59 @@ class ContinuousBatchingEngine:
                 self._finish(rs, slot, "stop")
 
     def _bookkeep(self, rs: _RunState, toks: np.ndarray,
-                  gates: Optional[np.ndarray], step_s: float, measure: bool,
-                  n_layers: int) -> None:
-        """Post-decode bookkeeping for every resident (a stack without
-        attention logs no gates: no keep rate, no KV accounting)."""
-        rs.stats.decode_s += step_s
-        rs.stats.decode_dispatches += 1
+                  gates: Optional[np.ndarray], t0: float, now: float,
+                  measure: bool, n_layers: int, per_slot=None) -> None:
+        """A single decode step's bookkeeping for every resident (a stack
+        without attention logs no gates: no keep rate, no KV accounting):
+        the requests' ``decode`` spans, each slot's advance (``per_slot``
+        is the paged hook: allocator append and history replay) and the
+        step's series."""
+        sched, tr = self.scheduler, self.tracer
         rs.stats.decode_iterations += 1
-        for slot in list(self.scheduler.active):
-            st = self.scheduler.active[slot]
+        cur = list(sched.active)
+        if tr.enabled:
+            t0u, t1u = tr.to_us(t0), tr.to_us(now)
+            for slot in cur:
+                tr.span_at(f"decode[{rs.disp_idx}]",
+                           request_tid(sched.active[slot].req.uid),
+                           t0u, t1u, tokens=1)
+        lay = gates[:, cur].mean(axis=1) if gates is not None else None
+        for slot in cur:
+            st = sched.active[slot]
             g = gates[:, slot] if gates is not None else None
+            if per_slot is not None:
+                per_slot(slot, g)
             if g is not None:
                 rs.keep_acc += float(g.sum())
                 rs.keep_n += n_layers
-            reason = self._advance_slot(rs, st, int(toks[slot]), g, step_s,
-                                        measure, n_layers)
+            reason = self._advance_slot(rs, st, int(toks[slot]), g,
+                                        now - t0, measure, n_layers)
             if reason:
                 self._finish(rs, slot, reason)
+        self._record_step_series(rs, lay)
 
     def _advance_slot(self, rs: _RunState, st: ActiveRequest, tok: int,
                       g: Optional[np.ndarray], step_s: float, measure: bool,
                       n_layers: int) -> Optional[str]:
         """One resident's post-step state (the fed token's KV was just
         written at st.pos).  Returns the finish reason or None."""
+        m = rs.metrics
         st.decode_s += step_s
         now = perf_counter()
-        st.max_stall_s = max(st.max_stall_s, now - st.last_emit_s)
+        gap = now - st.last_emit_s
+        st.max_stall_s = max(st.max_stall_s, gap)
+        m.observe("decode_stall_seconds", gap)
         st.last_emit_s = now
         if g is not None:
+            stored = 1 + int(g[1:].sum()) if measure else n_layers
             st.kv_dense += n_layers
-            st.kv_stored += 1 + int(g[1:].sum()) if measure else n_layers
+            st.kv_stored += stored
+            m.inc("kv_entries_dense_measured_total", n_layers)
+            m.inc("kv_entries_stored_measured_total", stored)
         st.pos += 1
         st.out_tokens.append(tok)
         st.next_token = tok
-        rs.stats.decode_tokens += 1
+        m.inc("decode_tokens_total")
         if st.req.stop_token is not None and tok == st.req.stop_token:
             return "stop"
         if len(st.out_tokens) >= st.req.max_new_tokens:
@@ -1799,7 +2434,7 @@ class ContinuousBatchingEngine:
             return "max_len"
         return None
 
-    def _account_prefill(self, st: ActiveRequest) -> None:
+    def _account_prefill(self, rs: _RunState, st: ActiveRequest) -> None:
         """Fold the prompt-phase gate log into the request's measured
         KV-storage accounting (layer 0 dense + executed layers)."""
         if st.pf_gates is None:
@@ -1816,46 +2451,77 @@ class ContinuousBatchingEngine:
             stored = L * T0
         st.kv_dense += L * T0
         st.kv_stored += stored
+        rs.metrics.inc("kv_entries_dense_measured_total", L * T0)
+        rs.metrics.inc("kv_entries_stored_measured_total", stored)
         st.pf_gates = None
 
-    def _finish(self, rs: _RunState, slot: int, reason: str) -> None:
-        """Evict ``slot``'s request and record its result (paged mode also
-        returns its pages and clears its history accounting)."""
-        st = self.scheduler.release(slot)
-        self._account_prefill(st)
-        if self.kv_mode == "paged":
-            self.allocator.release(slot)
-            rs.hist.on_release(slot)
+    @staticmethod
+    def _make_result(st: ActiveRequest, reason: str) -> RequestResult:
         st.finish_reason = reason
-        rs.results[st.req.uid] = RequestResult(
+        return RequestResult(
             uid=st.req.uid, tokens=np.asarray(st.out_tokens, np.int32),
             prompt_len=st.req.prompt_len,
             ttft_s=st.first_token_s - st.submit_s, decode_s=st.decode_s,
             finish_reason=reason, kv_stored=st.kv_stored,
             kv_dense=st.kv_dense, max_decode_stall_s=st.max_stall_s)
-        rs.stats.requests_completed += 1
+
+    def _finish(self, rs: _RunState, slot: int, reason: str) -> None:
+        """Evict ``slot``'s request and record its result (paged mode also
+        returns its pages and clears its history accounting)."""
+        st = self.scheduler.release(slot)
+        self._account_prefill(rs, st)
+        if self.kv_mode == "paged":
+            self.allocator.release(slot)
+            rs.hist.on_release(slot)
+        self._emit_stream(st.req.uid, st.out_tokens, rs.step_idx)
+        res = self._make_result(st, reason)
+        self._record_result(rs, res)
+        self._cancelled.discard(st.req.uid)
+        self._count_lifecycle(rs, reason)
+        m = rs.metrics
+        m.inc("requests_completed_total")
+        m.observe("ttft_seconds", res.ttft_s)
+        n = res.decode_tokens - 1
+        if n > 0 and res.decode_s > 0:
+            m.observe("tpot_seconds", res.decode_s / n)
+        tid = request_tid(st.req.uid)
+        self.tracer.instant("finish", tid, reason=reason,
+                            tokens=res.decode_tokens)
+        self.tracer.end(tid)              # close the request root span
 
     def _preempt_youngest(self, rs: _RunState, exclude: int) -> bool:
         """OOM backpressure (paged mode).  An in-flight chunked prefill is
         always the newest admission and holds its worst-case reservation
         without being a resident, so it goes first: aborted, its pages and
         slot released, its staging state dropped (a warm admission's
-        record unpinned), the request requeued to
-        prefill again from its first chunk (no decode progress is lost,
-        and the residents decode between the abort and the retry).  Else
-        evict the youngest resident by original submission time (≠
-        ``exclude``) and requeue it at its age-ordered position; it
-        re-prefills from scratch when pages free up.  Returns False when
-        there is no victim."""
-        sched = self.scheduler
+        record unpinned), the request requeued to prefill again from its
+        first chunk (no decode progress is lost, and the residents decode
+        between the abort and the retry).  Else evict the youngest
+        resident by original submission time (≠ ``exclude``) and requeue
+        it at its age-ordered position; it re-prefills from scratch when
+        pages free up.  A victim preempted more than ``max_preemptions``
+        times finishes instead ("preempt_budget", its partial tokens
+        kept).  Returns False when there is no victim."""
+        sched, m, tr = self.scheduler, rs.metrics, self.tracer
         pf = sched.prefilling
         if pf is not None and pf.slot != exclude:
-            sched.abort_prefill()
+            sched.abort_prefill(requeue=False)
             self.allocator.release(pf.slot)
             self._abort_warm(pf.slot)
             rs.stage_cache, rs.stage_gates = None, []
-            rs.stats.preemptions += 1
+            m.inc("preemptions_total")
             rs.stats.prefill_aborts += 1
+            rs.admitted.discard(pf.req.uid)
+            pf.req.preempt_count += 1
+            tid = request_tid(pf.req.uid)
+            tr.end(tid)                   # the open prefill span
+            tr.instant("preempt", tid, kind="prefill_abort",
+                       count=pf.req.preempt_count)
+            if self._budget_spent(pf.req):
+                self._finish_unplaced(rs, pf.req, "preempt_budget")
+            else:
+                sched.requeue(pf.req)     # age-preserving re-admission
+                tr.begin("queued", tid)
             return True
         victims = [s for s in sched.active if s != exclude]
         if not victims:
@@ -1865,12 +2531,64 @@ class ContinuousBatchingEngine:
         self.allocator.release(slot)
         rs.hist.on_release(slot)
         rs.pending.pop(slot, None)
-        rs.stats.preemptions += 1
-        sched.requeue(st.req)
+        m.inc("preemptions_total")
+        rs.admitted.discard(st.req.uid)
+        st.req.preempt_count += 1
+        tid = request_tid(st.req.uid)
+        tr.instant("preempt", tid, kind="evict", slot=slot,
+                   count=st.req.preempt_count)
+        if self._budget_spent(st.req):
+            self._account_prefill(rs, st)
+            self._emit_stream(st.req.uid, st.out_tokens, rs.step_idx)
+            self._record_result(rs, self._make_result(st, "preempt_budget"))
+            self._cancelled.discard(st.req.uid)
+            self._count_lifecycle(rs, "preempt_budget")
+            tr.instant("finish", tid, reason="preempt_budget",
+                       tokens=len(st.out_tokens))
+            tr.end(tid)                   # close the request root span
+        else:
+            sched.requeue(st.req)         # age-preserving re-admission
+            tr.begin("queued", tid)
         return True
 
+    def _budget_spent(self, req: Request) -> bool:
+        return (self.max_preemptions is not None
+                and req.preempt_count > self.max_preemptions)
+
     def _finalize(self, rs: _RunState) -> Dict[str, object]:
-        stats, results = rs.stats, rs.results
+        """Derive the run's ServeStats from the metrics registry (the
+        returned dict carries the registry too), fold per-request
+        accounting into the aggregate KV numbers, and save the trace when
+        the tracer has a path."""
+        stats, results, m = rs.stats, rs.results, rs.metrics
+        stats.prefill_tokens = int(m.value("prefill_tokens_total"))
+        stats.decode_tokens = int(m.value("decode_tokens_total"))
+        stats.prefill_s = m.value("prefill_seconds_total")
+        stats.decode_s = m.value("decode_seconds_total")
+        stats.prefill_chunks = int(m.value("prefill_chunks_total"))
+        stats.interleaved_steps = int(m.value("interleaved_steps_total"))
+        stats.requests_completed = int(m.value("requests_completed_total"))
+        stats.decode_dispatches = int(m.value("decode_dispatches_total"))
+        stats.device_s = m.value("device_seconds_total")
+        stats.host_s = m.value("host_seconds_total")
+        stats.preemptions = int(m.value("preemptions_total"))
+        stats.compiles = int(m.value("compiles_total"))
+        stats.graph_replays = sum(ep.replays for ep in rs.epochs)
+        stats.requests_cancelled = int(m.value("requests_cancelled_total"))
+        stats.deadline_exceeded = int(m.value("deadline_exceeded_total"))
+        stats.requests_shed = int(m.value("requests_shed_total"))
+        stats.preempt_budget_exhausted = int(
+            m.value("preempt_budget_exhausted_total"))
+        stats.epoch_shrinks = int(m.value("epoch_shrinks_total"))
+        stats.spec_windows = int(m.value("spec_windows_total"))
+        stats.spec_tokens_drafted = int(m.value("spec_tokens_drafted_total"))
+        stats.spec_tokens_accepted = int(
+            m.value("spec_tokens_accepted_total"))
+        stats.spec_entries_rolled_back = int(
+            m.value("spec_entries_rolled_back_total"))
+        if stats.spec_tokens_drafted:
+            stats.spec_acceptance_rate = (stats.spec_tokens_accepted
+                                          / stats.spec_tokens_drafted)
         stats.attn_keep_frac = (rs.keep_acc / rs.keep_n if rs.keep_n
                                 else 1.0)
         tot_dense = sum(r.kv_dense for r in results.values())
@@ -1878,9 +2596,6 @@ class ContinuousBatchingEngine:
         stats.kv_saved_fraction = (1.0 - tot_stored / tot_dense
                                    if tot_dense else 0.0)
         stats.kv_saved_analytic = analytic_kv_saved(self.cfg)
-        if stats.spec_tokens_drafted:
-            stats.spec_acceptance_rate = (stats.spec_tokens_accepted
-                                          / stats.spec_tokens_drafted)
         if self.kv_mode == "paged":
             alloc = self.allocator
             stats.pages_peak = alloc.stats.pages_peak
@@ -1888,7 +2603,16 @@ class ContinuousBatchingEngine:
             stats.kv_entries_dense = alloc.stats.entries_dense
             stats.history_hit_rate = rs.hist.hit_rate
             stats.history_hits_per_layer = rs.hist.per_layer_hit_rate
+            m.set("pages_peak", alloc.stats.pages_peak)
+            for i, h in enumerate(rs.hist.per_layer_hit_rate):
+                m.set("history_hit_rate", h, layer=i)
             if self.prefix is not None:
-                stats.prefix_misses = self.prefix.misses - rs.misses0
+                stats.prefix_hits = int(m.value("prefix_hits_total"))
+                stats.prefix_misses = int(m.value("prefix_misses_total"))
+                stats.prefix_tokens_saved = int(
+                    m.value("prefix_tokens_saved_total"))
                 stats.prefix_records = len(self.prefix)
-        return {"results": results, "stats": stats}
+                m.set("prefix_records", len(self.prefix))
+        if self.tracer.enabled and self.tracer.path is not None:
+            self.tracer.save()
+        return {"results": results, "stats": stats, "metrics": m}

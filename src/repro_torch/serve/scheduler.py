@@ -52,16 +52,26 @@ class Request:
                        sampled from the prefill logits.
       stop_token     — optional token id that ends generation early (it
                        is still emitted as the last output token).
-      submit_s       — ``perf_counter`` stamp set by ``Scheduler.submit``:
-                       the request's *age* for preemption-victim ordering,
+      submit_s       — ``perf_counter`` stamp set by ``Scheduler.submit``
+                       (feeds the engine's queue-wait histogram, and is the
+                       request's *age* for preemption-victim ordering,
                        preserved across requeues, so a preempted request
-                       never loses its FIFO seniority.
+                       never loses its FIFO seniority).
+      deadline_s     — optional wall-clock budget measured from submit;
+                       past it the engine finishes the request with
+                       ``finish_reason == "deadline"`` and releases its
+                       resources at the next step/epoch boundary.
+      preempt_count  — times this request has been preempted (OOM victim
+                       or aborted in-flight prefill); against the
+                       engine's ``max_preemptions`` retry budget.
     """
     uid: int
     tokens: np.ndarray               # [T0] int32 prompt
     max_new_tokens: int
     stop_token: Optional[int] = None
     submit_s: float = 0.0
+    deadline_s: Optional[float] = None
+    preempt_count: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -232,6 +242,16 @@ class Scheduler:
         req.submit_s = perf_counter()
         self.queue.append(req)
 
+    def remove_queued(self, uid: int) -> Optional[Request]:
+        """Remove (and return) a still-queued request — the cheap half of
+        cooperative cancellation; None when ``uid`` is not in the queue
+        (already admitted, finished, or unknown)."""
+        for i, req in enumerate(self.queue):
+            if req.uid == uid:
+                del self.queue[i]
+                return req
+        return None
+
     @property
     def free_slots(self) -> int:
         return len(self._free)
@@ -308,18 +328,19 @@ class Scheduler:
         iterations; a monolithic one completes within its own)."""
         return self._prefilling
 
-    def abort_prefill(self) -> _InflightPrefill:
+    def abort_prefill(self, requeue: bool = True) -> _InflightPrefill:
         """Cancel the in-flight prefill: its slot returns to the free list
-        and the request goes back into the FIFO at its age-ordered
-        position, to re-prefill from scratch.  The paged engine uses this
-        as OOM backpressure: the in-flight prompt is the newest admission
-        and has no decode progress to lose.  (The reference's
-        ``requeue=False``, cancellation, comes with ROADMAP item 12.)"""
+        and (unless ``requeue=False`` — cancellation, a deadline, a spent
+        preemption budget) the request goes back into the FIFO at its
+        age-ordered position, to re-prefill from scratch.  The paged engine
+        uses this as OOM backpressure: the in-flight prompt is the newest
+        admission and has no decode progress to lose."""
         pf = self._prefilling
         assert pf is not None, "no prefill in flight"
         self._prefilling = None
         self._free.append(pf.slot)
-        self.requeue(pf.req)
+        if requeue:
+            self.requeue(pf.req)
         return pf
 
     # -- admission / eviction ---------------------------------------------

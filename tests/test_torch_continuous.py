@@ -4,8 +4,9 @@ interpret mode), on the same bridged weights and the same submit sequence:
 per-request tokens and every shared statistic must be equal, in the dense
 slot pool and in the paged §4.4 store.  Also: paged ≡ dense within the
 port, tokens unchanged under page-pressure preemption, page conservation
-after every run, admission rejection, unported levers raising
-``ConfigError``, and temperature sampling held by distribution.
+after every run, admission rejection, unported levers (faults, the
+watchdog, snapshots, a mesh) raising ``ConfigError``, and temperature
+sampling held by distribution.
 
 Routers are redrawn at unit scale with zero bias so routing really skips
 (fp32 smoke config)."""
@@ -222,23 +223,13 @@ def test_scheduler_matches_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    {"max_queue_delay_s": 1.0},
     {"kv_mode": "paged", "watchdog": object()}, {"faults": []},
-    {"snapshot_dir": "snap"}, {"max_queue_depth": 1},
-    {"max_preemptions": 1}, {"trace": True},
-    {"mesh": object()}])
+    {"snapshot_dir": "snap"}, {"mesh": object()}])
 def test_unported_knob_raises_config_error(world, knob):
     _, model, _ = world
     kw = dict(GEOM, **knob)
     with pytest.raises(ConfigError, match="ROADMAP queue 1"):
         ContinuousBatchingEngine(model, **kw)
-
-
-def test_unported_deadline_raises_config_error(world):
-    _, model, prompts = world
-    eng = ContinuousBatchingEngine(model, **GEOM)
-    with pytest.raises(ConfigError, match="item 12"):
-        eng.submit(prompts[0], max_new_tokens=4, deadline_s=1.0)
 
 
 def test_temperature_sampling_by_distribution():

@@ -241,7 +241,9 @@ def test_port_imports_no_jax():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/quant/int4.py",
             "src/repro_torch/kernels/int4_matmul.py",
-            "src/repro_torch/kvcache/prefix.py"} <= names
+            "src/repro_torch/kvcache/prefix.py",
+            "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/obs/trace.py"} <= names
     bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not bad, bad
 
