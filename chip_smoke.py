@@ -247,9 +247,41 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 Phase 4 also holds the cpu and cuda paged engines'
                 registries (count-valued metrics) and a streamed
                 request's tokens equal.
+ 16. faults   — faults, the watchdog and crash-consistent snapshots on
+                phase 6's bf16 weights (and for (e) phase 7's fp32 copy),
+                its line emitted after phase 15's: (a) 4 of phase 6's
+                requests, +16 tokens, in all six run loops (dense and
+                paged, single-step, fused 8-step epochs, spec_k 4): clean,
+                2 dispatch errors, a 0.05 s stall under a Watchdog without
+                a hard timeout and, paged, an OOM hiding every free page:
+                every fault fired, each robustness counter equal to its
+                ServeStats field and its trace instants, slots and pages
+                back, tokens bit for bit the clean run's (OOM: the share
+                reported), a single-step run's launches the clean run's
+                on each route but for whole decode steps, each counted
+                exactly; the paged spec loop's bf16 retries come after
+                its last admission, and one more run with two retries
+                amid them is reported (equal share; the first differing
+                token's windows, routes and flash split), not held ((e)
+                holds it in fp32); (b) each loop killed at a boundary
+                after its snapshot, a fresh engine ``resume()``s it:
+                tokens bit for
+                bit the clean run's, one resume, nothing leaked; fused
+                dense at temperature 0.8 killed and resumed: the
+                uninterrupted run's tokens (the generator restored);
+                snapshot bytes and seconds, resume seconds; (c) the
+                launcher as three processes (paged bf16, fused epochs):
+                clean and killed (exit code 3), both started beside (a)
+                and (b), then resumed: the clean process's results;
+                (d) a 0.5 s stall against the watchdog's 0.25 s timeout
+                raises HungDispatch with the flushed trace's path; (e)
+                fp32 pages: an OOM single-step and in fused epochs, each
+                preempting, two retries amid a spec_k 4 run's admissions,
+                and a fused run killed and resumed: tokens, gate logs and
+                KV accounting bit for bit the clean run's.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12, 13, 14 and 15 (their fp32 witness
-runs included),
+runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15 and 16 (their fp32 witness
+runs included; not phase 16's subprocesses),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's, 12's and 14's replayed launches stand in their own lines,
 derived, and in no sum; for the paged SIMT route, which only fp32 serving
@@ -3760,6 +3792,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     prefix = prefix_witness(torch, np, dev, m32)
     spec = spec_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     life = lifecycle_witness(torch, np, dev, m32, reqs, new, tokens)
+    fault = faults_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     del m32
     torch.cuda.empty_cache()
     dist["bf16_dense"] = _forced_distance(
@@ -3785,7 +3818,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
                        "vs_fp32_dense": dist}}, launches, chunk, prefix, \
-        spec, life
+        spec, life, fault
 
 
 # ---------------------------------------------------------------------------
@@ -4105,6 +4138,11 @@ COUNTER_FIELDS = {
     "prefix_hits_total": "prefix_hits",
     "prefix_misses_total": "prefix_misses",
     "prefix_tokens_saved_total": "prefix_tokens_saved",
+    "faults_injected_total": "faults_injected",
+    "dispatch_retries_total": "dispatch_retries",
+    "watchdog_strikes_total": "watchdog_strikes",
+    "snapshots_total": "snapshots",
+    "resumes_total": "resumes",
     "spec_windows_total": "spec_windows",
     "spec_tokens_drafted_total": "spec_tokens_drafted",
     "spec_tokens_accepted_total": "spec_tokens_accepted",
@@ -4466,6 +4504,619 @@ def lifecycle_witness(torch, np, dev, m32, reqs, new, tokens):
     return rec, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: faults, the watchdog and crash-consistent snapshots
+# ---------------------------------------------------------------------------
+
+FAULT_REQUESTS, FAULT_NEW = 4, 16   # (a)-(b): 4 of phase 6's requests, +16
+FAULT_STALL_S = 0.05       # (a)'s stall, under a watchdog without a timeout
+HUNG_STALL_S, HUNG_TIMEOUT_S = 0.5, 0.25      # (d)
+FAULT_LOOPS = (
+    ("dense", dict(kv_mode="dense")),
+    ("dense_fused", dict(kv_mode="dense", decode_steps=FUSED_STEPS)),
+    ("dense_spec", dict(kv_mode="dense", spec_k=SPEC_K)),
+    ("paged", dict(kv_mode="paged")),
+    ("paged_fused", dict(kv_mode="paged", decode_steps=FUSED_STEPS)),
+    ("paged_spec", dict(kv_mode="paged", spec_k=SPEC_K)),
+)
+# each robustness counter: its ServeStats field and its trace instant
+ROBUST = {"faults_injected_total": ("faults_injected", "fault"),
+          "watchdog_strikes_total": ("watchdog_strikes", "watchdog"),
+          "snapshots_total": ("snapshots", "snapshot"),
+          "resumes_total": ("resumes", "resume")}
+# (c): the launcher's paged fused run, killed at boundary PROC_KILL_AT
+PROC_ARGS = ("--arch", "llama2-7b", "--device", "cuda", "--continuous",
+             "--paged-kv", "--decode-steps", str(FUSED_STEPS), "--batch",
+             str(SLOTS), "--prompt-len", "128", "--new-tokens", "16")
+PROC_KILL_AT, PROC_SNAPSHOT_EVERY = 4, 2
+# (a)'s OOM: a paged loop admits one prompt an iteration, so by iteration 2
+# two residents stand, and one can be preempted for the other
+OOM_STEP = 2
+
+
+def fault_steps(kw) -> tuple:
+    """Iterations (d, s) a loop's faults fire at: a fused epoch or a window
+    covers several tokens, so those loops run fewer iterations.  A paged
+    loop admits one prompt an iteration, so a retry before the last
+    admission moves it against the residents' progress: in single-step
+    decode that shifts whole steps (counted exactly), but in speculation
+    it reshapes the windows (γ, so the verify's rows and routes), and
+    bf16 routes round differently (ROADMAP queue 3); the paged spec loop's
+    bf16 faults fire after its last admission, and (e) holds a retry
+    amid admissions there in fp32."""
+    if kw.get("decode_steps", 1) > 1:
+        return 0, 1
+    if kw.get("spec_k"):
+        return ((FAULT_REQUESTS, FAULT_REQUESTS + 1)
+                if kw["kv_mode"] == "paged" else (1, 2))
+    return 2, 5
+
+
+def instants(events) -> dict:
+    out = {}
+    for e in events:
+        if e.get("ph") == "i":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def span_seconds(events, name) -> list:
+    """Durations of the engine track's ``name`` spans, in seconds."""
+    out, opened = [], []
+    for e in events:
+        if e.get("name") != name or e.get("tid") != 0:
+            continue
+        if e["ph"] == "B":
+            opened.append(e["ts"])
+        elif e["ph"] == "E":
+            out.append((e["ts"] - opened.pop()) * 1e-6)
+    return out
+
+
+def robust_counters(m, stats, events, label) -> dict:
+    """Each robustness counter equals its ServeStats field (when the run
+    returned) and the count of its trace instants."""
+    seen = instants(events)
+    got = {}
+    for name, (field, inst) in ROBUST.items():
+        v = int(m.value(name))
+        if stats is not None:
+            require(v == getattr(stats, field), f"{label}: {name} {v} != "
+                    f"ServeStats.{field} {getattr(stats, field)}")
+        require(v == seen.get(inst, 0), f"{label}: {name} {v} != its "
+                f"{seen.get(inst, 0)} '{inst}' instants")
+        got[field] = v
+    return got
+
+
+def leak_free(eng, label) -> None:
+    sched = eng.scheduler
+    require(not sched.active and not sched.queue and sched.prefilling is None
+            and sched.free_slots == eng.max_slots, f"{label}: slots left "
+            "taken")
+    if eng.kv_mode == "paged":
+        pages_back(eng, label)
+
+
+def fault_run(torch, dev, model, label, prompts, new, watch=None,
+              windows=None, **kw):
+    """One traced run on a fresh engine (``kw``: engine levers, faults and
+    the watchdog included): the wrappers' launches counted from 0, every
+    request completed, slots and pages back.  ``watch`` (a list) receives
+    each (phase, dispatch-to-sync seconds) the watchdog seam sees;
+    ``windows`` (a list) each speculative window's (iteration, γ, {uid:
+    (first token index, tokens emitted)}, staging extent: the largest
+    position + γ + 1).  Returns (output, tokens, launches, trace events,
+    engine)."""
+    from repro_torch.obs import Tracer
+    eng = life_engine(model, Tracer(), **kw)
+    if watch is not None:
+        observe = eng._watch
+
+        def watched(rs, phase, seconds):
+            watch.append((phase, seconds))
+            return observe(rs, phase, seconds)
+        eng._watch = watched
+    if windows is not None:
+        bookkeep = eng._spec_bookkeep
+
+        def recorded(rs, cur, gamma, plan_emit, *a, **k):
+            act = {s: eng.scheduler.active[s] for s in cur}
+            windows.append((rs.disp_idx, gamma, {
+                st.req.uid: (len(st.out_tokens), len(plan_emit[s]))
+                for s, st in act.items()},
+                max(st.pos for st in act.values()) + gamma + 1))
+            return bookkeep(rs, cur, gamma, plan_emit, *a, **k)
+        eng._spec_bookkeep = recorded
+    out, uids, launches, _ = life_run(torch, dev, eng, prompts, new)
+    res = [out["results"][u] for u in uids]
+    require(all(r.finish_reason == "length" and len(r.tokens) == new
+                for r in res), f"{label}: not every request completed")
+    leak_free(eng, label)
+    return out, [r.tokens for r in res], launches, eng.tracer.events, eng
+
+
+def fault_matrix(torch, np, dev, model, prompts, total):
+    """(a): each of the six loops clean, with 2 dispatch errors, with a
+    stall of FAULT_STALL_S under a Watchdog without a hard timeout and,
+    paged, with an OOM hiding every free page for one iteration.  Returns
+    ({loop: record}, {loop: (clean tokens, clean stats)})."""
+    from repro_torch.serve.faults import Fault, Watchdog
+    rec, clean = {}, {}
+    for loop, kw in FAULT_LOOPS:
+        d, s = fault_steps(kw)
+        plans = [("clean", []),
+                 ("dispatch_error", [Fault("dispatch_error", step=d),
+                                     Fault("dispatch_error", step=s)]),
+                 ("stall", [Fault("stall", step=d, stall_s=FAULT_STALL_S)])]
+        if kw["kv_mode"] == "paged":
+            plans.append(("oom", [Fault("oom", step=OOM_STEP, pages=0)]))
+            if kw.get("spec_k"):
+                # reported, not held: bf16 rounding follows the windows
+                # (fault_steps; (e) holds it in fp32)
+                plans.append(("dispatch_error_admitting",
+                              [Fault("dispatch_error", step=i)
+                               for i in (1, 2)]))
+        runs, watch, wins = {}, [], {}
+        for kind, faults in plans:
+            label = f"fault_{loop}_{kind}"
+            out, toks, launches, events, eng = fault_run(
+                torch, dev, model, label, prompts, FAULT_NEW, faults=faults,
+                watch=watch, watchdog=Watchdog() if kind == "stall" else None,
+                windows=wins.setdefault(kind, []) if kw.get("spec_k")
+                else None, **kw)
+            _add(total, launches)
+            st = out["stats"]
+            require(not eng.faults.unfired(), f"{label}: faults that never "
+                    f"fired: {eng.faults.unfired()}")
+            check_counters(out, label)
+            counts = robust_counters(out["metrics"], st, events, label)
+            require(counts["faults_injected"] == len(faults),
+                    f"{label}: {counts['faults_injected']} faults counted, "
+                    f"{len(faults)} planned")
+            retries = (len(faults) if kind.startswith("dispatch_error")
+                       else 0)
+            require(st.dispatch_retries == retries, f"{label}: "
+                    f"{st.dispatch_retries} retries, want {retries}")
+            r = {"dispatch_retries": st.dispatch_retries,
+                 "preemptions": st.preemptions,
+                 "epoch_shrinks": st.epoch_shrinks, **counts,
+                 "decode_dispatches": st.decode_dispatches}
+            if kind == "clean":
+                clean[loop] = (toks, st, launches)
+            else:
+                same, first = token_agreement(np, toks, clean[loop][0])
+                if kind == "oom":
+                    require(st.preemptions >= 1 or st.epoch_shrinks >= 1,
+                            f"{label}: the hidden pages forced nothing")
+                    r.update(tokens_equal_share=same, first_divergence=first)
+                elif kind == "dispatch_error_admitting":
+                    r.update(tokens_equal_share=same, first_divergence=first,
+                             divergence=spec_divergence(
+                                 model, np, toks, clean[loop][0], wins[kind],
+                                 wins["clean"]))
+                else:
+                    require(same == 1.0, f"{label}: tokens differ from the "
+                            f"clean run's (first divergence {first})")
+                    r["tokens_identical_to_clean"] = True
+                    if kw.get("decode_steps", 1) == 1 and not kw.get(
+                            "spec_k"):
+                        r.update(single_step_launches(
+                            model, label, launches, st, *clean[loop][1:]))
+            runs[kind] = r
+            free_engine(torch, eng)
+        runs["longest_sync_s"] = max(t for _, t in watch)
+        rec[loop] = runs
+    return rec, clean
+
+
+def spec_divergence(model, np, toks, toks0, wins, wins0):
+    """The first token of a run that differs from the clean run's: its
+    request and index, and in each run the window that emitted it: γ, the
+    verify's rows and their routes (the fused linears', flash's), the
+    staging extent and flash's split of it into blocks of keys."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_linear as fl
+    from repro_torch.models import layers
+    cfg = model.cfg
+    for u, (a, b) in enumerate(zip(toks, toks0)):
+        if np.array_equal(a, b):
+            continue
+        i = int(np.argmin(a == b))
+        where = {}
+        for name, ws in (("faulted", wins), ("clean", wins0)):
+            for disp, gamma, em, extent in ws:
+                if u in em and em[u][0] <= i < em[u][0] + em[u][1]:
+                    C = gamma + 1
+                    f = fa.plan(SLOTS * cfg.num_kv_heads,
+                                cfg.num_heads // cfg.num_kv_heads * C,
+                                extent, cfg.resolved_head_dim,
+                                layers.torch_dtype(cfg))
+                    where[name] = {
+                        "window": disp, "gamma": gamma, "column": i - em[u][0],
+                        "verify_rows": SLOTS * C,
+                        "fused_linear": fl.plan(SLOTS * C, cfg.d_model,
+                                                cfg.d_model, False,
+                                                layers.torch_dtype(cfg)).route,
+                        "flash": f.route, "staging_extent": extent,
+                        "flash_splits": f.splits, "flash_keys_a_block": f.kc}
+        return {"request": u, "token": i, "faulted": int(a[i]),
+                "clean": int(b[i]), "windows": where}
+    return None
+
+
+def single_step_launches(model, label, launches, st, st0, launches0):
+    """A single-step run with a retried dispatch or a stall launches the
+    clean run's count on each route, but for whole decode steps: a retry in
+    the paged loop, which admits one prompt an iteration, shifts an
+    admission by one iteration, and so the decode steps its prompt shares
+    with the residents.  Each step it adds or drops counts one decode
+    step's launches (``expected_launches``), exactly."""
+    extra = st.decode_dispatches - st0.decode_dispatches
+    step = expected_launches(model, [], 1, SLOTS, st.kv_mode == "paged")
+    want = {k: launches0.get(k, 0) + extra * step.get(k, 0)
+            for k in set(launches0) | set(step)}
+    nonzero = ({k: v for k, v in d.items() if v} for d in (launches, want))
+    got, want = nonzero
+    require(got == want, f"{label}: launches {got} != the clean run's with "
+            f"{extra} more decode steps {want}")
+    return {"launches_identical_to_clean": extra == 0,
+            "decode_steps_beyond_clean": extra}
+
+
+def snapshot_files(d) -> int:
+    from repro_torch.serve import snapshot
+    step = snapshot.latest_snapshot_step(d)
+    path = os.path.join(d, f"{snapshot.SNAP_PREFIX}{step:08d}")
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def kill_and_resume(torch, dev, model, label, prompts, new, n_iter, tmp,
+                    log=None, once=False, **kw):
+    """(b): a run killed at boundary K = n_iter // 2 (the clean run's
+    iterations) after snapshots every K // 2 boundaries (K among them;
+    ``once``: at K alone), then a fresh engine over the same model
+    ``resume()``s and drains it.  Returns (resumed output, tokens,
+    launches, record)."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.errors import SimulatedKill
+    from repro_torch.serve.faults import Fault
+    K = max(1, n_iter // 2)
+    every = K if once else max(1, K // 2)
+    K -= K % every                  # a snapshot at the kill's boundary
+    d = os.path.join(tmp, label)
+    eng = life_engine(model, Tracer(), snapshot_dir=d, snapshot_every=every,
+                      faults=[Fault("kill", step=K)], **kw)
+    if log is not None:
+        watch_engine(eng, log)
+    killed = False
+    try:
+        life_run(torch, dev, eng, prompts, new)
+    except SimulatedKill:
+        killed = True
+    require(killed, f"{label}: the kill at boundary {K} never fired")
+    from repro_torch.kernels import ops
+    total = ops.kernel_launches()
+    m, events = eng.metrics, eng.tracer.events
+    robust_counters(m, None, events, f"{label}_killed")
+    snaps = span_seconds(events, "snapshot")
+    require(m.value("faults_injected_total") == 1 and len(snaps) >= 1,
+            f"{label}: killed with {len(snaps)} snapshots")
+    nbytes = snapshot_files(d)
+    free_engine(torch, eng)
+    del eng
+    eng = life_engine(model, Tracer(), **kw)
+    if log is not None:
+        watch_engine(eng, log)
+    apply_s, restore = [], eng._apply_resume
+
+    def timed(rs, kv):
+        t = time.perf_counter()
+        restore(rs, kv)
+        torch.cuda.synchronize(dev)
+        apply_s.append(time.perf_counter() - t)
+    eng._apply_resume = timed
+    t = time.perf_counter()
+    at = eng.resume(d)
+    load_s = time.perf_counter() - t
+    require(at == K, f"{label}: resumed at {at}, killed at {K}")
+    torch.cuda.synchronize(dev)
+    ops.reset_kernel_launches()
+    out = eng.run()
+    torch.cuda.synchronize(dev)
+    _add(total, ops.kernel_launches())
+    s = out["stats"]
+    robust_counters(out["metrics"], s, eng.tracer.events, label)
+    require(s.resumes == 1 and s.snapshots == 0, f"{label}: {s.resumes} "
+            f"resumes, {s.snapshots} snapshots after the resume")
+    res = [out["results"][u] for u in sorted(out["results"])]
+    require(len(res) == len(prompts) and all(
+        r.finish_reason == "length" and len(r.tokens) == new for r in res),
+        f"{label}: not every request completed after the resume")
+    leak_free(eng, label)
+    free_engine(torch, eng)
+    return out, [r.tokens for r in res], total, {
+        "killed_at": K, "snapshot_every": every, "snapshots": len(snaps),
+        "snapshot_bytes": nbytes, "snapshot_s": snaps,
+        "resume_load_s": load_s, "resume_apply_s": apply_s[0]}
+
+
+def kill_resume_matrix(torch, np, dev, model, prompts, clean, tmp, total):
+    """(b) in the six loops, then fused dense at FUSED_TEMPERATURE: the
+    killed and resumed run's tokens equal the uninterrupted run's from the
+    same seed (the generator's state restored)."""
+    rec = {}
+    for loop, kw in FAULT_LOOPS:
+        toks0, s0, _ = clean[loop]
+        n_iter = s0.spec_windows if kw.get("spec_k") else s0.decode_dispatches
+        _, toks, launches, r = kill_and_resume(
+            torch, dev, model, f"resume_{loop}", prompts, FAULT_NEW, n_iter,
+            tmp, **kw)
+        _add(total, launches)
+        require(all(np.array_equal(a, b) for a, b in zip(toks, toks0)),
+                f"resume_{loop}: tokens differ from the clean run's")
+        rec[loop] = dict(r, tokens_identical_to_clean=True)
+    kw = dict(kv_mode="dense", decode_steps=FUSED_STEPS,
+              temperature=FUSED_TEMPERATURE)
+    out, toks0, launches, _, eng = fault_run(
+        torch, dev, model, "resume_sampled_clean", prompts, FAULT_NEW, **kw)
+    _add(total, launches)
+    n_iter = out["stats"].decode_dispatches
+    free_engine(torch, eng)
+    _, toks, launches, r = kill_and_resume(
+        torch, dev, model, "resume_sampled", prompts, FAULT_NEW, n_iter, tmp,
+        **kw)
+    _add(total, launches)
+    require(all(np.array_equal(a, b) for a, b in zip(toks, toks0)),
+            "resume_sampled: tokens differ from the uninterrupted run's")
+    rec["dense_fused_sampled"] = dict(r, temperature=FUSED_TEMPERATURE,
+                                      tokens_identical_to_uninterrupted=True)
+    return rec
+
+
+def launcher(tmp, name, *extra):
+    """Start the launcher with PROC_ARGS and ``extra`` as a subprocess, its
+    output in ``build/``.  Returns (name, process, log path, start)."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = os.path.join(LOG_DIR, f"chip_smoke_proc_{name}.log")
+    with open(log, "w") as f:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *PROC_ARGS,
+             *extra], cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return name, p, log, time.perf_counter()
+
+
+def waited(proc, want, rec) -> str:
+    """Wait for a ``launcher`` process; its exit code must be ``want``.
+    Returns the end of its output."""
+    name, p, log, t = proc
+    rc = p.wait(timeout=300)
+    with open(log) as f:
+        tail = f.read()[-2000:]
+    require(rc == want, f"(c) {name}: exit code {rc}, want {want}:\n{tail}")
+    rec[f"{name}_s"] = time.perf_counter() - t
+    return tail
+
+
+def spawn_processes(tmp) -> list:
+    """(c)'s clean and killed processes, started before (a) so that they
+    run beside it (they share no state with this process)."""
+    return [launcher(tmp, "clean", "--results-out",
+                     os.path.join(tmp, "proc_clean.json")),
+            launcher(tmp, "killed", "--snapshot-dir",
+                     os.path.join(tmp, "proc_snaps"), "--snapshot-every",
+                     str(PROC_SNAPSHOT_EVERY), "--kill-at",
+                     str(PROC_KILL_AT))]
+
+
+def across_processes(tmp, spawned) -> dict:
+    """(c): the launcher as three processes at full width (paged bf16,
+    fused epochs): clean, killed at boundary PROC_KILL_AT (exit code 3),
+    then resumed from the killed one's snapshots; the resumed run's
+    per-request tokens and finish reasons equal the clean run's."""
+    rec = {"args": list(PROC_ARGS), "kill_at": PROC_KILL_AT}
+    clean, killed = spawned
+    waited(clean, 0, rec)
+    waited(killed, 3, rec)
+    tail = waited(launcher(tmp, "resumed", "--snapshot-dir",
+                           os.path.join(tmp, "proc_snaps"), "--resume",
+                           "--results-out",
+                           os.path.join(tmp, "proc_resumed.json")), 0, rec)
+    require("resumes 1" in tail, f"(c) resumed: no resume:\n{tail}")
+    with open(os.path.join(tmp, "proc_clean.json")) as f:
+        a = json.load(f)
+    with open(os.path.join(tmp, "proc_resumed.json")) as f:
+        b = json.load(f)
+    require(a == b, "(c): the resumed process's results differ from the "
+            "clean process's")
+    rec.update(requests=len(a), results_identical=True)
+    return rec
+
+
+def hung_dispatch(torch, dev, model, prompts, tmp) -> dict:
+    """(d): a HUNG_STALL_S stall against ``timeout_s`` HUNG_TIMEOUT_S
+    raises ``HungDispatch`` carrying the flushed trace's path; the file
+    exists and ``watchdog_timeouts_total`` is 1."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.errors import HungDispatch
+    from repro_torch.serve.faults import Fault, Watchdog
+    path = os.path.join(tmp, "hung.json")
+    eng = life_engine(model, Tracer(path=path), kv_mode="dense",
+                      watchdog=Watchdog(timeout_s=HUNG_TIMEOUT_S),
+                      faults=[Fault("stall", step=0,
+                                    stall_s=HUNG_STALL_S)])
+    eng.submit(prompts[0], max_new_tokens=4)
+    err = None
+    try:
+        eng.run()
+    except HungDispatch as e:
+        err = e
+    require(err is not None, "(d): the stall past the timeout did not raise")
+    require(err.trace_path == path and os.path.exists(path), "(d): trace "
+            f"{err.trace_path} not flushed")
+    require(eng.metrics.value("watchdog_timeouts_total") == 1,
+            "(d): watchdog_timeouts_total != 1")
+    rec = {"phase": err.phase, "elapsed_s": err.elapsed_s,
+           "timeout_s": HUNG_TIMEOUT_S, "trace_bytes": os.path.getsize(path)}
+    free_engine(torch, eng)
+    return rec
+
+
+def faults_full_width(torch, np, dev, model, prompts):
+    """Phase 16's bf16 part on phase 6's weights: (a) the fault matrix, (b)
+    kill and resume in-process, (c) across processes (its first two
+    started first, beside (a) and (b): each holds its own model, this
+    process one), (d) the watchdog's hard timeout.  Returns (record, the
+    wrappers' launches)."""
+    import shutil
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    total = {}
+    reqs = prompts[:FAULT_REQUESTS]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snaps_")
+    spawned = spawn_processes(tmp)
+    try:
+        matrix, clean = fault_matrix(torch, np, dev, model, reqs, total)
+        t_b = time.perf_counter()
+        resume = kill_resume_matrix(torch, np, dev, model, reqs, clean, tmp,
+                                    total)
+        t_c = time.perf_counter()
+        proc = across_processes(tmp, spawned)
+        t_d = time.perf_counter()
+        hung = hung_dispatch(torch, dev, model, reqs, tmp)
+    finally:
+        for _, p, _, _ in spawned:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"requests": len(reqs), "new_tokens": FAULT_NEW,
+            "matrix": matrix, "kill_resume": resume,
+            "across_processes": proc, "hung_dispatch": hung,
+            "seconds_a": t_b - t, "seconds_b": t_c - t_b,
+            "seconds_c": t_d - t_c,
+            "seconds": time.perf_counter() - t}, total
+
+
+def watch_incarnations(eng, log):
+    """``watch_engine`` whose record of a request restarts when its prefill
+    completes again (after a preemption): the log holds its last
+    incarnation's prompt gate log and decode columns."""
+    watch_engine(eng, log)
+    gates, finish = log["gates"], eng._finish_prefill
+
+    def fresh(rs, work, *a, **k):
+        gates[work.req.uid] = [None, []]
+        return finish(rs, work, *a, **k)
+    eng._finish_prefill = fresh
+
+
+def same_logs(np, a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[u][0], b[u][0]) and len(a[u][1]) == len(b[u][1])
+        and all(np.array_equal(x, y) for x, y in zip(a[u][1], b[u][1]))
+        for u in a)
+
+
+def faults_witness(torch, np, dev, m32, reqs, new, tokens, logs):
+    """(e) on phase 7's fp32 weights: an OOM hiding every free page in fp32
+    pages, single-step and in fused epochs (each preempting at least once),
+    two dispatch retries amid a paged spec_k 4 run's admissions, and a
+    paged fused run killed and resumed: tokens, each request's gate logs
+    (its last incarnation's) and KV accounting bit for bit the clean fp32
+    run's (single-step and spec: phase 7's; fused: a clean fused run's).
+    Returns (record, launches, seconds)."""
+    import shutil
+    import tempfile
+    from repro_torch.serve.faults import Fault
+    t, total, rec = time.perf_counter(), {}, {}
+    per_req = ("kv_stored", "kv_dense", "finish_reason")
+    whole = ("kv_saved_fraction", "attn_keep_frac", "kv_entries_stored",
+             "kv_entries_dense", "history_hit_rate", "history_hits_per_layer")
+
+    def observed(out):
+        res = [out["results"][u] for u in sorted(out["results"])]
+        return ([getattr(r, k) for r in res for k in per_req],
+                {k: getattr(out["stats"], k) for k in whole})
+
+    def run(label, log, **kw):
+        from repro_torch.obs import Tracer
+        eng = life_engine(m32, Tracer(), **kw)
+        watch_incarnations(eng, log)
+        out, uids, launches, _ = life_run(torch, dev, eng, reqs, new)
+        _add(total, launches)
+        toks = [out["results"][u].tokens for u in uids]
+        leak_free(eng, label)
+        free_engine(torch, eng)
+        return out, toks
+
+    paged = dict(kv_mode="paged")
+    fused = dict(paged, decode_steps=FUSED_STEPS)
+    clean_log = {}
+    out_c, toks_c = run("fp32_fused_clean", clean_log, **fused)
+    require(all(np.array_equal(a, b) for a, b in zip(
+        toks_c, tokens["fp32_paged"])), "fp32 fused pages: tokens differ "
+        "from the single-step run's")
+    refs = {"paged": (tokens["fp32_paged"], logs["fp32_paged"]["log"]
+                      ["gates"], None),
+            "paged_fused": (toks_c, clean_log["gates"], observed(out_c))}
+    # single-step: every resident needs a page at iteration 2; fused: the
+    # first hide halves the epoch down to the step the prefills reserved,
+    # the second finds no step's headroom left; speculation: two retries
+    # amid the admissions, which reshape the windows (fp32 spec ≡ plain)
+    for name, loop, kw, faults in (
+            ("oom_paged", "paged", paged, [Fault("oom", step=2, pages=0)]),
+            ("oom_paged_fused", "paged_fused", fused,
+             [Fault("oom", step=i, pages=0) for i in (0, 1)]),
+            ("retry_paged_spec", "paged", dict(paged, spec_k=SPEC_K),
+             [Fault("dispatch_error", step=i) for i in (1, 2)])):
+        log = {}
+        out, toks = run(f"fp32_{name}", log, **kw, faults=faults)
+        s = out["stats"]
+        if name.startswith("oom"):
+            require(s.preemptions >= 1, f"fp32_{name}: no preemption")
+        require(s.faults_injected == len(faults), f"fp32_{name}: "
+                f"{s.faults_injected} of {len(faults)} faults fired")
+        want_toks, want_log, _ = refs[loop]
+        require(all(np.array_equal(a, b) for a, b in zip(toks, want_toks)),
+                f"fp32_{name}: tokens differ from the clean run's")
+        require(same_logs(np, log["gates"], want_log),
+                f"fp32_{name}: gate logs differ from the clean run's")
+        if loop == "paged_fused":
+            require(observed(out)[0] == refs[loop][2][0],
+                    f"fp32_{name}: per-request KV accounting differs")
+        else:
+            want = logs["fp32_paged"]["rec"]["kv_saved_fraction"]
+            require(s.kv_saved_fraction == want, f"fp32_{name}: KV saved "
+                    f"{s.kv_saved_fraction} != the clean run's {want}")
+        rec[name] = {"preemptions": s.preemptions,
+                     "epoch_shrinks": s.epoch_shrinks,
+                     "dispatch_retries": s.dispatch_retries,
+                     "identical_to_clean": True}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snaps_")
+    try:
+        log = {}
+        n_iter = out_c["stats"].decode_dispatches
+        out, toks, launches, r = kill_and_resume(
+            torch, dev, m32, "fp32_resume_paged_fused", reqs, new, n_iter,
+            tmp, log=log, once=True, **fused)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _add(total, launches)
+    require(all(np.array_equal(a, b) for a, b in zip(toks, toks_c)),
+            "fp32 kill/resume: tokens differ from the clean run's")
+    require(same_logs(np, log["gates"], clean_log["gates"]),
+            "fp32 kill/resume: gate logs differ from the clean run's")
+    require(observed(out) == refs["paged_fused"][2],
+            "fp32 kill/resume: KV accounting differs from the clean run's")
+    rec["resume_paged_fused"] = dict(r, identical_to_clean=True)
+    return rec, total, time.perf_counter() - t
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -4568,12 +5219,15 @@ def main() -> int:
     spec_s = time.perf_counter() - t14
     life_rec, life_launches = lifecycle_full_width(
         torch, np, dev, model, prompts, tokens, short, tight)
+    fault_rec, fault_launches = faults_full_width(torch, np, dev, model,
+                                                  prompts)
     wit, wit_launches, (wit_chunk, more, wit_chunk_s), \
         (wit_prefix, more_prefix, wit_prefix_s), \
         (wit_spec, more_spec, more_derived, wit_spec_s), \
-        (wit_life, more_life) = witness(
-            torch, np, dev, model, prompts, tokens)
+        (wit_life, more_life), (wit_fault, more_fault, wit_fault_s) = \
+        witness(torch, np, dev, model, prompts, tokens)
     _add(life_launches, more_life)
+    _add(fault_launches, more_fault)
     _add(prefix_launches, more_prefix)
     _add(spec_launches, more_spec)
     _add(spec_derived, more_derived)
@@ -4640,6 +5294,10 @@ def main() -> int:
     emit({"phase": "lifecycle", **life_rec, "witness_fp32": wit_life,
           "launches": life_launches})
     _add(launches, life_launches)
+    emit({"phase": "faults", **fault_rec, "witness_fp32": wit_fault,
+          "seconds": fault_rec["seconds"] + wit_fault_s,
+          "witness_seconds": wit_fault_s, "launches": fault_launches})
+    _add(launches, fault_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

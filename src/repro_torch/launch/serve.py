@@ -22,6 +22,11 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --continuous --trace-out trace.json --metrics-out metrics.prom
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --continuous --deadline-s 2 --max-queue-depth 6 --max-preemptions 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --paged-kv --decode-steps 8 --snapshot-dir snaps \
+      --kill-at 6                                 # exits with code 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --continuous --paged-kv --decode-steps 8 --snapshot-dir snaps --resume
 
 ``--arch`` defaults to llama2-7b.  Weights are random, drawn from seed 0
 on the chosen device; ``--int4``
@@ -49,7 +54,14 @@ FILE`` its metrics registry (``.prom``: Prometheus text, else JSON) and
 finish reason "deadline", partial tokens kept), ``--max-queue-depth`` /
 ``--max-queue-delay-s`` shed submissions (counted, not served) and
 ``--max-preemptions`` retires a request preempted more often (finish
-reason "preempt_budget").  These need ``--continuous``.
+reason "preempt_budget").  ``--snapshot-dir DIR`` publishes a
+crash-consistent snapshot every ``--snapshot-every`` boundaries,
+``--kill-at N`` injects a host kill at boundary N after its snapshot (the
+process exits with code 3), ``--resume`` continues the newest snapshot
+under ``--snapshot-dir`` instead of submitting requests (at temperature 0
+its requests' tokens are the uninterrupted run's), and
+``--watchdog-timeout-s`` aborts a run whose dispatch-to-sync time exceeds
+the bound (``HungDispatch``).  These need ``--continuous``.
 ``mamba2-2.7b`` (attention-free) serves lock-step or
 from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
 raises for it (no KV to page), and so does ``--int4`` (not ported yet).
@@ -137,6 +149,23 @@ def main(argv=None) -> None:
     ap.add_argument("--results-out", default=None, metavar="FILE",
                     help="write per-request results (tokens, finish "
                          "reason) as JSON")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="write crash-consistent engine snapshots at "
+                         "quiescent step boundaries (resume with --resume)")
+    ap.add_argument("--snapshot-every", type=int, default=1,
+                    help="boundaries between snapshots (default 1)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest snapshot under "
+                         "--snapshot-dir instead of submitting fresh "
+                         "requests; at temperature 0 the survivors' tokens "
+                         "are those of the uninterrupted run")
+    ap.add_argument("--kill-at", type=int, default=None, metavar="N",
+                    help="inject a SimulatedKill at step boundary N (after "
+                         "its snapshot): the process exits with code 3")
+    ap.add_argument("--watchdog-timeout-s", type=float, default=None,
+                    help="hard bound on one dispatch-to-sync time; past it "
+                         "the run aborts with HungDispatch (trace path "
+                         "attached)")
     args = ap.parse_args(argv)
     if args.paged_kv and not args.continuous:
         raise SystemExit("--paged-kv requires --continuous")
@@ -157,11 +186,15 @@ def main(argv=None) -> None:
         raise SystemExit("--draft-keep requires --spec-k")
     lifecycle = (args.trace_out, args.metrics_out, args.deadline_s,
                  args.max_queue_depth, args.max_queue_delay_s,
-                 args.max_preemptions, args.results_out)
+                 args.max_preemptions, args.results_out, args.snapshot_dir,
+                 args.kill_at, args.watchdog_timeout_s, args.resume or None)
     if any(v is not None for v in lifecycle) and not args.continuous:
         raise SystemExit("--trace-out/--metrics-out/--deadline-s/"
-                         "--max-queue-*/--max-preemptions/--results-out "
-                         "require --continuous")
+                         "--max-queue-*/--max-preemptions/--results-out/"
+                         "--snapshot-dir/--resume/--kill-at/"
+                         "--watchdog-timeout-s require --continuous")
+    if args.resume and args.snapshot_dir is None:
+        raise SystemExit("--resume requires --snapshot-dir")
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -170,7 +203,9 @@ def main(argv=None) -> None:
                                           RobustnessConfig, SchedulingConfig,
                                           SpecConfig)
     from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
-    from repro_torch.serve.errors import AdmissionRejected, ConfigError
+    from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
+                                          SimulatedKill)
+    from repro_torch.serve.faults import Fault, Watchdog
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -200,25 +235,28 @@ def main(argv=None) -> None:
                                         decode_steps=args.decode_steps),
             spec=SpecConfig(spec_k=args.spec_k, draft_keep=args.draft_keep),
             robustness=RobustnessConfig(
+                faults=([Fault("kill", step=args.kill_at)]
+                        if args.kill_at is not None else None),
+                watchdog=(Watchdog(timeout_s=args.watchdog_timeout_s)
+                          if args.watchdog_timeout_s is not None else None),
+                snapshot_dir=args.snapshot_dir,
+                snapshot_every=args.snapshot_every,
                 max_queue_depth=args.max_queue_depth,
                 max_queue_delay_s=args.max_queue_delay_s,
                 max_preemptions=args.max_preemptions),
             obs=ObsConfig(trace=args.trace_out),
             temperature=args.temperature))
-        shared = (rng.integers(0, cfg.vocab_size, (args.prompt_len // 2,),
-                               dtype=np.int32) if args.prefix_cache
-                  else np.zeros((0,), np.int32))
-        for _ in range(2 * args.batch):
-            ln = int(rng.integers(max(args.prompt_len // 4, 1),
-                                  args.prompt_len + 1))
-            try:
-                eng.submit(np.concatenate([shared, rng.integers(
-                    0, cfg.vocab_size, (max(ln - len(shared), 1),),
-                    dtype=np.int32)]), max_new_tokens=args.new_tokens,
-                    deadline_s=args.deadline_s)
-            except AdmissionRejected as e:
-                print(f"shed: {e}")
-        out = eng.run()
+        if args.resume:
+            at = eng.resume()
+            print(f"resumed from snapshot boundary {at} under "
+                  f"{args.snapshot_dir}")
+        else:
+            _submit_traffic(args, cfg, eng, rng, AdmissionRejected)
+        try:
+            out = eng.run()
+        except SimulatedKill as e:
+            print(f"simulated kill: {e}")
+            raise SystemExit(3)
         s = out["stats"]
         print(f"prefill: {s.prefill_tokens} tok in {s.prefill_s:.2f}s | "
               f"decode: {s.decode_tok_per_s:.1f} tok/s | "
@@ -258,6 +296,12 @@ def main(argv=None) -> None:
             print(f"lifecycle: deadline {s.deadline_exceeded} | cancelled "
                   f"{s.requests_cancelled} | shed {s.requests_shed} | "
                   f"preempt budget {s.preempt_budget_exhausted}")
+        if (s.faults_injected or s.watchdog_strikes or s.snapshots
+                or s.resumes):
+            print(f"robustness: faults {s.faults_injected} | retries "
+                  f"{s.dispatch_retries} | watchdog strikes "
+                  f"{s.watchdog_strikes} | snapshots {s.snapshots} | "
+                  f"resumes {s.resumes}")
         for uid, r in sorted(out["results"].items()):
             print(f"  req {uid}: T0={r.prompt_len} +{r.decode_tokens} "
                   f"TTFT {r.ttft_s*1e3:.1f}ms ({r.finish_reason})")
@@ -274,6 +318,24 @@ def main(argv=None) -> None:
           f"KV storage saved≈{s.kv_saved_fraction:.1%} (measured; "
           f"analytic≈{s.kv_saved_analytic:.1%})")
     print("sample:", out["tokens"][0, :16])
+
+
+def _submit_traffic(args, cfg, eng, rng, rejected) -> None:
+    """2·batch requests of prompt_len/4 to prompt_len tokens (with
+    ``--prefix-cache`` opening with one shared half-length prompt)."""
+    shared = (rng.integers(0, cfg.vocab_size, (args.prompt_len // 2,),
+                           dtype=np.int32) if args.prefix_cache
+              else np.zeros((0,), np.int32))
+    for _ in range(2 * args.batch):
+        ln = int(rng.integers(max(args.prompt_len // 4, 1),
+                              args.prompt_len + 1))
+        try:
+            eng.submit(np.concatenate([shared, rng.integers(
+                0, cfg.vocab_size, (max(ln - len(shared), 1),),
+                dtype=np.int32)]), max_new_tokens=args.new_tokens,
+                deadline_s=args.deadline_s)
+        except rejected as e:
+            print(f"shed: {e}")
 
 
 def _write_outputs(args, out) -> None:

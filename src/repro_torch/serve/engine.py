@@ -30,8 +30,12 @@ Counterpart of the JAX package's ``serve/engine.py``:
     fills a ``MetricsRegistry`` (``obs/metrics.py``) and, when asked, a span
     trace (``obs/trace.py``); its run loops are generators that yield once
     per engine iteration, so ``RequestHandle.tokens()`` streams a request's
-    tokens while it runs, and a lifecycle sweep at each iteration's top
-    retires cancelled and expired requests.
+    tokens while it runs, and a pass at each iteration's top retires
+    cancelled and expired requests, publishes a crash-consistent snapshot
+    when one is due (``serve/snapshot.py``; ``resume()`` continues a dead
+    run from it) and fires an injected host kill.  A ``FaultPlan``
+    (``serve/faults.py``) injects dispatch errors, stalls and page OOM at
+    the loops' seams, and a ``Watchdog`` observes every sync.
 """
 from __future__ import annotations
 
@@ -56,8 +60,12 @@ from repro_torch.obs import (MetricsRegistry, as_tracer, graphs_captured,
                              request_tid)
 from repro_torch.serve.config import EngineConfig
 from repro_torch.serve.errors import (AdmissionRejected, ConfigError,
-                                      PageExhausted)
+                                      HungDispatch, PageExhausted,
+                                      SimulatedKill)
 from repro_torch.serve import sampling as sampling_mod
+from repro_torch.serve import snapshot as snapshot_mod
+from repro_torch.serve.faults import (FaultInjected, as_fault_plan,
+                                      sleep_stall)
 from repro_torch.serve.sampling import sample
 from repro_torch.serve.scheduler import (ActiveRequest, PrefillChunk,
                                          Request, Scheduler, can_bucket,
@@ -123,6 +131,14 @@ class ServeStats:
                           requests finished "cancelled", "deadline" and
                           "preempt_budget"; ``requests_shed`` — submissions
                           refused by load shedding since the last run.
+      faults_injected   — ``FaultPlan`` faults that fired (a kill included);
+                          ``dispatch_retries`` — iterations abandoned at an
+                          injected dispatch error and planned again;
+                          ``watchdog_strikes`` — syncs the watchdog judged
+                          stragglers (soft).
+      snapshots / resumes — boundary snapshots published / runs continued
+                          from one (a resumed run counts from its boundary:
+                          the dead run's counters are not restored).
 
     Paged mode (``kv_mode == "paged"``): page pool geometry, the live
     footprint's peak ``pages_peak``, ``preemptions``, the entry-stream write
@@ -187,6 +203,12 @@ class ServeStats:
     deadline_exceeded: int = 0            # finish_reason == "deadline"
     requests_shed: int = 0                # submit()-time load shedding
     preempt_budget_exhausted: int = 0     # finish_reason == "preempt_budget"
+    # -- robustness: faults, the watchdog, snapshots -------------------------
+    faults_injected: int = 0              # FaultPlan faults that fired
+    dispatch_retries: int = 0             # iterations abandoned + replanned
+    watchdog_strikes: int = 0             # straggler strikes (soft)
+    snapshots: int = 0                    # boundary snapshots written
+    resumes: int = 0                      # runs continued from a snapshot
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -392,12 +414,8 @@ def _fetch(*tensors):
 def _unported(config: EngineConfig, cfg: ModelConfig) -> List[str]:
     """Levers of the reference engine this port does not serve yet, each
     with the ROADMAP queue 1 item that will port it."""
-    rob, obs = config.robustness, config.obs
+    obs = config.obs
     out = []
-    if rob.faults is not None or rob.watchdog is not None:
-        out.append("faults / watchdog (item 12b)")
-    if rob.snapshot_dir is not None:
-        out.append("snapshots (item 12b)")
     if obs.mesh is not None or obs.sharding_policy is not None:
         out.append("mesh / sharding_policy (item 14)")
     return out
@@ -438,6 +456,11 @@ class _RunState:
     stage_cache: Optional[List[Dict[str, torch.Tensor]]] = None
     stage_gates: List[torch.Tensor] = dataclasses.field(
         default_factory=list)
+    # crash consistency: the boundary the last snapshot was published at,
+    # and whether a decode step, epoch or window was dispatched and not yet
+    # synced (never so at a boundary)
+    last_snap: int = -1
+    unsynced: bool = False
 
 
 @dataclasses.dataclass
@@ -572,9 +595,10 @@ class ContinuousBatchingEngine:
     ``temperature``, ``prefill_buckets``, ``prefill_chunk``,
     ``decode_steps``, ``step_tokens``, ``prefix_cache``,
     ``prefix_block``, ``spec_k``, ``draft_keep``, ``trace``,
-    ``max_queue_depth``, ``max_queue_delay_s``, ``max_preemptions``).  The
-    reference's other levers (faults, the watchdog, snapshots, a mesh)
-    raise ``ConfigError`` naming the ROADMAP item that will port them.
+    ``max_queue_depth``, ``max_queue_delay_s``, ``max_preemptions``,
+    ``faults``, ``watchdog``, ``snapshot_dir``, ``snapshot_every``).  The
+    reference's other lever, a mesh (``mesh`` / ``sharding_policy``),
+    raises ``ConfigError`` naming the ROADMAP item that will port it.
     Sampling at ``temperature > 0`` draws from the ``torch.Generator``
     given to ``run``.
 
@@ -596,7 +620,25 @@ class ContinuousBatchingEngine:
     partial tokens, releasing slots and pages.  ``max_queue_depth`` /
     ``max_queue_delay_s`` shed submissions (``AdmissionRejected`` with
     its ``reason``); ``max_preemptions`` retires a request preempted more
-    often than that ("preempt_budget") instead of requeueing it."""
+    often than that ("preempt_budget") instead of requeueing it.
+
+    Robustness (``serve/faults.py``, ``serve/snapshot.py``): ``faults`` (a
+    ``FaultPlan`` or a list of ``Fault``) fires scheduled faults at the
+    loops' seams, by engine iteration — "dispatch_error" before anything
+    of the iteration's decode is enqueued (the loop abandons the iteration
+    and plans it again), "stall" inside the sync, "oom" (paged) hiding
+    free pages from the headroom pass, "kill" at the boundary after its
+    snapshot (``SimulatedKill``).  ``watchdog`` (a ``Watchdog``) observes
+    each step's, epoch's or window's dispatch-to-sync time: a straggler
+    is counted, a sync past its ``timeout_s`` raises ``HungDispatch``
+    carrying the flushed trace's path.  ``snapshot_dir`` publishes a
+    crash-consistent snapshot every ``snapshot_every`` iterations at a
+    quiescent boundary (no prefill in flight, no deferred first token, no
+    staging cache, nothing dispatched and not synced); a fresh engine of
+    the same geometry ``resume()``s from it and, at temperature 0, its
+    tokens are the uninterrupted run's (at temperature > 0 too: the
+    generator's state is restored).  These levers are read at run time,
+    so a test may set them on a built engine."""
 
     def __init__(self, model: LanguageModel,
                  config: Optional[EngineConfig] = None, **kwargs):
@@ -735,6 +777,12 @@ class ContinuousBatchingEngine:
         self.max_preemptions = rob.max_preemptions
         self._cancelled: set = set()     # uids awaiting cooperative cancel
         self._shed_pending: List[str] = []   # shed reasons since last run
+        # -- robustness ------------------------------------------------------
+        self.faults = as_fault_plan(rob.faults)
+        self.watchdog = rob.watchdog
+        self.snapshot_dir = rob.snapshot_dir
+        self.snapshot_every = max(1, int(rob.snapshot_every))
+        self._resume = None              # (device tree, host, step) to apply
 
     # -- submission and the request lifecycle ------------------------------
     def submit(self, tokens: np.ndarray, max_new_tokens: int,
@@ -809,6 +857,42 @@ class ContinuousBatchingEngine:
         released.  Unknown or already-finished uids are a no-op."""
         self._cancelled.add(uid)
         self.tracer.instant("cancel", request_tid(uid))
+
+    # -- crash-consistent snapshots (serve/snapshot.py) --------------------
+    def resume(self, snapshot_dir: Optional[str] = None,
+               step: Optional[int] = None) -> int:
+        """Load the newest (or the given ``step``) boundary snapshot under
+        ``snapshot_dir`` (default: the engine's own); the next ``run()``
+        continues from it: scheduler queue and residents, allocator chains,
+        finished results, the device KV state and the generator's state
+        are restored (copied into the run's own pool or store before
+        anything is built over it), so the surviving requests' tokens are
+        those the dead process would have produced.  Returns the boundary
+        restored.  Requests submitted to this engine before ``run()`` merge
+        into the restored queue in age order.  A snapshot of another
+        geometry raises ``ValueError`` ("fingerprint"), one whose tensors
+        differ in shape or dtype ``ValueError`` too."""
+        snap_dir = snapshot_dir or self.snapshot_dir
+        if snap_dir is None:
+            raise ValueError("resume() needs a snapshot_dir (argument or "
+                             "constructor)")
+        template = {"kv": self._init_kv_state("meta"),
+                    "rng": torch.Generator(device=self.device)}
+        tree, host, at = snapshot_mod.load_snapshot(
+            snap_dir, template, step,
+            check=functools.partial(snapshot_mod.check_fingerprint, self))
+        self._resume = (tree, host, at)
+        return at
+
+    def _init_kv_state(self, device):
+        """A fresh KV state of the engine's mode on ``device`` (``meta``:
+        shapes and dtypes only, the restore template)."""
+        if self.kv_mode == "paged":
+            return paged_mod.init_store(self.cfg, self.num_pages,
+                                        self.page_size,
+                                        kv_dtype=self.kv_dtype,
+                                        device=device)
+        return init_pool(self.cfg, self.max_slots, self.max_len, device)
 
     # -- paged-mode memory policy ------------------------------------------
     def _worst_case_entries(self, req: Request) -> int:
@@ -1110,16 +1194,158 @@ class ContinuousBatchingEngine:
                      1.0 - m.value("kv_entries_stored_measured_total")
                      / dense)
 
-    # -- the lifecycle sweep -----------------------------------------------
-    def _boundary(self, rs: _RunState) -> None:
+    # -- the boundary pass, fault seams and the watchdog -------------------
+    def _boundary(self, rs: _RunState, kv) -> None:
         """The pass at the top of every iteration of all six run loops,
         after the previous step's, epoch's or window's sync and before
-        anything is dispatched: the request-lifecycle sweep (cancellation
-        and deadline expiry release their resources within one
-        iteration).  The reference's also snapshots and injects host kills
-        (ROADMAP queue 1 item 12b)."""
+        anything is dispatched: (1) the request-lifecycle sweep
+        (cancellation and deadline expiry release their resources within
+        one iteration); (2) a crash-consistent snapshot of ``kv`` (the
+        run's pool or store) when one is due; (3) the injected host kill,
+        which fires *after* the snapshot so a resume loses nothing."""
         self._lifecycle(rs)
+        self._maybe_snapshot(rs, kv)
+        f = self.faults.take("kill", rs.disp_idx)
+        if f is not None:
+            rs.metrics.inc("faults_injected_total")
+            self.tracer.instant("fault", kind="kill", step=rs.disp_idx)
+            raise SimulatedKill(
+                f"injected host kill at boundary {rs.disp_idx}: {f.message}",
+                trace_path=self._flush_trace())
 
+    def _maybe_snapshot(self, rs: _RunState, kv) -> None:
+        """Publish a snapshot when one is due and the boundary is
+        quiescent: no prefill in flight, no deferred first token, no
+        staging cache.  There host structures, the KV state and the
+        generator are the complete engine state.  Nothing dispatched may
+        be unsynced at a boundary (every loop syncs its step, epoch or
+        window before the next boundary): that is checked, not assumed."""
+        if self.snapshot_dir is None:
+            return
+        if (rs.disp_idx - max(rs.last_snap, 0) < self.snapshot_every
+                or rs.disp_idx == 0):
+            return
+        if (self.scheduler.prefilling is not None or rs.pending
+                or rs.stage_cache is not None):
+            return
+        if rs.unsynced:
+            raise RuntimeError(
+                f"boundary {rs.disp_idx} with a decode dispatch not yet "
+                "synced: a snapshot there would not be quiescent")
+        with self.tracer.span("snapshot", step=rs.disp_idx):
+            host = snapshot_mod.encode_host_state(self, rs)
+            snapshot_mod.save_snapshot(self.snapshot_dir, rs.disp_idx,
+                                       {"kv": kv, "rng": rs.generator}, host)
+        rs.last_snap = rs.disp_idx
+        rs.metrics.inc("snapshots_total")
+        self.tracer.instant("snapshot", step=rs.disp_idx)
+
+    def _apply_resume(self, rs: _RunState, kv) -> None:
+        """Consume a pending ``resume()``: rebuild the host state, copy the
+        restored KV state into ``kv`` (the run's pool or store, in place:
+        whatever is built over it keeps valid addresses) and the
+        generator's state into the run's, and reopen trace spans for the
+        restored requests.  Runs before any epoch is built and before the
+        first draw."""
+        if self._resume is None:
+            return
+        tree, host, at = self._resume
+        self._resume = None
+        snapshot_mod.apply_host_state(self, rs, host)
+        rs.last_snap = at
+        snapshot_mod.copy_into({"kv": kv, "rng": rs.generator}, tree)
+        tr = self.tracer
+        for req in self.scheduler.queue:
+            if req.uid not in rs.traced:
+                rs.traced.add(req.uid)
+                tid = request_tid(req.uid)
+                tr.track(tid, f"req {req.uid}")
+                tr.begin("request", tid)
+                tr.begin("queued", tid)
+        for st in self.scheduler.active.values():
+            uid = st.req.uid
+            rs.traced.add(uid)
+            rs.admitted.add(uid)
+            tid = request_tid(uid)
+            tr.track(tid, f"req {uid}")
+            tr.begin("request", tid)
+        rs.metrics.inc("resumes_total")
+        tr.instant("resume", step=at)
+
+    def _fault_dispatch(self, rs: _RunState) -> None:
+        """Dispatch-seam fault: raise the scheduled ``FaultInjected``
+        before anything of the iteration's decode is enqueued (pool, store
+        and epoch buffers untouched); the loop's retry path abandons the
+        iteration and plans it again."""
+        f = self.faults.take("dispatch_error", rs.disp_idx)
+        if f is not None:
+            rs.metrics.inc("faults_injected_total")
+            self.tracer.instant("fault", kind="dispatch_error",
+                                step=rs.disp_idx)
+            raise FaultInjected(f.message)
+
+    def _retry(self, rs: _RunState):
+        """The retry path after an injected dispatch error: counted, then
+        the iteration ends as an idle one does."""
+        rs.metrics.inc("dispatch_retries_total")
+        yield from self._end_step(rs)
+
+    def _fault_stall(self, rs: _RunState) -> None:
+        """Sync-seam fault: sleep inside the sync span, before the results
+        are read, emulating a hung device dispatch the watchdog then
+        observes."""
+        f = self.faults.take("stall", rs.disp_idx)
+        if f is not None:
+            rs.metrics.inc("faults_injected_total")
+            self.tracer.instant("fault", kind="stall", step=rs.disp_idx,
+                                stall_s=f.stall_s)
+            sleep_stall(f.stall_s)
+
+    def _fault_oom(self, rs: _RunState) -> List[int]:
+        """Headroom-seam fault (paged): hide free pages for this iteration
+        so reservations fail exactly as if residents had filled the pool;
+        the loop returns them (``allocator.unhide_pages``) before
+        admission, or in the headroom pass when they are the only way
+        out."""
+        f = self.faults.take("oom", rs.disp_idx)
+        if f is None:
+            return []
+        hidden = self.allocator.hide_pages(f.pages)
+        rs.metrics.inc("faults_injected_total")
+        self.tracer.instant("fault", kind="oom", step=rs.disp_idx,
+                            pages=len(hidden))
+        return hidden
+
+    def _watch(self, rs: _RunState, phase: str, seconds: float) -> None:
+        """Feed one dispatch-to-sync wall time to the watchdog; a straggler
+        strike is counted and traced, a hard-timeout breach flushes the
+        trace and re-raises ``HungDispatch`` with its path attached."""
+        wd = self.watchdog
+        if wd is None:
+            return
+        try:
+            if wd.observe(phase, seconds):
+                rs.metrics.inc("watchdog_strikes_total")
+                self.tracer.instant("watchdog", phase=phase,
+                                    elapsed_s=round(seconds, 6),
+                                    strikes=wd.strikes)
+        except HungDispatch as e:
+            rs.metrics.inc("watchdog_timeouts_total")
+            self.tracer.instant("watchdog", phase=phase,
+                                elapsed_s=round(seconds, 6), timeout=True)
+            e.trace_path = self._flush_trace()
+            raise
+
+    def _flush_trace(self) -> Optional[str]:
+        """Flush the trace on the abort path (open spans and all) so the
+        failure can be read afterwards; returns its path."""
+        tr = self.tracer
+        if tr.enabled and tr.path is not None:
+            tr.save()
+            return str(tr.path)
+        return None
+
+    # -- the lifecycle sweep -----------------------------------------------
     def _expired(self, req: Request, now: float) -> Optional[str]:
         """The request's lifecycle verdict at ``now``: "cancelled",
         "deadline", or None (keep going)."""
@@ -1495,9 +1721,10 @@ class ContinuousBatchingEngine:
         L = max(len(cfg.attention_layers), 1)
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
+        self._apply_resume(rs, pool)
         t_loop = perf_counter()
         while sched.has_work():
-            self._boundary(rs)
+            self._boundary(rs, pool)
             if not sched.has_work():      # the sweep drained the run
                 break
             tr.begin("step", idx=rs.disp_idx)
@@ -1506,17 +1733,24 @@ class ContinuousBatchingEngine:
             if not sched.active:
                 yield from self._end_step(rs)
                 continue
-            feed, pos = self._feed()
             t0 = perf_counter()
-            with tr.span("dispatch"), tr.annotate("decode_step"):
-                logits, pool, dstats = self.model.decode_step(pool, feed, pos)
-                tok = sample(logits, rs.generator, self.temperature)
-            m.inc("decode_dispatches_total")
+            try:
+                with tr.span("dispatch"), tr.annotate("decode_step"):
+                    self._fault_dispatch(rs)
+                    feed, pos = self._feed()
+                    logits, pool, dstats = self.model.decode_step(pool, feed,
+                                                                  pos)
+                    tok = sample(logits, rs.generator, self.temperature)
+            except FaultInjected:
+                yield from self._retry(rs)
+                continue
+            self._dispatched(rs)
             t_sync = perf_counter()
             with tr.span("sync"):
+                self._fault_stall(rs)
                 toks, gates = _fetch(tok, dstats.get("attn_gate"))
             now = perf_counter()
-            self._step_times(rs, t0, t_sync, now)
+            self._step_times(rs, t0, t_sync, now, "decode_step")
             with tr.span("bookkeep"):
                 self._bookkeep(rs, toks, gates, t0, now, measure, L)
             rs.step_idx += 1
@@ -1545,39 +1779,50 @@ class ContinuousBatchingEngine:
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         store = self._acquire_store()
         rs = self._new_run_state(generator, paged=True)
+        self._apply_resume(rs, store)
         m = rs.metrics
         per_step = functools.partial(self._paged_append, rs, reuse)
         t_loop = perf_counter()
         while sched.has_work():
-            self._boundary(rs)
+            self._boundary(rs, store)
             if not sched.has_work():
                 break
             tr.begin("step", idx=rs.disp_idx)
             self._step_gauges(rs)
+            hidden = self._fault_oom(rs)
             with tr.span("headroom"):
-                self._ensure_window(rs, 0)
+                self._ensure_window(rs, 0, hidden)
+            if hidden:
+                alloc.unhide_pages(hidden)
             self._plan_paged(rs, store, reuse, 1)
             if not sched.active:
                 yield from self._end_step(rs)
                 continue
-            feed, pos = self._feed()
             # bound the walk to the live chains; power-of-two buckets keep
             # the number of distinct walk widths logarithmic
             j_live = max(1, alloc.max_chain_pages())
             j_step = min(1 << (j_live - 1).bit_length(), alloc.pages_per_slot)
             t0 = perf_counter()
-            with tr.span("dispatch"), tr.annotate("paged_decode_step"):
-                logits, store, dstats = self.model.paged_decode_step(
-                    store, feed, pos,
-                    self._tensor(alloc.block_table[:, :j_step], torch.int32),
-                    self._tensor(alloc.fill, torch.int32))
-                tok = sample(logits, rs.generator, self.temperature)
-            m.inc("decode_dispatches_total")
+            try:
+                with tr.span("dispatch"), tr.annotate("paged_decode_step"):
+                    self._fault_dispatch(rs)
+                    feed, pos = self._feed()
+                    logits, store, dstats = self.model.paged_decode_step(
+                        store, feed, pos,
+                        self._tensor(alloc.block_table[:, :j_step],
+                                     torch.int32),
+                        self._tensor(alloc.fill, torch.int32))
+                    tok = sample(logits, rs.generator, self.temperature)
+            except FaultInjected:
+                yield from self._retry(rs)
+                continue
+            self._dispatched(rs)
             t_sync = perf_counter()
             with tr.span("sync"):
+                self._fault_stall(rs)
                 toks, gates = _fetch(tok, dstats["attn_gate"])
             now = perf_counter()
-            self._step_times(rs, t0, t_sync, now)
+            self._step_times(rs, t0, t_sync, now, "decode_step")
             with tr.span("bookkeep"):
                 self._bookkeep(rs, toks, gates, t0, now, measure, nA,
                                per_slot=per_step)
@@ -1599,14 +1844,24 @@ class ContinuousBatchingEngine:
         self.allocator.append(slot, fresh_n, nA)
         rs.hist.on_decode_step(slot, g)
 
+    def _dispatched(self, rs: _RunState, n: int = 1) -> None:
+        """A decode step, epoch or window is enqueued (``n`` dispatches: a
+        window with drafts counts two); its sync is owed before the next
+        boundary."""
+        rs.metrics.inc("decode_dispatches_total", n)
+        rs.unsynced = True
+
     def _step_times(self, rs: _RunState, t0: float, t_sync: float,
-                    now: float) -> None:
+                    now: float, phase: str) -> None:
         """A decode step's, epoch's or window's times: the sync's wait, and
-        its wall from dispatch to the end of the sync."""
+        its wall from dispatch to the end of the sync, which the watchdog
+        observes as ``phase``."""
         m = rs.metrics
+        rs.unsynced = False
         m.inc("device_seconds_total", now - t_sync)
         m.inc("decode_seconds_total", now - t0)
         m.observe("step_seconds", now - t0)
+        self._watch(rs, phase, now - t0)
 
     # -- fused-epoch run loops (decode_steps > 1) --------------------------
     def _epoch(self, kv, rs: _RunState, paged: bool) -> DecodeEpoch:
@@ -1660,7 +1915,7 @@ class ContinuousBatchingEngine:
         ep.run(n, annotate=functools.partial(
             self.tracer.annotate,
             "paged_decode_epoch" if ep.paged else "decode_epoch"))
-        rs.metrics.inc("decode_dispatches_total")
+        self._dispatched(rs)
         rs.stats.decode_iterations += n
 
     def _process_epoch(self, rs: _RunState, ep: DecodeEpoch, n_run: int,
@@ -1677,9 +1932,10 @@ class ContinuousBatchingEngine:
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         t_sync = perf_counter()
         with tr.span("sync"):
+            self._fault_stall(rs)
             toks, step_act, gates, fin_act = ep.fetch(n_run)
         now = perf_counter()
-        self._step_times(rs, t_disp, t_sync, now)
+        self._step_times(rs, t_disp, t_sync, now, "decode_epoch")
         step_s = (now - t_disp) / n_run
         with tr.span("bookkeep"):
             # deferred first tokens first: their slots either join the
@@ -1744,10 +2000,12 @@ class ContinuousBatchingEngine:
         rs = self._new_run_state(generator, paged=False)
         m = rs.metrics
         pool = init_pool(self.cfg, self.max_slots, self.max_len, self.device)
+        # restored into the pool before the epoch is built over it
+        self._apply_resume(rs, pool)
         ep = self._epoch(pool, rs, paged=False)
         t_loop = perf_counter()
         while sched.has_work():
-            self._boundary(rs)
+            self._boundary(rs, pool)
             if not sched.has_work():
                 break
             tr.begin("step", idx=rs.disp_idx)
@@ -1759,12 +2017,17 @@ class ContinuousBatchingEngine:
                 feed, pos, act, budget, stop, slots = self._epoch_args(rem)
                 n_eff = self._epoch_len(rem)
                 t_disp = perf_counter()
-                with tr.span("dispatch", n=n_eff):
-                    ep.load(feed, pos, act, budget, stop)
-                    for slot, tok_dev in rs.pending.items():
-                        if act[slot]:
-                            ep.feed[slot].copy_(tok_dev[0])
-                    self._launch_epoch(rs, ep, n_eff)
+                try:
+                    with tr.span("dispatch", n=n_eff):
+                        self._fault_dispatch(rs)
+                        ep.load(feed, pos, act, budget, stop)
+                        for slot, tok_dev in rs.pending.items():
+                            if act[slot]:
+                                ep.feed[slot].copy_(tok_dev[0])
+                        self._launch_epoch(rs, ep, n_eff)
+                except FaultInjected:
+                    yield from self._retry(rs)
+                    continue
             with tr.span("plan"):
                 self._plan_dense(rs, pool, n_eff, fused=True)
             if t_disp is not None:
@@ -1790,12 +2053,14 @@ class ContinuousBatchingEngine:
         reuse = paged_mod.reuse_enabled(self.cfg)
         store = self._acquire_store()
         rs = self._new_run_state(generator, paged=True)
+        # restored into the store before the epoch is built over it
+        self._apply_resume(rs, store)
         m = rs.metrics
         ep = self._epoch(store, rs, paged=True)
         per_step = functools.partial(self._paged_append, rs, reuse)
         t_loop = perf_counter()
         while sched.has_work():
-            self._boundary(rs)
+            self._boundary(rs, store)
             if not sched.has_work():
                 break
             tr.begin("step", idx=rs.disp_idx)
@@ -1809,6 +2074,7 @@ class ContinuousBatchingEngine:
                 n_eff = self._epoch_len(rem)
                 if rs.epoch_cap:
                     n_eff = min(n_eff, rs.epoch_cap)
+                hidden = self._fault_oom(rs)
                 shrunk = False
                 with tr.span("headroom"):
                     while True:
@@ -1828,12 +2094,21 @@ class ContinuousBatchingEngine:
                             shrunk = True
                             continue
                         if not self._preempt_youngest(rs, exclude=failed):
+                            if hidden:
+                                # the injected OOM drove the pool down to
+                                # one resident: return the hidden pages
+                                # instead of dying
+                                alloc.unhide_pages(hidden)
+                                hidden = []
+                                continue
                             raise PageExhausted(
                                 f"page pool exhausted with a single resident "
                                 f"request (slot {failed}) — submit() should "
                                 "have rejected it", slot=failed,
                                 free_pages=alloc.free_pages,
                                 pages_total=self.num_pages)
+                if hidden:
+                    alloc.unhide_pages(hidden)
                 if shrunk:
                     rs.epoch_cap, rs.clean_epochs = n_eff, 0
                     m.inc("epoch_shrinks_total")
@@ -1850,10 +2125,15 @@ class ContinuousBatchingEngine:
                 j_step = min(1 << (j_live - 1).bit_length(),
                              alloc.pages_per_slot)
                 t_disp = perf_counter()
-                with tr.span("dispatch", n=n_eff):
-                    ep.load(feed, pos, act, budget, stop, fill=alloc.fill,
-                            block_table=alloc.block_table[:, :j_step])
-                    self._launch_epoch(rs, ep, n_eff)
+                try:
+                    with tr.span("dispatch", n=n_eff):
+                        self._fault_dispatch(rs)
+                        ep.load(feed, pos, act, budget, stop, fill=alloc.fill,
+                                block_table=alloc.block_table[:, :j_step])
+                        self._launch_epoch(rs, ep, n_eff)
+                except FaultInjected:
+                    yield from self._retry(rs)
+                    continue
             # admission sees the free list net of the epoch's reservation
             self._plan_paged(rs, store, reuse, n_eff)
             if t_disp is not None:
@@ -1881,13 +2161,16 @@ class ContinuousBatchingEngine:
                           st.req.max_new_tokens - len(st.out_tokens))
         return max(0, min(g, rem_max - 1))
 
-    def _ensure_window(self, rs: _RunState, gamma: int) -> None:
+    def _ensure_window(self, rs: _RunState, gamma: int,
+                       hidden: List[int]) -> None:
         """Grow every resident's page chain to a window's worst case (fill
         + (γ + 1)·n_attn entries; γ = 0 is one decode step's headroom)
         BEFORE the block table is read for the device: an append past the
         ensured chain would read a block-table zero and scatter into
         physical page 0, another slot's data.  Under pressure prefix
-        records are evicted first, then the youngest resident preempted."""
+        records are evicted first, then the youngest resident preempted;
+        ``hidden`` is the oom fault's page list, returned to the pool in
+        place (and emptied) when it is the only way out."""
         alloc, sched = self.allocator, self.scheduler
         need_per = (gamma + 1) * self.n_attn
         for slot in sorted(sched.active):
@@ -1897,6 +2180,10 @@ class ContinuousBatchingEngine:
                 if self._reclaim_pages():
                     continue
                 if not self._preempt_youngest(rs, exclude=slot):
+                    if hidden:
+                        alloc.unhide_pages(hidden)
+                        hidden.clear()
+                        continue
                     raise PageExhausted(
                         f"page pool exhausted with a single resident "
                         f"request (slot {slot}) — submit() should have "
@@ -2136,10 +2423,12 @@ class ContinuousBatchingEngine:
         measure = cfg.skip.enabled and cfg.skip.kv_reuse
         sampled = self.temperature > 0.0
         pool = init_pool(cfg, self.max_slots, self.max_len, self.device)
+        # restored into the pool before the draft loop is built over it
+        self._apply_resume(rs, pool)
         ep = self._draft_epoch(pool, rs, paged=False)
         t_loop = perf_counter()
         while sched.has_work():
-            self._boundary(rs)
+            self._boundary(rs, pool)
             if not sched.has_work():
                 break
             tr.begin("step", idx=rs.disp_idx)
@@ -2151,17 +2440,23 @@ class ContinuousBatchingEngine:
             feed, pos, act, cur = self._spec_inputs()
             gamma = self._window_gamma()
             t0 = perf_counter()
-            feed_dev = self._tensor(feed)
-            pos_dev = self._tensor(pos, torch.int32)
-            with tr.span("draft", k=gamma):
-                chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act,
-                                    gamma)
+            try:
+                with tr.span("draft", k=gamma):
+                    self._fault_dispatch(rs)
+                    feed_dev = self._tensor(feed)
+                    pos_dev = self._tensor(pos, torch.int32)
+                    chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act,
+                                        gamma)
+            except FaultInjected:
+                yield from self._retry(rs)
+                continue
             with tr.span("verify", k=gamma), tr.annotate("spec_verify"):
                 logits, pool, vstats = self.model.verify_chunk(pool, chunk,
                                                                pos_dev)
-            m.inc("decode_dispatches_total", 2 if gamma else 1)
+            self._dispatched(rs, 2 if gamma else 1)
             t_sync = perf_counter()
             with tr.span("sync"):
+                self._fault_stall(rs)
                 tgt, drafts, gates, dlog, vlog = _fetch(
                     torch.argmax(logits, dim=-1), chunk[:, 1:],
                     vstats.get("attn_gate"),
@@ -2169,7 +2464,7 @@ class ContinuousBatchingEngine:
                     if (gamma and sampled) else None,
                     logits if sampled else None)
             now = perf_counter()
-            self._step_times(rs, t0, t_sync, now)
+            self._step_times(rs, t0, t_sync, now, "decode_window")
             with tr.span("bookkeep"):
                 emitted, accepted = self._accept_windows(
                     rs, cur, gamma, drafts.astype(np.int64),
@@ -2213,40 +2508,52 @@ class ContinuousBatchingEngine:
         sampled = self.temperature > 0.0
         store = self._acquire_store()
         rs = self._new_run_state(generator, paged=True)
+        # restored into the store before the draft loop is built over it
+        self._apply_resume(rs, store)
         m = rs.metrics
         ep = self._draft_epoch(store, rs, paged=True)
         per_tok = functools.partial(self._paged_append, rs, reuse)
         t_loop = perf_counter()
         while sched.has_work():
-            self._boundary(rs)
+            self._boundary(rs, store)
             if not sched.has_work():
                 break
             tr.begin("step", idx=rs.disp_idx)
             self._step_gauges(rs)
+            hidden = self._fault_oom(rs)
             with tr.span("headroom"):
                 self._ensure_window(
-                    rs, self._window_gamma() if sched.active else 0)
+                    rs, self._window_gamma() if sched.active else 0, hidden)
             self._plan_paged(rs, store, reuse, 1)
             if not sched.active:
+                if hidden:
+                    alloc.unhide_pages(hidden)
                 yield from self._end_step(rs)
                 continue
             gamma = self._window_gamma()
             with tr.span("headroom"):
-                self._ensure_window(rs, gamma)
+                self._ensure_window(rs, gamma, hidden)
+            if hidden:
+                alloc.unhide_pages(hidden)
             feed, pos, act, cur = self._spec_inputs()
             fill0 = alloc.fill.copy()
             j_live = max(1, alloc.max_chain_pages())
             j_step = min(1 << (j_live - 1).bit_length(), alloc.pages_per_slot)
             bt = alloc.block_table[:, :j_step]
             t0 = perf_counter()
-            feed_dev = self._tensor(feed)
-            pos_dev = self._tensor(pos, torch.int32)
-            fill_dev = self._tensor(fill0, torch.int32)
-            bt_dev = self._tensor(bt, torch.int32)
-            act_dev = self._tensor(act, torch.bool)
-            with tr.span("draft", k=gamma):
-                chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act,
-                                    gamma, fill=fill0, bt=bt)
+            try:
+                with tr.span("draft", k=gamma):
+                    self._fault_dispatch(rs)
+                    feed_dev = self._tensor(feed)
+                    pos_dev = self._tensor(pos, torch.int32)
+                    fill_dev = self._tensor(fill0, torch.int32)
+                    bt_dev = self._tensor(bt, torch.int32)
+                    act_dev = self._tensor(act, torch.bool)
+                    chunk = self._draft(rs, ep, feed, feed_dev, pos_dev, act,
+                                        gamma, fill=fill0, bt=bt)
+            except FaultInjected:
+                yield from self._retry(rs)
+                continue
             cap = int(pos.max()) + gamma + 1
             dfill = ep.fill if gamma else fill_dev
             with tr.span("verify", k=gamma), tr.annotate("spec_verify"):
@@ -2262,15 +2569,16 @@ class ContinuousBatchingEngine:
                     tgt_dev, gates_dev = (torch.argmax(logits, dim=-1),
                                           vstats["attn_gate"])
                     committed_dev = None
-            m.inc("decode_dispatches_total", 2 if gamma else 1)
+            self._dispatched(rs, 2 if gamma else 1)
             t_sync = perf_counter()
             with tr.span("sync"):
+                self._fault_stall(rs)
                 tgt, drafts, gates, dfill, committed_np, dlog, vlog = _fetch(
                     tgt_dev, chunk[:, 1:], gates_dev, dfill, committed_dev,
                     ep.logits[:gamma].transpose(0, 1)
                     if (gamma and sampled) else None, logits)
             now = perf_counter()
-            self._step_times(rs, t0, t_sync, now)
+            self._step_times(rs, t0, t_sync, now, "decode_window")
             with tr.span("bookkeep"):
                 emitted, accepted = self._accept_windows(
                     rs, cur, gamma, drafts.astype(np.int64),
@@ -2580,6 +2888,11 @@ class ContinuousBatchingEngine:
         stats.preempt_budget_exhausted = int(
             m.value("preempt_budget_exhausted_total"))
         stats.epoch_shrinks = int(m.value("epoch_shrinks_total"))
+        stats.faults_injected = int(m.value("faults_injected_total"))
+        stats.dispatch_retries = int(m.value("dispatch_retries_total"))
+        stats.watchdog_strikes = int(m.value("watchdog_strikes_total"))
+        stats.snapshots = int(m.value("snapshots_total"))
+        stats.resumes = int(m.value("resumes_total"))
         stats.spec_windows = int(m.value("spec_windows_total"))
         stats.spec_tokens_drafted = int(m.value("spec_tokens_drafted_total"))
         stats.spec_tokens_accepted = int(

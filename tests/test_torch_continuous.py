@@ -4,9 +4,10 @@ interpret mode), on the same bridged weights and the same submit sequence:
 per-request tokens and every shared statistic must be equal, in the dense
 slot pool and in the paged §4.4 store.  Also: paged ≡ dense within the
 port, tokens unchanged under page-pressure preemption, page conservation
-after every run, admission rejection, unported levers (faults, the
-watchdog, snapshots, a mesh) raising ``ConfigError``, and temperature
-sampling held by distribution.
+after every run, admission rejection, the unported lever (a mesh or a
+sharding policy) raising ``ConfigError`` while the robustness levers
+(faults, the watchdog, snapshots) build, and temperature sampling held by
+distribution.
 
 Routers are redrawn at unit scale with zero bias so routing really skips
 (fp32 smoke config)."""
@@ -223,13 +224,28 @@ def test_scheduler_matches_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_mode": "paged", "watchdog": object()}, {"faults": []},
-    {"snapshot_dir": "snap"}, {"mesh": object()}])
+    {"kv_mode": "paged", "mesh": object()}, {"sharding_policy": object()},
+    {"faults": [], "mesh": object()}, {"mesh": object()}])
 def test_unported_knob_raises_config_error(world, knob):
     _, model, _ = world
     kw = dict(GEOM, **knob)
     with pytest.raises(ConfigError, match="ROADMAP queue 1"):
         ContinuousBatchingEngine(model, **kw)
+
+
+@pytest.mark.parametrize("knob", [
+    {"kv_mode": "paged", "watchdog": object()}, {"faults": []},
+    {"snapshot_dir": "snap", "snapshot_every": 3}])
+def test_robustness_knob_builds(world, knob):
+    """Faults, the watchdog and snapshots are ported: the engine takes
+    them (``tests/test_torch_faults.py`` and ``test_torch_snapshot.py``
+    hold what they do)."""
+    _, model, _ = world
+    eng = ContinuousBatchingEngine(model, **dict(GEOM, **knob))
+    assert not eng.faults
+    assert eng.watchdog is knob.get("watchdog")
+    assert eng.snapshot_dir == knob.get("snapshot_dir")
+    assert eng.snapshot_every == knob.get("snapshot_every", 1)
 
 
 def test_temperature_sampling_by_distribution():

@@ -243,7 +243,9 @@ def test_port_imports_no_jax():
             "src/repro_torch/kernels/int4_matmul.py",
             "src/repro_torch/kvcache/prefix.py",
             "src/repro_torch/obs/metrics.py",
-            "src/repro_torch/obs/trace.py"} <= names
+            "src/repro_torch/obs/trace.py",
+            "src/repro_torch/serve/faults.py",
+            "src/repro_torch/serve/snapshot.py"} <= names
     bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not bad, bad
 
