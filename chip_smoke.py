@@ -279,9 +279,36 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 preempting, two retries amid a spec_k 4 run's admissions,
                 and a fused run killed and resumed: tokens, gate logs and
                 KV accounting bit for bit the clean run's.
+ 17. gather   — gather-mode routing and qwen3-8b, its line emitted after
+                phase 16's: (a) flash over the C gathered rows of a seeded
+                score (sorted, with gaps) over all T keys, B 4, T 512 (C
+                384) and 453 (C 344), bf16 on the tile and fp32 on the
+                SIMT kernel, timed beside SDPA with a boolean mask and
+                masked flash over all T rows; the four llama linears at M
+                1536 beside ``torch.matmul``; qwen3-8b's flash (tile and
+                split-KV walk) and paged split walk at G 4 (phase 3's
+                checks); (b) CPU ≡ CUDA in gather mode on llama2-7b smoke
+                and qwen3-8b smoke with 2 kv heads, fp32: selected
+                indices, gate logs, logits, lock-step and dense-pool
+                tokens, exact launches (a C-th / (C+1)-th score pair
+                closer than GATHER_MARGIN reported, not failed); (c) phase
+                6's bf16 weights in gather mode: lock-step 4 × 512 + 32,
+                the dense pool single-step and in fused 8-step epochs (the
+                same tokens), phase 8's int4 weights lock-step and dense,
+                exact launches per route (a prefill's first wqkv at B·T
+                rows, the other 4·L − 1 linears at B·C, flash at G·C rows),
+                masked and gather prefills timed in turns, the paged,
+                chunked, bucketed and speculative refusals; (d) in
+                ``witness()``, fp32 at all 32 layers, keep 1.0 and every
+                gate 1: gather ≡ masked (gates, tokens, logits ≤ 1e-4·max);
+                (e) after the llama weights are freed, qwen3-8b at full
+                width in bf16 (seed-0 weights, neutral router bias):
+                lock-step, the dense pool single-step and fused, bf16
+                pages, and (c)'s gather runs; exact launches, G 4 routes,
+                pages conserved.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15 and 16 (their fp32 witness
-runs included; not phase 16's subprocesses),
+runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16 and 17 (their fp32
+witness runs included; not phase 16's subprocesses),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's, 12's and 14's replayed launches stand in their own lines,
 derived, and in no sum; for the paged SIMT route, which only fp32 serving
@@ -968,10 +995,11 @@ def flash_call(torch, q, k, v, qpos, kvl, what, **kw):
 
 
 def check_flash(torch, dev, timer, cfg):
-    """Flash attention at the llama2-7b main-path shapes: prefill (4 × 512,
-    causal) on the tensor-core tile and decode (B 4 against a 544-row cache,
-    kv_len 544) on the split-KV walk in bf16, each timed beside its plain
-    version and SDPA; the same inputs in fp32 on the SIMT kernel (the
+    """Flash attention at a config's main-path shapes (llama2-7b; qwen3-8b's
+    G = 4 in phase 17): prefill (4 × 512, causal) on the tensor-core tile
+    and decode (B 4 against a 544-row cache, kv_len 544) on the split-KV
+    walk in bf16, each timed beside its plain version and SDPA (its GQA
+    mode where G > 1); the same inputs in fp32 on the SIMT kernel (the
     parity route), checked and timed too.  Returns the shape records by
     bf16 route."""
     import torch.nn.functional as Fn
@@ -1010,7 +1038,7 @@ def check_flash(torch, dev, timer, cfg):
                                                       scale=scale))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms_l = timer(lambda: Fn.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=t_last is None))
+            qt, kt, vt, is_causal=t_last is None, enable_gqa=H != Hkv))
         if t_last is None:
             pairs = B * H * Tq * (Tq + 1) // 2          # causal (q, key) pairs
             keys = Tk
@@ -2129,7 +2157,12 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     SSD scan per layer and prefill (decode steps run the plain
     recurrence), nothing else; the scans by route too, as ``ss.plan``
     picks it from the prefill's shape and the dtype: bf16 on the
-    tensor-core route, fp32 on the SIMT kernel."""
+    tensor-core route, fp32 on the SIMT kernel.  Gather mode (an exact
+    prefill (B, T) with C = ``capacity(T, keep_prob)``): the first layer's
+    wqkv projects all B·T rows (the dense KV base case), the other 4·L − 1
+    linears the B·C gathered rows, and flash packs G·C rows over T keys;
+    decode steps are masked in either mode."""
+    from repro_torch.core import routing
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
     from repro_torch.kernels import paged_attention as pa
@@ -2158,8 +2191,18 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     int4 = is_int4(model)
     Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     G = cfg.num_heads // Hkv
-    forwards = [(e[0] * e[1], e[0], G * e[1], e[-1]) for e in prefills]
-    forwards += [(step_rows, step_rows, G, MAX_LEN)] * n_st
+    gather = transformer.is_gather(cfg)
+
+    def prefill_forward(e):     # ({rows: linears}, batch, R, keys)
+        b, t = e[0], e[1]
+        c = routing.capacity(t, cfg.skip.keep_prob) \
+            if gather and len(e) == 2 else t
+        if c == t:
+            return {b * t: 4 * L}, b, G * t, e[-1]
+        return {b * t: 1, b * c: 4 * L - 1}, b, G * c, e[-1]
+
+    forwards = [prefill_forward(e) for e in prefills]
+    forwards += [({step_rows: 4 * L}, step_rows, G, MAX_LEN)] * n_st
     if int4:
         lm = model.params()["lm_head"]
         C = lm["scale"].shape[0]
@@ -2169,12 +2212,14 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
             return fl.plan_int4(rows, D, V, Kw // C, C, False, dt).route
 
     for i, (rows, b, R, Tk) in enumerate(forwards):
+        for m, n in rows.items():
+            if int4:
+                routes["fused_linear_int4_" + int4_route(m)] += n
+            else:
+                routes["fused_linear_" + fl.plan(m, D, D, False,
+                                                 dt).route] += n
         if int4:
-            routes["fused_linear_int4_" + int4_route(rows)] += 4 * L
             routes["int4_matmul_" + int4_route(b)] += 1
-        else:
-            routes["fused_linear_" + fl.plan(rows, D, D, False,
-                                             dt).route] += 4 * L
         if i < n_pf or not paged:
             routes["flash_attention_" + fa.plan(b * Hkv, R, Tk, dh,
                                                 dt).route] += L
@@ -2838,17 +2883,13 @@ def chunk_flash(torch, dev, timer, cfg, floor):
     return out
 
 
-def chunk_kernels(torch, dev, timer, cfg, floor):
-    """(a) The kernels at one chunk's geometry: flash (``chunk_flash``),
-    the dense fused linear's four linears at M = 128 (bf16 on the
-    tensor-core tile, fp32 on the SIMT kernel, ``fused_linear_call``) and
-    the router at T = 128 (``router_call``), each also timed beside its
-    plain version (the linears beside ``torch.matmul``), with phase 3's
+def linears_at(torch, dev, timer, cfg, M, g):
+    """The dense fused linear's four linears of a block at M rows: bf16 on
+    the tensor-core tile and fp32 on the SIMT kernel against the plain
+    version (``fused_linear_call``), the bf16 call timed beside its plain
+    version and ``torch.matmul`` of the same shape, with phase 3's
     bounds."""
-    from repro_torch.kernels import fused_linear as fl
-    from repro_torch.kernels import fused_router_rmsnorm as frr, ref
-    g = torch.Generator(device=dev).manual_seed(16)
-    M = CHUNK
+    from repro_torch.kernels import fused_linear as fl, ref
     linears = []
     for name, K, N, glu, pro, epi in linear_shapes(cfg):
         F = N // 2 if glu else N
@@ -2873,6 +2914,20 @@ def chunk_kernels(torch, dev, timer, cfg, floor):
             "bound_ms": b, "bound_by": by,
             "errors": {"bfloat16": rec, "float32": simt}})
         del x, w, kw
+    return linears
+
+
+def chunk_kernels(torch, dev, timer, cfg, floor):
+    """(a) The kernels at one chunk's geometry: flash (``chunk_flash``),
+    the dense fused linear's four linears at M = 128 (bf16 on the
+    tensor-core tile, fp32 on the SIMT kernel, ``fused_linear_call``) and
+    the router at T = 128 (``router_call``), each also timed beside its
+    plain version (the linears beside ``torch.matmul``), with phase 3's
+    bounds."""
+    from repro_torch.kernels import fused_router_rmsnorm as frr, ref
+    g = torch.Generator(device=dev).manual_seed(16)
+    M = CHUNK
+    linears = linears_at(torch, dev, timer, cfg, M, g)
     D = cfg.d_model
     w = torch.randn((D, 2), generator=g, device=dev) * 0.02
     x = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
@@ -3793,6 +3848,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
     spec = spec_witness(torch, np, dev, m32, reqs, new, tokens, logs)
     life = lifecycle_witness(torch, np, dev, m32, reqs, new, tokens)
     fault = faults_witness(torch, np, dev, m32, reqs, new, tokens, logs)
+    gather = gather_witness(torch, np, dev, m32)
     del m32
     torch.cuda.empty_cache()
     dist["bf16_dense"] = _forced_distance(
@@ -3818,7 +3874,7 @@ def witness(torch, np, dev, model, prompts, bf16_tokens):
             "forced": {"prompts": 2, "prompt_len": 256, "steps": 16,
                        "min_gate_margin_fp32": min(margins),
                        "vs_fp32_dense": dist}}, launches, chunk, prefix, \
-        spec, life, fault
+        spec, life, fault, gather
 
 
 # ---------------------------------------------------------------------------
@@ -3833,14 +3889,17 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
+def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts,
+               on_weights=None):
     """The phase-5 bf16 weights quantized on the card by the port's
     ``quantize_params`` at llama2-7b's QuantConfig (group 128, pow2 scales:
     every linear of all 32 layers and the lm head), served lock-step (batch
     4 × 512 + 32) and by the continuous engine (the phase-6 requests) in
     the dense pool and in paged bf16 pages, with exact launch counts and
     finite logits.  The share of tokens equal to the bf16 runs is reported
-    only: random weights make it no check."""
+    only: random weights make it no check.  ``on_weights`` (phase 17's
+    gather runs) is called with the int4 model before it is freed; its
+    result is returned last."""
     from repro_torch.models.model import LanguageModel
     from repro_torch.quant import quantize_params
     cfg, L = model.cfg, model.cfg.num_layers
@@ -3886,6 +3945,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
             torch, dev, m4, finite, "spec_int4_dense", prompts, 32,
             kv_mode="dense", spec_k=SPEC_K)
     spec_beside(np, srec, stoks, runs[1], int4_tokens["int4_dense"])
+    hooked = on_weights(m4) if on_weights is not None else None
     rec = {"phase": "int4", "config": cfg.name, "dtype": cfg.dtype,
            "group_size": cfg.quant.group_size,
            "pow2_scales": cfg.quant.pow2_scales, "int4_linears": n_int4,
@@ -3896,7 +3956,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts):
     del m4, p4
     torch.cuda.empty_cache()
     return rec, total, (fused, fused_launches), (crec, claunch), \
-        (srec, slaunch)
+        (srec, slaunch), hooked
 
 
 # ---------------------------------------------------------------------------
@@ -5117,6 +5177,447 @@ def faults_witness(torch, np, dev, m32, reqs, new, tokens, logs):
     return rec, total, time.perf_counter() - t
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: gather-mode routing; qwen3-8b (qk-norm, G = 4)
+# ---------------------------------------------------------------------------
+
+GATHER_B = 4
+GATHER_T = (512, 453)   # (a)'s prompts: C 384 of 512, the ragged 344 of 453
+GATHER_MARGIN = 1e-4    # (b): a C-th / (C+1)-th score gap below this is a
+#                         near tie, reported instead of failing
+GATHER_TURNS = 3        # (c): masked and gather prefills timed in turns
+WITNESS_BIAS = 100.0    # (d): router keep bias under which every gate is 1
+
+
+def with_mode(cfg, mode, keep=None):
+    """cfg with routing ``mode`` (and ``keep_prob``)."""
+    skip = dataclasses.replace(cfg.skip, mode=mode)
+    if keep is not None:
+        skip = dataclasses.replace(skip, keep_prob=keep)
+    return dataclasses.replace(cfg, skip=skip)
+
+
+def gather_flash(torch, dev, timer, cfg, floor):
+    """Flash attention at a gather prefill's geometry: q of the C =
+    ``capacity(T)`` rows a seeded score selects (sorted, with gaps) over
+    all T keys, kv_len None as the prefill passes it, B 4, the config's
+    heads; T 512 (C 384) and T 453 (C 344).  bf16 on the tensor-core tile
+    and fp32 on the SIMT kernel against the plain version (``flash_call``:
+    phase 3's tolerances, the mirror, a second launch bit for bit), timed
+    beside the plain version, SDPA with a boolean mask of the same keys
+    and masked-mode flash over all T rows; bound: q, out and the keys up
+    to each sequence's last selected position, 4·dh operations per (row,
+    valid key) pair."""
+    import torch.nn.functional as Fn
+    from repro_torch.core import routing
+    from repro_torch.kernels import flash_attention as fa
+    B, H, dh, Hkv = GATHER_B, cfg.num_heads, cfg.resolved_head_dim, \
+        cfg.num_kv_heads
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(17)
+    scale = 1.0 / math.sqrt(dh)
+    out = []
+    for T in GATHER_T:
+        C = routing.capacity(T, cfg.skip.keep_prob)
+        score = torch.randn((B, T), generator=g, device=dev)
+        qpos = routing.select_topc(score, C).to(torch.int32)
+        q = torch.randn((B, C, H, dh), generator=g, device=dev).to(bf)
+        k = torch.randn((B, T, Hkv, dh), generator=g, device=dev).to(bf)
+        v = torch.randn((B, T, Hkv, dh), generator=g, device=dev).to(bf)
+        what = f"flash gathered B={B} C={C} of T={T}"
+        errs = {}
+        for dt in (bf, torch.float32):
+            a = [t.to(dt) for t in (q, k, v)]
+            errs[str(dt).split(".")[-1]] = flash_call(
+                torch, *a, qpos, None, f"{what} {dt}", scale=scale)
+        route = errs["bfloat16"]["route"]
+        require(route == "wgmma", f"{what}: route {route}")
+        keys = torch.arange(T, device=dev)
+        mask = keys[None, None, None, :] <= qpos[:, None, :, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        qm = torch.randn((B, T, H, dh), generator=g, device=dev).to(bf)
+        pm = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+        ms_k = timer(lambda: fa.flash_attention_cuda(q, k, v, qpos, None,
+                                                     scale=scale))
+        ms_p = timer(lambda: fa.flash_attention_plain(q, k, v, qpos, None,
+                                                      scale=scale))
+        ms_l = timer(lambda: Fn.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        ms_m = timer(lambda: fa.flash_attention_cuda(qm, k, v, pm, None,
+                                                     scale=scale))
+        pairs = H * int((qpos.long() + 1).sum().item())
+        last = int((qpos.long().amax(1) + 1).sum().item())
+        nbytes = (2 * B * C * H * dh + 2 * last * Hkv * dh) * 2
+        b, by = bound_ms(nbytes, 4.0 * pairs * dh)
+        out.append({"shape": f"gathered B={B} C={C} of T={T} H={H} "
+                             f"Hkv={Hkv} dh={dh}", "route": route,
+                    "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+                    "library": "SDPA, boolean mask of the same keys",
+                    "masked_all_rows_ms": ms_m, "bound_ms": b,
+                    "bound_by": by, "launch_floor_ms": floor,
+                    "errors": errs})
+        del q, k, v, qt, kt, vt, qm, mask
+    return out
+
+
+def gather_kernels(torch, np, dev, timer, cfg, qcfg, floor):
+    """(a) The kernels at phase 17's new shapes: flash over gathered q
+    positions (``gather_flash``), the four llama linears at M = B·C = 1536
+    (``linears_at``), and at qwen3-8b's G = 4 flash's tile and split-KV
+    walk (``check_flash``: prefill 4 × 512, decode B 4 against 544 rows)
+    and paged attention's split walk (``check_paged``: bf16, int8 and int4
+    pages, fp32 q on the SIMT kernel)."""
+    from repro_torch.core import routing
+    g = torch.Generator(device=dev).manual_seed(18)
+    M = GATHER_B * routing.capacity(GATHER_T[0], cfg.skip.keep_prob)
+    return {"launch_floor_ms": floor,
+            "flash_gathered": gather_flash(torch, dev, timer, cfg, floor),
+            "fused_linear_gathered": linears_at(torch, dev, timer, cfg, M, g),
+            "qwen3_flash": check_flash(torch, dev, timer, qcfg),
+            "qwen3_paged": check_paged(torch, np, dev, timer, qcfg)}
+
+
+class Selections:
+    """Records every ``routing.select_topc`` call: the indices (on the
+    host) and the gap between the C-th and (C+1)-th score of each row."""
+
+    def __init__(self):
+        from repro_torch.core import routing
+        self.routing, self.orig = routing, routing.select_topc
+        self.idx, self.gaps = [], []
+
+    def __enter__(self):
+        def recording(score, cap):
+            s = score.sort(dim=-1, descending=True).values
+            if cap < score.shape[-1]:
+                self.gaps.append((s[:, cap - 1] - s[:, cap]).cpu())
+            idx = self.orig(score, cap)
+            self.idx.append(idx.cpu())
+            return idx
+        self.routing.select_topc = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.routing.select_topc = self.orig
+
+    def near(self):
+        """(call, row, gap) of every nonzero gap below GATHER_MARGIN (a
+        gap of exactly 0 is two equal rows: a repeated token at the first
+        layer, which both devices score alike)."""
+        return [(i, r, float(x)) for i, gap in enumerate(self.gaps)
+                for r, x in enumerate(gap.tolist()) if 0 < x < GATHER_MARGIN]
+
+
+def _smoke_model(torch, cfg, dev):
+    """The fp32 smoke parameters of phase 4: seeded, neutral router bias,
+    routers at unit scale (no gate near its tie)."""
+    from repro_torch.core import routing
+    from repro_torch.models.model import LanguageModel, init_params
+    params = routing.neutral_router_bias(
+        init_params(cfg, torch.Generator().manual_seed(PARITY_SEED), "cpu"))
+    for blk in params["blocks"]:
+        for sub in blk.values():
+            sub["router"]["w"] = sub["router"]["w"] * 50.0
+    return (LanguageModel(cfg, params, device="cpu"),
+            LanguageModel(cfg, params, device=dev))
+
+
+def gather_parity(torch, np, dev):
+    """(b) CPU ≡ CUDA in gather mode, fp32: llama2-7b smoke and qwen3-8b
+    smoke with num_kv_heads 2 (G 2), 2 prompts of 32 tokens (C 24) and 3
+    teacher-forced steps, then ``ServeEngine.generate`` (exact launch
+    counts on the cuda run) and the continuous dense pool (prompts of 9,
+    21, 32 and 40 tokens).  Compared in order: selected indices, gate
+    logs, logits (≤ 1e-4·max), tokens.  Where the cpu run has a C-th /
+    (C+1)-th score pair closer than GATHER_MARGIN, a difference is
+    reported with the pair instead of failing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import routing
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    rec = {"phase": "gather_parity", "margin": GATHER_MARGIN,
+           "tol": TOL_LOGITS}
+    for arch, kv in (("llama2-7b", None), ("qwen3-8b", 2)):
+        cfg = get_config(arch).smoke()
+        cfg = with_mode(dataclasses.replace(
+            cfg, dtype="float32",
+            num_kv_heads=kv or cfg.num_kv_heads), "gather")
+        m_cpu, m_gpu = _smoke_model(torch, cfg, dev)
+        rng = np.random.default_rng(PARITY_SEED)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)))
+        forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 3)))
+        margins, orig = [], routing.gate_from_logits
+
+        def recording(logits):
+            margins.append((logits[..., 1] - logits[..., 0]).abs().min()
+                           .item())
+            return orig(logits)
+
+        routing.gate_from_logits = recording
+        try:
+            with Selections() as sc:
+                lc, gc = _forced_run(m_cpu, toks, forced)
+        finally:
+            routing.gate_from_logits = orig
+        require(min(margins) >= MIN_MARGIN,
+                f"{arch}: gate margin {min(margins)} < {MIN_MARGIN}")
+        with Selections() as sg:
+            lg, gg = _forced_run(m_gpu, toks, forced)
+        near = sc.near()
+        diffs = []
+        require(len(sc.idx) == len(sg.idx) == 2 * cfg.num_layers,
+                f"{arch}: {len(sc.idx)} / {len(sg.idx)} selections")
+        for i, (a, b) in enumerate(zip(sc.idx, sg.idx)):
+            if not torch.equal(a, b):
+                diffs.append(f"selection {i}")
+        for a, b in zip(gc, gg):
+            if not torch.equal(a, b):
+                diffs.append("gate log")
+        worst = 0.0
+        for a, b in zip(lc, lg):
+            d = (a - b).abs().max().item() / a.abs().max().item()
+            worst = max(worst, d)
+            if d > TOL_LOGITS or not torch.equal(a.argmax(-1),
+                                                 b.argmax(-1)):
+                diffs.append(f"logits {d}")
+        require(not diffs or near, f"{arch}: cpu and cuda differ in "
+                f"gather mode with no near tie: {diffs}")
+        prompts = rng.integers(0, cfg.vocab_size, (2, 32))
+        oc = ServeEngine(m_cpu, max_len=40).generate(prompts, 8)
+        ops.reset_kernel_launches()
+        og = ServeEngine(m_gpu, max_len=40).generate(prompts, 8)
+        launches = ops.kernel_launches()
+        expected = expected_launches(m_gpu, [prompts.shape], 8, 2)
+        require(launches == expected, f"{arch} gather launches {launches} "
+                f"!= expected {expected}")
+        same = bool(np.array_equal(oc["tokens"], og["tokens"]))
+        cont = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+                for n in (9, 21, 32, 40)]
+        outs = []
+        for m in (m_cpu, m_gpu):
+            eng = ContinuousBatchingEngine(m, max_slots=2, max_len=48)
+            uids = [eng.submit(p, max_new_tokens=6) for p in cont]
+            res = eng.run()["results"]
+            outs.append([res[u].tokens for u in uids])
+        cont_same = all(np.array_equal(a, b) for a, b in zip(*outs))
+        if not (same and cont_same):
+            diffs.append("engine tokens")
+        require(not diffs or near, f"{arch}: engine tokens differ (cpu/cuda) "
+                "with no near tie")
+        gates = torch.cat([g.flatten() for g in gc])
+        rec[arch] = {"kv_heads": cfg.num_kv_heads,
+                     "capacity": routing.capacity(32, cfg.skip.keep_prob),
+                     "selections": len(sc.idx),
+                     "selections_identical": not any(
+                         d.startswith("selection") for d in diffs),
+                     "gates_identical": "gate log" not in diffs,
+                     "logits_max_rel_diff": worst,
+                     "serve_tokens_identical": same,
+                     "continuous_tokens_identical": cont_same,
+                     "serve_launches": launches,
+                     "min_gate_margin": min(margins),
+                     "min_selection_gap": min(
+                         (float(x) for gap in sc.gaps for x in gap.tolist()
+                          if x > 0), default=None),
+                     "near_ties": near[:8], "differences": diffs,
+                     "gate_ones_frac": gates.mean().item()}
+    return rec
+
+
+def time_prefills(torch, dev, models, toks, turns=GATHER_TURNS):
+    """Each model's prefill of ``toks`` (cache room for 32 more) timed on
+    the host clock around a synchronize, in turns a b b a ...: the median
+    seconds of each."""
+    times = [[] for _ in models]
+    order = list(range(len(models)))
+    for t in range(turns):
+        for i in (order if t % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            models[i].prefill(toks, pad_to=toks.shape[1] + 32)
+            torch.cuda.synchronize(dev)
+            times[i].append(time.perf_counter() - t0)
+    return [statistics.median(x) for x in times]
+
+
+GATHER_REFUSALS = (("paged", dict(kv_mode="paged")),
+                   ("chunked", dict(prefill_chunk=CHUNK)),
+                   ("bucketed", dict(prefill_buckets=(256, MAX_LEN))),
+                   ("speculative", dict(spec_k=SPEC_K)))
+
+
+def gather_refusals(model):
+    """Each lever that needs masked mode raises the reference's error type
+    for a gather-mode engine: ValueError (chunked: ``ConfigError``, a
+    ValueError, as the port's chunk refusal raises for any stack)."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.errors import ConfigError
+    out = {}
+    for name, kw in GATHER_REFUSALS:
+        want = ConfigError if name == "chunked" else ValueError
+        try:
+            ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+                                     **kw)
+        except ValueError as e:
+            require(isinstance(e, want), f"gather {name}: raised "
+                    f"{type(e).__name__}, want {want.__name__}")
+            out[name] = type(e).__name__
+            continue
+        raise RuntimeError(f"gather {name}: the engine did not refuse")
+    return out
+
+
+def gather_runs(torch, np, dev, model, prompts, label, fused=True):
+    """``model``'s weights in gather mode (shared, not copied): lock-step
+    4 × 512 + 32 (``serve_full_width``, exact launches per route), the
+    continuous dense pool single-step and, with ``fused``, in fused 8-step
+    epochs (``serve_continuous``, exact launches, no host sync in the
+    fused run's deferred prefills, the single-step run's tokens); the
+    masked and gather prefills of the lock-step batch timed in turns, the
+    refusals.  Returns (record, launches, the fused run's derived graph
+    launches or {}, the continuous runs' tokens)."""
+    from repro_torch.core import routing
+    from repro_torch.models.model import LanguageModel
+    cfg = model.cfg
+    gm = LanguageModel(with_mode(cfg, "gather"), model.params(), device=dev)
+    lock, total, lock_toks = serve_full_width(torch, np, dev, gm, 0.0,
+                                              phase=f"{label}_lockstep")
+    total = dict(total)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (GATHER_B, 512)), device=dev)
+    masked_s, gather_s = time_prefills(torch, dev, (model, gm), toks)
+    runs, tokens = [lock], {}
+    loops = [(f"{label}_dense", dict(kv_mode="dense"))]
+    if fused:
+        loops.append((f"{label}_fused_dense",
+                      dict(kv_mode="dense", decode_steps=FUSED_STEPS)))
+    with FiniteLogits(torch, dev) as finite:
+        for run, kw in loops:
+            rec, tokens[run], launches = serve_continuous(
+                torch, dev, gm, finite, run, prompts, 32, trace=False, **kw)
+            runs.append(rec)
+            _add(total, launches)
+    derived = {}
+    if fused:
+        derived = runs[-1]["graph_launches_derived"]
+        require(all(np.array_equal(a, b) for a, b in zip(
+            tokens[f"{label}_dense"], tokens[f"{label}_fused_dense"])),
+            f"{label}: fused epochs changed the gather dense pool's tokens")
+    C = routing.capacity(512, cfg.skip.keep_prob)
+    return {"lockstep": lock, "runs": runs[1:],
+            "capacity": f"{C} of 512",
+            "prefill_s_turns": {"masked": masked_s, "gather": gather_s,
+                                "gather_over_masked": gather_s / masked_s,
+                                "turns": GATHER_TURNS},
+            "refusals": gather_refusals(gm)}, total, derived, tokens
+
+
+def gather_witness(torch, np, dev, m32):
+    """(d) fp32 at full width (all 32 layers): keep_prob 1.0 (C = T) and
+    every router's keep bias raised by WITNESS_BIAS, so every gate is 1
+    (asserted); then gather ≡ masked on 2 prompts of 128 tokens and 4
+    teacher-forced steps: equal gate logs and argmax tokens, logits ≤
+    1e-4·max apart."""
+    from repro_torch.models.model import LanguageModel
+
+    def biased(tree):
+        if isinstance(tree, dict):
+            return {k: (dict(v, b=v["b"] + torch.tensor(
+                [0.0, WITNESS_BIAS], device=v["b"].device))
+                if k == "router" else biased(v)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [biased(v) for v in tree]
+        return tree
+
+    params = biased(m32.params())
+    rng = np.random.default_rng(17)
+    toks = torch.as_tensor(rng.integers(0, m32.cfg.vocab_size, (2, 128)),
+                           device=dev)
+    forced = torch.as_tensor(rng.integers(0, m32.cfg.vocab_size, (2, 4)),
+                             device=dev)
+    t = time.perf_counter()
+    runs = {}
+    for mode in ("masked", "gather"):
+        m = LanguageModel(with_mode(m32.cfg, mode, 1.0), params, device=dev)
+        runs[mode] = _forced_run(m, toks, forced)
+    (lm, gm_), (lg, gg) = runs["masked"], runs["gather"]
+    require(all(bool((g == 1).all()) for g in gm_),
+            "witness bias left a gate at 0")
+    require(all(torch.equal(a, b) for a, b in zip(gm_, gg)),
+            "gather gate logs differ from masked at C = T")
+    rel = max((a - b).abs().max().item() / a.abs().max().item()
+              for a, b in zip(lm, lg))
+    require(rel <= TOL_LOGITS, f"gather logits differ from masked at C = T: "
+            f"{rel} > {TOL_LOGITS}")
+    require(all(torch.equal(a.argmax(-1), b.argmax(-1))
+                for a, b in zip(lm, lg)), "gather tokens differ from masked")
+    return {"layers": m32.cfg.num_layers, "prompts": 2, "prompt_len": 128,
+            "steps": 4, "keep_prob": 1.0, "router_keep_bias": WITNESS_BIAS,
+            "all_gates_one": True, "logits_max_rel_diff": rel,
+            "bit_identical": all(torch.equal(a, b) for a, b in zip(lm, lg)),
+            "tokens_identical": True, "seconds": time.perf_counter() - t}
+
+
+def qwen3_full_width(torch, np, dev):
+    """(e) qwen3-8b at its published widths in bf16 (36 layers, G = 4,
+    qk-norm; seed-0 random weights, neutral router bias): lock-step 4 ×
+    512 + 32 masked, the continuous engine on 8 requests of phase 6's
+    lengths in the dense pool (single-step, fused 8-step epochs) and in
+    bf16 pages, then ``gather_runs`` on the same weights; exact launches
+    per route (flash's tile and split-KV walk and paged attention's split
+    walk at G 4), pages conserved, finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel
+    cfg = get_config("qwen3-8b")
+    t = time.perf_counter()
+    model = LanguageModel(cfg, device=dev, seed=0)
+    model = LanguageModel(cfg, neutral_router_bias(model.params()),
+                          device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    lock, total, _ = serve_full_width(torch, np, dev, model, init_s,
+                                      phase="qwen3_lockstep")
+    total = dict(total)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 513, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in lens]
+    runs, tokens = [], {}
+    with FiniteLogits(torch, dev) as finite:
+        for run, kw in (("qwen3_dense", dict(kv_mode="dense")),
+                        ("qwen3_fused_dense", dict(
+                            kv_mode="dense", decode_steps=FUSED_STEPS)),
+                        ("qwen3_paged_bf16", dict(kv_mode="paged"))):
+            rec, tokens[run], launches = serve_continuous(
+                torch, dev, model, finite, run, prompts, 32, trace=False,
+                **kw)
+            runs.append(rec)
+            _add(total, launches)
+    require(all(np.array_equal(a, b) for a, b in zip(
+        tokens["qwen3_dense"], tokens["qwen3_fused_dense"])),
+        "qwen3: fused epochs changed the dense pool's tokens")
+    for k in ("flash_attention_wgmma", "flash_attention_splitkv",
+              "paged_attention_split"):
+        require(total[k] > 0, f"qwen3: {k} never launched")
+    gather, g_launches, g_derived, g_tokens = gather_runs(
+        torch, np, dev, model, prompts, "qwen3_gather")
+    _add(total, g_launches)
+    derived = dict(runs[1]["graph_launches_derived"])
+    _add(derived, g_derived)
+    same = token_agreement(np, g_tokens["qwen3_gather_dense"],
+                           tokens["qwen3_dense"])
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "qk_norm": cfg.qk_norm, "init_s": init_s,
+           "weight_bytes": _tree_bytes(model.params()), "lockstep": lock,
+           "prompt_lens": lens.tolist(), "runs": runs, "gather": gather,
+           "gather_tokens_equal_to_masked": same}
+    del model
+    torch.cuda.empty_cache()
+    return rec, total, derived
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -5186,6 +5687,11 @@ def main() -> int:
 
     emit(parity(torch, np, dev))
     emit(parity(torch, np, dev, int4=True))
+    t17 = time.perf_counter()          # phase 17 (a), (b): no weights
+    qcfg = get_config("qwen3-8b")
+    gather_k = gather_kernels(torch, np, dev, timer, cfg, qcfg, floor)
+    gather_par = gather_parity(torch, np, dev)
+    gather_s = time.perf_counter() - t17
     model, init_s = full_width_model(torch, dev)
     serve, launches, lock_tokens = serve_full_width(torch, np, dev, model,
                                                     init_s)
@@ -5221,11 +5727,16 @@ def main() -> int:
         torch, np, dev, model, prompts, tokens, short, tight)
     fault_rec, fault_launches = faults_full_width(torch, np, dev, model,
                                                   prompts)
+    t17 = time.perf_counter()          # phase 17 (c) on the bf16 weights
+    gather_bf16, gather_launches, gather_derived, _ = gather_runs(
+        torch, np, dev, model, prompts, "gather")
+    gather_s += time.perf_counter() - t17
     wit, wit_launches, (wit_chunk, more, wit_chunk_s), \
         (wit_prefix, more_prefix, wit_prefix_s), \
         (wit_spec, more_spec, more_derived, wit_spec_s), \
-        (wit_life, more_life), (wit_fault, more_fault, wit_fault_s) = \
-        witness(torch, np, dev, model, prompts, tokens)
+        (wit_life, more_life), (wit_fault, more_fault, wit_fault_s), \
+        wit_gather = witness(torch, np, dev, model, prompts, tokens)
+    gather_s += wit_gather["seconds"]
     _add(life_launches, more_life)
     _add(fault_launches, more_fault)
     _add(prefix_launches, more_prefix)
@@ -5234,9 +5745,19 @@ def main() -> int:
     emit(wit)            # its fp32 paged run: the paged SIMT route's launches
     launches["paged_attention_simt"] += wit_launches["paged_attention_simt"]
     _add(chunk_launches, more)
+    def int4_gather(m4):               # phase 17 (c) on the int4 weights
+        t = time.perf_counter()
+        rec, launched, _, _ = gather_runs(torch, np, dev, m4, prompts,
+                                          "gather_int4", fused=False)
+        return rec, launched, time.perf_counter() - t
+
     int4, int4_launches, (runs, more), (int4_chunk, int4_chunk_launches), \
-        (int4_spec, int4_spec_launches) = serve_int4(
-            torch, np, dev, model, lock_tokens, tokens, prompts)
+        (int4_spec, int4_spec_launches), \
+        (gather_int4, more_gather, int4_gather_s) = serve_int4(
+            torch, np, dev, model, lock_tokens, tokens, prompts,
+            on_weights=int4_gather)
+    _add(gather_launches, more_gather)
+    gather_s += int4_gather_s
     emit(int4)
     for k, v in int4_launches.items():
         launches[k] += v
@@ -5249,6 +5770,11 @@ def main() -> int:
     _add(spec_derived, int4_spec["graph_launches_derived"])
     del model
     torch.cuda.empty_cache()
+    t17 = time.perf_counter()          # phase 17 (e): qwen3-8b
+    qwen3, more_gather, more_derived = qwen3_full_width(torch, np, dev)
+    gather_s += time.perf_counter() - t17
+    _add(gather_launches, more_gather)
+    _add(gather_derived, more_derived)
 
     par, par_launches = parity_mamba(torch, np, dev)
     emit(par)            # fp32: the SSD scan's SIMT route's launches
@@ -5298,6 +5824,12 @@ def main() -> int:
           "seconds": fault_rec["seconds"] + wit_fault_s,
           "witness_seconds": wit_fault_s, "launches": fault_launches})
     _add(launches, fault_launches)
+    emit({"phase": "gather", "seconds": gather_s, "kernels": gather_k,
+          "parity": gather_par, "llama2_7b_bf16": gather_bf16,
+          "llama2_7b_int4": gather_int4, "witness_fp32": wit_gather,
+          "qwen3_8b": qwen3, "launches": gather_launches,
+          "graph_launches_derived": gather_derived})
+    _add(launches, gather_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

@@ -10,3 +10,4 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs import llama2_7b  # noqa: F401
 from repro_torch.configs import mamba2_2_7b  # noqa: F401
+from repro_torch.configs import qwen3_8b  # noqa: F401

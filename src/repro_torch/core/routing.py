@@ -1,11 +1,14 @@
 """SkipGPT routing, inference branch (paper §2.1): a per-submodule linear
 router ``r = W_θᵀ x ∈ ℝ²`` decides per token whether the submodule runs.
 
-Counterpart of the JAX package's ``core/routing.py``; training-time Gumbel
-gates and gather mode are not ported yet.
+Counterpart of the JAX package's ``core/routing.py``, with its gather
+realization (top-capacity compaction: each routed submodule of a prefill
+runs on the C tokens of highest router score only); training-time Gumbel
+gates are not ported.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -33,6 +36,48 @@ def gate_from_logits(logits: torch.Tensor
     p_keep = torch.softmax(logits, dim=-1)[..., 1]
     gate = (logits[..., 1] > logits[..., 0]).float()
     return gate, p_keep
+
+
+def capacity(T: int, keep_prob: float, multiple: int = 8) -> int:
+    """Static per-sequence execution capacity of gather mode: ⌈T·keep⌉
+    rounded up to ``multiple``, at most T and at least min(T, multiple)."""
+    c = int(math.ceil(T * keep_prob))
+    c = min(T, -(-c // multiple) * multiple)
+    return max(c, min(T, multiple))
+
+
+def select_topc(score: torch.Tensor, cap: int) -> torch.Tensor:
+    """score: [B, T] -> idx [B, C] int64 of the top-C tokens, sorted
+    ascending so the gathered rows keep temporal order.  Among equal
+    scores the lower index wins, as ``jax.lax.top_k`` breaks ties (a
+    stable descending sort; ``torch.topk`` promises no order for ties)."""
+    order = torch.sort(score, dim=-1, descending=True, stable=True).indices
+    return torch.sort(order[:, :cap], dim=-1).values
+
+
+def gather_tokens(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: [B, T, ...], idx: [B, C] -> [B, C, ...]."""
+    return torch.gather(x, 1, _expand_idx(idx, x))
+
+
+def scatter_tokens(y: torch.Tensor, idx: torch.Tensor, T: int
+                   ) -> torch.Tensor:
+    """y: [B, C, ...] -> [B, T, ...] with zeros at unselected positions."""
+    out = y.new_zeros((y.shape[0], T) + tuple(y.shape[2:]))
+    return out.scatter(1, _expand_idx(idx, y), y)
+
+
+def scatter_set_tokens(x: torch.Tensor, idx: torch.Tensor,
+                       u: torch.Tensor) -> torch.Tensor:
+    """A copy of x [B, T, ...] with rows ``idx`` [B, C] replaced by u [B, C,
+    ...]; x itself is left untouched (the reference's ``.at[].set``)."""
+    return x.scatter(1, _expand_idx(idx, u), u.to(x.dtype))
+
+
+def _expand_idx(idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """idx [B, C] broadcast over ``like``'s trailing dims."""
+    idx = idx.reshape(idx.shape + (1,) * (like.dim() - 2))
+    return idx.expand(idx.shape[:2] + tuple(like.shape[2:]))
 
 
 def neutral_router_bias(params):

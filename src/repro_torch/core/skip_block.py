@@ -1,11 +1,26 @@
-"""Skip-aware submodule composition, masked mode: router → fused norm ×
-submodule → gate/residual epilogue (paper Fig. 1 / Alg. 1).
+"""Skip-aware submodule composition: router → (gather) → fused norm ×
+submodule → gate/residual epilogue → (scatter) (paper Fig. 1 / Alg. 1).
 
 Counterpart of the JAX package's ``core/skip_block.py`` on its fused path
 (``use_kernels=True, fuse_linear=True``): the router and the norm's
 reduction share one pass over x (the router-stats kernel) where no Σy²
 carry exists yet; every later block takes its norm statistics from the
 previous block's fused epilogue (``stats['res_sq']``).
+
+Masked mode runs every row and multiplies a skipped row's output by its 0
+gate.  Gather mode (``cfg.skip.mode == "gather"``, prefill only) runs a
+routed submodule on the C = ``routing.capacity(T, keep_prob)`` rows of
+highest score ``logits[1] − logits[0]`` and writes them back in place of
+their input rows, as the reference does: a selected row whose gate is 0
+still writes its KV and gives y·0 + x, a kept row outside the top C is
+not run, ``attn_gate`` stays the logit gate, and an unselected row keeps
+its carried Σx²/D.  One structural difference: where the reference's
+first attention layer (no KV view yet) projects q from the C gathered
+rows and k, v from all T rows through column slices of ``wqkv``, the port
+runs the one widened qkv projection over all T rows and gathers q's C
+rows from it (every row's product is the same either way; a sliced
+weight would be copied whole on every call, since the kernels take a
+contiguous weight).
 """
 from __future__ import annotations
 
@@ -45,6 +60,13 @@ def _gate(logits, shape, routed: bool, device):
     return routing.gate_from_logits(logits)
 
 
+def _select(logits: torch.Tensor, T: int, cfg: ModelConfig) -> torch.Tensor:
+    """Gather mode's rows: idx [B, C] of the top-C router scores
+    ``logits[1] − logits[0]`` (not the gate), ascending."""
+    return routing.select_topc(logits[..., 1] - logits[..., 0],
+                               routing.capacity(T, cfg.skip.keep_prob))
+
+
 def _routed_stats(p_keep, gate, routed: bool, cfg: ModelConfig,
                   device) -> Stats:
     if routed:
@@ -64,43 +86,80 @@ def routed_attention(p: Params, x: torch.Tensor,
                      carried_sq: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, kv_reuse.KVPair, Stats]:
     """x: [B, T, D].  Returns (x + routed_attn(x), new KV view, stats with
-    ``attn_gate`` [B, T] and the Σy²/D carry ``res_sq``)."""
+    ``attn_gate`` [B, T] and the Σy²/D carry ``res_sq``).  In gather mode
+    the view's rows of the unselected tokens are the previous layer's."""
     B, T, D = x.shape
     routed = cfg.skip.enabled and cfg.skip.route_attention
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
     gate, p_keep = _gate(logits, (B, T), routed, x.device)
     inner = p["inner"]
-    q, k, v = attn_mod.project_qkv(inner, x, positions, cfg, norm=p["norm"],
-                                   stats=nstats)
-    if routed and cfg.skip.kv_reuse:
-        view = kv_reuse.merge_view(view, k, v, gate)
+    if routed and cfg.skip.mode == "gather":
+        idx = _select(logits, T, cfg)
+        xg = routing.gather_tokens(x, idx)
+        pos_g = torch.gather(positions, 1, idx)
+        if view is None or not cfg.skip.kv_reuse:
+            # dense KV: the view's base case, or no reuse ("PartialSkip")
+            q, k, v = attn_mod.project_qkv(inner, x, positions, cfg,
+                                           norm=p["norm"], stats=nstats)
+            q = routing.gather_tokens(q, idx)
+            view = kv_reuse.init_view(k, v)
+        else:
+            q, kg, vg = attn_mod.project_qkv(
+                inner, xg, pos_g, cfg, norm=p["norm"],
+                stats=torch.gather(nstats, 1, idx))
+            view = kv_reuse.merge_view_gathered(view, kg, vg, idx, T)
+        o = attn_mod.attention_core(q, view[0], view[1], q_positions=pos_g,
+                                    cfg=cfg, window=window)
+        yg, sq_g = attn_mod.output_proj_fused(
+            inner, o, cfg, residual=xg, gate_mul=torch.gather(gate, 1, idx),
+            emit_sq=True)
+        x = routing.scatter_set_tokens(x, idx, yg)
+        res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
     else:
-        view = kv_reuse.init_view(k, v)
-    o = attn_mod.attention_core(q, view[0], view[1], q_positions=positions,
-                                cfg=cfg, window=window)
-    x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
-                                       gate_mul=gate if routed else None,
-                                       emit_sq=True)
+        q, k, v = attn_mod.project_qkv(inner, x, positions, cfg,
+                                       norm=p["norm"], stats=nstats)
+        if routed and cfg.skip.kv_reuse:
+            view = kv_reuse.merge_view(view, k, v, gate)
+        else:
+            view = kv_reuse.init_view(k, v)
+        o = attn_mod.attention_core(q, view[0], view[1],
+                                    q_positions=positions, cfg=cfg,
+                                    window=window)
+        x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
+                                           gate_mul=gate if routed else None,
+                                           emit_sq=True)
+        res_sq = sq / D
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
     stats["attn_gate"] = gate
-    stats["res_sq"] = sq / D
+    stats["res_sq"] = res_sq
     return x, view, stats
 
 
 def routed_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                carried_sq: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Stats]:
-    """Dense GLU MLP on the fused pipeline, masked routing."""
+    """Dense GLU MLP on the fused pipeline, masked or gather routing."""
     B, T, D = x.shape
     routed = cfg.skip.enabled and cfg.skip.route_mlp
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
     gate, p_keep = _gate(logits, (B, T), routed, x.device)
-    x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
-                                   stats=nstats, residual=x,
-                                   gate_mul=gate if routed else None,
-                                   emit_sq=True)
+    if routed and cfg.skip.mode == "gather":
+        idx = _select(logits, T, cfg)
+        xg = routing.gather_tokens(x, idx)
+        yg, sq_g = layers.mlp_apply_fused(
+            p["inner"], xg, cfg, norm=p["norm"],
+            stats=torch.gather(nstats, 1, idx), residual=xg,
+            gate_mul=torch.gather(gate, 1, idx), emit_sq=True)
+        x = routing.scatter_set_tokens(x, idx, yg)
+        res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
+    else:
+        x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
+                                       stats=nstats, residual=x,
+                                       gate_mul=gate if routed else None,
+                                       emit_sq=True)
+        res_sq = sq / D
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
-    stats["res_sq"] = sq / D
+    stats["res_sq"] = res_sq
     return x, stats
 
 

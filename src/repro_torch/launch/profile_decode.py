@@ -23,6 +23,8 @@ split into draft, verify and commit.
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch mamba2-2.7b --prefill                             # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch llama2-7b --prefill --gather                      # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --prefill --prefill-chunk 128 --batch 1 # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --prefill --prefix warm --prompt-len 1024 \
@@ -62,6 +64,11 @@ router's (names with ``router_``), the kernels
 with the most device time, and the PyTorch operators (``aten::``) with the
 most device time of their own.  On the CPU there is no device trace: busy
 and idle are null.
+
+``--prefill --gather`` prints two such lines in one process on the same
+weights: the masked prefill's, then the gather-mode prefill's (each routed
+submodule on the top ``capacity(T, keep_prob)`` tokens only); each line
+names its ``routing`` and the capacity C of T.
 
 ``--prefill --prefill-chunk C`` (with ``--batch 1``: the engine's chunks
 are one request's) runs the ``--prompt-len`` prompt as the continuous
@@ -318,8 +325,13 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         prof_s = run()
+    from repro_torch.core.routing import capacity
     rec = {"arch": cfg.name, "weights": _weights(model), "batch": batch,
-           "prompt_len": prompt_len, "prefill": True, "wall_ms": wall_s * 1e3,
+           "prompt_len": prompt_len, "prefill": True,
+           "routing": cfg.skip.mode,
+           "capacity": (capacity(prompt_len, cfg.skip.keep_prob)
+                        if cfg.skip.mode == "gather" else prompt_len),
+           "wall_ms": wall_s * 1e3,
            "profiled_wall_ms": prof_s * 1e3, "device_busy_ms": None,
            "idle_share": None, "device_launches": None, "ssd_scan_ms": None,
            "ssd_scan_launches": None, "router_ms": None,
@@ -765,6 +777,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="with --prefill: one request's prompt in chunks "
                          "of C (needs --batch 1)")
+    ap.add_argument("--gather", action="store_true",
+                    help="with --prefill: the masked prefill's line, then "
+                         "the gather-mode prefill's, on the same weights")
     ap.add_argument("--prefix", choices=("warm", "cold"), default=None,
                     help="with --prefill: one admission of the paged "
                          "engine with the prefix cache on (warm, the "
@@ -801,6 +816,14 @@ def main(argv=None) -> None:
         raise SystemExit("--prefix takes --prefill, --batch 1, no "
                          "--prefill-chunk and --prefix-tail >= 1")
 
+    if args.gather and (not args.prefill or args.prefill_chunk
+                        or args.prefix):
+        raise SystemExit("--gather takes --prefill, without "
+                         "--prefill-chunk or --prefix (gather-mode "
+                         "capacity depends on the whole prompt)")
+
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -830,6 +853,12 @@ def main(argv=None) -> None:
             profile_prefill_chunks(model, args.prompt_len, args.prefill_chunk)
             if args.prefill_chunk else
             profile_prefill(model, args.batch, args.prompt_len)), flush=True)
+        if args.gather:
+            gather = LanguageModel(dataclasses.replace(
+                cfg, skip=dataclasses.replace(cfg.skip, mode="gather")),
+                model.params(), device=args.device)
+            print(json.dumps(profile_prefill(gather, args.batch,
+                                             args.prompt_len)), flush=True)
         return
     if args.paged:
         if transformer.is_ssm_stack(cfg):

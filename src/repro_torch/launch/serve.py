@@ -27,9 +27,19 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --kill-at 6                                 # exits with code 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --continuous --paged-kv --decode-steps 8 --snapshot-dir snaps --resume
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --batch 4 --prompt-len 512 --gather              # compacted prefill
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
+      --continuous --paged-kv                          # qk-norm, GQA
 
-``--arch`` defaults to llama2-7b.  Weights are random, drawn from seed 0
-on the chosen device; ``--int4``
+``--arch`` defaults to llama2-7b (also: qwen3-8b, mamba2-2.7b).  Weights
+are random, drawn from seed 0 on the chosen device.  ``--gather`` runs
+gather-mode routing, as the reference's launcher does: each routed
+submodule of a prefill runs on the top-capacity tokens by router score
+only (``capacity(T, keep_prob)`` of T), decode steps stay masked; it
+serves lock-step and from the dense pool, and ``--paged-kv``,
+``--prefill-chunk`` and ``--spec-k`` raise the reference's errors for it.
+``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
 int4 codes with the config's group size and power-of-2 scales, served by
 the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
@@ -67,6 +77,7 @@ from the dense pool, prefilling at the exact prompt length; ``--paged-kv``
 raises for it (no KV to page), and so does ``--int4`` (not ported yet).
 """
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -123,6 +134,9 @@ def main(argv=None) -> None:
     ap.add_argument("--int4", action="store_true",
                     help="int4-BFP weights: quantize_params at the config's "
                          "QuantConfig (group size, pow2 scales)")
+    ap.add_argument("--gather", action="store_true",
+                    help="compacted (gather) prefill execution: each routed "
+                         "submodule runs on the top-capacity tokens only")
     ap.add_argument("--trace-out", default=None, metavar="FILE",
                     help="write a Chrome trace-event JSON of the run "
                          "(host-time spans; tools/trace_summary.py reads "
@@ -210,6 +224,9 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.gather:
+        cfg = dataclasses.replace(
+            cfg, skip=dataclasses.replace(cfg.skip, mode="gather"))
     if args.int4 and transformer.is_ssm_stack(cfg):
         raise ConfigError(f"{cfg.name}: int4 weights on a Mamba stack are "
                           "not ported to repro_torch yet (ROADMAP queue 1 "
@@ -222,6 +239,9 @@ def main(argv=None) -> None:
             device=args.device)
     rng = np.random.default_rng(0)
     max_len = args.prompt_len + args.new_tokens
+    print(f"{cfg.name}: routing: {cfg.skip.mode} (keep "
+          f"{cfg.skip.keep_prob}), {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} kv heads, qk-norm {cfg.qk_norm}")
     if args.continuous:
         eng = ContinuousBatchingEngine(model, config=EngineConfig(
             kv=KVConfig(kv_mode="paged" if args.paged_kv else "dense",

@@ -1,8 +1,12 @@
 """Attention: the widened qkv projection with the fused norm prologue, RoPE,
 the fused o-projection epilogue, and the dispatch to the attention kernel.
 
-Counterpart of the JAX package's ``models/attention.py`` (qk-norm and the
-chunked jnp attention are not ported: the port always runs the kernel).
+Counterpart of the JAX package's ``models/attention.py`` (the chunked jnp
+attention is not ported: the port always runs the kernel).  With
+``cfg.qk_norm`` (qwen3) q and k are RMS-normalised per head before RoPE,
+in plain PyTorch as the reference does it in jnp outside any kernel;
+every prefill, decode, chunk, verify and paged path projects through
+``project_qkv``.
 """
 from __future__ import annotations
 
@@ -17,25 +21,32 @@ from repro_torch.models.layers import Params
 
 
 def attention_init(gen, cfg: ModelConfig, device) -> Params:
-    if cfg.qk_norm:
-        raise NotImplementedError("qk-norm is not ported yet")
     d, ai, ki = cfg.d_model, cfg.attn_inner_dim, cfg.kv_inner_dim
-    return {"wqkv": layers.linear_init(gen, d, ai + 2 * ki, cfg, device),
-            "wo": layers.linear_init(gen, ai, d, cfg, device)}
+    p = {"wqkv": layers.linear_init(gen, d, ai + 2 * ki, cfg, device),
+         "wo": layers.linear_init(gen, ai, d, cfg, device)}
+    if cfg.qk_norm:
+        dh = cfg.resolved_head_dim
+        p["qnorm"] = layers.rms_head_norm_init(dh, cfg, device)
+        p["knorm"] = layers.rms_head_norm_init(dh, cfg, device)
+    return p
 
 
-def _finish_q(q: torch.Tensor, positions: torch.Tensor,
+def _finish_q(params: Params, q: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     B, T = q.shape[:2]
     q = q.reshape(B, T, cfg.num_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = layers.rms_head_norm(params["qnorm"], q, cfg.norm_eps)
     return layers.apply_rope(q, positions, cfg)
 
 
-def _finish_kv(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig):
+def _finish_kv(params: Params, k: torch.Tensor, v: torch.Tensor,
+               positions: torch.Tensor, cfg: ModelConfig):
     B, T = k.shape[:2]
     k = k.reshape(B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
     v = v.reshape(B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        k = layers.rms_head_norm(params["knorm"], k, cfg.norm_eps)
     return layers.apply_rope(k, positions, cfg), v
 
 
@@ -43,12 +54,13 @@ def project_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, norm: Params, stats: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, D] un-normalised; ``stats`` = mean(x²).  One fused kernel
-    computes q | k | v; K is stored post-RoPE."""
+    computes q | k | v; K is stored post-RoPE (and post qk-norm)."""
     ai, ki = cfg.attn_inner_dim, cfg.kv_inner_dim
     qkv, _ = layers.linear_fused(params["wqkv"], x, cfg, norm=norm,
                                  stats=stats)
-    q = _finish_q(qkv[..., :ai], positions, cfg)
-    k, v = _finish_kv(qkv[..., ai:ai + ki], qkv[..., ai + ki:], positions, cfg)
+    q = _finish_q(params, qkv[..., :ai], positions, cfg)
+    k, v = _finish_kv(params, qkv[..., ai:ai + ki], qkv[..., ai + ki:],
+                      positions, cfg)
     return q, k, v
 
 

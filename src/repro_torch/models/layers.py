@@ -124,9 +124,15 @@ def norm_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
     return (y * params["gamma"].float()).to(x.dtype)
 
 
+def rms_head_norm_init(dim: int, cfg: ModelConfig, device) -> Params:
+    """gamma = ones, in the model's dtype (qk-norm's per-head scale)."""
+    return {"gamma": torch.ones((dim,), dtype=torch_dtype(cfg),
+                                device=device)}
+
+
 def rms_head_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMS over the last axis with its own statistics (the Mamba block's
-    gated output norm)."""
+    """RMS over the last axis with its own statistics: qk-norm over each
+    head's dims, and the Mamba block's gated output norm."""
     xf = x.float()
     ms = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps)

@@ -31,24 +31,38 @@ def is_ssm_stack(cfg: ModelConfig) -> bool:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs dense RMSNorm stacks that are either all global
-    attention with GLU MLPs, or all Mamba-2 with no MLP."""
+    attention with GLU MLPs (qk-norm optional), or all Mamba-2 with no
+    MLP, in masked or gather routing.  Each refusal names the ROADMAP
+    queue 1 item that will port it."""
     if is_ssm_stack(cfg):
         if cfg.d_ff:
             raise NotImplementedError("Mamba blocks with an MLP are not "
-                                      "ported yet")
+                                      "ported yet (ROADMAP queue 1 item 13)")
     elif any(cfg.block_kind(i) != ATTN for i in range(cfg.num_layers)):
         raise NotImplementedError("only all-global-attention or all-Mamba "
-                                  "stacks are ported")
+                                  "stacks are ported (LOCAL ring caches "
+                                  "and hybrids: ROADMAP queue 1 item 13)")
     elif not cfg.d_ff:
-        raise NotImplementedError("blocks without an MLP are not ported")
+        raise NotImplementedError("blocks without an MLP are not ported "
+                                  "(ROADMAP queue 1 item 13)")
     if cfg.num_experts or cfg.moe_every:
-        raise NotImplementedError("MoE layers are not ported yet")
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
+                                  "queue 1 item 13)")
     if cfg.frontend != "token":
-        raise NotImplementedError("only token frontends are ported")
-    if cfg.skip.mode != "masked":
-        raise NotImplementedError("gather-mode routing is not ported yet")
+        raise NotImplementedError("only token frontends are ported (ROADMAP "
+                                  "queue 1 item 13)")
+    if cfg.norm_type != "rmsnorm":
+        raise NotImplementedError("only RMSNorm stacks are ported "
+                                  "(layernorm: ROADMAP queue 1 item 13)")
     if cfg.kv_cache_layout != "bthd":
-        raise NotImplementedError("the port's decode cache is bthd only")
+        raise NotImplementedError("the port's decode cache is bthd only "
+                                  "(bhtd: ROADMAP queue 1 item 13)")
+
+
+def is_gather(cfg: ModelConfig) -> bool:
+    """Gather-mode routing: prefill runs each routed submodule on the
+    top-capacity tokens only (decode steps are masked in either mode)."""
+    return cfg.skip.enabled and cfg.skip.mode == "gather"
 
 
 def block_init(gen, cfg: ModelConfig, device) -> Params:
@@ -81,10 +95,11 @@ def stack_forward(blocks: List[Params], x: torch.Tensor,
                   positions: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, Dict, List[Dict],
                              Optional[torch.Tensor]]:
-    """Prefill over every block.  Returns (x, stats with ``attn_gate``
-    [L, B, T] (``ssm_gate`` for a Mamba stack), per-layer cache [{"k",
-    "v"}] (or [{"conv_x", "conv_bc", "ssm"}]), the final Σy²/D carry, None
-    after a Mamba block)."""
+    """Prefill over every block, in masked or gather mode (a Mamba stack
+    runs masked in either, as the reference's ``routed_ssm`` does).
+    Returns (x, stats with ``attn_gate`` [L, B, T] (``ssm_gate`` for a
+    Mamba stack), per-layer cache [{"k", "v"}] (or [{"conv_x", "conv_bc",
+    "ssm"}]), the final Σy²/D carry, None after a Mamba block)."""
     if is_ssm_stack(cfg):
         return _ssm_forward(blocks, x, cfg)
     stats = _zero_stats(x.device)
@@ -176,6 +191,11 @@ def _chunk_layers(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
     """The chunk pass shared by chunked prefill and the verify window:
     (x, stats, Σy²/D carry, and with ``collect`` each layer's merged
     window view (k, v) [B, C, Hkv, dh], else None)."""
+    if is_gather(cfg):
+        raise ValueError(f"{cfg.name}: gather-mode capacity depends on the "
+                         "prefill extent, so a chunk or verify window "
+                         "cannot resume it — chunked prefill and "
+                         "speculative verify need masked-mode routing")
     stats = _zero_stats(x.device)
     gates: List[torch.Tensor] = []
     views: Optional[List] = [] if collect else None
