@@ -46,7 +46,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 T 1, 16, 17 and 2049, and x at an address that allows 1 or
                 2 elements a load), empty paged histories, padded
                 K-groups, odd N, non-pow2 scales and .5 ties, flash pad rows
-                and splits without a valid key included, paged G 8, 16 and
+                and splits without a valid key included (at dh 256 too:
+                prefills of 1000, 300 and 1100 tokens with kv_len below
+                Tk, pad rows and a linear-cache decode past W under window
+                1024, gemma3's G 2), paged G 8, 16 and
                 32, head groups that do not divide Hkv, fewer admitted
                 entries than blocks, all of them in one block's slice, two
                 windows and rounds of listed rows, each flash, int4 and
@@ -306,8 +309,41 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 lock-step, the dense pool single-step and fused, bf16
                 pages, and (c)'s gather runs; exact launches, G 4 routes,
                 pages conserved.
+ 18. gemma3   — gemma3-12b (5 sliding-window LOCAL layers to a global one,
+                window 1024, head dim 256, GeGLU, qk-norm, tied
+                embeddings), its line emitted after phase 17's, run after
+                the qwen3 weights are freed: (a) the GELU epilogue on
+                every fused-linear route at gemma3's widths (its four
+                linears and gu's up half without the GLU, dense bf16 at M
+                2048 on the tile and M 4 on the split-K stream, gu fp32 on
+                the SIMT kernel, int4 codes on the s8 tile and the code
+                stream in bf16 and fp32 activations) and flash attention
+                at dh 256 (prefill 2 × 1536 at window 0 and 1024 on the
+                tile, decode of 4 slots over a LOCAL ring of 1024 keys
+                with ragged t, two below W, and over a 1600-row global
+                cache on the split-KV walk, each in fp32 on the SIMT
+                kernel), phase 3's checks, timed beside the plain version
+                and ``torch.matmul`` or SDPA; (b) full width in bf16
+                (seed-0 weights, neutral router bias, ~23.5 GB):
+                lock-step 2 × 1536 + 32 (rings from the prompt), the dense
+                pool single-step and in fused 8-step epochs (prompts of
+                1000, 1020, 1536 and 300 tokens + 64: decode crosses the
+                slot wrap at t = 1024; the same tokens in both loops), the
+                weights quantized on the card lock-step 2 × 1536 + 8
+                (GeGLU on the s8 tile and the code stream); exact launches
+                per route, finite logits, prefill_s, tok/s, peak memory;
+                (c) the fp32 witness at full widths cut to 6 layers (W
+                1024): CPU ≡ CUDA over a 1100-token prompt and 4 forced
+                steps (logits ≤ 1e-4·max, argmax) and the dense pool on
+                prompts of 1020 and 1060 tokens + 8 (tokens, exactly), the
+                cuda runs taking the cpu runs' router decisions after
+                each of their own was held to it (a difference allowed
+                only where that decision's cpu margin is below
+                GATHER_MARGIN, and counted); (d) the paged, chunked,
+                bucketed, speculative and prefix-cache engines refuse it
+                with the reference's errors.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16 and 17 (their fp32
+runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18 (their fp32
 witness runs included; not phase 16's subprocesses),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's, 12's and 14's replayed launches stand in their own lines,
@@ -322,7 +358,8 @@ the int4 fused linear as ``fused_linear_int4_tc`` and
 ``flash_attention_wgmma`` and ``flash_attention_splitkv``, and paged
 attention as ``paged_attention_split`` and ``paged_attention_simt``, and
 the SSD scan as ``ssd_scan_tc`` and ``ssd_scan_simt``, by the route
-counters), and last the contract
+counters; the times summed over phase 3's shapes and phase 18's gemma3
+shapes of the same routes), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -363,6 +400,11 @@ TOL_FLASH_MIRROR = 2.0 ** -9  # x max|mirror|, past one bf16 ulp of each
 #                       rounds P as they do (the ulp is the output's own
 #                       rounding; the rest covers P values that the fp32
 #                       sum order moves across a bf16 rounding boundary)
+TOL_GELU = 2.0 ** -20   # x |y|: the kernels' GELU (tanhf, FMA-contracted
+#                       cube) against ref.act's at each pre-activation y:
+#                       8 fp32 eps, for tanhf's 2 ulps and the cube's and
+#                       product's roundings (the CPU's tanh against JAX's:
+#                       1.5 eps, tests/test_torch_gelu.py)
 TOL_SPLIT = 2.0 ** -19  # x max|mirror|: the SSD scan's tensor-core route
 #                       against ref.ssd_scan_split on inputs whose cumsums
 #                       are exact in any order (ssd_exact_inputs); the
@@ -577,12 +619,14 @@ def int4_weight(torch, dev, g, K, N, G, pow2=True):
     return codes, scale, dequantize(codes, scale, K), w
 
 
-def linear_inputs(torch, dev, g, M, K, F, glu, pro, epi):
+def linear_inputs(torch, dev, g, M, K, F, glu, pro, epi, act=None):
     """bf16 activation and the optional prologue/epilogue tensors of one
-    fused-linear call (mean_sq and gate_mul in fp32)."""
+    fused-linear call (mean_sq and gate_mul in fp32); ``act`` the
+    epilogue's activation (default: silu with the GLU, none without)."""
     bf = torch.bfloat16
     x = torch.randn((M, K), generator=g, device=dev).to(bf)
-    kw = {"glu": glu, "act": "silu" if glu else None}
+    kw = {"glu": glu, "act": act if act is not None
+          else ("silu" if glu else None)}
     if pro:
         kw["mean_sq"] = (x.float() ** 2).mean(-1)
         kw["gamma"] = (1 + 0.1 * torch.randn((K,), generator=g,
@@ -722,11 +766,11 @@ def int4_mirror_check(torch, out, ro, x, codes, scale, rkw, split, what):
     """The int4 kernels against the plain version summed in the route's
     order of the fp32 group terms (``split``: the stream's groups per
     split; None on the tile).  Every value before the activation is equal
-    bit for bit, so without an activation the output is; with the GLU's
-    silu each output lies within one ulp of its dtype plus the activation's
-    difference (the kernel's y / (1 + expf(-y)) against ``F.silu``, times
-    |up|).  Returns (bit-identical share, largest excess over that bound
-    as a share of max|ref|)."""
+    bit for bit, so without an activation the output is; with one each
+    output lies within one ulp of its dtype plus the activation's
+    difference (silu: the kernel's y / (1 + expf(-y)) against ``F.silu``;
+    gelu: TOL_GELU·|y|), times |up| with the GLU.  Returns (bit-identical
+    share, largest excess over that bound as a share of max|ref|)."""
     from repro_torch.kernels import ref
     if rkw.get("act_name") is None:
         require(torch.equal(out, ro), f"{what}: not bit for bit with the "
@@ -737,9 +781,16 @@ def int4_mirror_check(torch, out, ro, x, codes, scale, rkw, split, what):
         xf = ref.rms_prologue(xf, rkw["mean_sq"], rkw["gamma"],
                               rkw.get("eps", 1e-5))
     y = ref.bfp_matmul_f32(xf, codes, scale, split)
-    f = y.shape[1] // 2
-    yg, yu = y[:, :f], y[:, f:]
-    act_diff = ((yg / (1.0 + torch.exp(-yg))) - ref.act(yg, "silu")).abs()
+    if rkw.get("glu"):
+        f = y.shape[1] // 2
+        yg, yu = y[:, :f], y[:, f:]
+    else:
+        yg, yu = y, torch.ones_like(y)
+    if rkw["act_name"] == "gelu":
+        act_diff = TOL_GELU * yg.abs()
+    else:
+        act_diff = ((yg / (1.0 + torch.exp(-yg)))
+                    - ref.act(yg, "silu")).abs()
     bound = int4_ulp(torch, ro) + act_diff * yu.abs()
     d = (out.float() - ro.float()).abs()
     excess = (d - bound).max().item()
@@ -1573,15 +1624,27 @@ def router_refusals(torch, dev):
 # flash attention off the main shapes: B, Tq, Tk, Hq, Hkv, dh, window and
 # the positions (``flash_ragged_inputs``).  bf16 takes the tensor-core tile
 # for the first three (G 2; dh 32 with a window; pad rows and Tk off the
-# 128-key tile) and the split-KV walk for the last three (G 4; kv_len 3
-# of 544, so whole splits see no valid key; R 16 causal); fp32 takes the
-# SIMT kernel for all.
+# 128-key tile) and the split-KV walk for the next three (G 4; kv_len 3
+# of 544, so whole splits see no valid key; R 16 causal).  Then dh 256 at
+# gemma3-12b's G 2 (16 over 8 heads), off its 64-key and 64-row tiles:
+# the dense pool's prefills of 1000 tokens (a LOCAL layer, window 1024)
+# and 300 (a global one) with kv_len below Tk, 1100 tokens with the
+# window cutting keys, pad rows under the window on the tile; on the split
+# walk a linear cache past W at window 1024 (the decode of a LOCAL layer
+# whose prompt was ≤ W) and kv_len 3 of 1024.  fp32 takes the SIMT kernel
+# for all.
 FLASH_RAGGED = ((2, 24, 24, 4, 2, 64, 0, "prefill"),
                 (1, 37, 37, 4, 4, 32, 8, "prefill"),
                 (2, 40, 70, 8, 4, 128, 0, "tail"),
                 (3, 1, 50, 8, 2, 128, 0, "decode"),
                 (2, 1, 544, 4, 4, 128, 0, "short"),
-                (2, 16, 16, 2, 2, 64, 0, "prefill"))
+                (2, 16, 16, 2, 2, 64, 0, "prefill"),
+                (2, 1000, 1000, 16, 8, 256, 1024, "prefill"),
+                (1, 300, 300, 16, 8, 256, 0, "prefill"),
+                (2, 1100, 1100, 4, 2, 256, 1024, "prefill"),
+                (2, 40, 1100, 16, 8, 256, 1024, "tail"),
+                (3, 1, 1100, 16, 8, 256, 1024, "decode"),
+                (2, 1, 1024, 16, 8, 256, 0, "short"))
 
 
 def flash_ragged_inputs(torch, dev, g, dt, B, Tq, Tk, Hq, Hkv, dh, kind):
@@ -2127,10 +2190,6 @@ def full_width_model(torch, dev):
     return model, time.perf_counter() - t
 
 
-def is_int4(model) -> bool:
-    return "w_int" in model.params().get("lm_head", {})
-
-
 def expected_launches(model, prefills, n_st: int, step_rows: int,
                       paged: bool = False):
     """Exact kernel launches of one prefill per entry of ``prefills`` (its
@@ -2188,7 +2247,9 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
                 "fused_linear_int4": 0, "int4_matmul": 0,
                 "flash_attention": 0, "paged_attention": 0,
                 "ssd_scan": L * n_pf, **routes}
-    int4 = is_int4(model)
+    from repro_torch.quant import int4_head, int4_linears
+    p = model.params()
+    int4, head4 = int4_linears(p), int4_head(p)
     Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     G = cfg.num_heads // Hkv
     gather = transformer.is_gather(cfg)
@@ -2204,11 +2265,12 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     forwards = [prefill_forward(e) for e in prefills]
     forwards += [({step_rows: 4 * L}, step_rows, G, MAX_LEN)] * n_st
     if int4:
-        lm = model.params()["lm_head"]
+        lin = model.params()["blocks"][0]["mixer"]["inner"]["wo"]
+        lm = model.params()["lm_head"] if head4 else lin
         C = lm["scale"].shape[0]
         Kw, V = lm["w_int"].shape
 
-        def int4_route(rows):
+        def int4_route(rows):      # the route is the rows' alone
             return fl.plan_int4(rows, D, V, Kw // C, C, False, dt).route
 
     for i, (rows, b, R, Tk) in enumerate(forwards):
@@ -2218,7 +2280,7 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
             else:
                 routes["fused_linear_" + fl.plan(m, D, D, False,
                                                  dt).route] += n
-        if int4:
+        if head4:
             routes["int4_matmul_" + int4_route(b)] += 1
         if i < n_pf or not paged:
             routes["flash_attention_" + fa.plan(b * Hkv, R, Tk, dh,
@@ -2229,16 +2291,16 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     return {"router_stats": fwd, "ssd_scan": 0,
             "fused_linear": 0 if int4 else 4 * L * fwd,
             "fused_linear_int4": 4 * L * fwd if int4 else 0,
-            "int4_matmul": fwd if int4 else 0,
+            "int4_matmul": fwd if head4 else 0,
             "flash_attention": L * (n_pf if paged else fwd),
             "paged_attention": L * n_st if paged else 0, **routes}
 
 
-def serve_full_width(torch, np, dev, model, init_s, phase="serve"):
+def serve_full_width(torch, np, dev, model, init_s, phase="serve", B=4,
+                     T0=512, new=32):
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import ServeEngine
     cfg = model.cfg
-    B, T0, new = 4, 512, 32
     torch.cuda.reset_peak_memory_stats(dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T0))
     eng = ServeEngine(model, max_len=T0 + new)
@@ -2308,7 +2370,7 @@ class FiniteLogits:
 
 
 def serve_continuous(torch, dev, model, finite, label, prompts, new,
-                     log=None, trace=True, **kw):
+                     log=None, trace=True, max_len=MAX_LEN, **kw):
     """One ContinuousBatchingEngine run (4 slots, max_len 544, page 16) with
     exact launch counts (each prefill and each prefill chunk by its shape),
     every request completed, finite logits and, paged,
@@ -2333,7 +2395,7 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
     from repro_torch.models import layers, ssm, transformer
     from repro_torch.serve.engine import ContinuousBatchingEngine
     cfg, L = model.cfg, model.cfg.num_layers
-    eng = ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=MAX_LEN,
+    eng = ContinuousBatchingEngine(model, max_slots=SLOTS, max_len=max_len,
                                    page_size=PAGE, **kw)
     uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
     seen = {}
@@ -2385,8 +2447,11 @@ def serve_continuous(torch, dev, model, finite, label, prompts, new,
         dense_bytes = SLOTS * L * (
             (cfg.ssm_conv - 1) * ssm.conv_dim(cfg) * esize
             + cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4)
-    else:
-        dense_bytes = (SLOTS * MAX_LEN * L * 2 * cfg.num_kv_heads
+    else:       # a LOCAL layer's ring: min(W, max_len) rows
+        rows = sum(min(cfg.window_size, max_len)
+                   if cfg.block_kind(i) == "local" and cfg.window_size
+                   else max_len for i in range(L))
+        dense_bytes = (SLOTS * rows * 2 * cfg.num_kv_heads
                        * cfg.resolved_head_dim * esize)
     # decode_tokens counts each request's first token, which prefill made
     rec = {"run": label, "dtype": cfg.dtype, "requests": len(prompts),
@@ -2953,13 +3018,14 @@ def check_chunk_run(model, rec, prompts):
     flash tiles and nothing on the decode routes (fp32: the SIMT kernels); ``prefill_chunks`` =
     Σ⌈T0/128⌉; prefills interleaved with resident decode steps; no abort
     and no preemption."""
+    from repro_torch.quant import int4_head, int4_linears
     L = model.cfg.num_layers
     per = expected_launches(model, [(1, CHUNK, CHUNK_CAP)], 0, SLOTS)
     route = "simt" if model.cfg.dtype == "float32" else "wgmma"
-    lin = ("fused_linear_int4_tc" if is_int4(model)
+    lin = ("fused_linear_int4_tc" if int4_linears(model.params())
            else f"fused_linear_{route}")
     want = {"router_stats": 1, lin: 4 * L, f"flash_attention_{route}": L,
-            "int4_matmul_stream": 1 if is_int4(model) else 0}
+            "int4_matmul_stream": 1 if int4_head(model.params()) else 0}
     moved = {k: v for k, v in per.items() if v and k not in (
         "fused_linear", "fused_linear_int4", "int4_matmul",
         "flash_attention")}
@@ -3352,6 +3418,7 @@ def prefix_full_width(torch, np, dev, model):
             f"warm forwards of {sorted(set(widths))} rows: want both "
             f"routes")
     return {"prefix_len": PREFIX_LEN, "tails": PREFIX_TAILS,
+            "layers": model.cfg.num_layers,
             "requests": PREFIX_REQUESTS, "max_len": PREFIX_MAX_LEN,
             "block": PREFIX_BLOCK, "new_tokens": PREFIX_NEW,
             "prompt_lens": [len(first)] + [len(p) for p in prompts],
@@ -3441,8 +3508,9 @@ def verify_expected(model, S, C, Tk):
     for S slots over Tk key rows (the dense pool's rows, or the paged
     staging cache's), with every column unembedded (int4 weights: the lm
     head's S·C rows through the int4 matmul, where a prefill takes S)."""
+    from repro_torch.quant import int4_head
     want = expected_launches(model, [(S, C, Tk)], 0, SLOTS)
-    if is_int4(model):
+    if int4_head(model.params()):
         from repro_torch.kernels import fused_linear as fl
         from repro_torch.models import layers
         cfg, lm = model.cfg, model.params()["lm_head"]
@@ -3901,7 +3969,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts,
     gather runs) is called with the int4 model before it is freed; its
     result is returned last."""
     from repro_torch.models.model import LanguageModel
-    from repro_torch.quant import quantize_params
+    from repro_torch.quant import int4_head, int4_linears, quantize_params
     cfg, L = model.cfg, model.cfg.num_layers
     t = time.perf_counter()
     m4 = LanguageModel(cfg, quantize_params(
@@ -3912,8 +3980,9 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts,
     p4 = m4.params()
     n_int4 = sum("w_int" in sub["inner"][lin] for blk in p4["blocks"]
                  for sub in blk.values() for lin in sub["inner"])
-    require(n_int4 == 4 * L and is_int4(m4),
-            f"{n_int4} int4 linears of {4 * L}, lm head int4: {is_int4(m4)}")
+    require(n_int4 == 4 * L and int4_linears(p4) and int4_head(p4),
+            f"{n_int4} int4 linears of {4 * L}, lm head int4: "
+            f"{int4_head(p4)}")
     lock, launches, toks = serve_full_width(torch, np, dev, m4, quant_s,
                                             phase="int4_serve")
     total = dict(launches)
@@ -5618,6 +5687,492 @@ def qwen3_full_width(torch, np, dev):
     return rec, total, derived
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: gemma3-12b (LOCAL ring caches, GeGLU, head dim 256)
+# ---------------------------------------------------------------------------
+
+GEMMA_LOCK = (2, 1536, 32)       # (b): lock-step batch, prompt, new tokens
+GEMMA_PROMPTS = (1000, 1020, 1536, 300)  # (b): the dense pool's requests
+GEMMA_NEW = 64                   # their new tokens: 1000 and 1020 cross t =
+#                                  W = 1024 in decode, 1536 starts past it
+GEMMA_MAX_LEN = 1536 + GEMMA_NEW
+GEMMA_INT4 = (2, 1536, 8)        # (b): int4 lock-step, a few tokens
+GEMMA_WITNESS_LAYERS = 6         # (c): one 5:1 pattern, full widths
+GEMMA_WITNESS_T = 1100           # (c): the forced prompt (> W: a ring)
+GEMMA_WITNESS_STEPS = 4
+GEMMA_WITNESS_ENGINE = (1020, 1060)  # (c): a pool crossing the wrap
+GEMMA_WITNESS_NEW = 8
+GEMMA_REFUSALS = (("paged", dict(kv_mode="paged")),
+                  ("chunked", dict(prefill_chunk=CHUNK)),
+                  ("bucketed", dict(prefill_buckets=(256, GEMMA_MAX_LEN))),
+                  ("speculative", dict(spec_k=SPEC_K)),
+                  ("prefix_cache", dict(prefix_cache=True)))
+
+
+def gemma_linears(torch, dev, timer, cfg):
+    """(a) The GELU epilogue on every fused-linear route at gemma3-12b's
+    widths: its four linears (wqkv 3840→8192, wo 4096→3840, gu
+    3840→2·15360 with GeGLU, down 15360→3840) and gu's up half without
+    the GLU under GELU ("gelu_up"), dense bf16 at M 2048 on the tile and
+    M 4 on the split-K stream (``fused_linear_call``: TOL_BF16·max, Σy²
+    against the operand the route feeds, a second launch bit for bit),
+    gu in fp32 on the SIMT kernel at M 4; int4-BFP codes (group 128, pow2
+    scales) at M 2048 on the s8 tile and M 4 on the code stream
+    (``int4_call``: the plain version in the route's order, one ulp plus
+    TOL_GELU·|y| times |up|), gu and gelu_up also in fp32 activations.
+    Each bf16 call timed beside its plain version and ``torch.matmul`` (the
+    dense route) or the bf16 dense route (int4), with phase 3's bounds; a
+    dense GELU call also beside the same call under SiLU."""
+    from repro_torch.kernels import fused_linear as fl, ref
+    g = torch.Generator(device=dev).manual_seed(31)
+    G = cfg.quant.group_size
+    shapes = [s + ("gelu" if s[3] else None,) for s in linear_shapes(cfg)]
+    up = next(s for s in shapes if s[0] == "gu")
+    shapes.append(("gelu_up", up[1], up[2] // 2, False, True, False,
+                   "gelu"))
+    out = {"wgmma": [], "splitk": [], "simt": [], "tc": [], "stream": []}
+    for M in (2048, 4):
+        for name, K, N, glu, pro, epi, act in shapes:
+            F = N // 2 if glu else N
+            codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
+            x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi,
+                                  act=act)
+            what = f"gemma fused_linear {name} M={M}"
+            rec = fused_linear_call(torch, x, w, kw, f"{what} bf16")
+            _, rkw = _cast(torch, kw, torch.bfloat16)
+            nbytes = (M * K + K * N + M * F) * 2 + (
+                (K * 2 + M * 4) if pro else 0) + (
+                (M * F * 2 + M * 8) if epi else 0)
+            b, by = bound_ms(nbytes, 2.0 * M * K * N)
+            row = {"shape": f"{name} M={M} K={K} N={N} act={act}",
+                   "route": rec["route"],
+                   "ms": timer(lambda: fl.fused_linear_cuda(x, w, **kw)),
+                   "plain_ms": timer(lambda: ref.fused_linear_ref(x, w,
+                                                                  **rkw)),
+                   "library_ms": timer(lambda: torch.matmul(x, w)),
+                   "bound_ms": b, "bound_by": by, "errors": {
+                       "bfloat16": rec}}
+            if act == "gelu":           # the same call under SiLU
+                silu = dict(kw, act="silu")
+                row["silu_ms"] = timer(
+                    lambda: fl.fused_linear_cuda(x, w, **silu))
+            if M == 4 and name == "gu":      # the SIMT kernel, fp32
+                f32, _ = _cast(torch, kw, torch.float32)
+                xf, wf = x.float(), w.float()
+                simt = fused_linear_call(torch, xf, wf, f32, f"{what} fp32")
+                b32, by32 = bound_ms((M * K + K * N + M * F) * 4 + K * 4
+                                     + M * 4, 2.0 * M * K * N,
+                                     FP32_OPS_PER_S)
+                out["simt"].append({
+                    "shape": row["shape"], "route": simt["route"],
+                    "ms": timer(lambda: fl.fused_linear_cuda(xf, wf, **f32)),
+                    "plain_ms": None,
+                    "library_ms": timer(lambda: torch.matmul(xf, wf)),
+                    "bound_ms": b32, "bound_by": by32,
+                    "errors": {"float32": simt}})
+                del xf, wf
+            out[rec["route"]].append(row)
+            errs = {}
+            dts = ((torch.bfloat16, torch.float32) if name in ("gu",
+                   "gelu_up") else (torch.bfloat16,))
+            for dt in dts:
+                cast, rcast = _cast(torch, kw, dt)
+                w4 = f"gemma fused_linear_int4 {name} M={M} {dt}"
+                r4, p4 = int4_call(torch, x.to(dt), codes, scale, cast, w4)
+                o4, _ = fl.fused_linear_int4_cuda(x.to(dt), codes, scale,
+                                                  **cast)
+                eo, _ = ref.fused_linear_ref(x.to(dt), w_exact.to(dt),
+                                             **rcast)
+                torch.cuda.synchronize()
+                ee, em = max_err(torch, o4, eo)
+                require(ee <= TOL_BFP * em, f"{w4}: {ee} from the exact "
+                        f"dequant > {TOL_BFP}·{em}")
+                r4.update(exact_dequant_err=ee, exact_dequant_max=em)
+                errs[str(dt).split(".")[-1]] = r4
+                del o4, eo
+            split = p4.group_split or None
+            Kw, C = codes.shape[0], scale.shape[0]
+            nb4 = (M * K + M * F) * 2 + Kw * N + C * N * 4 + (
+                (K * 2 + M * 4) if pro else 0) + (
+                (M * F * 2 + M * 8) if epi else 0)
+            b4, by4 = bound_ms(nb4, 2.0 * M * Kw * N, INT8_OPS_PER_S)
+            out[p4.route].append({
+                "shape": f"{name} M={M} K={K} N={N} G={G} act={act}",
+                "route": p4.route,
+                "ms": timer(lambda: fl.fused_linear_int4_cuda(
+                    x, codes, scale, **kw)),
+                "plain_ms": timer(lambda: ref.fused_linear_ref(
+                    x, w_codes=codes, scale=scale, split_groups=split,
+                    **rkw)),
+                "library_ms": None, "bf16_dense_ms": row["ms"],
+                "bound_ms": b4, "bound_by": by4, "tol": INT4_TOL,
+                "errors": errs})
+            del x, kw, codes, scale, w_exact, w
+    return out
+
+
+def gemma_flash(torch, dev, timer, cfg):
+    """(a) Flash attention at head dim 256, gemma3-12b's 16 heads over 8
+    kv heads: prefill 2 × 1536 (causal, an expanded arange, kv_len None)
+    at window 0 (a global layer) and at the LOCAL layers' 1024 on the
+    tensor-core tile; decode of 4 slots (``flash_call``: phase 3's
+    tolerances, the mirror, a second launch bit for bit) over a LOCAL
+    layer's ring of 1024 keys with ragged t (2000, 1100, 699, 36: the ring
+    read as the ring decode reads it, kv_len min(t + 1, W), two
+    below W) and over a global layer's 1600-row cache (kv_len 1600, 1564,
+    1000, 300) on the split-KV walk; each in fp32 on the SIMT kernel.
+    Timed beside the plain version and SDPA (GQA; ``is_causal`` for the
+    window-0 prefill, a boolean mask where the window or kv_len cuts
+    keys).  Bounds: q, out and the keys a
+    row reads (bytes), 4·dh operations a (row, valid key) pair."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import flash_attention as fa
+    H, Hkv, dh, W = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                     cfg.window_size)
+    g = torch.Generator(device=dev).manual_seed(32)
+    scale = 1.0 / math.sqrt(dh)
+    bf = torch.bfloat16
+    B, T = 2, 1536
+    cases = []
+    for window in (0, W):
+        qpos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+            B, T)
+        cases.append((f"prefill B={B} T={T} window={window}", (B, T, T),
+                      qpos, None, window))
+    t = torch.tensor([2000, 1100, 699, 36], dtype=torch.int32, device=dev)
+    cases.append((f"decode ring B=4 W={W} t=2000,1100,699,36", (4, 1, W),
+                  t[:, None], torch.clamp(t + 1, max=W), 0))
+    kvl = torch.tensor([1600, 1564, 1000, 300], dtype=torch.int32,
+                       device=dev)
+    cases.append(("decode global B=4 Tk=1600 kv_len=1600,1564,1000,300",
+                  (4, 1, 1600), kvl[:, None] - 1, kvl, 0))
+    out = {"wgmma": [], "splitkv": []}
+    for label, (b, Tq, Tk), qpos, kv_len, window in cases:
+        q = torch.randn((b, Tq, H, dh), generator=g, device=dev).to(bf)
+        k = torch.randn((b, Tk, Hkv, dh), generator=g, device=dev).to(bf)
+        v = torch.randn((b, Tk, Hkv, dh), generator=g, device=dev).to(bf)
+        kw = dict(scale=scale, window=window)
+        errs = {}
+        for dt in (bf, torch.float32):
+            a = [x.to(dt) for x in (q, k, v)]
+            errs[str(dt).split(".")[-1]] = flash_call(
+                torch, *a, qpos, kv_len, f"gemma flash {label} {dt}", **kw)
+        route = errs["bfloat16"]["route"]
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        ms_s = timer(lambda: fa.flash_attention_cuda(qf, kf, vf, qpos,
+                                                     kv_len, **kw))
+        del qf, kf, vf
+        keys = torch.arange(Tk, device=dev)[None, None, None, :]
+        qp = qpos.long()[:, None, :, None]
+        mask = keys <= qp
+        if window:
+            mask = mask & (keys > qp - window)
+        if kv_len is not None:
+            mask = mask & (keys < kv_len.long()[:, None, None, None])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        causal = Tq == Tk and not window      # SDPA's own causal kernel
+        ms_l = timer(lambda: Fn.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=None if causal else mask,
+            is_causal=causal, enable_gqa=True))
+        ms_k = timer(lambda: fa.flash_attention_cuda(q, k, v, qpos, kv_len,
+                                                     **kw))
+        ms_p = timer(lambda: fa.flash_attention_plain(q, k, v, qpos, kv_len,
+                                                      **kw))
+        valid = mask.expand(b, 1, Tq, Tk)
+        pairs = H * int(valid.sum().item())
+        read = int(valid.any(2).sum().item())        # keys a row reads
+        nbytes = (2 * b * Tq * H * dh + 2 * read * Hkv * dh) * 2
+        bb, by = bound_ms(nbytes, 4.0 * pairs * dh)
+        b32, by32 = bound_ms(2 * nbytes, 4.0 * pairs * dh, FP32_OPS_PER_S)
+        out[route].append({
+            "shape": f"{label} H={H} Hkv={Hkv} dh={dh}", "route": route,
+            "plan": dataclasses.asdict(fa.plan(b * Hkv, H // Hkv * Tq, Tk,
+                                               dh, bf)),
+            "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+            "library": ("SDPA (GQA), is_causal" if causal else
+                        "SDPA (GQA), boolean mask of the same keys"),
+            "bound_ms": bb, "bound_by": by,
+            "tol": f"bf16 {TOL_BF16}·max|ref|, and one bf16 ulp + "
+                   f"{TOL_FLASH_MIRROR}·max of the mirror; fp32 "
+                   f"{TOL_F32}·max|ref|",
+            "errors": {"bfloat16": errs["bfloat16"]}, "simt_f32_ms": ms_s,
+            "simt_f32_bound_ms": b32, "simt_f32_bound_by": by32,
+            "simt_f32_errors": errs["float32"]})
+        del q, k, v, qt, kt, vt, mask, valid
+    return out
+
+
+def gemma_model(torch, dev, cfg):
+    """gemma3-12b at its published widths in bf16: seed-0 random weights,
+    router biases zeroed so routing skips.  Returns (model, init_s)."""
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel
+    t = time.perf_counter()
+    model = LanguageModel(cfg, device=dev, seed=0)
+    model = LanguageModel(cfg, neutral_router_bias(model.params()),
+                          device=dev)
+    torch.cuda.synchronize(dev)
+    return model, time.perf_counter() - t
+
+
+def gemma_refusals(model):
+    """(d) Every mode the reference refuses for gemma3 raises its error:
+    a ValueError (paged, bucketed, speculative; the port's chunk refusal
+    a ConfigError, itself a ValueError) and ConfigError for the prefix
+    cache, each with the reference's message."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.errors import ConfigError
+    out = {}
+    for name, kw in GEMMA_REFUSALS:
+        want = (ConfigError if name in ("chunked", "prefix_cache")
+                else ValueError)
+        try:
+            ContinuousBatchingEngine(model, max_slots=SLOTS,
+                                     max_len=GEMMA_MAX_LEN, **kw)
+        except ValueError as e:
+            require(isinstance(e, want), f"gemma {name}: raised "
+                    f"{type(e).__name__}, want {want.__name__}")
+            out[name] = f"{type(e).__name__}: {e}"
+            continue
+        raise RuntimeError(f"gemma {name}: the engine did not refuse")
+    return out
+
+
+def gemma_serve(torch, np, dev, cfg):
+    """(b) gemma3-12b at full width in bf16: lock-step 2 × 1536 + 32 (the
+    prompt longer than W, so each LOCAL layer's cache is a ring), the
+    dense pool single-step and in fused 8-step epochs (4 requests of
+    GEMMA_PROMPTS tokens + 64: decode crosses the slot wrap at t = 1024 in
+    two slots; the same tokens in both loops), then the weights quantized
+    on the card (``quantize_params``, group 128, pow2 scales: every linear,
+    the tied head stays the embedding's transpose) lock-step 2 × 1536 + 8,
+    so GeGLU runs on the s8 tile and the code stream; exact launches per
+    route (flash at dh 256 on the tile and the split-KV walk), finite
+    logits, prefill_s, tok/s and peak memory; (d) the refusals.  Returns
+    (record, launches summed over the runs, the fused run's derived graph
+    launches)."""
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.quant import int4_head, int4_linears, quantize_params
+    model, init_s = gemma_model(torch, dev, cfg)
+    B, T0, new = GEMMA_LOCK
+    lock, total, lock_toks = serve_full_width(
+        torch, np, dev, model, init_s, phase="gemma3_lockstep", B=B, T0=T0,
+        new=new)
+    total = dict(total)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in GEMMA_PROMPTS]
+    runs, tokens = [], {}
+    with FiniteLogits(torch, dev) as finite:
+        for run, kw in (("gemma3_dense", dict(kv_mode="dense")),
+                        ("gemma3_fused_dense", dict(
+                            kv_mode="dense", decode_steps=FUSED_STEPS))):
+            rec, tokens[run], launches = serve_continuous(
+                torch, dev, model, finite, run, prompts, GEMMA_NEW,
+                trace=False, max_len=GEMMA_MAX_LEN, **kw)
+            runs.append(rec)
+            _add(total, launches)
+    require(all(np.array_equal(a, b) for a, b in zip(
+        tokens["gemma3_dense"], tokens["gemma3_fused_dense"])),
+        "gemma3: fused epochs changed the dense pool's tokens")
+    for k in ("flash_attention_wgmma", "flash_attention_splitkv",
+              "fused_linear_wgmma", "fused_linear_splitk"):
+        require(total[k] > 0, f"gemma3: {k} never launched")
+    refusals = gemma_refusals(model)
+    bf16_bytes = _tree_bytes(model.params())
+    t = time.perf_counter()
+    m4 = LanguageModel(cfg, quantize_params(
+        model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
+        device=dev)
+    torch.cuda.synchronize(dev)
+    quant_s = time.perf_counter() - t
+    require(int4_linears(m4.params()) and not int4_head(m4.params()),
+            "gemma3 int4: the linears are not int4, or the tied head is")
+    B4, T4, new4 = GEMMA_INT4
+    int4, launches, toks4 = serve_full_width(
+        torch, np, dev, m4, quant_s, phase="gemma3_int4_lockstep", B=B4,
+        T0=T4, new=new4)
+    _add(total, launches)
+    for k in ("fused_linear_int4_tc", "fused_linear_int4_stream"):
+        require(launches[k] > 0, f"gemma3 int4: {k} never launched")
+    int4.update(weight_bytes=_tree_bytes(m4.params()),
+                bf16_weight_bytes=bf16_bytes,
+                tokens_equal_to_bf16=token_agreement(
+                    np, list(toks4), [r[:new4] for r in lock_toks]))
+    derived = runs[1]["graph_launches_derived"]
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+           "window": cfg.window_size, "pattern": list(cfg.layer_pattern),
+           "mlp_act": cfg.mlp_act, "init_s": init_s,
+           "weight_bytes": bf16_bytes, "lockstep": lock,
+           "prompt_lens": list(GEMMA_PROMPTS), "new_tokens": GEMMA_NEW,
+           "max_len": GEMMA_MAX_LEN, "runs": runs, "int4": int4,
+           "refusals": refusals}
+    del m4, model
+    torch.cuda.empty_cache()
+    return rec, total, derived
+
+
+class GateReplay:
+    """Every router decision (``routing.gate_from_logits``) through one
+    log.  Inside ``record()`` a run keeps each call's decisions and its
+    margins |l1 − l0| on the host.  Inside ``replay()`` a second run holds
+    its own decisions against the log call by call: one may differ only
+    where the recorded margin is below GATHER_MARGIN (a near tie that fp32
+    rounding may flip), every other must agree, and the calls must match
+    in number and shape.  The run then takes the recorded decisions, so
+    its logits and tokens stay comparable past an excused flip and are
+    held without exception."""
+
+    def __init__(self):
+        self.log, self.flips, self.calls = [], [], 0
+        self._replaying = False
+
+    def record(self):
+        self._replaying = False
+        self.log.clear()
+        return self
+
+    def replay(self):
+        self._replaying, self.calls = True, 0
+        return self
+
+    def __enter__(self):
+        from repro_torch.core import routing
+        self._orig = routing.gate_from_logits
+        routing.gate_from_logits = self._gate
+        return self
+
+    def __exit__(self, kind, *_):
+        from repro_torch.core import routing
+        routing.gate_from_logits = self._orig
+        if self._replaying and kind is None:
+            require(self.calls == len(self.log), f"replay: {self.calls} "
+                    f"gate calls, the record has {len(self.log)}")
+
+    def _gate(self, logits):
+        gate, p_keep = self._orig(logits)
+        if not self._replaying:
+            margin = (logits[..., 1] - logits[..., 0]).abs()
+            self.log.append((gate.cpu(), margin.cpu()))
+            return gate, p_keep
+        require(self.calls < len(self.log), "replay: more gate calls than "
+                "the record")
+        want, rec = self.log[self.calls]
+        own = gate.cpu()
+        require(own.shape == want.shape, f"gate call {self.calls}: shape "
+                f"{tuple(own.shape)}, the record {tuple(want.shape)}")
+        flipped = rec[own != want]
+        require(bool((flipped < GATHER_MARGIN).all()),
+                f"gate call {self.calls}: a decision differs at a recorded "
+                f"margin of {flipped.max().item() if flipped.numel() else 0}"
+                f" ≥ {GATHER_MARGIN}")
+        self.flips += [(self.calls, m) for m in flipped.tolist()]
+        self.calls += 1
+        return want.to(gate.device), p_keep
+
+    def summary(self) -> dict:
+        return {"gate_calls": len(self.log),
+                "decisions": sum(g.numel() for g, _ in self.log),
+                "min_margin": min(m.min().item() for _, m in self.log),
+                "below_margin": sum(int((m < GATHER_MARGIN).sum())
+                                    for _, m in self.log),
+                "flips_excused": [{"call": c, "margin": m}
+                                  for c, m in self.flips]}
+
+
+def gemma_witness(torch, np, dev, cfg):
+    """(c) CPU ≡ CUDA in fp32 at gemma3-12b's full widths, cut to
+    GEMMA_WITNESS_LAYERS layers (5 LOCAL, 1 global) with W kept at 1024:
+    a prompt of 1100 tokens (past W: rings) and 4 teacher-forced decode
+    steps, then the dense pool (2 slots, max_len 1100, single-step) on
+    prompts of 1020 and 1060 tokens + 8 (the first crosses t = W in its
+    ring).  The same seeded weights (neutral router bias) on both devices.
+    Each cuda run replays the cpu run's router decisions (``GateReplay``:
+    every cuda decision equal to the cpu's, or the cpu's margin below
+    GATHER_MARGIN), and then its logits are held to ≤ 1e-4·max with equal
+    argmax, and the pool's tokens to the cpu's exactly."""
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              num_layers=GEMMA_WITNESS_LAYERS)
+    t = time.perf_counter()
+    params = neutral_router_bias(init_params(
+        cfg, torch.Generator().manual_seed(PARITY_SEED), "cpu"))
+    m_cpu = LanguageModel(cfg, params, device="cpu")
+    m_gpu = LanguageModel(cfg, params, device=dev)
+    rng = np.random.default_rng(PARITY_SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, GEMMA_WITNESS_T)))
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, GEMMA_WITNESS_STEPS)))
+    forced_gates = GateReplay()
+    with torch.no_grad():
+        with forced_gates.record():
+            lc, _ = _forced_run(m_cpu, toks, forced)
+        with forced_gates.replay():
+            lg, _ = _forced_run(m_gpu, toks.to(dev), forced.to(dev))
+    worst = max((a - b).abs().max().item() / a.abs().max().item()
+                for a, b in zip(lc, lg))
+    require(worst <= TOL_LOGITS, f"gemma3 fp32 witness: logits differ "
+            f"(cpu/cuda) by {worst} > {TOL_LOGITS}·max")
+    require(all(torch.equal(a.argmax(-1), b.argmax(-1))
+                for a, b in zip(lc, lg)),
+            "gemma3 fp32 witness: greedy tokens differ (cpu/cuda)")
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in GEMMA_WITNESS_ENGINE]
+    engine_gates, outs = GateReplay(), []
+    for m, phase in ((m_cpu, engine_gates.record),
+                     (m_gpu, engine_gates.replay)):
+        eng = ContinuousBatchingEngine(m, max_slots=2,
+                                       max_len=GEMMA_WITNESS_T)
+        uids = [eng.submit(p, max_new_tokens=GEMMA_WITNESS_NEW)
+                for p in prompts]
+        with phase():
+            res = eng.run()["results"]
+        outs.append([res[u].tokens for u in uids])
+    require(all(np.array_equal(a, b) for a, b in zip(*outs)),
+            "gemma3 fp32 witness: dense pool tokens differ (cpu/cuda)")
+    del m_gpu, params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "window": cfg.window_size,
+            "forced": {"prompts": 1, "prompt_len": GEMMA_WITNESS_T,
+                       "steps": GEMMA_WITNESS_STEPS,
+                       "gates": forced_gates.summary(),
+                       "logits_max_rel_diff": worst, "tol": TOL_LOGITS,
+                       "argmax_identical": True},
+            "engine": {"prompt_lens": list(GEMMA_WITNESS_ENGINE),
+                       "new_tokens": GEMMA_WITNESS_NEW, "max_len":
+                       GEMMA_WITNESS_T, "gates": engine_gates.summary(),
+                       "tokens_identical": True},
+            "gather_margin": GATHER_MARGIN,
+            "seconds": time.perf_counter() - t}
+
+
+def gemma_phase(torch, np, dev, timer, floor):
+    """Phase 18, gemma3-12b: (a) the kernels (``gemma_linears``,
+    ``gemma_flash``), (b) full-width serving and (d) the refusals
+    (``gemma_serve``), (c) the fp32 witness (``gemma_witness``).  Returns
+    (its line, the launches of its main-path runs)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-12b")
+    gc.collect()          # the earlier phases' models, before the peaks
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    linears = gemma_linears(torch, dev, timer, cfg)
+    flash = gemma_flash(torch, dev, timer, cfg)
+    kernels_s = time.perf_counter() - t
+    serve, launches, derived = gemma_serve(torch, np, dev, cfg)
+    wit = gemma_witness(torch, np, dev, cfg)
+    return {"phase": "gemma3", "seconds": time.perf_counter() - t,
+            "kernels_seconds": kernels_s, "launch_floor_ms": floor,
+            "kernels": {"fused_linear_gelu": linears, "flash_dh256": flash},
+            **serve, "witness_fp32": wit, "launches": launches,
+            "graph_launches_derived": derived}, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -5775,6 +6330,16 @@ def main() -> int:
     gather_s += time.perf_counter() - t17
     _add(gather_launches, more_gather)
     _add(gather_derived, more_derived)
+    gemma, gemma_launches = gemma_phase(torch, np, dev, timer, floor)
+    gk = gemma["kernels"]
+    for name, rows in (
+            ("fused_linear_wgmma", gk["fused_linear_gelu"]["wgmma"]),
+            ("fused_linear_splitk", gk["fused_linear_gelu"]["splitk"]),
+            ("fused_linear_int4_tc", gk["fused_linear_gelu"]["tc"]),
+            ("fused_linear_int4_stream", gk["fused_linear_gelu"]["stream"]),
+            ("flash_attention_wgmma", gk["flash_dh256"]["wgmma"]),
+            ("flash_attention_splitkv", gk["flash_dh256"]["splitkv"])):
+        per_kernel[name] = per_kernel[name] + rows
 
     par, par_launches = parity_mamba(torch, np, dev)
     emit(par)            # fp32: the SSD scan's SIMT route's launches
@@ -5830,6 +6395,8 @@ def main() -> int:
           "qwen3_8b": qwen3, "launches": gather_launches,
           "graph_launches_derived": gather_derived})
     _add(launches, gather_launches)
+    emit(gemma)
+    _add(launches, gemma_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

@@ -265,12 +265,28 @@ def routed_attention_decode(p: Params, x: torch.Tensor,
                             t: torch.Tensor,
                             kv_prev: Optional[kv_reuse.KVPair],
                             positions: torch.Tensor, cfg: ModelConfig, *,
-                            window: int = 0,
+                            window: int = 0, ring: int = 0,
                             carried_sq: Optional[torch.Tensor] = None):
     """One decode step.  x: [B, 1, D]; k/v_cache: [B, Tmax, Hkv, dh],
     updated IN PLACE at row t (the JAX engine donates its cache; here the
-    write is the same buffer); t: [B] int32.  Returns (x, k_cache, v_cache,
-    the carried single-token view, stats)."""
+    write is the same buffer); t: [B] int32.  Returns (x, k_cache,
+    v_cache, the carried single-token view, stats).
+
+    With ``ring`` = W the cache is a LOCAL layer's sliding-window ring [B,
+    W, Hkv, dh] (the reference's ``_ring_attention_decode``): the token's
+    merged view (the KV-reuse merge first, as in the reference) is written
+    at slot t mod W, then the flash kernel attends the ring with
+    kv_valid_len = min(t + 1, W), causal, no window and no key positions.
+    Why that is the reference's function: the reference attends through
+    ``chunked_attention`` with each slot's position from
+    ``ring_positions`` (an empty slot's mapped past t), so a slot counts
+    iff it is written and its position is ≤ t.  After the write at slot
+    t mod W, the written slots are exactly [0, min(t + 1, W)) and every
+    one of them holds a position in (t − W, t].  Attention is a softmax
+    over a set of keys, so the order of the slots does not matter: the
+    kernel's mask by slot index (< kv_valid_len, and ≤ t, which every
+    such slot is) picks the same set.  So the ring is never reordered
+    into time order (that would copy the whole ring a step a layer)."""
     B = x.shape[0]
     routed = cfg.skip.enabled and cfg.skip.route_attention
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
@@ -283,10 +299,14 @@ def routed_attention_decode(p: Params, x: torch.Tensor,
         k_t, v_t = kv_reuse.merge_token_view(kv_prev, k_new, v_new, gate)
     else:
         k_t, v_t = k_new, v_new
-    _row_update(k_cache, k_t, t)
-    _row_update(v_cache, v_t, t)
+    if ring:
+        row, kv_len = torch.remainder(t, ring), torch.clamp(t + 1, max=ring)
+    else:
+        row, kv_len = t, t + 1
+    _row_update(k_cache, k_t, row)
+    _row_update(v_cache, v_t, row)
     o = attn_mod.attention_core(q, k_cache, v_cache, q_positions=positions,
-                                cfg=cfg, window=window, kv_valid_len=t + 1)
+                                cfg=cfg, window=window, kv_valid_len=kv_len)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
     x = _decode_output_epilogue(inner, o, x, gate, routed, cfg, stats)
     stats["attn_gate"] = gate

@@ -40,8 +40,11 @@
 //    the second of two Q buffers, and one thread streams K and V tiles of
 //    128 keys through a 2-stage TMA ring that runs on across items (a 4-D
 //    tensor map over [B, Tk, Hkv, dh], 128-byte swizzle, zero fill past
-//    Tk; dh = 128 takes two 64-wide boxes, dh = 32 one box whose upper
-//    half is the zero fill).  S = Q·Kᵀ is a bf16 wgmma from shared memory
+//    Tk; dh = 128 takes two 64-wide boxes, dh = 256 four, dh = 32 one box
+//    whose upper half is the zero fill).  At dh 256 (gemma3-12b) a tile
+//    holds 64 keys and the block one Q buffer (WgShape): O alone takes
+//    128 registers a consumer thread there, and two 64 KB Q buffers
+//    beside the ring would pass 227 KB; P·V runs as two n128 products.  S = Q·Kᵀ is a bf16 wgmma from shared memory
 //    (K is K-major); O += P·V takes P from registers (the fp32 scores
 //    rescaled and rounded to bf16, in the mma A layout) and V MN-major
 //    (the transpose bit).  Tile i's scores are issued with tile i - 1's
@@ -65,9 +68,16 @@
 //    The warps' (m, l, acc) are added in warp order through shared memory,
 //    then the cluster's blocks in rank order through distributed shared
 //    memory: one launch, no atomics, no scratch, nothing that outlives it.
+//    At dh 256 the ring takes 140 KB (one block an SM) and Q's fragments
+//    are read from shared memory each tile instead of held in registers.
+//    A sliding-window ring cache (gemma3's LOCAL layers) is attended in
+//    slot order with kv_len = min(t + 1, W): the softmax is over a set of
+//    keys, so the ring needs no key positions and no reordering
+//    (core/skip_block.py, routed_attention_decode's ring).
 //
 // 3. fp32: the SIMT kernel (flash_simt), fp32 FMAs from shared memory; the
-//    parity instrument of the CPU ≡ CUDA checks.
+//    parity instrument of the CPU ≡ CUDA checks.  Its tile is static
+//    shared memory up to dh 128 and dynamic (82 KB) at dh 256.
 //
 // Where the bf16 routes round.  P = exp2(s·c - m) with c = fp32(scale) ·
 // fp32(log2 e), one FFMA on the raw fp32 score and ex2.approx (relative
@@ -82,6 +92,7 @@
 #include <climits>
 #include <cmath>
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "warp_mma.cuh"
@@ -139,6 +150,19 @@ constexpr int kSimtKeys = 32, kSimtWarps = 8, kSimtRowsPerWarp = 2;
 constexpr int kSimtRows = kSimtWarps * kSimtRowsPerWarp;
 
 template <int DH>
+struct SimtSmem {
+  float ks[kSimtKeys][DH + 1];  // +1: lane j reads row j freely
+  float vs[kSimtKeys][DH];
+  float qs[kSimtRows][DH];
+  int ps[kSimtRows];
+};
+// Up to dh 128 the tile is static shared memory (≤ 41 KB); at dh 256 it is
+// 82 KB, past the 48 KB static limit, so the kernel takes it dynamically
+// (the launch opts in; plan() gives its bytes).
+template <int DH>
+constexpr bool kSimtDynamic = sizeof(SimtSmem<DH>) > 48 * 1024;
+
+template <int DH>
 __global__ void __launch_bounds__(kSimtWarps * 32)
 flash_simt(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ q_pos,
@@ -146,10 +170,18 @@ flash_simt(const float* __restrict__ q, const float* __restrict__ k,
            int G, int Tq, int Tk, Strides st, int causal, int window,
            float scale) {
   constexpr int DPL = DH / 32;  // output dims per lane
-  __shared__ float ks[kSimtKeys][DH + 1];  // +1: lane j reads row j freely
-  __shared__ float vs[kSimtKeys][DH];
-  __shared__ float qs[kSimtRows][DH];
-  __shared__ int ps[kSimtRows];
+  extern __shared__ __align__(16) uint8_t simt_dyn[];
+  SimtSmem<DH>* sm;
+  if constexpr (kSimtDynamic<DH>) {
+    sm = reinterpret_cast<SimtSmem<DH>*>(simt_dyn);
+  } else {
+    __shared__ SimtSmem<DH> simt_static;
+    sm = &simt_static;
+  }
+  auto& ks = sm->ks;
+  auto& vs = sm->vs;
+  auto& qs = sm->qs;
+  auto& ps = sm->ps;
 
   const int R = G * Tq;
   const int bh = blockIdx.y, b = bh / Hkv, h = bh % Hkv;
@@ -252,16 +284,24 @@ constexpr int kWgMaxBlocks = 132;  // persistent blocks: one per SM of an H100
 constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
 constexpr int kWgStagers = 96;   // producer threads that stage Q: warps 1-3
 
+// At dh 256 an item's O takes 128 fp32 registers a consumer thread (64 rows
+// x 256 dims over a warpgroup), so its K/V tiles hold 64 keys (32 score
+// registers, 16 of P, 16 of the next P: the same 192 as at dh 128), and
+// one Q buffer of 64 KB with the 128 KB ring keeps the block under 227 KB
+// of shared memory; the producer stages an item's Q once the consumers
+// have written the item before out of it.
 template <int DH>
 struct WgShape {
   static constexpr int kDhp = DH < 64 ? 64 : DH;  // whole 128-byte rows
   static constexpr int kBoxes = kDhp / 64;
+  static constexpr int kKeys = DH > 128 ? 64 : kWgKeys;  // keys per tile
+  static constexpr int kQBufs = DH > 128 ? 1 : 2;
   static constexpr int kQBytes = kBoxes * kWgRows * 128;
-  static constexpr int kTileBytes = kBoxes * kWgKeys * 128;  // K or V
+  static constexpr int kTileBytes = kBoxes * kKeys * 128;  // K or V
   static constexpr int kStageBytes = 2 * kTileBytes;
-  // Two Q buffers, the ring, 10 barriers, slack to align the base to 1 KB.
+  // The Q buffers, the ring, 10 barriers, slack to align the base to 1 KB.
   static constexpr int kSmem =
-      2 * kQBytes + kWgStages * kStageBytes + 10 * 8 + 1024;
+      kQBufs * kQBytes + kWgStages * kStageBytes + 10 * 8 + 1024;
 };
 
 // Byte offset of 16-byte chunk c of row r in a Q buffer: boxes of 64 dh
@@ -281,7 +321,7 @@ __device__ __forceinline__ int wg_item(int j, int x, int P) {
 }
 
 // tmk, tmv: 4-D maps over k/v [B, Tk, Hkv, dh] (dims {dh, Hkv, Tk, B}),
-// boxes of 64 dh x 1 head x 128 keys x 1 batch.  Item w is row tile
+// boxes of 64 dh x 1 head x kKeys keys x 1 batch.  Item w is row tile
 // nrt - 1 - w % nrt of (b, h) = ((w / nrt) / Hkv, (w / nrt) % Hkv).
 template <int DH>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -293,16 +333,18 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
             int window, float scale_log2) {
   using Sh = WgShape<DH>;
   constexpr int DHP = Sh::kDhp, kChunks = DHP / 8;
+  constexpr int KT = Sh::kKeys, NQ = Sh::kQBufs;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int pos_s[2][kWgRows];
   __shared__ int meta_s[2][5];  // t_begin, t_end, lo, hi, kvl of an item
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1 KB
   uint8_t* const qgen = smem_raw + (base - raw);
-  const uint32_t ring = base + 2 * Sh::kQBytes;
+  const uint32_t ring = base + NQ * Sh::kQBytes;
   // Barriers: per ring stage full (both TMA tiles landed) and empty (both
   // consumer warpgroups' wgmma retired); per Q buffer m_full (the item's
-  // positions and tile range), q_full (and its Q) and q_empty (consumed).
+  // positions and tile range), q_full (and its Q) and q_empty (consumed);
+  // item j takes buffer j % NQ.
   const uint32_t full = ring + kWgStages * Sh::kStageBytes;
   const uint32_t empty = full + 8 * kWgStages;
   const uint32_t m_full = empty + 8 * kWgStages;
@@ -332,9 +374,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
     if (tid == 256) {  // one thread issues the K/V TMA copies
       int g = 0;  // tiles issued so far: the ring's stage and phase
       for (int j = 0; wg_item(j, x, P) < n_items; ++j) {
-        const int w = wg_item(j, x, P), buf = j & 1;
+        const int w = wg_item(j, x, P), buf = j % NQ;
         const int b = (w / nrt) / Hkv, h = (w / nrt) % Hkv;
-        mbar_wait(m_full + 8 * buf, (j >> 1) & 1);  // the item's tile range
+        mbar_wait(m_full + 8 * buf, (j / NQ) & 1);  // the item's tile range
         const int t_end = meta_s[buf][1];
         for (int it = meta_s[buf][0]; it < t_end; ++it, ++g) {
           const int s = g % kWgStages;
@@ -344,10 +386,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
           mbar_expect_tx(full + 8 * s, Sh::kStageBytes);
 #pragma unroll
           for (int c = 0; c < Sh::kBoxes; ++c) {
-            tma_load_4d(ks + c * kWgKeys * 128, &tmk, full + 8 * s, 64 * c, h,
-                        it * kWgKeys, b);
-            tma_load_4d(vs + c * kWgKeys * 128, &tmv, full + 8 * s, 64 * c, h,
-                        it * kWgKeys, b);
+            tma_load_4d(ks + c * KT * 128, &tmk, full + 8 * s, 64 * c, h,
+                        it * KT, b);
+            tma_load_4d(vs + c * KT * 128, &tmv, full + 8 * s, 64 * c, h,
+                        it * KT, b);
           }
         }
       }
@@ -358,10 +400,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
       // cp.async, all in flight at once; zeros past R and past dh).
       const int t96 = tid - 256 - 32;
       for (int j = 0; wg_item(j, x, P) < n_items; ++j) {
-        const int w = wg_item(j, x, P), buf = j & 1;
+        const int w = wg_item(j, x, P), buf = j % NQ;
         const int b = (w / nrt) / Hkv, h = (w / nrt) % Hkv;
         const int r0 = (nrt - 1 - w % nrt) * kWgRows;
-        if (j >= 2) mbar_wait(q_empty + 8 * buf, ((j >> 1) - 1) & 1);
+        if (j >= NQ) mbar_wait(q_empty + 8 * buf, ((j / NQ) - 1) & 1);
         for (int r = t96; r < kWgRows; r += kWgStagers)
           pos_s[buf][r] = row_pos(q_pos, st, b, r0 + r, R, Tq);
         asm volatile("bar.sync 1, %0;\n" ::"n"(kWgStagers) : "memory");
@@ -371,9 +413,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
           if (lane == 0) {
             const int kvl = valid_len(kv_len, b, Tk);
             const int limit = causal ? min(kvl, hi + 1) : kvl;
-            meta_s[buf][0] =
-                window > 0 ? max(0, lo - window + 1) / kWgKeys : 0;
-            meta_s[buf][1] = limit > 0 ? (limit + kWgKeys - 1) / kWgKeys : 0;
+            meta_s[buf][0] = window > 0 ? max(0, lo - window + 1) / KT : 0;
+            meta_s[buf][1] = limit > 0 ? (limit + KT - 1) / KT : 0;
             meta_s[buf][2] = lo;
             meta_s[buf][3] = hi;
             meta_s[buf][4] = kvl;
@@ -408,35 +449,53 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
   const int warp = (tid % 128) / 32;
   const int ra = wg * 64 + warp * 16 + lane / 4;
-  float o[DHP / 2], sc[64];
-  uint32_t p[8][4], pn[8][4];
+  float o[DHP / 2], sc[KT / 2];
+  uint32_t p[KT / 16][4], pn[KT / 16][4];
   uint32_t q_wg = 0;
   float m0, m1, l0, l1;
   bool f0, f1;
   int pa, pb, lo, hi, kvl;
 
-  // S = Q·Kᵀ of the tile in stage ks, both K-major (rows of 64 dh a box).
+  // S = Q·Kᵀ of the tile in stage ks, both K-major (rows of 64 dh a box:
+  // 128 rows of Q, KT keys of K).
   auto issue_scores = [&](uint32_t ks) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DHP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * 128 * 128 + (kk % 4) * 32;
-      wgmma_m64n128k16<0>(sc, smem_desc(q_wg + off, 16, 1024),
-                          smem_desc(ks + off, 16, 1024), kk > 0 ? 1u : 0u);
+      const uint32_t off = (kk / 4) * kWgRows * 128 + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * KT * 128 + (kk % 4) * 32;
+      if constexpr (KT == 128)
+        wgmma_m64n128k16<0>(sc, smem_desc(q_wg + off, 16, 1024),
+                            smem_desc(ks + koff, 16, 1024), kk > 0 ? 1u : 0u);
+      else
+        wgmma_m64n64k16<0>(sc, smem_desc(q_wg + off, 16, 1024),
+                           smem_desc(ks + koff, 16, 1024), kk > 0 ? 1u : 0u);
     }
     wgmma_commit();
   };
   // O += P·V of the tile in stage vs, V MN-major: atoms of 64 dh (LBO =
-  // one box of 128 keys), 16 keys (2 KB) per k16 step.
+  // one box of KT keys), 16 keys (2 KB) per k16 step.  At dh 256 two
+  // n128 products a step, each over two boxes: O's registers [0, 64) hold
+  // dims 0-127, [64, 128) dims 128-255 (register 4i is still dim 8i).
   auto issue_pv = [&](uint32_t vs) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-      const uint64_t db = smem_desc(vs + kk * 16 * 128, kWgKeys * 128, 1024);
-      if constexpr (DHP == 128)
-        wgmma_m64n128k16_rs(o, p[kk], db, 1u);
-      else
-        wgmma_m64n64k16_rs(o, p[kk], db, 1u);
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      if constexpr (DHP == 256) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          wgmma_m64n128k16_rs(
+              *reinterpret_cast<float(*)[64]>(o + 64 * hh), p[kk],
+              smem_desc(vs + hh * 2 * KT * 128 + kk * 16 * 128, KT * 128,
+                        1024),
+              1u);
+      } else {
+        const uint64_t db = smem_desc(vs + kk * 16 * 128, KT * 128, 1024);
+        if constexpr (DHP == 128)
+          wgmma_m64n128k16_rs(o, p[kk], db, 1u);
+        else
+          wgmma_m64n64k16_rs(o, p[kk], db, 1u);
+      }
     }
     wgmma_commit();
   };
@@ -449,13 +508,12 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
   // of rows ra (sc[4j], sc[4j+1]) and ra + 8 (sc[4j+2..3]).  Returns O's
   // rescale factors in al0, al1.
   auto softmax = [&](int it, float& al0, float& al1) {
-    const int j0 = it * kWgKeys;
-    const bool no_mask = j0 + kWgKeys <= kvl &&
-                         (!causal || j0 + kWgKeys - 1 <= lo) &&
+    const int j0 = it * KT;
+    const bool no_mask = j0 + KT <= kvl && (!causal || j0 + KT - 1 <= lo) &&
                          (!window || j0 > hi - window);
     if (!no_mask) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kp = j0 + 8 * j + 2 * (lane % 4) + e;
@@ -472,7 +530,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
     }
     float mx0 = kMasked, mx1 = kMasked;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KT / 8; ++j) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -484,7 +542,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KT / 8; ++j) {
       const float e0 = exp2_fast(fmaf(sc[4 * j], scale_log2, -mn0));
       const float e1 = exp2_fast(fmaf(sc[4 * j + 1], scale_log2, -mn0));
       const float e2 = exp2_fast(fmaf(sc[4 * j + 2], scale_log2, -mn1));
@@ -501,10 +559,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
 
   int g = 0;  // tiles consumed so far: the ring's stage and phase
   for (int j = 0; wg_item(j, x, P) < n_items; ++j) {
-    const int w = wg_item(j, x, P), buf = j & 1;
+    const int w = wg_item(j, x, P), buf = j % NQ;
     const int b = (w / nrt) / Hkv, h = (w / nrt) % Hkv;
     const int r0 = (nrt - 1 - w % nrt) * kWgRows;
-    mbar_wait(q_full + 8 * buf, (j >> 1) & 1);
+    mbar_wait(q_full + 8 * buf, (j / NQ) & 1);
     const int t_begin = meta_s[buf][0], t_end = meta_s[buf][1];
     lo = meta_s[buf][2];
     hi = meta_s[buf][3];
@@ -542,7 +600,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
         o[4 * i + 3] *= al1;
       }
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KT / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) p[kk][r] = pn[kk][r];
     }
@@ -673,11 +731,16 @@ flash_splitkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (ntiles > 1) load_tile(1);
   cp_async_commit();
 
-  // Q's A fragments, all dh / 16 k steps, held for the whole walk.
-  uint32_t qa[DH / 16][4];
+  // Q's A fragments, all dh / 16 k steps, held for the whole walk; at dh
+  // 256 the 128 registers of o leave no room for its 64, so each tile
+  // reads them again from qs (which stays put until the walk ends).
+  constexpr bool kQRegs = DH <= 128;
+  uint32_t qa[kQRegs ? DH / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    ldmatrix_x4(qa[kk], qs + (lane % 16) * P + kk * 16 + (lane / 16) * 8);
+    for (int kk = 0; kk < DH / 16; ++kk)
+      ldmatrix_x4(qa[kk], qs + (lane % 16) * P + kk * 16 + (lane / 16) * 8);
+  }
 
   const int g4 = lane / 4, t4 = lane % 4;  // fragment row, column pair
   const int pr[2] = {pos_s[g4], pos_s[g4 + 8]};
@@ -704,8 +767,15 @@ flash_splitkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int mi = lane / 8;
         ldmatrix_x4(bk, ks + ((mi / 2) * 8 + lane % 8) * P + kk * 16 +
                             (mi % 2) * 8);
-        mma_16816(sc[0], qa[kk], bk[0], bk[1]);
-        mma_16816(sc[1], qa[kk], bk[2], bk[3]);
+        if constexpr (kQRegs) {
+          mma_16816(sc[0], qa[kk], bk[0], bk[1]);
+          mma_16816(sc[1], qa[kk], bk[2], bk[3]);
+        } else {
+          uint32_t qf[4];
+          ldmatrix_x4(qf, qs + (lane % 16) * P + kk * 16 + (lane / 16) * 8);
+          mma_16816(sc[0], qf, bk[0], bk[1]);
+          mma_16816(sc[1], qf, bk[2], bk[3]);
+        }
       }
       // The online softmax as on the tile: masked raw scores -inf, the
       // integer row maxima of the scaled scores, P = exp2(s·scale - m).
@@ -895,7 +965,14 @@ struct Call {
 
 template <int DH>
 cudaError_t launch_simt(const Call& c, dim3 grid) {
-  flash_simt<DH><<<grid, kSimtWarps * 32, 0, c.stream>>>(
+  int smem = 0;
+  if constexpr (kSimtDynamic<DH>) {
+    static bool configured[kMaxDevices] = {};
+    smem = sizeof(SimtSmem<DH>);
+    cudaError_t e = opt_in_smem(flash_simt<DH>, smem, configured);
+    if (e != cudaSuccess) return e;
+  }
+  flash_simt<DH><<<grid, kSimtWarps * 32, smem, c.stream>>>(
       static_cast<const float*>(c.q), static_cast<const float*>(c.k),
       static_cast<const float*>(c.v), static_cast<const int*>(c.q_pos),
       static_cast<const int*>(c.kv_len), static_cast<float*>(c.out), c.Hkv,
@@ -920,7 +997,7 @@ cudaError_t launch_wgmma(const Call& c, dim3 grid) {
   const cuuint64_t vs[3] = {static_cast<cuuint64_t>(c.st.vh) * 2,
                             static_cast<cuuint64_t>(c.st.vt) * 2,
                             static_cast<cuuint64_t>(c.st.vb) * 2};
-  const cuuint32_t box[4] = {64, 1, kWgKeys, 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(Sh::kKeys), 1};
   CUtensorMap tmk, tmv;
   if (!tensor_map_nd(&tmk, c.k, 4, dims, ks, box) ||
       !tensor_map_nd(&tmv, c.v, 4, dims, vs, box))
@@ -961,25 +1038,40 @@ cudaError_t launch_splitkv(const Call& c, dim3 grid, int kc) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// One instantiation per head dim this file takes: f<32>() ... f<256>().
+template <typename F>
+auto by_dh(int dh, F&& f) {
+  switch (dh) {
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return f(std::integral_constant<int, 256>());
+  }
+}
+bool dh_ok(int dh) { return dh == 32 || dh == 64 || dh == 128 || dh == 256; }
+
 // The dynamic shared memory each route's kernel is launched with.
 int smem_bytes(int route, int dh) {
-  switch (route) {
-    case kWgmma:
-      return dh == 32 ? WgShape<32>::kSmem
-             : dh == 64 ? WgShape<64>::kSmem : WgShape<128>::kSmem;
-    case kSplitkv:
-      return dh == 32 ? SkvShape<32>::kSmem
-             : dh == 64 ? SkvShape<64>::kSmem : SkvShape<128>::kSmem;
-    default:
-      return 0;
-  }
+  return by_dh(dh, [&](auto d) -> int {
+    constexpr int DH = decltype(d)::value;
+    switch (route) {
+      case kWgmma: return WgShape<DH>::kSmem;
+      case kSplitkv: return SkvShape<DH>::kSmem;
+      default:
+        return kSimtDynamic<DH> ? static_cast<int>(sizeof(SimtSmem<DH>)) : 0;
+    }
+  });
+}
+// Keys per K/V tile of the tensor-core tile.
+int wg_keys(int dh) {
+  return by_dh(dh, [](auto d) { return WgShape<decltype(d)::value>::kKeys; });
 }
 
 int launch(const Call& c, bool is_bf16, int route, int tile_r, int tile_k,
            int splits, int kc, int grid_x, int grid_y, int smem) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const int R = c.G * c.Tq, BH = c.B * c.Hkv;
-  if (c.dh != 32 && c.dh != 64 && c.dh != 128) return bad;
+  if (!dh_ok(c.dh)) return bad;
   if (smem != smem_bytes(route, c.dh)) return bad;
   const auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -999,17 +1091,20 @@ int launch(const Call& c, bool is_bf16, int route, int tile_r, int tile_k,
         grid_y != BH)
       return bad;
     if (R == 0 || BH == 0) return static_cast<int>(cudaGetLastError());
-    e = c.dh == 32 ? launch_simt<32>(c, grid)
-        : c.dh == 64 ? launch_simt<64>(c, grid) : launch_simt<128>(c, grid);
+    e = by_dh(c.dh, [&](auto d) {
+      return launch_simt<decltype(d)::value>(c, grid);
+    });
   } else if (route == kWgmma) {
     const int items = BH * cdiv(R, kWgRows);
-    if (tile_r != kWgRows || tile_k != kWgKeys || splits != 1 || kc != 0 ||
+    if (tile_r != kWgRows || tile_k != wg_keys(c.dh) || splits != 1 ||
+        kc != 0 ||
         grid_x != (items < kWgMaxBlocks ? items : kWgMaxBlocks) ||
         grid_y != 1)
       return bad;
     if (R == 0 || BH == 0) return static_cast<int>(cudaGetLastError());
-    e = c.dh == 32 ? launch_wgmma<32>(c, grid)
-        : c.dh == 64 ? launch_wgmma<64>(c, grid) : launch_wgmma<128>(c, grid);
+    e = by_dh(c.dh, [&](auto d) {
+      return launch_wgmma<decltype(d)::value>(c, grid);
+    });
   } else if (route == kSplitkv) {
     if (R > kSkvRows || tile_r != kSkvRows || tile_k != kSkvKeys || kc <= 0 ||
         kc % kSkvSplitStep != 0 || splits < 1 || splits > kSkvMaxSplits ||
@@ -1017,9 +1112,9 @@ int launch(const Call& c, bool is_bf16, int route, int tile_r, int tile_k,
         grid_y != BH)
       return bad;
     if (R == 0 || BH == 0) return static_cast<int>(cudaGetLastError());
-    e = c.dh == 32 ? launch_splitkv<32>(c, grid, kc)
-        : c.dh == 64 ? launch_splitkv<64>(c, grid, kc)
-                     : launch_splitkv<128>(c, grid, kc);
+    e = by_dh(c.dh, [&](auto d) {
+      return launch_splitkv<decltype(d)::value>(c, grid, kc);
+    });
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -1041,7 +1136,7 @@ Call make_call(const void* q, const void* k, const void* v, const void* q_pos,
 // storage type, unit stride along dh, other strides (in elements) given in
 // `strides` as (q: b, t, h), (k: b, t, h), (v: b, t, h), (out: b, t, h),
 // (q_pos: b, t).  q_pos int32 [B, Tq] (-1 = pad row); kv_len int32 [B] or
-// null (= Tk).  dh in {32, 64, 128}.  The plan (route 0 simt, 1 wgmma, 2
+// null (= Tk).  dh in {32, 64, 128, 256}.  The plan (route 0 simt, 1 wgmma, 2
 // splitkv; tile_r rows x tile_k keys per block; the split-KV route's
 // `splits` blocks per cluster of kc keys each; the grid; the dynamic shared
 // memory) comes from the caller's plan() (kernels/flash_attention.py) and

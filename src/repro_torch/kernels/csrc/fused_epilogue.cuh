@@ -15,9 +15,17 @@
 namespace repro {
 
 constexpr int kActSilu = 1;
+constexpr int kActGelu = 2;
 constexpr int kSqReduceThreads = 256;
 
+// SiLU (SwiGLU), or GELU's tanh approximation (jax.nn.gelu's default; GeGLU
+// and the non-GLU GELU): y · 0.5 · (1 + tanh(√(2/π) · (y + 0.044715 · y³))),
+// with the accurate tanhf (not tanh.approx.f32: CPU ≡ CUDA parity is
+// asserted on it).  Every route's epilogue calls this.
 __device__ __forceinline__ float apply_act(float y, int act) {
+  if (act == kActGelu)
+    return y * (0.5f * (1.f + tanhf(0.7978845608028654f *
+                                    (y + 0.044715f * (y * y * y)))));
   return act == kActSilu ? y / (1.f + expf(-y)) : y;
 }
 

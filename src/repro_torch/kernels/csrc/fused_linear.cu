@@ -673,7 +673,7 @@ void launch_splitk(const void* x, const void* ms, const void* gamma,
 // residual/out [M, F]: K and F multiples of 8, every tensor 16-byte
 // aligned (the wrapper pads K and F for shapes off them).  mean_sq [M],
 // gate_mul [M] f32; gamma [K] (K <= 16384 on the tile).  Optional inputs
-// are null.  act: 0 none, 1 silu.
+// are null.  act: 0 none, 1 silu, 2 gelu (tanh).
 //   splits == 0: the tensor-core tile, tile_m = 128 rows x tile_n = 128
 //     output columns (64 with glu) per block; sq_part: f32 Σy² partials
 //     [column tiles, M] of sq_cap entries, with sq [M] f32.

@@ -917,7 +917,7 @@ int launch(const Call& c, int tile_m, int tile_n, int gps, int splits,
 // codes' padding rows are zero), scale [C, N] f32, G <= 128; F a multiple
 // of 16 and codes, scale, residual, out 16-byte aligned (the wrapper pads
 // F).  mean_sq [M], gate_mul [M] f32; gamma [K].  Optional inputs are
-// null (the int4 matmul passes none of them).  act: 0 none, 1 silu.
+// null (the int4 matmul passes none of them).  act: 0 none, 1 silu, 2 gelu (tanh).
 // On the caller's plan (kernels/fused_linear.py, plan_int4()):
 //   splits == 0: the tensor-core tile, tile_m 128 rows x tile_n 128 code
 //     columns, group_split 0, grid (ceil(M/128), column tiles); scratch

@@ -36,13 +36,14 @@ launches_wgmma = 0
 launches_splitkv = 0
 launches_simt = 0
 _FNS = {}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 _ROUTES = {"simt": 0, "wgmma": 1, "splitkv": 2}
 
 # The tiles csrc/flash_attention.cu instantiates.  plan() chooses among
 # them; the C entries refuse any other.
 SPLITKV_MAX_R = 16       # bf16 packed rows up to this take the split-KV walk
 WG_ROWS, WG_KEYS = 128, 128   # tensor-core tile: rows x keys per K/V tile
+WG_KEYS_256 = 64         # dh 256: keys per K/V tile, and one Q buffer
 WG_STAGES = 2
 WG_MAX_BLOCKS = 132      # persistent tile blocks: one per SM of an H100
 SKV_ROWS, SKV_KEYS = 16, 64   # split-KV block: mma rows x keys per tile
@@ -52,6 +53,8 @@ SKV_MIN_KEYS = 64        # keys a split takes at least
 SKV_BLOCKS = 256         # split-KV blocks wanted: about two per SM
 SKV_SPLIT_STEP = 16      # keys per split, a multiple of this (one warp)
 SIMT_ROWS, SIMT_KEYS = 16, 32
+SIMT_STATIC_MAX = 48 * 1024   # past this the SIMT tile is dynamic smem
+SMEM_MAX = 227 * 1024    # dynamic shared memory a block may opt in to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +68,8 @@ class Plan:
     block s walking keys [s·kc, (s+1)·kc) (1 and 0 on the other routes).
     ``grid``: (persistent blocks, 1) on the tile, (splits, b·kv-heads) on
     the split-KV walk, (row tiles, b·kv-heads) on the SIMT kernel.
-    ``smem``: dynamic shared memory bytes per block."""
+    ``smem``: dynamic shared memory bytes per block (the SIMT kernel's
+    tile is static below ``SIMT_STATIC_MAX``: 0)."""
     route: str            # "wgmma", "splitkv" or "simt"
     tile_r: int
     tile_k: int
@@ -89,8 +93,11 @@ def plan(BH: int, R: int, Tk: int, dh: int, dtype: torch.dtype) -> Plan:
         raise ValueError(f"flash_attention kernel: head dim {dh} not in "
                          f"{_HEAD_DIMS}")
     if dtype == torch.float32:
+        # K (rows padded by one float), V, Q and the rows' positions
+        tile = (SIMT_KEYS * (2 * dh + 1) + SIMT_ROWS * dh) * 4 + SIMT_ROWS * 4
         return Plan("simt", SIMT_ROWS, SIMT_KEYS, 1, 0,
-                    (_cdiv(R, SIMT_ROWS), BH), 0)
+                    (_cdiv(R, SIMT_ROWS), BH),
+                    tile if tile > SIMT_STATIC_MAX else 0)
     if dtype != torch.bfloat16:
         raise ValueError(f"flash_attention kernel: {dtype} must be bfloat16 "
                          "or float32")
@@ -105,11 +112,14 @@ def plan(BH: int, R: int, Tk: int, dh: int, dtype: torch.dtype) -> Plan:
         return Plan("splitkv", SKV_ROWS, SKV_KEYS, splits, kc, (splits, BH),
                     smem)
     dhp = max(64, dh)      # whole 128-byte rows
-    # two Q buffers, the ring of K and V tiles, 10 barriers, 1 KB alignment
-    smem = (2 * WG_ROWS * dhp * 2 + WG_STAGES * 2 * WG_KEYS * dhp * 2
+    # at dh 256 (O in 128 registers a thread) tiles of 64 keys and one Q
+    # buffer, so the block fits SMEM_MAX
+    keys, qbufs = (WG_KEYS_256, 1) if dh > 128 else (WG_KEYS, 2)
+    # the Q buffers, the ring of K and V tiles, 10 barriers, 1 KB alignment
+    smem = (qbufs * WG_ROWS * dhp * 2 + WG_STAGES * 2 * keys * dhp * 2
             + 10 * 8 + 1024)
     items = BH * _cdiv(R, WG_ROWS)
-    return Plan("wgmma", WG_ROWS, WG_KEYS, 1, 0,
+    return Plan("wgmma", WG_ROWS, keys, 1, 0,
                 (min(items, WG_MAX_BLOCKS), 1), smem)
 
 

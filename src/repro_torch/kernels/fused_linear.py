@@ -55,7 +55,7 @@ launches_int4_tc = 0
 launches_int4_stream = 0
 _FNS = {}
 _FNS_INT4 = {}
-_ACTS = {None: 0, "silu": 1}
+_ACTS = {None: 0, "silu": 1, "gelu": 2}
 
 # The tiles csrc/fused_linear.cu instantiates.  plan() chooses among them;
 # the C entries refuse any other tile, and scratch shorter than the grid

@@ -16,13 +16,25 @@ import torch.nn.functional as F
 NEG_INF = -1.0e30
 
 
+GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh approximation, in y's dtype (fp32 in
+    the epilogue): ``y · 0.5 · (1 + tanh(√(2/π) · (y + 0.044715 · y³)))``."""
+    return y * (0.5 * (1.0 + torch.tanh(GELU_C * (y + 0.044715
+                                                  * (y * y * y)))))
+
+
 def act(y: torch.Tensor, name: Optional[str]) -> torch.Tensor:
-    """Epilogue activation (the JAX package's ``fused_linear._act``; the
-    port's slice uses SwiGLU only)."""
+    """Epilogue activation (the JAX package's ``fused_linear._act``): SiLU
+    (SwiGLU) or GELU's tanh approximation (GeGLU and the non-GLU GELU)."""
     if name is None:
         return y
     if name == "silu":
         return F.silu(y)
+    if name == "gelu":
+        return gelu_tanh(y)
     raise ValueError(f"unsupported epilogue activation {name!r}")
 
 

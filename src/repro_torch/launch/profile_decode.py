@@ -34,7 +34,13 @@ split into draft, verify and commit.
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --spec-k 4 [--paged] [--draft-keep 0.5] # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch gemma3-12b --prompt-len 1536 --decode-steps 8     # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
+
+``--arch gemma3-12b`` (LOCAL ring caches) takes every mode but ``--paged``,
+``--prefill-chunk``, ``--prefix`` and ``--spec-k``, which raise the
+engine's errors for it, as its serving does.
 
 Weights are random (seed 0, router biases zeroed so routing skips, as
 ``chip_smoke.py`` serves them).  After a ``--batch`` × ``--prompt-len``
@@ -679,7 +685,12 @@ def _split(prof) -> dict:
 
 
 def _weights(model) -> str:
-    return ("int4" if "w_int" in model.params().get("lm_head", {})
+    """int4 where the lm head or the blocks' linears hold codes (a tied
+    head, as gemma3-12b's, stays the embedding's transpose), else the
+    dtype."""
+    from repro_torch.quant import int4_head, int4_linears
+    p = model.params()
+    return ("int4" if int4_head(p) or int4_linears(p)
             else model.cfg.dtype)
 
 
@@ -863,6 +874,11 @@ def main(argv=None) -> None:
     if args.paged:
         if transformer.is_ssm_stack(cfg):
             raise SystemExit("--paged: a Mamba stack keeps no KV pages")
+        from repro_torch.kvcache import paged
+        if not paged.can_page(cfg):      # LOCAL ring layers (gemma3-12b)
+            raise ValueError(
+                f"{cfg.name}: paged KV requires an all-global-attention "
+                "stack with masked-mode routing — use kv_mode='dense'")
         for kd in (None, "int8", "int4"):
             print(json.dumps(profile_paged_steps(
                 model, args.batch, args.prompt_len, args.steps, kd)),

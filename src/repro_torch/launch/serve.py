@@ -31,8 +31,14 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --batch 4 --prompt-len 512 --gather              # compacted prefill
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --continuous --paged-kv                          # qk-norm, GQA
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+      --batch 2 --prompt-len 1536 --continuous --decode-steps 8  # LOCAL rings
 
-``--arch`` defaults to llama2-7b (also: qwen3-8b, mamba2-2.7b).  Weights
+``--arch`` defaults to llama2-7b (also: qwen3-8b, gemma3-12b,
+mamba2-2.7b).  gemma3-12b (5 sliding-window LOCAL layers a global one,
+head dim 256, GeGLU) serves lock-step and from the dense pool (single-step
+and ``--decode-steps``); ``--paged-kv``, ``--prefill-chunk``, ``--spec-k``
+and ``--prefix-cache`` raise the reference's errors for it.  Weights
 are random, drawn from seed 0 on the chosen device.  ``--gather`` runs
 gather-mode routing, as the reference's launcher does: each routed
 submodule of a prefill runs on the top-capacity tokens by router score

@@ -53,9 +53,15 @@ def norm_init(dim: int, cfg: ModelConfig, device) -> Params:
                                 device=device)}
 
 
+GLU_ACTS = ("swiglu", "geglu")
+
+
 def mlp_init(gen, cfg: ModelConfig, device) -> Params:
-    if cfg.mlp_act != "swiglu":
-        raise NotImplementedError("the port runs SwiGLU MLPs only")
+    if cfg.mlp_act not in GLU_ACTS:
+        raise NotImplementedError(
+            f"the port runs GLU MLPs only ({', '.join(GLU_ACTS)}); "
+            f"{cfg.mlp_act!r} runs the reference's unfused path (ROADMAP "
+            "queue 1 items 13.3 and 13.6)")
     return {"gu": linear_init(gen, cfg.d_model, 2 * cfg.d_ff, cfg, device),
             "down": linear_init(gen, cfg.d_ff, cfg.d_model, cfg, device)}
 
@@ -96,15 +102,23 @@ def linear_fused(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         gate_mul=gate_mul, emit_sq=emit_sq)
 
 
+def mlp_act_name(cfg: ModelConfig) -> Optional[str]:
+    """The epilogue activation of the MLP's GLU (the reference's
+    ``mlp_act_name``): SwiGLU → silu, GeGLU (and ``gelu_mlp``) → gelu."""
+    return {"swiglu": "silu", "geglu": "gelu", "gelu_mlp": "gelu"}.get(
+        cfg.mlp_act, "gelu")
+
+
 def mlp_apply_fused(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     norm: Params, stats: torch.Tensor,
                     residual: Optional[torch.Tensor] = None,
                     gate_mul: Optional[torch.Tensor] = None,
                     emit_sq: bool = False):
-    """Norm-prologue × widened [gate|up] × GLU, then the down projection with
-    the gate/residual/Σy² epilogue.  Returns (out, Σy² or None)."""
+    """Norm-prologue × widened [gate|up] × GLU (SwiGLU or GeGLU), then the
+    down projection with the gate/residual/Σy² epilogue.  Returns (out,
+    Σy² or None)."""
     h, _ = linear_fused(params["gu"], x, cfg, norm=norm, stats=stats,
-                        glu=True, act="silu")
+                        glu=True, act=mlp_act_name(cfg))
     return linear_fused(params["down"], h, cfg, residual=residual,
                         gate_mul=gate_mul, emit_sq=emit_sq)
 

@@ -60,13 +60,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _pad_cache_to(cache: List[Dict], T: int, pad_to: int) -> List[Dict]:
-    """Grow each layer's [B, T, Hkv, dh] KV view to pad_to (decode room);
-    a Mamba layer's conv histories and state are left as they are."""
+    """Grow each layer's [B, T, Hkv, dh] KV view to pad_to (decode room); a
+    LOCAL layer's ring (W long, from a prompt longer than W), a Mamba
+    layer's conv histories and state are left as they are (the
+    reference's ``_pad_cache_to`` grows only the leaves T long)."""
     out = []
     for ce in cache:
         grown = {}
         for name, kv in ce.items():
-            if name not in ("k", "v"):
+            if name not in ("k", "v") or kv.shape[1] != T:
                 grown[name] = kv
                 continue
             g = torch.zeros((kv.shape[0], pad_to) + tuple(kv.shape[2:]),

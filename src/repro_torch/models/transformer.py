@@ -1,6 +1,6 @@
 """Layer stack: a Python loop over per-layer blocks (the reference's
-``lax.scan`` over ``stack.stages``): all-global-attention stacks, or
-attention-free Mamba-2 stacks.
+``lax.scan`` over ``stack.stages``): attention stacks of global (ATTN) and
+sliding-window (LOCAL) layers, or attention-free Mamba-2 stacks.
 
 Counterpart of ``stage_forward`` / ``stage_decode`` /
 ``stage_prefill_chunk`` / ``stage_decode_paged`` / ``stage_verify_paged``
@@ -10,6 +10,15 @@ in the JAX package's ``models/transformer.py``.  An attention block is
 reference's stages.
 A Mamba block is {"mixer": routed SSM}; it consumes the Σy²/D carry but
 emits none, and its cache entry is {"conv_x", "conv_bc", "ssm"}.
+
+Caches, as the reference keeps them: a global layer's dense view [B, Tmax,
+Hkv, dh]; a LOCAL layer's ring [B, W, Hkv, dh] (W = ``cfg.window_size``),
+position p at slot p mod W, once the prompt is longer than W
+(``_ring_from_linear``), else its linear view grown like a global layer's.
+Decode writes a ring where the cache is exactly W long (the ``ring``
+of ``skip_block.routed_attention_decode``, the reference's
+``_ring_attention_decode``) and otherwise attends the linear view under
+the window.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.core import routing, skip_block
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, ssm as ssm_mod
@@ -30,33 +39,34 @@ def is_ssm_stack(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense RMSNorm stacks that are either all global
-    attention with GLU MLPs (qk-norm optional), or all Mamba-2 with no
-    MLP, in masked or gather routing.  Each refusal names the ROADMAP
-    queue 1 item that will port it."""
+    """The port runs dense RMSNorm stacks that are either attention (global
+    and sliding-window LOCAL layers) with GLU MLPs (qk-norm optional), or
+    all Mamba-2 with no MLP, in masked or gather routing.  Each refusal
+    names the ROADMAP queue 1 item that will port it."""
     if is_ssm_stack(cfg):
         if cfg.d_ff:
             raise NotImplementedError("Mamba blocks with an MLP are not "
-                                      "ported yet (ROADMAP queue 1 item 13)")
-    elif any(cfg.block_kind(i) != ATTN for i in range(cfg.num_layers)):
-        raise NotImplementedError("only all-global-attention or all-Mamba "
-                                  "stacks are ported (LOCAL ring caches "
-                                  "and hybrids: ROADMAP queue 1 item 13)")
+                                      "ported yet (ROADMAP queue 1 item "
+                                      "13.5)")
+    elif any(cfg.block_kind(i) not in (ATTN, LOCAL)
+             for i in range(cfg.num_layers)):
+        raise NotImplementedError("hybrid attention / Mamba stacks are not "
+                                  "ported yet (ROADMAP queue 1 item 13.5)")
     elif not cfg.d_ff:
         raise NotImplementedError("blocks without an MLP are not ported "
                                   "(ROADMAP queue 1 item 13)")
     if cfg.num_experts or cfg.moe_every:
         raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "queue 1 item 13)")
+                                  "queue 1 item 13.4)")
     if cfg.frontend != "token":
         raise NotImplementedError("only token frontends are ported (ROADMAP "
-                                  "queue 1 item 13)")
+                                  "queue 1 item 13.6)")
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError("only RMSNorm stacks are ported "
-                                  "(layernorm: ROADMAP queue 1 item 13)")
+                                  "(layernorm: ROADMAP queue 1 item 13.3)")
     if cfg.kv_cache_layout != "bthd":
         raise NotImplementedError("the port's decode cache is bthd only "
-                                  "(bhtd: ROADMAP queue 1 item 13)")
+                                  "(bhtd: ROADMAP queue 1 item 13.7)")
 
 
 def is_gather(cfg: ModelConfig) -> bool:
@@ -106,13 +116,22 @@ def stack_forward(blocks: List[Params], x: torch.Tensor,
     cache: List[Dict] = []
     gates: List[torch.Tensor] = []
     view, sq = None, None
-    for bp in blocks:
+    T, W = x.shape[1], cfg.window_size
+    for i, bp in enumerate(blocks):
+        local = cfg.block_kind(i) == LOCAL
+        # the KV view threads through LOCAL and global layers alike, as in
+        # the reference; a LOCAL layer attends under its window
         x, view, s = skip_block.routed_attention(
-            bp["mixer"], x, view, positions, cfg, carried_sq=sq)
+            bp["mixer"], x, view, positions, cfg,
+            window=W if local else 0, carried_sq=sq)
         sq = s.pop("res_sq")
         gates.append(s["attn_gate"])
         stats = _acc_stats(stats, s, cfg.skip.route_attention)
-        cache.append({"k": view[0], "v": view[1]})
+        if local and W and T > W:
+            cache.append({"k": _ring_from_linear(view[0], W),
+                          "v": _ring_from_linear(view[1], W)})
+        else:
+            cache.append({"k": view[0], "v": view[1]})
         x, s = skip_block.routed_mlp(bp["ffn"], x, cfg, carried_sq=sq)
         sq = s.pop("res_sq")
         stats = _acc_stats(stats, s, cfg.skip.route_mlp)
@@ -132,10 +151,16 @@ def stack_decode(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
     stats = _zero_stats(x.device)
     gates: List[torch.Tensor] = []
     kv_prev, sq = None, None
-    for bp, ce in zip(blocks, cache):
+    W = cfg.window_size
+    for i, (bp, ce) in enumerate(zip(blocks, cache)):
+        local = cfg.block_kind(i) == LOCAL
+        # a LOCAL layer whose cache is exactly W long is a ring; any other
+        # (max_len < W, or a prompt ≤ W grown past W) attends its linear
+        # view under the window, as a global layer attends with none
+        ring = W if local and ce["k"].shape[1] == W else 0
         x, ce["k"], ce["v"], kv_prev, s = skip_block.routed_attention_decode(
             bp["mixer"], x, ce["k"], ce["v"], t, kv_prev, positions, cfg,
-            carried_sq=sq)
+            window=W if local and not ring else 0, ring=ring, carried_sq=sq)
         sq = s.pop("res_sq")
         gates.append(s["attn_gate"])
         stats = _acc_stats(stats, s, cfg.skip.route_attention)
@@ -144,6 +169,25 @@ def stack_decode(blocks: List[Params], cache: List[Dict], x: torch.Tensor,
         stats = _acc_stats(stats, s, cfg.skip.route_mlp)
     stats["attn_gate"] = torch.stack(gates)
     return x, cache, stats, sq
+
+
+def _ring_from_linear(kv: torch.Tensor, W: int) -> torch.Tensor:
+    """[B, T, H, d] -> ring buffer [B, W, H, d]: slot s holds the latest
+    position ≡ s (mod W) (the reference's ``_ring_from_linear``)."""
+    T = kv.shape[1]
+    if T <= W:
+        return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, W - T))
+    tail = kv[:, T - W:]                                # positions T-W..T-1
+    return torch.roll(tail, (T - W) % W, dims=1)
+
+
+def ring_positions(t: torch.Tensor, W: int) -> torch.Tensor:
+    """Absolute position stored in each ring slot after writing position
+    t: slot s holds p = t - ((t - s) mod W); p < 0 is an empty slot (the
+    reference's ``ring_positions``).  t: scalar or [...] -> [..., W]."""
+    t = torch.as_tensor(t)
+    s = torch.arange(W, device=t.device)
+    return t[..., None] - torch.remainder(t[..., None] - s, W)
 
 
 def stack_prefill_chunk(blocks: List[Params], cache: List[Dict],

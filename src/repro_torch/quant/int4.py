@@ -80,3 +80,16 @@ def quantize_params(params, group_size: int = 128, pow2_scales: bool = True,
         return tree
 
     return walk(params)
+
+
+def int4_linears(params) -> bool:
+    """Whether the blocks' linears hold int4 codes (``quantize_params``
+    treats every block alike, so the first block's mixer says)."""
+    inner = params["blocks"][0]["mixer"]["inner"]
+    return any(isinstance(v, dict) and "w_int" in v for v in inner.values())
+
+
+def int4_head(params) -> bool:
+    """Whether the lm head is an int4 linear (a tied head, gemma3-12b's,
+    is the embedding's transpose: a plain matmul, as the reference's)."""
+    return "w_int" in params.get("lm_head", {})

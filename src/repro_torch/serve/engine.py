@@ -48,7 +48,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LOCAL, ModelConfig
 from repro_torch.core import kv_reuse, routing
 from repro_torch.kvcache import history as history_mod
 from repro_torch.kvcache import paged as paged_mod
@@ -360,7 +360,9 @@ class ServeEngine:
 def init_pool(cfg: ModelConfig, max_slots: int, max_len: int,
               device) -> List[Dict[str, torch.Tensor]]:
     """The continuous engine's dense pool, allocated once: per layer {"k",
-    "v"} [max_slots, max_len, Hkv, dh] zeros, or for a Mamba stack
+    "v"} [max_slots, extent, Hkv, dh] zeros, the extent max_len for a
+    global layer and min(W, max_len) for a LOCAL one (its ring, as the
+    reference's ``init_decode_cache`` sizes it), or for a Mamba stack
     {"conv_x" [S, W-1, di], "conv_bc" [S, W-1, 2GN], "ssm" [S, H, P, N]
     fp32}."""
     dt = layers.torch_dtype(cfg)
@@ -374,10 +376,15 @@ def init_pool(cfg: ModelConfig, max_slots: int, max_len: int,
                                      cfg.ssm_headdim, cfg.ssm_state),
                                     dtype=torch.float32, device=device)}
                 for _ in range(cfg.num_layers)]
-    shape = (max_slots, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in range(cfg.num_layers)]
+    W = cfg.window_size
+    out = []
+    for i in range(cfg.num_layers):
+        extent = (min(W, max_len) if cfg.block_kind(i) == LOCAL and W
+                  else max_len)
+        shape = (max_slots, extent, cfg.num_kv_heads, cfg.resolved_head_dim)
+        out.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                    "v": torch.zeros(shape, dtype=dt, device=device)})
+    return out
 
 
 def pool_insert(pool: List[Dict], cache: List[Dict], slot: int
@@ -385,10 +392,17 @@ def pool_insert(pool: List[Dict], cache: List[Dict], slot: int
     """Overwrite row ``slot`` of every pool leaf, in place, with a
     single-request prefill cache (batch 1; KV padded to max_len).  Every
     leaf is written whole: an SSM state, which no position masks, must
-    not keep anything of the slot's previous request."""
+    not keep anything of the slot's previous request.  A LOCAL layer's
+    row is cut to its ring's extent, as the reference's ``_align_kv_row``
+    does: a prompt ≤ W was collected linearly, and below W slot s holds
+    position s, so the prefix is the ring; a longer prompt's cache is
+    already the ring."""
     for pe, ce in zip(pool, cache):
         for name, leaf in pe.items():
-            leaf[slot].copy_(ce[name][0])
+            row = ce[name][0]
+            if name in ("k", "v") and row.shape[0] != leaf.shape[1]:
+                row = row[:leaf.shape[1]]
+            leaf[slot].copy_(row)
     return pool
 
 

@@ -85,6 +85,72 @@ def test_plan_matches_hand_worked_values(key, dh):
     assert p.smem == _SMEM[(p.route, dh)]
 
 
+# gemma3-12b (16 heads over 8 kv heads, dh 256, window 1024): lock-step
+# prefill 2 × 1536 (R = G·T 3072 over B·Hkv 16), a dense-pool prefill of
+# one 1000-token prompt, decode of 4 slots over a LOCAL layer's ring of
+# 1024 keys and a global layer's 1600-row cache, a 4-token prefill.
+_SHAPES_256 = {"prefill": (16, 3072, 1536), "prompt1000": (8, 2000, 1000),
+               "ring": (32, 2, 1024), "global": (32, 2, 1600),
+               "prefill4": (8, 8, 4)}
+# Worked out by hand as _EXPECTED, with the tile's 64-key tiles at dh 256;
+# the SIMT kernel's 82112 bytes (K [32][257], V [32][256], Q [16][256]
+# fp32 and 16 positions) are dynamic, past the 48 KB static limit.
+_EXPECTED_256 = {
+    ("prefill", _BF): ("wgmma", 128, 64, 1, 0, (132, 1), 197712),
+    ("prompt1000", _BF): ("wgmma", 128, 64, 1, 0, (128, 1), 197712),
+    ("ring", _BF): ("splitkv", 16, 64, 8, 128, (8, 32), 143616),
+    ("global", _BF): ("splitkv", 16, 64, 8, 208, (8, 32), 143616),
+    ("prefill4", _BF): ("splitkv", 16, 64, 1, 16, (1, 8), 143616),
+    ("prefill", _F32): ("simt", 16, 32, 1, 0, (192, 16), 82112),
+    ("ring", _F32): ("simt", 16, 32, 1, 0, (1, 32), 82112),
+}
+# the tile's static shared memory beside its dynamic: positions [2][128]
+# and the items' ranges [2][5], int32
+_WG_STATIC = (2 * 128 + 2 * 5) * 4
+
+
+@pytest.mark.parametrize("key", list(_EXPECTED_256),
+                         ids=lambda k: f"{k[0]}-{str(k[1])[6:]}")
+def test_plan_dh256_matches_hand_worked_values(key):
+    name, dtype = key
+    p = fa.plan(*_SHAPES_256[name], 256, dtype)
+    assert (p.route, p.tile_r, p.tile_k, p.splits, p.kc, p.grid, p.smem) \
+        == _EXPECTED_256[key]
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_every_plan_fits_shared_memory(dh):
+    """Every route's shared memory fits a block of the H100: 227 KB of
+    dynamic shared memory (the tile's static positions beside it), and the
+    SIMT tile 48 KB of static or 227 KB of dynamic."""
+    for BH, R, Tk in _WALKS + list(_SHAPES_256.values()):
+        for dt in (_BF, _F32):
+            p = fa.plan(BH, R, Tk, dh, dt)
+            static = _WG_STATIC if p.route == "wgmma" else 0
+            assert p.smem + static <= fa.SMEM_MAX
+            if p.route == "simt":
+                tile = (32 * (2 * dh + 1) + 16 * dh) * 4 + 16 * 4
+                assert p.smem == (0 if tile <= fa.SIMT_STATIC_MAX else tile)
+                assert p.smem == (82112 if dh == 256 else 0)
+
+
+_PINNED = {  # today's dh 32/64/128 plans, pinned: (route, tile_k, smem)
+    (32, _BF, 3072): ("wgmma", 128, 99408),
+    (64, _BF, 3072): ("wgmma", 128, 99408),
+    (128, _BF, 3072): ("wgmma", 128, 197712),
+    (32, _BF, 2): ("splitkv", 64, 21760),
+    (64, _BF, 2): ("splitkv", 64, 39168),
+    (128, _BF, 2): ("splitkv", 64, 73984)}
+
+
+@pytest.mark.parametrize("dh,dt,R", list(_PINNED),
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_earlier_head_dims_unchanged(dh, dt, R):
+    p = fa.plan(16, R, 1536, dh, dt)
+    assert (p.route, p.tile_k, p.smem) == _PINNED[(dh, dt, R)]
+    assert fa.plan(16, R, 1536, dh, _F32).smem == 0
+
+
 def _items(p: fa.Plan, BH: int, R: int):
     """The tile's work items as its blocks walk them (``wg_item`` in the
     source): block x takes item j·P + x in even rounds and j·P + P-1-x in
@@ -108,12 +174,23 @@ _WALKS = [(128, 512, 512), (32, 512, 512), (32, 256, 256), (4, 80, 70),
 @pytest.mark.parametrize("dtype", [_BF, _F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("BH,R,Tk", _WALKS)
 def test_grid_covers_every_row_and_key_once(BH, R, Tk, dtype):
+    _walk(BH, R, Tk, 64, dtype)
+
+
+@pytest.mark.parametrize("dtype", [_BF, _F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("BH,R,Tk", list(_SHAPES_256.values()))
+def test_grid_covers_every_row_and_key_once_dh256(BH, R, Tk, dtype):
+    """The walk at gemma3's shapes and dh 256: the tile's 64-key tiles."""
+    _walk(BH, R, Tk, 256, dtype)
+
+
+def _walk(BH, R, Tk, dh, dtype):
     """Walked as the kernels walk it, the plan's grid covers each packed
     row of each (b, kv-head) once, and each key below a causal limit once:
     the tile and the SIMT kernel walk a row tile's keys [0, limit) in
     whole tiles; the split-KV clusters cut [0, Tk) into kc-key splits, none
     of them empty."""
-    p = fa.plan(BH, R, Tk, 64, dtype)
+    p = fa.plan(BH, R, Tk, dh, dtype)
     rows = np.zeros((BH, R), np.int64)
     if p.route == "wgmma":
         seen = list(_items(p, BH, R))
@@ -150,6 +227,21 @@ def test_grid_covers_every_row_and_key_once(BH, R, Tk, dtype):
             for t in range(-(-limit // p.tile_k)):
                 keys[t * p.tile_k:(t + 1) * p.tile_k] += 1
             assert (keys[:limit] == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [_BF, _F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", chip_smoke.FLASH_RAGGED,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ragged_cases_plan_and_walk(case, dtype):
+    """chip_smoke's ragged flash cases, dh 256 among them: bf16 takes the
+    tile where G·Tq > 16 and the split-KV walk otherwise, fp32 the SIMT
+    kernel, and each plan's grid covers every row and key once."""
+    B, Tq, Tk, Hq, Hkv, dh, _, _ = case
+    R = Hq // Hkv * Tq
+    route = fa.plan(B * Hkv, R, Tk, dh, dtype).route
+    assert route == ("simt" if dtype == _F32 else
+                     "wgmma" if R > fa.SPLITKV_MAX_R else "splitkv")
+    _walk(B * Hkv, R, Tk, dh, dtype)
 
 
 @pytest.mark.parametrize("R", [1, 4, 16, 17, 24, 37, 512])

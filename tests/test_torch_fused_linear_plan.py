@@ -225,3 +225,53 @@ def test_mirrored_operand_stays_within_bf16_tolerance(M, K, F, glu):
     o0, s0 = chip_smoke.fused_linear_mirror(torch, x, w, **kw0)
     r0, q0 = ref.fused_linear_ref(x, w, **kw0)
     assert torch.equal(o0, r0) and torch.equal(s0, q0)
+
+
+# The kernel of each route and the epilogue it runs its activation through
+# (``apply_act`` of csrc/fused_epilogue.cuh, directly or by ``store_tile``
+# / ``store_frag``).
+_ROUTE_KERNELS = {
+    ("fused_linear.cu", "fused_linear_kernel"): "store_tile",     # SIMT
+    ("fused_linear.cu", "fused_linear_tc"): "store_frag",         # wgmma
+    ("fused_linear.cu", "splitk_epilogue"): "apply_act",          # split-K
+    ("fused_linear_int4.cu", "int4_tc"): "store_frag",            # s8 tile
+    ("fused_linear_int4.cu", "int4_stream"): "apply_act"}         # stream
+
+
+def _kernel_body(src: str, name: str) -> str:
+    """The text of __global__ ``name``'s body (to its closing brace)."""
+    at = src.index("\n" + name + "(")
+    start = src.index("{", src.index(")", at))
+    depth, i = 0, start
+    while True:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+        i += 1
+
+
+@pytest.mark.parametrize("act", [None, "silu", "gelu"])
+def test_gelu_reaches_every_route(act):
+    """Every route of the dense and int4 fused linear takes ``gelu``: the
+    wrapper's code for it is the epilogue's ``kActGelu``, the plans pick
+    each route for it as for any activation, the checks pass it, and each
+    route's kernel applies ``apply_act`` in its epilogue.  An unknown
+    activation still raises."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    epi = (csrc / "fused_epilogue.cuh").read_text()
+    assert f"constexpr int kActGelu = {fl._ACTS['gelu']};" in epi
+    assert f"constexpr int kActSilu = {fl._ACTS['silu']};" in epi
+    for (name, kern), via in _ROUTE_KERNELS.items():
+        assert via in _kernel_body((csrc / name).read_text(), kern), kern
+    routes = set()
+    for M, dt in ((4, _BF), (256, _BF), (4, _F32), (256, _F32)):
+        x = torch.zeros((M, 64), dtype=dt)
+        for glu in (False, True):
+            assert fl._check_common(x, 128, act, None, None, glu) == \
+                (64 if glu else 128)
+            routes.add(fl.plan(M, 64, 64, glu, dt).route)
+            routes.add("int4_" + fl.plan_int4(M, 64, 64, 64, 1, glu,
+                                              dt).route)
+    assert routes == {"wgmma", "splitk", "simt", "int4_tc", "int4_stream"}
+    with pytest.raises(ValueError, match="activation"):
+        fl._check_common(torch.zeros((4, 64)), 128, "relu", None, None, True)
