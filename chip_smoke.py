@@ -342,9 +342,39 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 GATHER_MARGIN, and counted); (d) the paged, chunked,
                 bucketed, speculative and prefix-cache engines refuse it
                 with the reference's errors.
+ 19. stablelm_deepseek — stablelm-3b (LayerNorm: every routed block on
+                the reference's unfused path, the plain router product,
+                (μ, σ²) and ``x @ w`` or the int4 matmul; head dim 80;
+                partial rotary 0.25) and deepseek-coder-33b (56 query heads
+                over 8 kv heads: G 7; d 7168, d_ff 19200, ~66.7 GB of
+                bf16), its line emitted after phase 18's, run after the
+                gemma3 weights are freed: (a) flash at dh 80 (prefill 4 ×
+                512 on the tile, decode over 544 keys on the split-KV walk,
+                fp32 on the SIMT kernel, a chunk's geometry), paged at dh 80
+                in bf16, int8 and int4 pages (kv-heads in groups of 4: the
+                odd ones' int4 rows 8-byte aligned), flash and paged at
+                G 7, ragged dh 80 and G 7 cases (``FLASH_RAGGED_19``,
+                ``PAGED_RAGGED_19``), the int4 matmul (tile M 2048, stream
+                M 4) at stablelm's four linears beside bf16
+                ``torch.matmul``, the fused linear's four routes at
+                deepseek's four linears, phase 3's checks; (b) stablelm at
+                full width in bf16: lock-step 4 × 512 + 32, phase 6's
+                traffic in the dense pool single-step and fused, bf16
+                pages single-step and fused, int8 and int4 pages, chunk
+                128, spec_k 4, phase 13's traffic with the prefix cache on
+                and off, gather lock-step, int4 weights lock-step and
+                fused: exact launches per route, finite logits, pages
+                conserved, prefill_s, tok/s, peak memory; (c) the fp32
+                witness at full widths cut to 4 layers: CPU ≡ CUDA over a
+                300-token prompt and 4 forced steps, and the dense and
+                paged pools' tokens, with ``GateReplay``; (d)
+                deepseek-coder-33b at full width, bf16 lock-step and the
+                dense pool single-step and fused, then the int4 tree built
+                layer by layer as drawn lock-step and fused: exact launches
+                per route, peak memory under the card's.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18 (their fp32
-witness runs included; not phase 16's subprocesses),
+runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 (their
+fp32 witness runs included; not phase 16's subprocesses),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's, 12's and 14's replayed launches stand in their own lines,
 derived, and in no sum; for the paged SIMT route, which only fp32 serving
@@ -353,13 +383,14 @@ scan's SIMT route over phase 9's fp32 cuda runs, all counted from 0 too;
 the dense fused linear
 as its two bf16 kernels, ``fused_linear_wgmma`` and ``fused_linear_splitk``,
 the int4 fused linear as ``fused_linear_int4_tc`` and
-``fused_linear_int4_stream``, the int4 matmul as ``int4_matmul_stream``
-(its tile is off the main path), and flash attention as
+``fused_linear_int4_stream``, the int4 matmul as ``int4_matmul_tc`` (on
+stablelm-3b's int4 prefills since phase 19) and ``int4_matmul_stream``,
+and flash attention as
 ``flash_attention_wgmma`` and ``flash_attention_splitkv``, and paged
 attention as ``paged_attention_split`` and ``paged_attention_simt``, and
 the SSD scan as ``ssd_scan_tc`` and ``ssd_scan_simt``, by the route
-counters; the times summed over phase 3's shapes and phase 18's gemma3
-shapes of the same routes), and last the contract
+counters; the times summed over phase 3's shapes and phase 18's and
+19's shapes of the same routes), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -418,6 +449,7 @@ TOL_KEEP = 1e-6   # keep-fraction sums, cpu against cuda (phase 9)
 
 TPU_KERNELS = {
     "router_stats": "src/repro/kernels/fused_router_rmsnorm.py:55",
+    "int4_matmul_tc": "src/repro/kernels/int4_matmul.py:66",
     "fused_linear_wgmma": "src/repro/kernels/fused_linear.py:135",
     "fused_linear_splitk": "src/repro/kernels/fused_linear.py:135",
     "fused_linear_int4_tc": "src/repro/kernels/fused_linear.py:93",
@@ -432,6 +464,7 @@ TPU_KERNELS = {
 }
 SOURCES = {
     "router_stats": "src/repro_torch/kernels/csrc/router_stats.cu",
+    "int4_matmul_tc": "src/repro_torch/kernels/csrc/fused_linear_int4.cu",
     "fused_linear_wgmma": "src/repro_torch/kernels/csrc/fused_linear.cu",
     "fused_linear_splitk": "src/repro_torch/kernels/csrc/fused_linear.cu",
     "fused_linear_int4_tc":
@@ -857,7 +890,7 @@ INT4_TOL = ("the plain version summed in the route's order: bit for bit "
             f"difference; Σy² {TOL_SQ} rel; exact dequant {TOL_BFP}·max")
 
 
-def check_fused_linear_int4(torch, dev, timer, cfg):
+def check_fused_linear_int4(torch, dev, timer, cfg, Ms=(2048, 512, 256, 4)):
     """The int4-BFP fused linear at the four linears of a llama2-7b block:
     M 2048 (lock-step prefill), 512 and 256 (the continuous buckets) on the
     tensor-core tile and M 4 (decode) on the split-K stream, in bf16 and
@@ -869,7 +902,7 @@ def check_fused_linear_int4(torch, dev, timer, cfg):
     G = cfg.quant.group_size
     g = torch.Generator(device=dev).manual_seed(17)
     shapes = {"tc": [], "stream": []}
-    for M in (2048, 512, 256, 4):
+    for M in Ms:
         for name, K, N, glu, pro, epi in linear_shapes(cfg):
             F = N // 2 if glu else N
             codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
@@ -1047,11 +1080,13 @@ def flash_call(torch, q, k, v, qpos, kvl, what, **kw):
 
 def check_flash(torch, dev, timer, cfg):
     """Flash attention at a config's main-path shapes (llama2-7b; qwen3-8b's
-    G = 4 in phase 17): prefill (4 × 512, causal) on the tensor-core tile
+    G = 4 in phase 17; stablelm-3b's dh 80 and deepseek-coder-33b's G 7 in
+    phase 19): prefill (4 × 512, causal) on the tensor-core tile
     and decode (B 4 against a 544-row cache, kv_len 544) on the split-KV
     walk in bf16, each timed beside its plain version and SDPA (its GQA
     mode where G > 1); the same inputs in fp32 on the SIMT kernel (the
-    parity route), checked and timed too.  Returns the shape records by
+    parity route), checked and timed too, beside SDPA on the fp32 inputs
+    (TF32 off).  Returns the shape records by
     bf16 route."""
     import torch.nn.functional as Fn
     from repro_torch.kernels import flash_attention as fa
@@ -1082,7 +1117,10 @@ def check_flash(torch, dev, timer, cfg):
         qf, kf, vf = (t.float() for t in (q, k, v))
         ms_s = timer(lambda: fa.flash_attention_cuda(qf, kf, vf, qpos, kvl,
                                                      scale=scale))
-        del qf, kf, vf
+        qft, kft, vft = (t.transpose(1, 2) for t in (qf, kf, vf))
+        ms_sl = timer(lambda: Fn.scaled_dot_product_attention(
+            qft, kft, vft, is_causal=t_last is None, enable_gqa=H != Hkv))
+        del qf, kf, vf, qft, kft, vft
         ms_k = timer(lambda: fa.flash_attention_cuda(q, k, v, qpos, kvl,
                                                      scale=scale))
         ms_p = timer(lambda: fa.flash_attention_plain(q, k, v, qpos, kvl,
@@ -1107,6 +1145,7 @@ def check_flash(torch, dev, timer, cfg):
                    f"{TOL_FLASH_MIRROR}·max of the mirror (P rounded as the "
                    f"route rounds it); fp32 {TOL_F32}·max|ref|",
             "errors": {"bfloat16": errs["bfloat16"]}, "simt_f32_ms": ms_s,
+            "simt_f32_library_ms": ms_sl,
             "simt_f32_bound_ms": b32, "simt_f32_bound_by": by32,
             "simt_f32_errors": dict(errs["float32"],
                                     tol=f"{TOL_F32}·max|ref|")})
@@ -2199,7 +2238,10 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     fused linears per layer (the int4 kernel for int4 weights), the lm head
     through the int4 matmul for int4 weights (else a plain matmul), and
     one attention per layer: flash, or paged attention for a paged step.
-    The dense fused linears also by route, as ``fl.plan`` picks it from a
+    A LayerNorm stack (stablelm-3b) runs the unfused path: no router_stats
+    and no fused linear (bf16 linears are plain matmuls), and with int4
+    weights its four linears a layer go through the int4 matmul, by
+    route as the lm head's.  The dense fused linears also by route, as ``fl.plan`` picks it from a
     forward's rows and the dtype: bf16 prefills above SPLITKV_MAX_M rows on
     the tensor-core tile, decode steps (and prefills of at most that many
     rows) on the split-K stream, fp32 on the SIMT kernel.  Flash attention
@@ -2250,6 +2292,7 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     from repro_torch.quant import int4_head, int4_linears
     p = model.params()
     int4, head4 = int4_linears(p), int4_head(p)
+    fuse = layers.fuse_norm_linear(cfg)
     Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     G = cfg.num_heads // Hkv
     gather = transformer.is_gather(cfg)
@@ -2273,11 +2316,12 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
         def int4_route(rows):      # the route is the rows' alone
             return fl.plan_int4(rows, D, V, Kw // C, C, False, dt).route
 
+    lin4 = "fused_linear_int4" if fuse else "int4_matmul"
     for i, (rows, b, R, Tk) in enumerate(forwards):
         for m, n in rows.items():
             if int4:
-                routes["fused_linear_int4_" + int4_route(m)] += n
-            else:
+                routes[f"{lin4}_" + int4_route(m)] += n
+            elif fuse:
                 routes["fused_linear_" + fl.plan(m, D, D, False,
                                                  dt).route] += n
         if head4:
@@ -2288,10 +2332,11 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
         else:       # the route takes q's dtype and G alone
             routes["paged_attention_" + pa.plan(b, Hkv, G, dh, Tk, None,
                                                 dt).route] += L
-    return {"router_stats": fwd, "ssd_scan": 0,
-            "fused_linear": 0 if int4 else 4 * L * fwd,
-            "fused_linear_int4": 4 * L * fwd if int4 else 0,
-            "int4_matmul": fwd if head4 else 0,
+    return {"router_stats": fwd if fuse else 0, "ssd_scan": 0,
+            "fused_linear": 4 * L * fwd if fuse and not int4 else 0,
+            "fused_linear_int4": 4 * L * fwd if fuse and int4 else 0,
+            "int4_matmul": (fwd if head4 else 0) + (
+                4 * L * fwd if int4 and not fuse else 0),
             "flash_attention": L * (n_pf if paged else fwd),
             "paged_attention": L * n_st if paged else 0, **routes}
 
@@ -3214,9 +3259,11 @@ def prefix_run(torch, np, dev, model, finite, eng, label, prompts, new,
     wrappers' launches)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
+    from repro_torch.models import layers
     cfg, L = model.cfg, model.cfg.num_layers
     G = cfg.num_heads // cfg.num_kv_heads
     bf16 = cfg.dtype != "float32"
+    fuse = layers.fuse_norm_linear(cfg)     # else bf16 plain matmuls
     uids = [eng.submit(p, max_new_tokens=new) for p in prompts]
     seen, warm = {}, []
     if eng.prefix is not None:
@@ -3252,8 +3299,10 @@ def prefix_run(torch, np, dev, model, finite, eng, label, prompts, new,
                      "wgmma" if r[1] > fl.SPLITK_MAX_M else "splitk")
             flash = ("simt" if not bf16 else
                      "wgmma" if G * r[1] > fa.SPLITKV_MAX_R else "splitkv")
-            want = {"router_stats": 1, f"fused_linear_{route}": 4 * L,
-                    f"flash_attention_{flash}": L}
+            want = {f"flash_attention_{flash}": L}
+            if fuse:
+                want.update({"router_stats": 1,
+                             f"fused_linear_{route}": 4 * L})
             moved = {k: v for k, v in per.items() if v and "_" in k
                      and k not in ("fused_linear", "flash_attention")}
             require(moved == want, f"{label}: a warm forward of {r[1]} "
@@ -5823,7 +5872,8 @@ def gemma_flash(torch, dev, timer, cfg):
     1000, 300) on the split-KV walk; each in fp32 on the SIMT kernel.
     Timed beside the plain version and SDPA (GQA; ``is_causal`` for the
     window-0 prefill, a boolean mask where the window or kv_len cuts
-    keys).  Bounds: q, out and the keys a
+    keys), the SIMT kernel beside SDPA on the fp32 inputs (TF32 off).
+    Bounds: q, out and the keys a
     row reads (bytes), 4·dh operations a (row, valid key) pair."""
     import torch.nn.functional as Fn
     from repro_torch.kernels import flash_attention as fa
@@ -5861,7 +5911,6 @@ def gemma_flash(torch, dev, timer, cfg):
         qf, kf, vf = (x.float() for x in (q, k, v))
         ms_s = timer(lambda: fa.flash_attention_cuda(qf, kf, vf, qpos,
                                                      kv_len, **kw))
-        del qf, kf, vf
         keys = torch.arange(Tk, device=dev)[None, None, None, :]
         qp = qpos.long()[:, None, :, None]
         mask = keys <= qp
@@ -5869,8 +5918,13 @@ def gemma_flash(torch, dev, timer, cfg):
             mask = mask & (keys > qp - window)
         if kv_len is not None:
             mask = mask & (keys < kv_len.long()[:, None, None, None])
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         causal = Tq == Tk and not window      # SDPA's own causal kernel
+        qft, kft, vft = (x.transpose(1, 2) for x in (qf, kf, vf))
+        ms_sl = timer(lambda: Fn.scaled_dot_product_attention(
+            qft, kft, vft, attn_mask=None if causal else mask,
+            is_causal=causal, enable_gqa=True))
+        del qf, kf, vf, qft, kft, vft
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms_l = timer(lambda: Fn.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=None if causal else mask,
             is_causal=causal, enable_gqa=True))
@@ -5896,19 +5950,21 @@ def gemma_flash(torch, dev, timer, cfg):
                    f"{TOL_FLASH_MIRROR}·max of the mirror; fp32 "
                    f"{TOL_F32}·max|ref|",
             "errors": {"bfloat16": errs["bfloat16"]}, "simt_f32_ms": ms_s,
+            "simt_f32_library_ms": ms_sl,
             "simt_f32_bound_ms": b32, "simt_f32_bound_by": by32,
             "simt_f32_errors": errs["float32"]})
         del q, k, v, qt, kt, vt, mask, valid
     return out
 
 
-def gemma_model(torch, dev, cfg):
-    """gemma3-12b at its published widths in bf16: seed-0 random weights,
-    router biases zeroed so routing skips.  Returns (model, init_s)."""
+def seeded_model(torch, dev, cfg, int4=False):
+    """``cfg`` at its published widths in bf16: seed-0 random weights
+    (``int4``: quantized layer by layer as drawn, ``init_params``), router
+    biases zeroed so routing skips.  Returns (model, init_s)."""
     from repro_torch.core.routing import neutral_router_bias
     from repro_torch.models.model import LanguageModel
     t = time.perf_counter()
-    model = LanguageModel(cfg, device=dev, seed=0)
+    model = LanguageModel(cfg, device=dev, seed=0, int4=int4)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=dev)
     torch.cuda.synchronize(dev)
@@ -5953,7 +6009,7 @@ def gemma_serve(torch, np, dev, cfg):
     launches)."""
     from repro_torch.models.model import LanguageModel
     from repro_torch.quant import int4_head, int4_linears, quantize_params
-    model, init_s = gemma_model(torch, dev, cfg)
+    model, init_s = seeded_model(torch, dev, cfg)
     B, T0, new = GEMMA_LOCK
     lock, total, lock_toks = serve_full_width(
         torch, np, dev, model, init_s, phase="gemma3_lockstep", B=B, T0=T0,
@@ -6173,6 +6229,432 @@ def gemma_phase(torch, np, dev, timer, floor):
             "graph_launches_derived": derived}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: stablelm-3b (LayerNorm: the unfused path; head dim 80) and
+# deepseek-coder-33b (56 query heads over 8 kv heads; ~66.7 GB of bf16)
+# ---------------------------------------------------------------------------
+
+# (a)'s ragged flash cases beside phase 3's: (B, Tq, Tk, Hq, Hkv, dh,
+# window, kind) as FLASH_RAGGED.  dh 80 on every route (rows of 24, 37
+# under window 8, pads, decode, 16 rows on the split-KV walk, 300 and 129
+# past a tile); G 7 with 7·T rows ending mid-tile (280, a verify window's
+# 35, 133 at dh 80) and 7 / 14 on the split-KV walk.
+FLASH_RAGGED_19 = ((2, 24, 24, 4, 4, 80, 0, "prefill"),
+                   (1, 37, 37, 4, 4, 80, 8, "prefill"),
+                   (2, 40, 70, 8, 8, 80, 0, "tail"),
+                   (3, 1, 50, 8, 8, 80, 0, "decode"),
+                   (2, 1, 544, 4, 4, 80, 0, "short"),
+                   (2, 16, 16, 2, 2, 80, 0, "prefill"),
+                   (1, 300, 300, 32, 32, 80, 0, "prefill"),
+                   (2, 129, 300, 4, 4, 80, 0, "tail"),
+                   (2, 40, 70, 14, 2, 128, 0, "tail"),
+                   (3, 1, 50, 14, 2, 128, 0, "decode"),
+                   (2, 5, 544, 56, 8, 128, 0, "tail"),
+                   (2, 2, 300, 14, 2, 128, 0, "tail"),
+                   (1, 19, 19, 7, 1, 80, 0, "prefill"))
+# (a)'s ragged paged cases: (B, Hkv, G, dh, ps, J, kind) as PAGED_RAGGED.
+# dh 80 in groups of 4 and 2 kv-heads that hold odd heads (whose int4 rows
+# of 40 bytes are only 8-byte aligned) and do not divide Hkv, an odd page,
+# few and empty histories, G 16 and 32 (SIMT); G 7 alone and in groups.
+PAGED_RAGGED_19 = ((16, 6, 1, 80, 16, 512, "random"),
+                   (16, 3, 2, 80, 16, 512, "random"),
+                   (2, 2, 4, 80, 8, 7, "random"),
+                   (2, 2, 4, 80, 4, 3, "empty"),
+                   (1, 3, 1, 80, 5, 9, "random"),
+                   (1, 2, 1, 80, 16, 128, "few"),
+                   (2, 1, 16, 80, 16, 64, "random"),
+                   (1, 1, 32, 80, 8, 5, "random"),
+                   (2, 2, 7, 128, 16, 64, "random"),
+                   (16, 8, 7, 128, 16, 512, "random"),
+                   (1, 1, 7, 80, 16, 40, "front"))
+STABLE_WITNESS_LAYERS = 4        # (c): full widths, 4 of the 32 layers
+STABLE_WITNESS_T = 300           # (c): the forced prompt
+STABLE_WITNESS_STEPS = 4
+STABLE_WITNESS_ENGINE = (120, 200)  # (c): the pools' prompts
+STABLE_WITNESS_NEW = 8
+
+
+def ragged_19(torch, dev):
+    """(a) FLASH_RAGGED_19 and PAGED_RAGGED_19 (each paged case in bf16,
+    int8 and int4 pages) in bf16 and fp32 on the routes their plans pick,
+    against the plain versions with phase 3's tolerances
+    (``flash_call``, ``ragged_paged``); not timed.  Every bf16 route and
+    the SIMT kernels must be taken."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    flash, paged_recs, worst = {}, {}, {}
+    for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        dname = str(dt).split(".")[-1]
+        for case in FLASH_RAGGED_19:
+            B, Tq, Tk, Hq, Hkv, dh, window, kind = case
+            args = flash_ragged_inputs(torch, dev, g, dt, B, Tq, Tk, Hq, Hkv,
+                                       dh, kind)
+            r = flash_call(torch, *args, f"ragged flash {case} {dname}",
+                           window=window, scale=1.0 / math.sqrt(dh))
+            worst["flash_attention"] = max(worst.get("flash_attention", 0.0),
+                                           r["max_abs_err"] / r["max_ref"])
+            flash[f"{kind} B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} dh={dh} "
+                  f"window={window} {dname}"] = r
+        for case in PAGED_RAGGED_19:
+            for kd in (None, "int8", "int4"):
+                r = ragged_paged(torch, dev, g, dt, kd, *case)
+                worst["paged_attention"] = max(
+                    worst.get("paged_attention", 0.0),
+                    r["max_abs_err"] / max(r["max_ref"], 1e-30))
+                paged_recs[f"{case} {kd} {dname}"] = r
+    torch.cuda.synchronize()
+    routes = {(k.split()[-1], r["route"]) for k, r in flash.items()}
+    require(routes == {("bfloat16", "wgmma"), ("bfloat16", "splitkv"),
+                       ("float32", "simt")},
+            f"ragged dh 80 / G 7 flash cases took the routes {routes}")
+    routes = {(k.split()[-1], r["route"]) for k, r in paged_recs.items()}
+    require(routes == {("bfloat16", "split"), ("bfloat16", "simt"),
+                       ("float32", "simt")},
+            f"ragged dh 80 / G 7 paged cases took the routes {routes}")
+    return {"max_err_over_max_ref": worst, "flash_attention": flash,
+            "paged_attention": paged_recs}
+
+
+def stable_int4_matmul(torch, dev, timer, cfg):
+    """(a) The int4 matmul at stablelm-3b's four linears (wqkv 2560→7680,
+    wo 2560→2560, gu 2560→13824, down 6912→2560: the unfused path's
+    ``linear_apply`` with int4 leaves), M 2048 (lock-step prefill) on the
+    s8 tile and M 4 (decode) on the code stream, in bf16 and fp32
+    activations (``int4_call``: the plain version in the route's order,
+    bit for bit; the exact dequant within TOL_BFP), timed beside the plain
+    version and bf16 ``torch.matmul`` of the same shape (not the same
+    function: no single call computes the BFP product).  Returns the shape
+    records by route."""
+    from repro_torch.kernels import int4_matmul as im, ref
+    G = cfg.quant.group_size
+    g = torch.Generator(device=dev).manual_seed(33)
+    shapes = {"tc": [], "stream": []}
+    for M in (2048, 4):
+        for name, K, N, *_ in linear_shapes(cfg):
+            codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
+            x = torch.randn((M, K), generator=g, device=dev).to(
+                torch.bfloat16)
+            errs = {}
+            for dt in (torch.bfloat16, torch.float32):
+                what = f"int4_matmul {name} M={M} {dt}"
+                rec, p = int4_call(torch, x.to(dt), codes, scale, {}, what,
+                                   matmul=True)
+                out = im.int4_matmul_cuda(x.to(dt), codes, scale)
+                eo = ref.int4_matmul_ref(x.to(dt), codes, scale)
+                torch.cuda.synchronize()
+                ee, em = max_err(torch, out, eo)
+                require(ee <= TOL_BFP * em, f"{what}: {ee} from the exact "
+                        f"dequant > {TOL_BFP}·{em}")
+                rec.update(exact_dequant_err=ee, exact_dequant_max=em)
+                errs[str(dt).split(".")[-1]] = rec
+                del out, eo
+            split = p.group_split or None
+            Kw, C = codes.shape[0], scale.shape[0]
+            nbytes = (M * K + M * N) * 2 + Kw * N + C * N * 4
+            b, by = bound_ms(nbytes, 2.0 * M * Kw * N, INT8_OPS_PER_S)
+            shapes[p.route].append({
+                "shape": f"{name} M={M} K={K} N={N} G={G}", "route": p.route,
+                "plan": dataclasses.asdict(p),
+                "ms": timer(lambda: im.int4_matmul_cuda(x, codes, scale)),
+                "plain_ms": timer(lambda: ref.bfp_matmul_ref(x, codes, scale,
+                                                             split)),
+                "library_ms": None,
+                "torch_matmul_bf16_ms": timer(lambda: torch.matmul(x, w)),
+                "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                "tol": INT4_TOL, "errors": errs})
+            del x, codes, scale, w_exact, w
+    return shapes
+
+
+def stable_deepseek_kernels(torch, np, dev, timer, cfg, dcfg, floor):
+    """(a) The kernels at phase 19's shapes: flash at dh 80 (stablelm-3b's
+    32 heads: prefill 4 × 512 on the tile, decode over 544 keys on the
+    split-KV walk, fp32 on the SIMT kernel; ``check_flash``) and at a
+    chunk's geometry (``chunk_flash``); paged attention at dh 80 over
+    512-token histories in bf16, int8 and int4 pages (``check_paged``:
+    groups of 4 kv-heads, the odd ones' int4 rows 8-byte aligned);
+    deepseek-coder-33b's G 7 on flash (tile and split-KV walk) and paged
+    attention (split walk); the ragged cases (``ragged_19``); the int4
+    matmul at stablelm's four linears (``stable_int4_matmul``); the fused
+    linear's four routes at deepseek's four linears (wqkv 7168→9216, wo
+    7168→7168, gu 7168→2·19200, down 19200→7168; ``check_fused_linear``,
+    ``check_fused_linear_int4`` at M 2048 and 4).  Phase 3's checks and
+    tolerances, timed beside the plain versions and SDPA or
+    ``torch.matmul``."""
+    return {"flash_dh80": check_flash(torch, dev, timer, cfg),
+            "flash_dh80_chunk": chunk_flash(torch, dev, timer, cfg, floor),
+            "paged_dh80": check_paged(torch, np, dev, timer, cfg),
+            "flash_g7": check_flash(torch, dev, timer, dcfg),
+            "paged_g7": check_paged(torch, np, dev, timer, dcfg),
+            "ragged": ragged_19(torch, dev),
+            "int4_matmul": stable_int4_matmul(torch, dev, timer, cfg),
+            "fused_linear": check_fused_linear(torch, dev, timer, dcfg),
+            "fused_linear_int4": check_fused_linear_int4(
+                torch, dev, timer, dcfg, Ms=(2048, 4))}
+
+
+def stable_serve(torch, np, dev, cfg):
+    """(b) stablelm-3b at full width in bf16 (seed-0 weights, neutral
+    router bias, ~5.6 GB) on the unfused path: lock-step 4 × 512 + 32;
+    phase 6's 8 requests (seeded anew) in the dense pool single-step and
+    in fused 8-step epochs (the same tokens), bf16 pages single-step and
+    fused (the same tokens), int8 and int4 pages, chunk 128 (dense pool)
+    and ``spec_k`` 4 (dense pool); phase 13's traffic with the prefix
+    cache on beside off (bf16 pages, ``prefix_pair``); gather mode
+    lock-step; the weights quantized on the card (every linear through
+    the int4 matmul) lock-step and in fused epochs.  Exact launches per
+    route in every run (no router_stats and no fused linear: the plain
+    router product and matmuls), finite logits, pages conserved,
+    prefill_s, tok/s and peak memory.  Returns (record, launches summed
+    over the runs, the fused runs' derived graph launches)."""
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.quant import int4_head, int4_linears, quantize_params
+    model, init_s = seeded_model(torch, dev, cfg)
+    lock, total, lock_toks = serve_full_width(
+        torch, np, dev, model, init_s, phase="stablelm_lockstep")
+    total = dict(total)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.integers(128, 513, 8)]
+    runs, tokens, derived = [], {}, {}
+    with FiniteLogits(torch, dev) as finite:
+        for run, kw in (
+                ("dense", dict(kv_mode="dense")),
+                ("fused_dense", dict(kv_mode="dense",
+                                     decode_steps=FUSED_STEPS)),
+                ("paged_bf16", dict(kv_mode="paged")),
+                ("fused_paged_bf16", dict(kv_mode="paged",
+                                          decode_steps=FUSED_STEPS)),
+                ("paged_int8", dict(kv_mode="paged", kv_dtype="int8")),
+                ("paged_int4", dict(kv_mode="paged", kv_dtype="int4")),
+                (f"chunk{CHUNK}_dense", dict(kv_mode="dense",
+                                             prefill_chunk=CHUNK)),
+                (f"spec{SPEC_K}_dense", dict(kv_mode="dense",
+                                             spec_k=SPEC_K))):
+            rec, tokens[run], launches = serve_continuous(
+                torch, dev, model, finite, f"stablelm_{run}", prompts, 32,
+                trace=False, **kw)
+            runs.append(rec)
+            _add(total, launches)
+            _add(derived, rec.get("graph_launches_derived", {}))
+        first, pre = prefix_traffic(np, cfg.vocab_size)
+        prefix = prefix_pair(torch, np, dev, model, finite,
+                             "stablelm_prefix_bf16", first, pre, {}, total)
+    for a, b in (("dense", "fused_dense"), ("paged_bf16", "fused_paged_bf16")):
+        require(all(np.array_equal(x, y) for x, y in zip(tokens[a],
+                                                           tokens[b])),
+                f"stablelm: fused epochs changed the {a} run's tokens")
+    for k in ("flash_attention_wgmma", "flash_attention_splitkv",
+              "paged_attention_split"):
+        require(total[k] > 0, f"stablelm: {k} never launched")
+    require(total["router_stats"] == total["fused_linear"] == 0,
+            "stablelm: the unfused path launched router_stats or a fused "
+            "linear")
+    gm = LanguageModel(with_mode(cfg, "gather"), model.params(), device=dev)
+    gather, launches, _ = serve_full_width(
+        torch, np, dev, gm, 0.0, phase="stablelm_gather_lockstep")
+    _add(total, launches)
+    del gm
+    bf16_bytes = _tree_bytes(model.params())
+    t = time.perf_counter()
+    m4 = LanguageModel(cfg, quantize_params(
+        model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
+        device=dev)
+    torch.cuda.synchronize(dev)
+    quant_s = time.perf_counter() - t
+    del model
+    require(int4_linears(m4.params()) and int4_head(m4.params()),
+            "stablelm int4: the linears or the head are not int4")
+    int4, launches, toks4 = serve_full_width(
+        torch, np, dev, m4, quant_s, phase="stablelm_int4_lockstep")
+    _add(total, launches)
+    with FiniteLogits(torch, dev) as finite:
+        rec, _, launches = serve_continuous(
+            torch, dev, m4, finite, "stablelm_int4_fused_dense", prompts, 32,
+            trace=False, kv_mode="dense", decode_steps=FUSED_STEPS)
+    _add(total, launches)
+    _add(derived, rec["graph_launches_derived"])
+    for k in ("int4_matmul_tc", "int4_matmul_stream"):
+        require(launches[k] > 0 or int4["launches"][k] > 0,
+                f"stablelm int4: {k} never launched")
+    require(int4["launches"]["fused_linear_int4"] == 0,
+            "stablelm int4: a fused int4 linear launched")
+    int4.update(weight_bytes=_tree_bytes(m4.params()),
+                bf16_weight_bytes=bf16_bytes, fused_dense=rec,
+                tokens_equal_to_bf16=token_agreement(np, list(toks4),
+                                                     list(lock_toks)))
+    del m4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "norm_type": cfg.norm_type, "rotary_pct": cfg.rotary_pct,
+            "init_s": init_s, "weight_bytes": bf16_bytes, "lockstep": lock,
+            "prompt_lens": [len(p) for p in prompts], "runs": runs,
+            "prefix": prefix, "gather_lockstep": gather,
+            "int4": int4}, total, derived
+
+
+def stable_witness(torch, np, dev, cfg):
+    """(c) CPU ≡ CUDA in fp32 at stablelm-3b's full widths cut to
+    STABLE_WITNESS_LAYERS layers: a prompt of 300 tokens and 4
+    teacher-forced decode steps, then the dense pool and fp32 pages (2
+    slots, single-step) on prompts of 120 and 200 tokens + 8.  The same
+    seeded weights (neutral router bias) on both devices; on the card the
+    linears are fp32 ``torch.matmul`` (TF32 off), flash and paged
+    attention the SIMT kernels at dh 80.  Each cuda run replays the cpu
+    run's router decisions (``GateReplay``), then its logits are held to
+    ≤ 1e-4·max with equal argmax, and the pools' tokens to the cpu's
+    exactly."""
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              num_layers=STABLE_WITNESS_LAYERS)
+    t = time.perf_counter()
+    params = neutral_router_bias(init_params(
+        cfg, torch.Generator().manual_seed(PARITY_SEED), "cpu"))
+    m_cpu = LanguageModel(cfg, params, device="cpu")
+    m_gpu = LanguageModel(cfg, params, device=dev)
+    rng = np.random.default_rng(PARITY_SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, STABLE_WITNESS_T)))
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, STABLE_WITNESS_STEPS)))
+    forced_gates = GateReplay()
+    with torch.no_grad():
+        with forced_gates.record():
+            lc, _ = _forced_run(m_cpu, toks, forced)
+        with forced_gates.replay():
+            lg, _ = _forced_run(m_gpu, toks.to(dev), forced.to(dev))
+    worst = max((a - b).abs().max().item() / a.abs().max().item()
+                for a, b in zip(lc, lg))
+    require(worst <= TOL_LOGITS, f"stablelm fp32 witness: logits differ "
+            f"(cpu/cuda) by {worst} > {TOL_LOGITS}·max")
+    require(all(torch.equal(a.argmax(-1), b.argmax(-1))
+                for a, b in zip(lc, lg)),
+            "stablelm fp32 witness: greedy tokens differ (cpu/cuda)")
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in STABLE_WITNESS_ENGINE]
+    engines = {}
+    for kv in ("dense", "paged"):
+        gates, outs = GateReplay(), []
+        for m, phase in ((m_cpu, gates.record), (m_gpu, gates.replay)):
+            eng = ContinuousBatchingEngine(
+                m, max_slots=2, max_len=STABLE_WITNESS_T, kv_mode=kv,
+                page_size=PAGE)
+            uids = [eng.submit(p, max_new_tokens=STABLE_WITNESS_NEW)
+                    for p in prompts]
+            with phase():
+                res = eng.run()["results"]
+            outs.append([res[u].tokens for u in uids])
+            if kv == "paged":
+                eng.allocator.check_conservation()
+                require(eng.allocator.free_pages == eng.num_pages,
+                        "stablelm fp32 witness: pages in use at the end")
+        require(all(np.array_equal(a, b) for a, b in zip(*outs)),
+                f"stablelm fp32 witness: {kv} pool tokens differ (cpu/cuda)")
+        engines[kv] = {"gates": gates.summary(), "tokens_identical": True}
+    del m_gpu, params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers,
+            "forced": {"prompts": 1, "prompt_len": STABLE_WITNESS_T,
+                       "steps": STABLE_WITNESS_STEPS,
+                       "gates": forced_gates.summary(),
+                       "logits_max_rel_diff": worst, "tol": TOL_LOGITS,
+                       "argmax_identical": True},
+            "engines": {"prompt_lens": list(STABLE_WITNESS_ENGINE),
+                        "new_tokens": STABLE_WITNESS_NEW, **engines},
+            "gather_margin": GATHER_MARGIN,
+            "seconds": time.perf_counter() - t}
+
+
+def deepseek_serve(torch, np, dev, cfg):
+    """(d) deepseek-coder-33b at full width (seed-0 weights, neutral
+    router bias): bf16 (~66.7 GB) lock-step 4 × 512 + 32 and phase 6's 8
+    requests (seeded anew) in the dense pool single-step and in fused
+    8-step epochs (the same tokens); then, the bf16 weights freed, the
+    int4 tree built layer by layer as drawn (``init_params(int4=True)``:
+    the bf16 and int4 trees together would not fit) lock-step and in
+    fused epochs.  Exact launches per route (flash at G 7: 3584 rows a
+    prefill on the tile, 7 a decode step on the split-KV walk), finite
+    logits, peak memory against the card's.  Returns (record, launches,
+    the fused runs' derived graph launches)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.integers(128, 513, 8)]
+    total, derived, out = {}, {}, {}
+    card = torch.cuda.get_device_properties(dev).total_memory
+    for label, int4 in (("bf16", False), ("int4", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, init_s = seeded_model(torch, dev, cfg, int4=int4)
+        lock, launches, _ = serve_full_width(
+            torch, np, dev, model, init_s, phase=f"deepseek_{label}_lockstep")
+        _add(total, launches)
+        runs, tokens = [], {}
+        loops = [("fused_dense", dict(decode_steps=FUSED_STEPS))]
+        if not int4:
+            loops.insert(0, ("dense", {}))
+        with FiniteLogits(torch, dev) as finite:
+            for run, kw in loops:
+                rec, tokens[run], launches = serve_continuous(
+                    torch, dev, model, finite, f"deepseek_{label}_{run}",
+                    prompts, 32, trace=False, kv_mode="dense", **kw)
+                runs.append(rec)
+                _add(total, launches)
+                _add(derived, rec.get("graph_launches_derived", {}))
+        if not int4:
+            require(all(np.array_equal(a, b) for a, b in zip(
+                tokens["dense"], tokens["fused_dense"])),
+                "deepseek: fused epochs changed the dense pool's tokens")
+        peak = max([lock["max_memory_allocated"]]
+                   + [r["max_memory_allocated"] for r in runs])
+        require(peak < card, f"deepseek {label}: peak {peak} of {card}")
+        out[label] = {"init_s": init_s, "weight_bytes": _tree_bytes(
+            model.params()), "lockstep": lock, "runs": runs,
+            "peak_memory_allocated": peak}
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in ("flash_attention_wgmma", "flash_attention_splitkv",
+              "fused_linear_wgmma", "fused_linear_splitk",
+              "fused_linear_int4_tc", "fused_linear_int4_stream"):
+        require(total[k] > 0, f"deepseek: {k} never launched")
+    return {"config": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "d_ff": cfg.d_ff, "card_memory": card,
+            "prompt_lens": [len(p) for p in prompts], **out}, total, derived
+
+
+def stable_deepseek_phase(torch, np, dev, timer, floor):
+    """Phase 19, stablelm-3b and deepseek-coder-33b: (a) the kernels
+    (``stable_deepseek_kernels``), (b) stablelm served (``stable_serve``),
+    (c) its fp32 witness (``stable_witness``), (d) deepseek served
+    (``deepseek_serve``).  Returns (its line, the launches of its
+    main-path runs)."""
+    from repro_torch.configs import get_config
+    cfg, dcfg = get_config("stablelm-3b"), get_config("deepseek-coder-33b")
+    gc.collect()          # the earlier phases' models, before the peaks
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    kernels = stable_deepseek_kernels(torch, np, dev, timer, cfg, dcfg,
+                                      floor)
+    kernels_s = time.perf_counter() - t
+    serve, launches, derived = stable_serve(torch, np, dev, cfg)
+    serve_s = time.perf_counter() - t - kernels_s
+    wit = stable_witness(torch, np, dev, cfg)
+    deep, more, more_derived = deepseek_serve(torch, np, dev, dcfg)
+    _add(launches, more)
+    _add(derived, more_derived)
+    return {"phase": "stablelm_deepseek", "seconds": time.perf_counter() - t,
+            "kernels_seconds": kernels_s, "stablelm_serve_seconds": serve_s,
+            "launch_floor_ms": floor, "kernels": kernels, "stablelm": serve,
+            "witness_fp32": wit, "deepseek": deep, "launches": launches,
+            "graph_launches_derived": derived}, launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside the script",
@@ -6340,6 +6822,24 @@ def main() -> int:
             ("flash_attention_wgmma", gk["flash_dh256"]["wgmma"]),
             ("flash_attention_splitkv", gk["flash_dh256"]["splitkv"])):
         per_kernel[name] = per_kernel[name] + rows
+    stable, stable_launches = stable_deepseek_phase(torch, np, dev, timer,
+                                                    floor)
+    sk = stable["kernels"]
+    per_kernel["int4_matmul_tc"] = sk["int4_matmul"]["tc"]
+    for name, rows in (
+            ("int4_matmul_stream", sk["int4_matmul"]["stream"]),
+            ("flash_attention_wgmma",
+             sk["flash_dh80"]["wgmma"] + sk["flash_g7"]["wgmma"]),
+            ("flash_attention_splitkv",
+             sk["flash_dh80"]["splitkv"] + sk["flash_g7"]["splitkv"]),
+            ("paged_attention_split",
+             sk["paged_dh80"]["split"] + sk["paged_g7"]["split"]),
+            ("paged_attention_simt", sk["paged_dh80"]["simt"]),
+            ("fused_linear_wgmma", sk["fused_linear"]["wgmma"]),
+            ("fused_linear_splitk", sk["fused_linear"]["splitk"]),
+            ("fused_linear_int4_tc", sk["fused_linear_int4"]["tc"]),
+            ("fused_linear_int4_stream", sk["fused_linear_int4"]["stream"])):
+        per_kernel[name] = per_kernel[name] + rows
 
     par, par_launches = parity_mamba(torch, np, dev)
     emit(par)            # fp32: the SSD scan's SIMT route's launches
@@ -6397,6 +6897,8 @@ def main() -> int:
     _add(launches, gather_launches)
     emit(gemma)
     _add(launches, gemma_launches)
+    emit(stable)
+    _add(launches, stable_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

@@ -21,6 +21,14 @@ runs the one widened qkv projection over all T rows and gathers q's C
 rows from it (every row's product is the same either way; a sliced
 weight would be copied whole on every call, since the kernels take a
 contiguous weight).
+
+A LayerNorm stack (stablelm-3b) takes the reference's unfused branch of
+every function here (``layers.fuse_norm_linear`` false): the plain router
+product and the two-pass (μ, σ²) pair (no router-stats kernel, and no Σy²
+carry: ``stats['res_sq']`` is None), the norm applied to x, the composed
+projections (``linear_apply``: ``x @ w``, or the int4 matmul kernel for a
+quantized leaf) and ``x + y·gate`` (gather mode: ``x +
+scatter_tokens(y·gate)``).
 """
 from __future__ import annotations
 
@@ -42,8 +50,13 @@ Stats = Dict[str, torch.Tensor]
 def _router_and_stats(p: Params, x: torch.Tensor, cfg: ModelConfig,
                       routed: bool,
                       carried_sq: Optional[torch.Tensor] = None):
-    """(router logits or None, mean(x²)).  With ``carried_sq`` the norm
-    reduction is free and only the router product touches x."""
+    """(router logits or None, the norm's statistics: mean(x²), or (μ, σ²)
+    for LayerNorm).  With ``carried_sq`` the RMS reduction is free and only
+    the router product touches x; LayerNorm takes the plain router product
+    and ``layers.norm_stats`` and ignores any carry, as the reference."""
+    if not layers.fuse_norm_linear(cfg):
+        logits = routing.router_logits(p["router"], x) if routed else None
+        return logits, layers.norm_stats(x, cfg)
     if carried_sq is not None:
         logits = routing.router_logits(p["router"], x) if routed else None
         return logits, carried_sq
@@ -51,6 +64,21 @@ def _router_and_stats(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return kops.fused_router_rmsnorm_stats(x, p["router"]["w"],
                                                p["router"]["b"])
     return None, layers.norm_stats(x)
+
+
+def _gather_stats(nstats, idx: torch.Tensor):
+    """The rows ``idx`` [B, C] of mean(x²) [B, T], or of both halves of a
+    LayerNorm's (μ, σ²)."""
+    if isinstance(nstats, tuple):
+        return tuple(torch.gather(s, 1, idx) for s in nstats)
+    return torch.gather(nstats, 1, idx)
+
+
+def _gated(y: torch.Tensor, gate: torch.Tensor, routed: bool
+           ) -> torch.Tensor:
+    """y·gate, the composed epilogue of the unfused path (the gate cast to
+    y's dtype, as the reference); gate [B, T] or [B, 1]."""
+    return y * gate.to(y.dtype)[..., None] if routed else y
 
 
 def _gate(logits, shape, routed: bool, device):
@@ -86,7 +114,8 @@ def routed_attention(p: Params, x: torch.Tensor,
                      carried_sq: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, kv_reuse.KVPair, Stats]:
     """x: [B, T, D].  Returns (x + routed_attn(x), new KV view, stats with
-    ``attn_gate`` [B, T] and the Σy²/D carry ``res_sq``).  In gather mode
+    ``attn_gate`` [B, T] and the Σy²/D carry ``res_sq``, None on the
+    unfused path).  In gather mode
     the view's rows of the unselected tokens are the previous layer's."""
     B, T, D = x.shape
     routed = cfg.skip.enabled and cfg.skip.route_attention
@@ -106,15 +135,20 @@ def routed_attention(p: Params, x: torch.Tensor,
         else:
             q, kg, vg = attn_mod.project_qkv(
                 inner, xg, pos_g, cfg, norm=p["norm"],
-                stats=torch.gather(nstats, 1, idx))
+                stats=_gather_stats(nstats, idx))
             view = kv_reuse.merge_view_gathered(view, kg, vg, idx, T)
         o = attn_mod.attention_core(q, view[0], view[1], q_positions=pos_g,
                                     cfg=cfg, window=window)
-        yg, sq_g = attn_mod.output_proj_fused(
-            inner, o, cfg, residual=xg, gate_mul=torch.gather(gate, 1, idx),
-            emit_sq=True)
-        x = routing.scatter_set_tokens(x, idx, yg)
-        res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
+        gate_g = torch.gather(gate, 1, idx)
+        if layers.fuse_norm_linear(cfg):
+            yg, sq_g = attn_mod.output_proj_fused(
+                inner, o, cfg, residual=xg, gate_mul=gate_g, emit_sq=True)
+            x = routing.scatter_set_tokens(x, idx, yg)
+            res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
+        else:
+            y = _gated(attn_mod.output_proj(inner, o, cfg), gate_g, True)
+            x = x + routing.scatter_tokens(y, idx, T)
+            res_sq = None
     else:
         q, k, v = attn_mod.project_qkv(inner, x, positions, cfg,
                                        norm=p["norm"], stats=nstats)
@@ -125,10 +159,7 @@ def routed_attention(p: Params, x: torch.Tensor,
         o = attn_mod.attention_core(q, view[0], view[1],
                                     q_positions=positions, cfg=cfg,
                                     window=window)
-        x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
-                                           gate_mul=gate if routed else None,
-                                           emit_sq=True)
-        res_sq = sq / D
+        x, res_sq = _attn_out(inner, o, x, gate, routed, cfg)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
     stats["attn_gate"] = gate
     stats["res_sq"] = res_sq
@@ -138,7 +169,8 @@ def routed_attention(p: Params, x: torch.Tensor,
 def routed_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                carried_sq: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Stats]:
-    """Dense GLU MLP on the fused pipeline, masked or gather routing."""
+    """Dense GLU MLP, fused (``stats['res_sq']`` the Σy²/D carry) or
+    unfused (None), masked or gather routing."""
     B, T, D = x.shape
     routed = cfg.skip.enabled and cfg.skip.route_mlp
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
@@ -146,18 +178,20 @@ def routed_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if routed and cfg.skip.mode == "gather":
         idx = _select(logits, T, cfg)
         xg = routing.gather_tokens(x, idx)
-        yg, sq_g = layers.mlp_apply_fused(
-            p["inner"], xg, cfg, norm=p["norm"],
-            stats=torch.gather(nstats, 1, idx), residual=xg,
-            gate_mul=torch.gather(gate, 1, idx), emit_sq=True)
-        x = routing.scatter_set_tokens(x, idx, yg)
-        res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
+        sg, gate_g = _gather_stats(nstats, idx), torch.gather(gate, 1, idx)
+        if layers.fuse_norm_linear(cfg):
+            yg, sq_g = layers.mlp_apply_fused(
+                p["inner"], xg, cfg, norm=p["norm"], stats=sg, residual=xg,
+                gate_mul=gate_g, emit_sq=True)
+            x = routing.scatter_set_tokens(x, idx, yg)
+            res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
+        else:
+            y = layers.mlp_apply(p["inner"], layers.norm_apply(
+                p["norm"], xg, cfg, stats=sg), cfg)
+            x = x + routing.scatter_tokens(_gated(y, gate_g, True), idx, T)
+            res_sq = None
     else:
-        x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
-                                       stats=nstats, residual=x,
-                                       gate_mul=gate if routed else None,
-                                       emit_sq=True)
-        res_sq = sq / D
+        x, res_sq = _mlp_out(p, x, nstats, gate, routed, cfg)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
     stats["res_sq"] = res_sq
     return x, stats
@@ -188,15 +222,43 @@ def routed_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # chunked prefill (C new tokens per sequence on the same cache)
 # ---------------------------------------------------------------------------
 
+def _attn_out(inner: Params, o: torch.Tensor, x: torch.Tensor,
+              gate: torch.Tensor, routed: bool, cfg: ModelConfig):
+    """The o-projection and residual of every row: (o·Wo)·gate + x in one
+    kernel with the Σy²/D carry (fused), or o·Wo composed with x + y·gate
+    and no carry (unfused).  x: [B, T, D]; gate [B, T].  Returns (x, the
+    carry or None)."""
+    if not layers.fuse_norm_linear(cfg):
+        return x + _gated(attn_mod.output_proj(inner, o, cfg), gate,
+                          routed), None
+    x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
+                                       gate_mul=gate if routed else None,
+                                       emit_sq=True)
+    return x, sq / x.shape[-1]
+
+
+def _mlp_out(p: Params, x: torch.Tensor, nstats, gate: torch.Tensor,
+             routed: bool, cfg: ModelConfig):
+    """The MLP and residual of every row: the fused pipeline with the Σy²/D
+    carry, or norm, ``mlp_apply`` and x + y·gate with no carry (unfused).
+    x: [B, T, D]; gate [B, T].  Returns (x, the carry or None)."""
+    if not layers.fuse_norm_linear(cfg):
+        y = layers.mlp_apply(p["inner"], layers.norm_apply(
+            p["norm"], x, cfg, stats=nstats), cfg)
+        return x + _gated(y, gate, routed), None
+    x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
+                                   stats=nstats, residual=x,
+                                   gate_mul=gate if routed else None,
+                                   emit_sq=True)
+    return x, sq / x.shape[-1]
+
+
 def _decode_output_epilogue(inner: Params, o: torch.Tensor, x: torch.Tensor,
                             gate: torch.Tensor, routed: bool,
                             cfg: ModelConfig, stats: Stats) -> torch.Tensor:
-    """(o·Wo)·gate + x in one kernel; the Σy²/D carry goes to
-    ``stats['res_sq']``.  x: [B, 1, D]; gate: [B]."""
-    x, sq = attn_mod.output_proj_fused(
-        inner, o, cfg, residual=x,
-        gate_mul=gate[:, None] if routed else None, emit_sq=True)
-    stats["res_sq"] = sq / x.shape[-1]
+    """``_attn_out`` at decode: x [B, 1, D], gate [B]; the Σy²/D carry (None
+    unfused) goes to ``stats['res_sq']``."""
+    x, stats["res_sq"] = _attn_out(inner, o, x, gate[:, None], routed, cfg)
     return x
 
 
@@ -236,7 +298,7 @@ def routed_attention_chunk(p: Params, x: torch.Tensor,
     a right-padded final chunk's pads out of every real token).  Returns
     (x, k_cache, v_cache, the chunk's merged view, stats with
     ``attn_gate`` [B, C] and the Σy²/D carry ``res_sq``)."""
-    B, C, D = x.shape
+    B, C, _ = x.shape
     routed = cfg.skip.enabled and cfg.skip.route_attention
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
     gate, p_keep = _gate(logits, (B, C), routed, x.device)
@@ -251,12 +313,10 @@ def routed_attention_chunk(p: Params, x: torch.Tensor,
     _rows_update(v_cache, v_t, t0)
     o = attn_mod.attention_core(q, k_cache, v_cache, q_positions=positions,
                                 cfg=cfg, kv_valid_len=t0 + C)
-    x, sq = attn_mod.output_proj_fused(inner, o, cfg, residual=x,
-                                       gate_mul=gate if routed else None,
-                                       emit_sq=True)
+    x, res_sq = _attn_out(inner, o, x, gate, routed, cfg)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
     stats["attn_gate"] = gate
-    stats["res_sq"] = sq / D
+    stats["res_sq"] = res_sq
     return x, k_cache, v_cache, (k_t, v_t), stats
 
 
@@ -317,17 +377,13 @@ def routed_mlp_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       carried_sq: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Stats]:
     """Decode-time MLP routing is the masked path with T = 1."""
-    B, _, D = x.shape
+    B = x.shape[0]
     routed = cfg.skip.enabled and cfg.skip.route_mlp
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
     gate, p_keep = _gate(logits[:, 0] if logits is not None else None, (B,),
                          routed, x.device)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
-    x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
-                                   stats=nstats, residual=x,
-                                   gate_mul=gate[:, None] if routed else None,
-                                   emit_sq=True)
-    stats["res_sq"] = sq / D
+    x, stats["res_sq"] = _mlp_out(p, x, nstats, gate[:, None], routed, cfg)
     return x, stats
 
 

@@ -41,7 +41,10 @@
 //    128 keys through a 2-stage TMA ring that runs on across items (a 4-D
 //    tensor map over [B, Tk, Hkv, dh], 128-byte swizzle, zero fill past
 //    Tk; dh = 128 takes two 64-wide boxes, dh = 256 four, dh = 32 one box
-//    whose upper half is the zero fill).  At dh 256 (gemma3-12b) a tile
+//    whose upper half is the zero fill, dh = 80 two boxes, the second of
+//    16 real columns and 48 of zero fill: its rows are padded to 128 in
+//    shared memory, Q·Kᵀ takes the 5 k-steps of real columns and P·V an
+//    n128 product whose last 48 columns are zeros, never written out).  At dh 256 (gemma3-12b) a tile
 //    holds 64 keys and the block one Q buffer (WgShape): O alone takes
 //    128 registers a consumer thread there, and two 64 KB Q buffers
 //    beside the ring would pass 227 KB; P·V runs as two n128 products.  S = Q·Kᵀ is a bf16 wgmma from shared memory
@@ -77,7 +80,9 @@
 //
 // 3. fp32: the SIMT kernel (flash_simt), fp32 FMAs from shared memory; the
 //    parity instrument of the CPU ≡ CUDA checks.  Its tile is static
-//    shared memory up to dh 128 and dynamic (82 KB) at dh 256.
+//    shared memory up to dh 128 and dynamic (82 KB) at dh 256.  Lane d
+//    owns output dims d, d + 32, ...; at dh 80 its third dim exists for
+//    lanes 0-15 only.
 //
 // Where the bf16 routes round.  P = exp2(s·c - m) with c = fp32(scale) ·
 // fp32(log2 e), one FFMA on the raw fp32 score and ex2.approx (relative
@@ -169,7 +174,7 @@ flash_simt(const float* __restrict__ q, const float* __restrict__ k,
            const int* __restrict__ kv_len, float* __restrict__ out, int Hkv,
            int G, int Tq, int Tk, Strides st, int causal, int window,
            float scale) {
-  constexpr int DPL = DH / 32;  // output dims per lane
+  constexpr int DPL = (DH + 31) / 32;  // output dims per lane, at most
   extern __shared__ __align__(16) uint8_t simt_dyn[];
   SimtSmem<DH>* sm;
   if constexpr (kSimtDynamic<DH>) {
@@ -251,7 +256,8 @@ flash_simt(const float* __restrict__ q, const float* __restrict__ k,
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int dd = 0; dd < DPL; ++dd)
-          acc[i][dd] = fmaf(pj, vs[j][lane + 32 * dd], acc[i][dd]);
+          if (DH % 32 == 0 || lane + 32 * dd < DH)
+            acc[i][dd] = fmaf(pj, vs[j][lane + 32 * dd], acc[i][dd]);
       }
       m[i] = m_new;
       any[i] = any[i] || __any_sync(0xffffffffu, valid);
@@ -268,7 +274,8 @@ flash_simt(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[i], 1e-20f);
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd)
-      o[lane + 32 * dd] = any[i] ? acc[i][dd] / den : 0.f;
+      if (DH % 32 == 0 || lane + 32 * dd < DH)
+        o[lane + 32 * dd] = any[i] ? acc[i][dd] / den : 0.f;
   }
 }
 
@@ -292,8 +299,11 @@ constexpr int kWgStagers = 96;   // producer threads that stage Q: warps 1-3
 // have written the item before out of it.
 template <int DH>
 struct WgShape {
-  static constexpr int kDhp = DH < 64 ? 64 : DH;  // whole 128-byte rows
+  static constexpr int kDhp = (DH + 63) / 64 * 64;  // whole 128-byte rows
   static constexpr int kBoxes = kDhp / 64;
+  // Q·Kᵀ's k-steps: every one of kDhp below dh 64 (as dh 32 always ran),
+  // the real columns' from 64 up (dh 80: 5 of 8).
+  static constexpr int kQkSteps = DH < 64 ? kDhp / 16 : (DH + 15) / 16;
   static constexpr int kKeys = DH > 128 ? 64 : kWgKeys;  // keys per tile
   static constexpr int kQBufs = DH > 128 ? 1 : 2;
   static constexpr int kQBytes = kBoxes * kWgRows * 128;
@@ -461,7 +471,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tmk,
   auto issue_scores = [&](uint32_t ks) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DHP / 16; ++kk) {
+    for (int kk = 0; kk < Sh::kQkSteps; ++kk) {
       const uint32_t off = (kk / 4) * kWgRows * 128 + (kk % 4) * 32;
       const uint32_t koff = (kk / 4) * KT * 128 + (kk % 4) * 32;
       if constexpr (KT == 128)
@@ -1044,11 +1054,14 @@ auto by_dh(int dh, F&& f) {
   switch (dh) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
     case 128: return f(std::integral_constant<int, 128>());
     default: return f(std::integral_constant<int, 256>());
   }
 }
-bool dh_ok(int dh) { return dh == 32 || dh == 64 || dh == 128 || dh == 256; }
+bool dh_ok(int dh) {
+  return dh == 32 || dh == 64 || dh == 80 || dh == 128 || dh == 256;
+}
 
 // The dynamic shared memory each route's kernel is launched with.
 int smem_bytes(int route, int dh) {
@@ -1136,7 +1149,7 @@ Call make_call(const void* q, const void* k, const void* v, const void* q_pos,
 // storage type, unit stride along dh, other strides (in elements) given in
 // `strides` as (q: b, t, h), (k: b, t, h), (v: b, t, h), (out: b, t, h),
 // (q_pos: b, t).  q_pos int32 [B, Tq] (-1 = pad row); kv_len int32 [B] or
-// null (= Tk).  dh in {32, 64, 128, 256}.  The plan (route 0 simt, 1 wgmma, 2
+// null (= Tk).  dh in {32, 64, 80, 128, 256}.  The plan (route 0 simt, 1 wgmma, 2
 // splitkv; tile_r rows x tile_k keys per block; the split-KV route's
 // `splits` blocks per cluster of kc keys each; the grid; the dynamic shared
 // memory) comes from the caller's plan() (kernels/flash_attention.py) and

@@ -89,6 +89,11 @@
 //
 // int4 pages: byte d holds dim d in its low nibble and dim d + dh/2 in its
 // high nibble, each sign-extended.
+//
+// Head dim 80 (stablelm-3b): the split walk takes 5 k-steps and 10 n-tiles
+// of 8; its int4 rows are 40 bytes, so they are copied and turned into
+// bf16 8 bytes at a time (an odd head's row is only 8-byte aligned).  The
+// SIMT kernel's lanes own dims lane + 32·i there (scalar loads).
 #include <stdint.h>
 #include <string.h>
 
@@ -128,13 +133,50 @@ __device__ __forceinline__ void load_vec(const V* p, V (&out)[N]) {
   memcpy(out, &r, sizeof(R));
 }
 
-// The lane's DPL dims [lane·DPL, (lane+1)·DPL) of one payload row as fp32
-// codes (native rows: the values; quantized rows: before the scale).
+// The dims a lane owns of a row: [lane·DPL, (lane+1)·DPL) where 32 divides
+// dh (one vector load a row), else lane + 32·i (dh 80: three dims for lanes
+// 0-15, two for lanes 16-31; scalar loads).
+template <int DH>
+constexpr bool kStrided = DH % 32 != 0;
+template <int DH>
+constexpr int kLaneDims = (DH + 31) / 32;
+template <int DH>
+__device__ __forceinline__ int lane_dim(int lane, int i) {
+  return kStrided<DH> ? lane + 32 * i : lane * (DH / 32) + i;
+}
+template <int DH>
+__device__ __forceinline__ bool lane_has(int lane, int i) {
+  return !kStrided<DH> || lane + 32 * i < DH;
+}
+
+// The lane's dims (lane_dim) of one payload row as fp32 codes (native rows:
+// the values; quantized rows: before the scale); 0 past dh.
 template <typename T, int PAY, int DH>
 __device__ __forceinline__ void load_row(const void* pages, long long row,
-                                         int lane, float (&out)[DH / 32]) {
-  constexpr int DPL = DH / 32;
-  if constexpr (PAY == kNative) {
+                                         int lane,
+                                         float (&out)[kLaneDims<DH>]) {
+  constexpr int DPL = kLaneDims<DH>;
+  if constexpr (kStrided<DH>) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = lane + 32 * i;
+      float v = 0.f;
+      if (d < DH) {
+        if constexpr (PAY == kNative) {
+          v = repro::to_f32(static_cast<const T*>(pages)[row * DH + d]);
+        } else if constexpr (PAY == kInt8) {
+          v = static_cast<float>(
+              static_cast<const int8_t*>(pages)[row * DH + d]);
+        } else {  // byte d % (dh/2): the low nibble below dh/2, else high
+          const uint8_t c = static_cast<const uint8_t*>(
+              pages)[row * (DH / 2) + d % (DH / 2)];
+          v = static_cast<float>((((c >> (d < DH / 2 ? 0 : 4)) & 0xF) ^ 8) -
+                                 8);
+        }
+      }
+      out[i] = v;
+    }
+  } else if constexpr (PAY == kNative) {
     T v[DPL];
     load_vec<T, DPL>(static_cast<const T*>(pages) + row * DH + lane * DPL,
                      v);
@@ -171,7 +213,7 @@ paged_simt(const T* __restrict__ q, const void* __restrict__ k_pages,
              const T* __restrict__ v_tok, const int* __restrict__ q_pos,
              T* __restrict__ out, int P, int ps, int Hkv, int G, int J,
              float scale) {
-  constexpr int DPL = DH / 32;
+  constexpr int DPL = kLaneDims<DH>;
   __shared__ int admitted[kSimtWarps][kSimtChunk];
   __shared__ float sm_m[kSimtWarps][GR], sm_l[kSimtWarps][GR];
   __shared__ float sm_acc[kSimtWarps][GR][DH];
@@ -194,12 +236,13 @@ paged_simt(const T* __restrict__ q, const void* __restrict__ k_pages,
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       acc[r][i] = 0.f;
-      qr[r][i] = g < G ? repro::to_f32(
-                             q[(static_cast<long long>(b) * Hq + h * G + g) *
-                                   DH +
-                               lane * DPL + i]) *
-                             scale
-                       : 0.f;
+      qr[r][i] = g < G && lane_has<DH>(lane, i)
+                     ? repro::to_f32(
+                           q[(static_cast<long long>(b) * Hq + h * G + g) *
+                                 DH +
+                             lane_dim<DH>(lane, i)]) *
+                           scale
+                     : 0.f;
     }
   }
 
@@ -292,7 +335,9 @@ paged_simt(const T* __restrict__ q, const void* __restrict__ k_pages,
       sm_l[warp][r] = l[r];
     }
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_acc[warp][r][lane * DPL + i] = acc[r][i];
+    for (int i = 0; i < DPL; ++i)
+      if (lane_has<DH>(lane, i))
+        sm_acc[warp][r][lane_dim<DH>(lane, i)] = acc[r][i];
   }
   __syncthreads();
   if (warp >= GR) return;
@@ -307,7 +352,9 @@ paged_simt(const T* __restrict__ q, const void* __restrict__ k_pages,
     const float f = expf(sm_m[w][r] - M);
     L += sm_l[w][r] * f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) A[i] += sm_acc[w][r][lane * DPL + i] * f;
+    for (int i = 0; i < DPL; ++i)
+      if (lane_has<DH>(lane, i))
+        A[i] += sm_acc[w][r][lane_dim<DH>(lane, i)] * f;
   }
 
   // fold in the in-flight token (always causally valid: its pos == q_pos);
@@ -319,21 +366,25 @@ paged_simt(const T* __restrict__ q, const void* __restrict__ k_pages,
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
       if (rr == r) qrow[i] = qr[rr][i];
-  const long long tok = (static_cast<long long>(b) * Hkv + h) * DH +
-                        lane * DPL;
+  const long long tok = (static_cast<long long>(b) * Hkv + h) * DH;
   float qk = 0.f;
 #pragma unroll
   for (int i = 0; i < DPL; ++i)
-    qk = fmaf(qrow[i], repro::to_f32(k_tok[tok + i]), qk);
+    if (lane_has<DH>(lane, i))
+      qk = fmaf(qrow[i], repro::to_f32(k_tok[tok + lane_dim<DH>(lane, i)]),
+                qk);
   const float s_tok = repro::warp_sum(qk);
   const float m2 = fmaxf(M, s_tok);
   const float alpha = expf(M - m2), p_tok = expf(s_tok - m2);
   const float den = fmaxf(L * alpha + p_tok, 1e-20f);
-  T* o = out + (static_cast<long long>(b) * Hq + h * G + g) * DH + lane * DPL;
+  T* o = out + (static_cast<long long>(b) * Hq + h * G + g) * DH;
 #pragma unroll
   for (int i = 0; i < DPL; ++i)
-    o[i] = repro::from_f32<T>(
-        (A[i] * alpha + p_tok * repro::to_f32(v_tok[tok + i])) / den);
+    if (lane_has<DH>(lane, i)) {
+      const int d = lane_dim<DH>(lane, i);
+      o[d] = repro::from_f32<T>(
+          (A[i] * alpha + p_tok * repro::to_f32(v_tok[tok + d])) / den);
+    }
 }
 
 
@@ -389,6 +440,12 @@ __host__ __device__ constexpr int split_smem(int pay, int heads, int dh,
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -484,6 +541,29 @@ __device__ __forceinline__ void codes_to_bf16(uint4 raw, int c, bf16* row) {
   }
 }
 
+// 8 raw bytes of an int4 code row (chunk c of 8 bytes: dh 80's 40-byte
+// rows) as bf16 into a warp tile row: dims 8c .. 8c + 7 from the low
+// nibbles, dh/2 + 8c .. from the high ones.
+template <int PAY, int DH>
+__device__ __forceinline__ void codes_to_bf16(uint2 raw, int c, bf16* row) {
+  static_assert(PAY == kInt4, "8-byte code chunks are int4 rows only");
+  const uint32_t w[2] = {raw.x, raw.y};
+  uint32_t o[4], h[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t x = w[i] ^ 0x88888888u;
+    const uint32_t t0 = __byte_perm(x, 0, 0x4140);  // bytes 0, 1
+    const uint32_t t1 = __byte_perm(x, 0, 0x4342);  // bytes 2, 3
+    o[2 * i] = s4x2_bf16(t0);
+    o[2 * i + 1] = s4x2_bf16(t1);
+    h[2 * i] = s4x2_bf16(t0 >> 4);
+    h[2 * i + 1] = s4x2_bf16(t1 >> 4);
+  }
+  *reinterpret_cast<uint4*>(row + 8 * c) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(row + DH / 2 + 8 * c) =
+      make_uint4(h[0], h[1], h[2], h[3]);
+}
+
 // The admitted bits of eff_pos entries e0 .. e0 + 31 below E (bit u:
 // e0 + u).
 __device__ __forceinline__ uint32_t admitted32(const int* ep, int e0, int E,
@@ -522,7 +602,12 @@ paged_split(const bf16* __restrict__ q, const uint8_t* __restrict__ k_pages,
             int HB, int stages, float scale_log2) {
   namespace cg = cooperative_groups;
   constexpr int kRow = row_bytes(PAY, DH);
-  constexpr int kChunks = kRow / 16;  // 16-byte copies per kv-head row
+  // Copies of a kv-head row: 16 bytes, or 8 where a row is not a whole
+  // number of 16 (int4 codes at dh 80: 40 bytes, so an odd head's row is
+  // only 8-byte aligned, in the pages and in a stage).
+  constexpr int kUnit = kRow % 16 == 0 ? 16 : 8;
+  constexpr int kChunks = kRow / kUnit;  // copies per kv-head row
+  using Unit = typename Raw<kUnit>::T;
   constexpr int WP = DH + 8;          // a warp tile's row pitch (bf16)
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int cnt_sh;
@@ -666,10 +751,13 @@ paged_split(const bf16* __restrict__ q, const uint8_t* __restrict__ k_pages,
           for (int c = lane; c < cpe + kScaleSlots * hl; c += 32) {
             if (c < cpe) {
               const uint8_t* src =
-                  (y < TILE ? k_pages : v_pages) + hrow * kRow + 16 * c;
-              uint8_t* dst = PAY == kNative ? st + y * EP * 2 + 16 * c
-                                            : st + y * HB * kRow + 16 * c;
-              cp_async16(smem_u32(dst), src, ok ? 16 : 0);
+                  (y < TILE ? k_pages : v_pages) + hrow * kRow + kUnit * c;
+              uint8_t* dst = PAY == kNative ? st + y * EP * 2 + kUnit * c
+                                            : st + y * HB * kRow + kUnit * c;
+              if constexpr (kUnit == 16)
+                cp_async16(smem_u32(dst), src, ok ? 16 : 0);
+              else
+                cp_async8(smem_u32(dst), src, ok ? 8 : 0);
             } else {
               const int j = c - cpe;
               const float* src = (y < TILE ? k_scales : v_scales) + hrow + j;
@@ -696,9 +784,9 @@ paged_split(const bf16* __restrict__ q, const uint8_t* __restrict__ k_pages,
         const bf16* vs;
         int kp;
         float ksc[4] = {1.f, 1.f, 1.f, 1.f}, vsc[4] = {1.f, 1.f, 1.f, 1.f};
-        constexpr int kUnits = kSub * kChunks;  // 16-byte code chunks of K
+        constexpr int kUnits = kSub * kChunks;  // code chunks of K
         constexpr int kPer = (kUnits + 31) / 32;
-        uint4 raw[kPer];
+        Unit raw[kPer];
         // the codes of K (kv 0) or V (kv 1) of its rows into registers
         auto load_codes = [&](int kv) {
 #pragma unroll
@@ -706,8 +794,8 @@ paged_split(const bf16* __restrict__ q, const uint8_t* __restrict__ k_pages,
             const int x = lane + 32 * u;
             const int y = kv * TILE + kSub * sub + x / kChunks;
             if (x < kUnits)
-              raw[u] = *reinterpret_cast<const uint4*>(
-                  st + (y * HB + jh) * kRow + 16 * (x % kChunks));
+              raw[u] = *reinterpret_cast<const Unit*>(
+                  st + (y * HB + jh) * kRow + kUnit * (x % kChunks));
           }
         };
         if constexpr (PAY == kNative) {
@@ -935,6 +1023,7 @@ template <typename T, int PAY>
 cudaError_t simt_dh(const Call& c, dim3 grid, int rows) {
   return c.dh == 32   ? simt_rows<T, PAY, 32>(c, grid, rows)
          : c.dh == 64 ? simt_rows<T, PAY, 64>(c, grid, rows)
+         : c.dh == 80 ? simt_rows<T, PAY, 80>(c, grid, rows)
                       : simt_rows<T, PAY, 128>(c, grid, rows);
 }
 
@@ -973,6 +1062,7 @@ cudaError_t split_dh(const Call& c, dim3 grid, int heads, int stages,
                      int smem) {
   return c.dh == 32   ? launch_split<PAY, 32>(c, grid, heads, stages, smem)
          : c.dh == 64 ? launch_split<PAY, 64>(c, grid, heads, stages, smem)
+         : c.dh == 80 ? launch_split<PAY, 80>(c, grid, heads, stages, smem)
                       : launch_split<PAY, 128>(c, grid, heads, stages, smem);
 }
 
@@ -982,7 +1072,7 @@ template <typename T>
 int launch(const Call& c, int route, int rows, int heads, int splits,
            int tile, int stages, int grid_x, int grid_y, int smem) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (c.dh != 32 && c.dh != 64 && c.dh != 128) return bad;
+  if (c.dh != 32 && c.dh != 64 && c.dh != 80 && c.dh != 128) return bad;
   if (c.payload < kNative || c.payload > kInt4) return bad;
   if (c.G < 1 || c.Hkv < 1 || c.B < 0 || c.J < 0 || c.ps < 1 || c.P < 1)
     return bad;
@@ -1040,7 +1130,7 @@ int launch(const Call& c, int route, int rows, int heads, int splits,
 // Hkv, dhp] of that type (payload 0), int8 codes (1) or nibble-packed int4
 // codes, dhp = dh/2 (2); k/v scales: f32 [P, ps, Hkv] for payloads 1-2
 // (else unused).  block_table int32 [B, J]; eff_pos int32 [B, J·ps]; q_pos
-// int32 [B].  dh in {32, 64, 128}.  The plan (route 0 simt, 1 split; rows
+// int32 [B].  dh in {32, 64, 80, 128}.  The plan (route 0 simt, 1 split; rows
 // per block; kv-heads per block; blocks per cluster; entries per tile;
 // ring stages; the grid; the dynamic shared memory) comes from the
 // caller's plan() (kernels/paged_attention.py) and is launched exactly:

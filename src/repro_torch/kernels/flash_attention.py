@@ -36,7 +36,7 @@ launches_wgmma = 0
 launches_splitkv = 0
 launches_simt = 0
 _FNS = {}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
 _ROUTES = {"simt": 0, "wgmma": 1, "splitkv": 2}
 
 # The tiles csrc/flash_attention.cu instantiates.  plan() chooses among
@@ -111,7 +111,7 @@ def plan(BH: int, R: int, Tk: int, dh: int, dtype: torch.dtype) -> Plan:
         smem = (SKV_ROWS + SKV_STAGES * 2 * SKV_KEYS) * (dh + 8) * 2
         return Plan("splitkv", SKV_ROWS, SKV_KEYS, splits, kc, (splits, BH),
                     smem)
-    dhp = max(64, dh)      # whole 128-byte rows
+    dhp = _cdiv(dh, 64) * 64      # whole 128-byte rows (dh 80: 128)
     # at dh 256 (O in 128 registers a thread) tiles of 64 keys and one Q
     # buffer, so the block fits SMEM_MAX
     keys, qbufs = (WG_KEYS_256, 1) if dh > 128 else (WG_KEYS, 2)

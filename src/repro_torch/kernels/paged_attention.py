@@ -38,7 +38,7 @@ launches = 0
 launches_split = 0
 launches_simt = 0
 _FNS = {}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 128)
 _PAYLOAD = {None: 0, "int8": 1, "int4": 2}
 _ROUTES = {"simt": 0, "split": 1}
 

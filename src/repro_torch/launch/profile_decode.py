@@ -36,11 +36,18 @@ split into draft, verify and commit.
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch gemma3-12b --prompt-len 1536 --decode-steps 8     # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch stablelm-3b --paged --decode-steps 8              # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch deepseek-coder-33b --decode-steps 8               # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
 
 ``--arch gemma3-12b`` (LOCAL ring caches) takes every mode but ``--paged``,
 ``--prefill-chunk``, ``--prefix`` and ``--spec-k``, which raise the
-engine's errors for it, as its serving does.
+engine's errors for it, as its serving does.  ``--arch stablelm-3b`` (the
+unfused LayerNorm path, head dim 80) and ``--arch deepseek-coder-33b``
+(G 7, ~66.7 GB of bf16) take every mode; the int4 weights are drawn from
+the same seed and quantized layer by layer once the bf16 ones are freed.
 
 Weights are random (seed 0, router biases zeroed so routing skips, as
 ``chip_smoke.py`` serves them).  After a ``--batch`` × ``--prompt-len``
@@ -108,6 +115,9 @@ time, and each part's wall ms (warm: ``cow``, ``restore``, ``forward``,
 ``pack``; cold: ``forward``, ``pack``).  One process each: run ``warm``
 and ``cold`` as two commands.
 
+``--paged --decode-steps N`` prints, for each page type, the eager paged
+line and then a fused line over the same store (every page the epochs can
+take reserved up front: one block-table width, one graph).
 ``--decode-steps N`` prints, for each weight type, the eager line above and
 then a fused line: the prefill's cache becomes a dense pool of ``--batch``
 slots, every slot active and free of stop tokens, and the epoch runs N
@@ -223,11 +233,15 @@ def _step_summary(by_name: dict, steps: int, wall_ms: float,
 
 
 def profile_fused(model, batch: int, prompt_len: int, n_steps: int,
-                  epochs: int, top: int = 8) -> dict:
+                  epochs: int, top: int = 8, paged: bool = False,
+                  kv_dtype=None) -> dict:
     """Fused decode epochs over a dense pool seeded by one ``batch`` ×
-    ``prompt_len`` prefill: one warm-up epoch (on the card: the eager
-    warm-up iteration and the capture), ``epochs`` timed, ``epochs``
-    profiled, one launched onto an idle device."""
+    ``prompt_len`` prefill (``paged``: over the paged store the prefill
+    packs, in ``kv_dtype`` pages, every page the epochs can append to
+    reserved up front, so one block-table width and one graph): one
+    warm-up epoch (on the card: the eager warm-up iteration and the
+    capture), ``epochs`` timed, ``epochs`` profiled, one launched onto an
+    idle device."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -240,12 +254,21 @@ def profile_fused(model, batch: int, prompt_len: int, n_steps: int,
         0, cfg.vocab_size, (batch, prompt_len)), device=dev)
     max_len = prompt_len + (2 * epochs + 2) * n_steps + 1
     with torch.no_grad():
-        logits, pool, _ = model.prefill(toks, pad_to=max_len)
-        epoch = DecodeEpoch(model.params(), pool, cfg, slots=batch,
-                            n_max=n_steps, max_len=max_len)
+        if paged:
+            logits, store, alloc = _paged_prefill(
+                model, toks, max_len - prompt_len, kv_dtype)
+            epoch = DecodeEpoch(model.params(), store, cfg, slots=batch,
+                                n_max=n_steps, max_len=max_len, paged=True)
+            extra = dict(fill=alloc.fill, block_table=alloc.block_table)
+        else:
+            logits, pool, _ = model.prefill(toks, pad_to=max_len)
+            epoch = DecodeEpoch(model.params(), pool, cfg, slots=batch,
+                                n_max=n_steps, max_len=max_len)
+            extra = {}
         epoch.load(logits.argmax(-1), torch.full((batch,), prompt_len),
                    torch.ones((batch,), dtype=torch.bool),
-                   torch.full((batch,), max_len), torch.full((batch,), -1))
+                   torch.full((batch,), max_len), torch.full((batch,), -1),
+                   **extra)
 
     def window(k):
         """k epochs: (seconds to enqueue, seconds to finish, event ms)."""
@@ -276,7 +299,9 @@ def profile_fused(model, batch: int, prompt_len: int, n_steps: int,
     launch_s, _, _ = window(1)                  # the device idle before it
     wall_ms = plain_s * 1e3 / steps
     rec = {"arch": cfg.name, "weights": _weights(model), "batch": batch,
-           "prompt_len": prompt_len, "fused": True, "decode_steps": n_steps,
+           "prompt_len": prompt_len, "fused": True, "paged": paged,
+           "kv_dtype": (kv_dtype or cfg.dtype) if paged else None,
+           "decode_steps": n_steps,
            "epochs": epochs, "steps": steps, "wall_ms_per_step": wall_ms,
            "profiled_wall_ms_per_step": prof_s * 1e3 / steps,
            "host_enqueue_ms_per_token": enq_s * 1e3 / (steps * batch),
@@ -718,32 +743,27 @@ def profile_steps(model, batch: int, prompt_len: int, steps: int,
         "prompt_len": prompt_len})
 
 
-def profile_paged_steps(model, batch: int, prompt_len: int, steps: int,
-                        kv_dtype=None, page_size: int = 16,
-                        top: int = 8) -> dict:
-    """As ``profile_steps``, over ``model.paged_decode_step``: the prefill's
-    entries packed into pages of ``kv_dtype`` (None = the model's dtype),
-    one allocator chain per row."""
-    import numpy as np
+def _paged_prefill(model, toks, new: int, kv_dtype=None,
+                   page_size: int = 16):
+    """The prefill of ``toks`` [B, T] packed into a paged store of
+    ``kv_dtype`` pages (None = the model's dtype), one allocator chain per
+    row with room for ``new`` more tokens whose every entry is fresh; each
+    chain's pages for them reserved.  Returns (the prefill's logits, the
+    store, the allocator)."""
     import torch
 
     from repro_torch.kvcache import paged
 
     cfg, dev = model.cfg, model.device
     L = cfg.num_layers
-    rng = np.random.default_rng(0)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        (batch, prompt_len)), device=dev)
-    n = 2 * steps + 2
-    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
-                           device=dev)
-    cap = (prompt_len + n + 1) * L                 # every entry fresh
+    batch, prompt_len = toks.shape
+    cap = (prompt_len + new + 1) * L               # every entry fresh
     per_slot = -(-cap // page_size)
     store = paged.init_store(cfg, batch * per_slot, page_size,
                              kv_dtype=kv_dtype, device=dev)
     alloc = paged.PageAllocator(batch * per_slot, page_size, batch,
                                 slot_entry_capacity=cap)
-    _, cache, st = model.prefill(toks)
+    logits, cache, st = model.prefill(toks)
     gates = st["attn_gate"]                        # [L, B, T]
     for b in range(batch):
         g = gates[:, b]
@@ -754,7 +774,28 @@ def profile_paged_steps(model, batch: int, prompt_len: int, steps: int,
                            torch.as_tensor(alloc.block_table[b], device=dev),
                            cfg, kv_dtype=kv_dtype)
         alloc.append(b, k, L * prompt_len)
-    del cache
+        alloc.ensure(b, k + new * L)
+    return logits, store, alloc
+
+
+def profile_paged_steps(model, batch: int, prompt_len: int, steps: int,
+                        kv_dtype=None, page_size: int = 16,
+                        top: int = 8) -> dict:
+    """As ``profile_steps``, over ``model.paged_decode_step``: the prefill's
+    entries packed into pages of ``kv_dtype`` (None = the model's dtype),
+    one allocator chain per row (``_paged_prefill``)."""
+    import numpy as np
+    import torch
+
+    cfg, dev = model.cfg, model.device
+    L = cfg.num_layers
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (batch, prompt_len)), device=dev)
+    n = 2 * steps + 2
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, n)),
+                           device=dev)
+    _, store, alloc = _paged_prefill(model, toks, n, kv_dtype, page_size)
     state = {"store": store}
 
     def step(s):
@@ -782,7 +823,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--paged", action="store_true",
-                    help="paged decode steps in bf16, int8 and int4 pages")
+                    help="paged decode steps in bf16, int8 and int4 pages "
+                         "(with --decode-steps: and fused epochs over them)")
     ap.add_argument("--prefill", action="store_true",
                     help="one lock-step prefill of the bf16 weights")
     ap.add_argument("--prefill-chunk", type=int, default=0,
@@ -814,10 +856,8 @@ def main(argv=None) -> None:
                          "--decode-steps")
     if args.draft_keep is not None and not args.spec_k:
         raise SystemExit("--draft-keep requires --spec-k")
-    if args.decode_steps < 0 or (args.decode_steps
-                                 and (args.paged or args.prefill)):
-        raise SystemExit("--decode-steps takes N >= 1 and neither --paged "
-                         "nor --prefill")
+    if args.decode_steps < 0 or (args.decode_steps and args.prefill):
+        raise SystemExit("--decode-steps takes N >= 1 and no --prefill")
     if args.prefill_chunk and (args.prefill_chunk < 0 or not args.prefill
                                or args.batch != 1):
         raise SystemExit("--prefill-chunk takes C >= 1 with --prefill and "
@@ -841,7 +881,6 @@ def main(argv=None) -> None:
     from repro_torch.core.routing import neutral_router_bias
     from repro_torch.models import transformer
     from repro_torch.models.model import LanguageModel
-    from repro_torch.quant import quantize_params
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -883,6 +922,11 @@ def main(argv=None) -> None:
             print(json.dumps(profile_paged_steps(
                 model, args.batch, args.prompt_len, args.steps, kd)),
                 flush=True)
+            if args.decode_steps:
+                print(json.dumps(profile_fused(
+                    model, args.batch, args.prompt_len, args.decode_steps,
+                    max(2, args.steps // args.decode_steps), paged=True,
+                    kv_dtype=kd)), flush=True)
         return
     def lines(m):
         print(json.dumps(profile_steps(m, args.batch, args.prompt_len,
@@ -895,12 +939,15 @@ def main(argv=None) -> None:
     lines(model)
     if transformer.is_ssm_stack(cfg):
         return                      # int4 Mamba weights: ROADMAP item 13b
-    q = LanguageModel(cfg, quantize_params(
-        model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
-        device=args.device)
+    # the same seed quantized layer by layer as drawn (the tree
+    # quantize_params gives the bf16 one), once the bf16 weights are
+    # freed: deepseek-coder-33b's would not fit beside its codes
     del model
-    if q.device.type == "cuda":
+    if args.device != "cpu":
         torch.cuda.empty_cache()
+    q = LanguageModel(cfg, device=args.device, seed=0, int4=True)
+    q = LanguageModel(cfg, neutral_router_bias(q.params()),
+                      device=args.device)
     lines(q)
 
 

@@ -33,9 +33,16 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --continuous --paged-kv                          # qk-norm, GQA
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
       --batch 2 --prompt-len 1536 --continuous --decode-steps 8  # LOCAL rings
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+      --continuous --paged-kv --kv-dtype int4        # LayerNorm, dh 80
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-coder-33b --int4 --continuous  # GQA 7, ~34 GB
 
-``--arch`` defaults to llama2-7b (also: qwen3-8b, gemma3-12b,
-mamba2-2.7b).  gemma3-12b (5 sliding-window LOCAL layers a global one,
+``--arch`` defaults to llama2-7b (also: qwen3-8b, gemma3-12b, stablelm-3b,
+deepseek-coder-33b, mamba2-2.7b).  stablelm-3b (LayerNorm, head dim 80,
+partial rotary) runs the unfused path in every loop llama2-7b runs;
+deepseek-coder-33b (56 query heads over 8 kv heads) is llama-arch at
+~66.7 GB of bf16 weights.  gemma3-12b (5 sliding-window LOCAL layers a global one,
 head dim 256, GeGLU) serves lock-step and from the dense pool (single-step
 and ``--decode-steps``); ``--paged-kv``, ``--prefill-chunk``, ``--spec-k``
 and ``--prefix-cache`` raise the reference's errors for it.  Weights
@@ -47,8 +54,10 @@ serves lock-step and from the dense pool, and ``--paged-kv``,
 ``--prefill-chunk`` and ``--spec-k`` raise the reference's errors for it.
 ``--int4``
 quantizes every linear weight of the model (all layers and the lm head) to
-int4 codes with the config's group size and power-of-2 scales, served by
-the int4-BFP kernels.  With ``--continuous`` the engine serves 2·batch
+int4 codes with the config's group size and power-of-2 scales, layer by
+layer as the weights are drawn (the dense tree is never whole on the
+card), served by the int4-BFP kernels (the int4 matmul on the unfused
+path).  With ``--continuous`` the engine serves 2·batch
 requests of mixed prompt lengths (prompt_len/4 to prompt_len) over
 ``--batch`` slots; ``--decode-steps N`` > 1 decodes in device-resident
 epochs of up to N steps, one host sync each (on CUDA one captured graph
@@ -237,12 +246,7 @@ def main(argv=None) -> None:
         raise ConfigError(f"{cfg.name}: int4 weights on a Mamba stack are "
                           "not ported to repro_torch yet (ROADMAP queue 1 "
                           "item 13b)")
-    model = LanguageModel(cfg, device=args.device, seed=0)
-    if args.int4:
-        from repro_torch.quant import quantize_params
-        model = LanguageModel(cfg, quantize_params(
-            model.params(), cfg.quant.group_size, cfg.quant.pow2_scales),
-            device=args.device)
+    model = LanguageModel(cfg, device=args.device, seed=0, int4=args.int4)
     rng = np.random.default_rng(0)
     max_len = args.prompt_len + args.new_tokens
     print(f"{cfg.name}: routing: {cfg.skip.mode} (keep "

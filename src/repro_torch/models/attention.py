@@ -1,5 +1,7 @@
-"""Attention: the widened qkv projection with the fused norm prologue, RoPE,
-the fused o-projection epilogue, and the dispatch to the attention kernel.
+"""Attention: the widened qkv projection (with the fused norm prologue, or
+composed after the norm), RoPE, the o-projection (fused with its
+gate/residual epilogue, or composed), and the dispatch to the attention
+kernel.
 
 Counterpart of the JAX package's ``models/attention.py`` (the chunked jnp
 attention is not ported: the port always runs the kernel).  With
@@ -51,17 +53,42 @@ def _finish_kv(params: Params, k: torch.Tensor, v: torch.Tensor,
 
 
 def project_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, *, norm: Params, stats: torch.Tensor
+                cfg: ModelConfig, *, norm: Optional[Params] = None,
+                stats=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, T, D] un-normalised; ``stats`` = mean(x²).  One fused kernel
-    computes q | k | v; K is stored post-RoPE (and post qk-norm)."""
+    """x: [B, T, D] -> q [B, T, Hq, dh], k/v [B, T, Hkv, dh]; K is stored
+    post-RoPE (and post qk-norm).
+
+    Fused (``layers.fuse_norm_linear``): x is un-normalised, ``stats`` =
+    mean(x²), and one fused kernel computes q | k | v.  Unfused (a
+    LayerNorm stack): x is normalised first on ``stats`` = (μ, σ²) (or is
+    already normalised where ``norm`` is None), then one ``linear_apply``
+    over the whole widened ``wqkv`` computes q | k | v, split afterwards.
+    The reference's unfused path takes three products over column slices
+    of ``wqkv`` (``project_q``, ``project_kv``); every output column is
+    the same dot product either way, and one product over the whole leaf
+    needs no strided view of int4 codes (which the int4 kernel does not
+    take) and no copy of a slice per call."""
     ai, ki = cfg.attn_inner_dim, cfg.kv_inner_dim
-    qkv, _ = layers.linear_fused(params["wqkv"], x, cfg, norm=norm,
-                                 stats=stats)
+    if layers.fuse_norm_linear(cfg):
+        qkv, _ = layers.linear_fused(params["wqkv"], x, cfg, norm=norm,
+                                     stats=stats)
+    else:
+        if norm is not None:
+            x = layers.norm_apply(norm, x, cfg, stats=stats)
+        qkv = layers.linear_apply(params["wqkv"], x)
     q = _finish_q(params, qkv[..., :ai], positions, cfg)
     k, v = _finish_kv(params, qkv[..., ai:ai + ki], qkv[..., ai + ki:],
                       positions, cfg)
     return q, k, v
+
+
+def output_proj(params: Params, o: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The composed o-projection of the unfused path: o·Wo, no epilogue."""
+    B, T = o.shape[:2]
+    return layers.linear_apply(params["wo"],
+                               o.reshape(B, T, cfg.attn_inner_dim))
 
 
 def output_proj_fused(params: Params, o: torch.Tensor, cfg: ModelConfig, *,

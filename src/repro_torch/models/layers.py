@@ -1,12 +1,15 @@
-"""Shared layers of the port: embedding, RMSNorm with injected statistics,
-RoPE, and the linear projections (dense or int4-quantized) of the fused
-pipeline.
+"""Shared layers of the port: embedding, RMSNorm and LayerNorm with injected
+statistics, RoPE, the linear projections (dense or int4-quantized) of the
+fused pipeline and the composed (unfused) ones.
 
 Counterpart of the JAX package's ``models/layers.py``.  Layers are plain
 functions on tensors; parameters are nested dicts of tensors named after the
-reference's pytree paths.  The port always runs the reference's
-``use_kernels=True, fuse_linear=True`` structure, so only the fused
-projections exist here.
+reference's pytree paths.  The port runs the reference's ``use_kernels=True,
+fuse_linear=True`` structure, so ``fuse_norm_linear`` is true exactly where
+the norm is RMS: a LayerNorm stack (stablelm-3b) takes the reference's
+unfused path, the norm applied to x on its own (μ, σ²) pair, then
+``linear_apply`` (``x @ w``, or the int4 matmul kernel for a quantized leaf)
+and the composed ``mlp_apply``.
 """
 from __future__ import annotations
 
@@ -47,21 +50,30 @@ def linear_init(gen, in_dim: int, out_dim: int, cfg: ModelConfig, device,
 
 
 def norm_init(dim: int, cfg: ModelConfig, device) -> Params:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError("the port runs RMSNorm stacks only")
-    return {"gamma": torch.ones((dim,), dtype=torch_dtype(cfg),
-                                device=device)}
+    """gamma = ones and, for LayerNorm, beta = zeros, in the model's dtype."""
+    p = {"gamma": torch.ones((dim,), dtype=torch_dtype(cfg), device=device)}
+    if cfg.norm_type == "layernorm":
+        p["beta"] = torch.zeros((dim,), dtype=torch_dtype(cfg), device=device)
+    return p
 
 
 GLU_ACTS = ("swiglu", "geglu")
+
+
+def fuse_norm_linear(cfg: ModelConfig) -> bool:
+    """True where the fused norm-prologue pipeline runs: the norm is RMS
+    (the carried reduction is a single Σx²; LayerNorm's (μ, σ²) pair stays
+    on the unfused path), as the reference's ``fuse_norm_linear`` with
+    ``use_kernels`` and ``fuse_linear`` on."""
+    return cfg.norm_type == "rmsnorm"
 
 
 def mlp_init(gen, cfg: ModelConfig, device) -> Params:
     if cfg.mlp_act not in GLU_ACTS:
         raise NotImplementedError(
             f"the port runs GLU MLPs only ({', '.join(GLU_ACTS)}); "
-            f"{cfg.mlp_act!r} runs the reference's unfused path (ROADMAP "
-            "queue 1 items 13.3 and 13.6)")
+            f"{cfg.mlp_act!r} (the up/down layout) is not ported yet "
+            "(ROADMAP queue 1 item 13.6)")
     return {"gu": linear_init(gen, cfg.d_model, 2 * cfg.d_ff, cfg, device),
             "down": linear_init(gen, cfg.d_ff, cfg.d_model, cfg, device)}
 
@@ -83,6 +95,21 @@ def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "w_int" in params:
         return kops.int4_matmul(x, params["w_int"], params["scale"])
     return x @ params["w"]
+
+
+def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """The unfused GLU MLP on an already-normalised x: one product over the
+    merged [gate | up] leaf, act(gate)·up in the model's dtype, the down
+    product (the reference's ``mlp_apply`` on the ``gu`` layout)."""
+    gu = linear_apply(params["gu"], x)
+    F = gu.shape[-1] // 2
+    g, up = gu[..., :F], gu[..., F:]
+    if cfg.mlp_act == "swiglu":
+        h = torch.nn.functional.silu(g)
+    else:
+        h = torch.nn.functional.gelu(g, approximate="tanh")
+    return linear_apply(params["down"], h * up)
 
 
 def linear_fused(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -128,14 +155,24 @@ def mlp_apply_fused(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def norm_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
-               stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """RMSNorm with fp32 statistics; ``stats`` injects a precomputed
-    mean(x²) (the decoupled-reduction path of Alg. 1)."""
+               stats=None) -> torch.Tensor:
+    """RMSNorm or LayerNorm with fp32 statistics; ``stats`` injects
+    precomputed ones (the decoupled-reduction path of Alg. 1): mean(x²)
+    for RMSNorm, the pair (μ, σ²) for LayerNorm."""
     xf = x.float()
-    ms = (xf * xf).mean(dim=-1, keepdim=True) if stats is None \
-        else stats[..., None]
-    y = xf * torch.rsqrt(ms + cfg.norm_eps)
-    return (y * params["gamma"].float()).to(x.dtype)
+    if cfg.norm_type == "rmsnorm":
+        ms = (xf * xf).mean(dim=-1, keepdim=True) if stats is None \
+            else stats[..., None]
+        y = xf * torch.rsqrt(ms + cfg.norm_eps)
+        return (y * params["gamma"].float()).to(x.dtype)
+    if stats is None:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    else:
+        mu, var = stats[0][..., None], stats[1][..., None]
+    y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    y = y * params["gamma"].float() + params["beta"].float()
+    return y.to(x.dtype)
 
 
 def rms_head_norm_init(dim: int, cfg: ModelConfig, device) -> Params:
@@ -153,10 +190,16 @@ def rms_head_norm(params: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
             * params["gamma"].float()).to(x.dtype)
 
 
-def norm_stats(x: torch.Tensor) -> torch.Tensor:
-    """The RMSNorm reduction alone: mean(x²) in fp32."""
+def norm_stats(x: torch.Tensor, cfg: Optional[ModelConfig] = None):
+    """The norm's reduction alone, in fp32: mean(x²) for RMSNorm (also
+    where ``cfg`` is None), the pair (μ, σ²) for LayerNorm.  The variance
+    is the two-pass mean((x − μ)²), as the reference takes it: the
+    one-pass E[x²] − μ² cancels for large-offset rows."""
     xf = x.float()
-    return (xf * xf).mean(dim=-1)
+    if cfg is None or cfg.norm_type == "rmsnorm":
+        return (xf * xf).mean(dim=-1)
+    mu = xf.mean(dim=-1)
+    return mu, (xf - mu[..., None]).square().mean(dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.kvcache import history
 from repro_torch.kvcache import paged as paged_mod
 from repro_torch.models import layers, transformer
+from repro_torch.quant import quantize_params
 
 
 def resolve_device(device) -> torch.device:
@@ -40,18 +41,28 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Dict:
+                device, int4: bool = False) -> Dict:
     """Parameters with the reference's shapes and distributions, drawn from
-    ``generator`` and built directly on ``device``."""
+    ``generator`` and built directly on ``device``.
+
+    ``int4``: ``quant.quantize_params`` at the config's group size and
+    scales, applied to each layer as soon as it is drawn (and to the lm
+    head), so the whole tree is never held in the model's dtype: the tree
+    equals ``quantize_params`` of the dense tree bit for bit (the draws
+    come in the same order), and a model whose dense weights would not fit
+    the card beside their codes (deepseek-coder-33b: ~66.7 GB of bf16) is
+    built on it."""
     transformer.check_supported(cfg)
+    quant = (lambda t: t) if not int4 else (
+        lambda t: quantize_params(t, cfg.quant.group_size,
+                                  cfg.quant.pow2_scales))
     p = {"embed": layers.embedding_init(generator, cfg, device),
-         "blocks": [transformer.block_init(generator, cfg, device)
+         "blocks": [quant(transformer.block_init(generator, cfg, device))
                     for _ in range(cfg.num_layers)],
          "final_norm": layers.norm_init(cfg.d_model, cfg, device)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = layers.linear_init(generator, cfg.d_model,
-                                          cfg.vocab_size, cfg, device,
-                                          scale=0.02)
+        p["lm_head"] = quant(layers.linear_init(
+            generator, cfg.d_model, cfg.vocab_size, cfg, device, scale=0.02))
     return p
 
 
@@ -175,11 +186,12 @@ def prefill_chunk(params: Dict, cache: List[Dict], tokens: torch.Tensor,
     x, sq, stats = _chunk_stack(params, cache, tokens, t0, cfg)
     B = x.shape[0]
     if last_index is None:
-        xl, sql = x[:, -1:], sq[:, -1:]
+        xl, sql = x[:, -1:], None if sq is None else sq[:, -1:]
     else:
         rows = torch.arange(B, device=x.device)
         idx = torch.as_tensor(last_index, device=x.device).long()
-        xl, sql = x[rows, idx][:, None], sq[rows, idx][:, None]
+        xl = x[rows, idx][:, None]
+        sql = None if sq is None else sq[rows, idx][:, None]
     x = layers.norm_apply(params["final_norm"], xl, cfg, stats=sql)
     logits = layers.unembed(params["embed"], params.get("lm_head"), x,
                             cfg)[:, 0]
@@ -792,11 +804,12 @@ class LanguageModel(nn.Module):
 
     ``params`` (a nested dict, e.g. from ``bridge.from_reference``) is moved
     to ``device``; without it ``init_params`` draws them there from a
-    ``torch.Generator`` seeded with ``seed``.  ``device`` defaults to
-    ``cuda`` and raises where CUDA is missing."""
+    ``torch.Generator`` seeded with ``seed`` (``int4``: quantized layer by
+    layer as drawn).  ``device`` defaults to ``cuda`` and raises where CUDA
+    is missing."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, int4: bool = False):
         super().__init__()
         transformer.check_supported(cfg)
         self.cfg = cfg
@@ -804,7 +817,7 @@ class LanguageModel(nn.Module):
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = init_params(cfg, gen, self.device)
+            params = init_params(cfg, gen, self.device, int4=int4)
         else:
             params = _to_device(params, self.device)
         self._layout = params

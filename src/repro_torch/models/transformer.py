@@ -8,6 +8,8 @@ in the JAX package's ``models/transformer.py``.  An attention block is
 {"mixer": routed attention, "ffn": routed GLU MLP}; the KV view and the
 Σy²/D carry thread from block to block exactly as they thread through the
 reference's stages.
+A LayerNorm stack's blocks run the unfused path and carry no Σy²/D (None
+from block to block, and as the stack's final carry).
 A Mamba block is {"mixer": routed SSM}; it consumes the Σy²/D carry but
 emits none, and its cache entry is {"conv_x", "conv_bc", "ssm"}.
 
@@ -39,10 +41,11 @@ def is_ssm_stack(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense RMSNorm stacks that are either attention (global
-    and sliding-window LOCAL layers) with GLU MLPs (qk-norm optional), or
-    all Mamba-2 with no MLP, in masked or gather routing.  Each refusal
-    names the ROADMAP queue 1 item that will port it."""
+    """The port runs dense stacks that are either attention (global and
+    sliding-window LOCAL layers) with GLU MLPs (qk-norm optional; RMSNorm
+    on the fused pipeline, LayerNorm on the unfused one), or all Mamba-2
+    with no MLP, in masked or gather routing.  Each refusal names the
+    ROADMAP queue 1 item that will port it."""
     if is_ssm_stack(cfg):
         if cfg.d_ff:
             raise NotImplementedError("Mamba blocks with an MLP are not "
@@ -61,9 +64,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "token":
         raise NotImplementedError("only token frontends are ported (ROADMAP "
                                   "queue 1 item 13.6)")
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError("only RMSNorm stacks are ported "
-                                  "(layernorm: ROADMAP queue 1 item 13.3)")
     if cfg.kv_cache_layout != "bthd":
         raise NotImplementedError("the port's decode cache is bthd only "
                                   "(bhtd: ROADMAP queue 1 item 13.7)")

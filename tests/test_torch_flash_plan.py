@@ -65,13 +65,17 @@ _EXPECTED = {
     ("prefill16", _F32): ("simt", 16, 32, 1, 0, (1, 32)),
 }
 # Dynamic shared memory by route and head dim: the tile's two Q buffers
-# (128 rows) and 2 stages of K and V (128 keys), rows of max(64, dh), 10
-# barriers and 1 KB of alignment; the split-KV walk's Q (16 rows) and 2
-# stages of K and V (64 keys), rows of dh + 8; none for SIMT.
+# (128 rows) and 2 stages of K and V (128 keys), rows of dh rounded up to
+# whole 64 (dh 80: 128, its last 48 columns TMA's zero fill), 10 barriers
+# and 1 KB of alignment; the split-KV walk's Q (16 rows) and 2 stages of
+# K and V (64 keys), rows of dh + 8; none for SIMT (dh 80: K [32][161], V
+# [32][80], Q [16][80] fp32 and 16 positions, 25792 B of static memory).
 _SMEM = {("wgmma", 128): 197712, ("wgmma", 64): 99408,
-         ("wgmma", 32): 99408, ("splitkv", 128): 73984,
-         ("splitkv", 64): 39168, ("splitkv", 32): 21760,
-         ("simt", 128): 0, ("simt", 64): 0, ("simt", 32): 0}
+         ("wgmma", 32): 99408, ("wgmma", 80): 197712,
+         ("splitkv", 128): 73984, ("splitkv", 64): 39168,
+         ("splitkv", 32): 21760, ("splitkv", 80): 47872,
+         ("simt", 128): 0, ("simt", 64): 0, ("simt", 32): 0,
+         ("simt", 80): 0}
 
 
 @pytest.mark.parametrize("dh", [32, 64, 128])
@@ -83,6 +87,42 @@ def test_plan_matches_hand_worked_values(key, dh):
     assert (p.route, p.tile_r, p.tile_k, p.splits, p.kc, p.grid) == \
         _EXPECTED[key]
     assert p.smem == _SMEM[(p.route, dh)]
+
+
+@pytest.mark.parametrize("key", list(_EXPECTED),
+                         ids=lambda k: f"{k[0]}-{str(k[1])[6:]}")
+def test_plan_dh80_matches_hand_worked_values(key):
+    """stablelm-3b's head dim 80 at the main path's shapes: the same
+    routes, tiles, splits and grids as at dh 128 (the rows are padded to
+    128 on the tile), with its own shared memory."""
+    name, dtype = key
+    p = fa.plan(*_SHAPES[name], 80, dtype)
+    assert (p.route, p.tile_r, p.tile_k, p.splits, p.kc, p.grid) == \
+        _EXPECTED[key]
+    assert p.smem == _SMEM[(p.route, 80)]
+
+
+# deepseek-coder-33b (56 heads over 8 kv heads: G 7, dh 128): lock-step
+# prefill 4 × 512 (R 3584 over B·Hkv 32: 28 row tiles each, 896 items),
+# decode (R 7: 8 splits wanted, kc = ⌈544 / 8 / 16⌉·16 = 80, so 7 splits),
+# a verify window of 5 columns (R 35), a 2-token prefill (R 14).  By hand
+# as _EXPECTED.
+_SHAPES_G7 = {"prefill": (32, 3584, 512), "decode": (32, 7, 544),
+              "verify": (32, 35, 544), "prefill2": (8, 14, 2)}
+_EXPECTED_G7 = {
+    "prefill": ("wgmma", 128, 128, 1, 0, (132, 1)),
+    "decode": ("splitkv", 16, 64, 7, 80, (7, 32)),
+    "verify": ("wgmma", 128, 128, 1, 0, (32, 1)),
+    "prefill2": ("splitkv", 16, 64, 1, 16, (1, 8)),
+}
+
+
+@pytest.mark.parametrize("name", list(_EXPECTED_G7))
+def test_plan_g7_matches_hand_worked_values(name):
+    p = fa.plan(*_SHAPES_G7[name], 128, _BF)
+    assert (p.route, p.tile_r, p.tile_k, p.splits, p.kc, p.grid) == \
+        _EXPECTED_G7[name]
+    _walk(*_SHAPES_G7[name], 128, _BF, balance=False)
 
 
 # gemma3-12b (16 heads over 8 kv heads, dh 256, window 1024): lock-step
@@ -118,7 +158,7 @@ def test_plan_dh256_matches_hand_worked_values(key):
         == _EXPECTED_256[key]
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 def test_every_plan_fits_shared_memory(dh):
     """Every route's shared memory fits a block of the H100: 227 KB of
     dynamic shared memory (the tile's static positions beside it), and the
@@ -184,12 +224,13 @@ def test_grid_covers_every_row_and_key_once_dh256(BH, R, Tk, dtype):
     _walk(BH, R, Tk, 256, dtype)
 
 
-def _walk(BH, R, Tk, dh, dtype):
+def _walk(BH, R, Tk, dh, dtype, balance=True):
     """Walked as the kernels walk it, the plan's grid covers each packed
     row of each (b, kv-head) once, and each key below a causal limit once:
     the tile and the SIMT kernel walk a row tile's keys [0, limit) in
     whole tiles; the split-KV clusters cut [0, Tk) into kc-key splits, none
-    of them empty."""
+    of them empty.  ``balance``: the tile's blocks share square causal
+    work evenly (not so for G > 1, whose packed rows repeat the keys)."""
     p = fa.plan(BH, R, Tk, dh, dtype)
     rows = np.zeros((BH, R), np.int64)
     if p.route == "wgmma":
@@ -203,7 +244,8 @@ def _walk(BH, R, Tk, dh, dtype):
         work = np.zeros(p.grid[0])
         for x, _, r0 in seen:
             work[x] += r0 // p.tile_r + 1
-        assert work.max() <= work.sum() / p.grid[0] + -(-R // p.tile_r)
+        assert not balance or \
+            work.max() <= work.sum() / p.grid[0] + -(-R // p.tile_r)
     else:
         tiles = p.grid[0] if p.route == "simt" else 1
         assert p.grid[1] == BH
@@ -230,10 +272,12 @@ def _walk(BH, R, Tk, dh, dtype):
 
 
 @pytest.mark.parametrize("dtype", [_BF, _F32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("case", chip_smoke.FLASH_RAGGED,
+@pytest.mark.parametrize("case", chip_smoke.FLASH_RAGGED
+                         + chip_smoke.FLASH_RAGGED_19,
                          ids=lambda c: "-".join(map(str, c)))
 def test_ragged_cases_plan_and_walk(case, dtype):
-    """chip_smoke's ragged flash cases, dh 256 among them: bf16 takes the
+    """chip_smoke's ragged flash cases, dh 256, dh 80 and G 7 among them
+    (phases 3 and 19): bf16 takes the
     tile where G·Tq > 16 and the split-KV walk otherwise, fp32 the SIMT
     kernel, and each plan's grid covers every row and key once."""
     B, Tq, Tk, Hq, Hkv, dh, _, _ = case
@@ -292,7 +336,9 @@ def _case(B, Tq, Tk, Hq, Hkv, dh, kind, seed):
 _MIRROR = [(2, 24, 24, 4, 2, 32, 0, "prefill"),
            (2, 24, 24, 4, 4, 64, 8, "prefill"),
            (2, 20, 20, 6, 2, 32, 0, "pads"),
-           (3, 1, 40, 8, 2, 64, 0, "decode")]
+           (3, 1, 40, 8, 2, 64, 0, "decode"),
+           (2, 20, 20, 4, 4, 80, 0, "pads"),
+           (3, 1, 40, 14, 2, 80, 0, "decode")]
 
 
 @pytest.mark.parametrize("B,Tq,Tk,Hq,Hkv,dh,window,kind", _MIRROR)

@@ -68,7 +68,7 @@ def test_mlp_act_name_matches_reference(arch):
     for act in ("swiglu", "geglu", "gelu_mlp"):
         assert layers.mlp_act_name(dataclasses.replace(cfg, mlp_act=act)) \
             == jlayers.mlp_act_name(dataclasses.replace(jcfg, mlp_act=act))
-    with pytest.raises(NotImplementedError, match="13.3"):
+    with pytest.raises(NotImplementedError, match="13.6"):
         layers.mlp_init(torch.Generator().manual_seed(0),
                         dataclasses.replace(cfg.smoke(), mlp_act="gelu_mlp"),
                         "cpu")

@@ -72,6 +72,30 @@ _EXPECTED_RAGGED = [
 ]
 
 
+# Phase 19's full shapes.  stablelm-3b (B 4, 32 kv-heads, G 1, dh 80, the
+# same 1024-page chain): 4 kv-heads a block and S 8 as at dh 128; a bf16
+# stage is 2·16·(4·80 + 8)·2 = 20992 B, so 3 stages (67072 B) fit and 4
+# do not; int8 2·64·(80 + 4) = 10752 B beside 4·16·88·2 = 11264 B of warp
+# tiles: 4 stages, 58368 B; int4 2·64·(40 + 4) = 5632 B: 4 stages, 37888
+# B.  deepseek-coder-33b (8 kv-heads, G 7, dh 128): 4 · 8 groups · 8 <
+# 256 and 4 · 4 · 8 < 256, so one kv-head a block, S 8, steps of 64
+# entries: bf16 2·64·136·2 = 34816 B a stage, 2 stages (73728 B); int8 3
+# (72192 B); int4 4 (56320 B); fp32 q: the SIMT kernel, 4 query heads a
+# block, 2 blocks a kv-head.
+_FULL_19 = {"stablelm": (4, 32, 1, 80, 16384),
+            "deepseek": (4, 8, 7, 128, 16384)}
+_EXPECTED_19 = {
+    ("stablelm", None, _BF): ("split", 16, 4, 8, 16, 3, (8, 32), 67072),
+    ("stablelm", "int8", _BF): ("split", 16, 4, 8, 16, 4, (8, 32), 58368),
+    ("stablelm", "int4", _BF): ("split", 16, 4, 8, 16, 4, (8, 32), 37888),
+    ("stablelm", "int4", _F32): ("simt", 1, 1, 1, 8, 0, (128, 1), 0),
+    ("deepseek", None, _BF): ("split", 16, 1, 8, 64, 2, (8, 32), 73728),
+    ("deepseek", "int8", _BF): ("split", 16, 1, 8, 64, 3, (8, 32), 72192),
+    ("deepseek", "int4", _BF): ("split", 16, 1, 8, 64, 4, (8, 32), 56320),
+    ("deepseek", "int8", _F32): ("simt", 4, 1, 1, 8, 0, (32, 2), 0),
+}
+
+
 def _tuple(p):
     return (p.route, p.rows, p.heads, p.splits, p.tile, p.stages, p.grid,
             p.smem)
@@ -96,6 +120,37 @@ def test_plan_ragged_shapes_match_hand_worked_values():
                     p.smem) == (route, heads, splits, st, grid, sm), case
             # fp32 q: always the SIMT kernel
             assert pa.plan(B, Hkv, G, dh, J * ps, kd, _F32).route == "simt"
+
+
+@pytest.mark.parametrize("key", list(_EXPECTED_19),
+                         ids=lambda k: f"{k[0]}-{k[1]}-{str(k[2])[6:]}")
+def test_plan_phase19_shapes_match_hand_worked_values(key):
+    name, kd, dt = key
+    B, Hkv, G, dh, E = _FULL_19[name]
+    assert _tuple(pa.plan(B, Hkv, G, dh, E, kd, dt)) == _EXPECTED_19[key]
+
+
+@pytest.mark.parametrize("case", chip_smoke.PAGED_RAGGED_19,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ragged_19_cases_plan(case):
+    """chip_smoke's dh 80 and G 7 ragged paged cases (phase 19): bf16 q on
+    the split walk up to G 16, fp32 on the SIMT kernel; every kv-head in
+    one block group; the two B 16 cases group 4 and 2 kv-heads, so odd
+    heads (int4 rows at 8-byte offsets) share a block, in a last group
+    short of live heads; shared memory within three blocks an SM."""
+    B, Hkv, G, dh, ps, J, _ = case
+    for kd in (None, "int8", "int4"):
+        p = pa.plan(B, Hkv, G, dh, J * ps, kd, _BF)
+        assert p.route == ("split" if G <= pa.SPLIT_MAX_G else "simt")
+        assert pa.plan(B, Hkv, G, dh, J * ps, kd, _F32).route == "simt"
+        if p.route == "split":
+            groups = -(-Hkv // p.heads)
+            assert p.grid == (p.splits, B * groups)
+            assert p.smem <= pa.SPLIT_SMEM and 3 * p.smem <= SMEM_PER_SM
+            if (B, Hkv) in ((16, 6), (16, 3)):
+                assert p.heads == (4 if Hkv == 6 else 2)
+                assert Hkv % p.heads and p.splits == 8
+    assert pa.row_bytes("int4", 80) == 40 and 40 % 16 == 8
 
 
 @pytest.mark.parametrize("G", [1, 2, 8, 16, 17, 32])
@@ -229,8 +284,8 @@ def test_ragged_histories_exercise_what_they_claim():
 
 def test_shared_memory_fits_three_blocks_per_sm():
     plans = [pa.plan(B, Hkv, G, dh, E, kd, _BF)
-             for B, Hkv, E in _SWEEP for G in (1, 16) for dh in (32, 64, 128)
-             for kd in (None, "int8", "int4")]
+             for B, Hkv, E in _SWEEP for G in (1, 7, 16)
+             for dh in (32, 64, 80, 128) for kd in (None, "int8", "int4")]
     assert 3 * pa.SPLIT_SMEM <= SMEM_PER_SM
     for p in plans:
         assert p.route == "split"
@@ -239,13 +294,13 @@ def test_shared_memory_fits_three_blocks_per_sm():
     # the shallowest ring fits at every head dim, payload and grouping
     for kd in (None, "int8", "int4"):
         for heads in (1, 2, 4):
-            for dh in (32, 64, 128):
+            for dh in (32, 64, 80, 128):
                 assert (pa.split_smem(kd, heads, dh, pa.SPLIT_MIN_STAGES)
                         <= pa.SPLIT_SMEM)
     # the warps' partials (acc [4][16][dh] fp32) fit below the list
     for kd in (None, "int8", "int4"):
         for heads in (1, 2, 4):
-            for dh in (32, 64, 128):
+            for dh in (32, 64, 80, 128):
                 below = (pa.split_smem(kd, heads, dh, 2)
                          - pa.SPLIT_LIST * 4)
                 assert pa.SPLIT_WARPS * 16 * dh * 4 <= below
