@@ -76,8 +76,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 exact launch counts of the cuda ``ServeEngine`` run, per
                 route (int4: its prefill on the s8 tile, its decode steps
                 on the split-K stream);
-  5. serve    — full-width llama2-7b in bf16 (random seeded weights, neutral
-                router bias) served by ``ServeEngine.generate``: batch 4 x
+  5. serve    — full-width llama2-7b in bf16 at LLAMA_LAYERS of its 32
+                layers (the depth of phases 5-17; random seeded weights,
+                neutral router bias) served by ``ServeEngine.generate``:
+                batch 4 x
                 prompt 512 + 32 new tokens, greedy; exact launch counts
                 (the dense fused linear and flash attention per route too:
                 prefill on the tensor-core tiles, decode steps on the
@@ -100,7 +102,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 the fp32 copy is freed after it;
   8. int4     — the phase-5 weights quantized on the card by the port's
                 ``quantize_params`` (group 128, pow2 scales: every linear of
-                all 32 layers and the lm head), served lock-step (batch 4 x
+                every layer and the lm head), served lock-step (batch 4 x
                 512 + 32) and by the continuous engine (the phase-6
                 requests) in the dense pool and in paged bf16 pages: exact
                 launch counts (4·L int4 fused linears and one int4 matmul
@@ -302,7 +304,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 rows, the other 4·L − 1 linears at B·C, flash at G·C rows),
                 masked and gather prefills timed in turns, the paged,
                 chunked, bucketed and speculative refusals; (d) in
-                ``witness()``, fp32 at all 32 layers, keep 1.0 and every
+                ``witness()``, fp32 at phase 5's depth, keep 1.0 and every
                 gate 1: gather ≡ masked (gates, tokens, logits ≤ 1e-4·max);
                 (e) after the llama weights are freed, qwen3-8b at full
                 width in bf16 (seed-0 weights, neutral router bias):
@@ -358,7 +360,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 M 4) at stablelm's four linears beside bf16
                 ``torch.matmul``, the fused linear's four routes at
                 deepseek's four linears, phase 3's checks; (b) stablelm at
-                full width in bf16: lock-step 4 × 512 + 32, phase 6's
+                full width in bf16, STABLE_LAYERS of its 32 layers:
+                lock-step 4 × 512 + 32, phase 6's
                 traffic in the dense pool single-step and fused, bf16
                 pages single-step and fused, int8 and int4 pages, chunk
                 128, spec_k 4, phase 13's traffic with the prefix cache on
@@ -372,8 +375,40 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
                 dense pool single-step and fused, then the int4 tree built
                 layer by layer as drawn lock-step and fused: exact launches
                 per route, peak memory under the card's.
+ 20. moe      — grok-1-314b (8 experts top 2, GeGLU; 48 query heads over 8
+                kv heads: G 6; d 6144, d_ff 32768, vocab 131072) and
+                arctic-480b (128 experts top 2, SwiGLU, a dense residual
+                MLP of d_ff 4864; G 7; d 7168), one model at a time after
+                phase 19's weights are freed, full widths at a cut depth
+                (neither fits the card whole): (a) flash at G 6 (prefill 4
+                × 512 on the tile, decode over 544 keys on the split-KV
+                walk, fp32 on the SIMT kernel, beside SDPA's GQA mode),
+                paged attention at G 6 in bf16, int8 and int4 pages, the
+                ragged G 6 / G 7 cases (``FLASH_RAGGED_20``,
+                ``PAGED_RAGGED_20``), the fused linear's routes at grok's
+                wqkv and wo, the int4 matmul at grok's head (M 4) and at
+                arctic's residual MLP (M 2048, M 4), phase 3's checks;
+                (b) grok at 4 layers (~42.6 GB bf16): lock-step 4 × 512 +
+                32, phase 6's traffic shape in the dense pool single-step
+                and fused (the same tokens), bf16 pages fused, then the
+                int4 tree built layer by layer as drawn (the experts and
+                their router stay bf16) lock-step and fused; (c) arctic at
+                2 layers (~55.4 GB): lock-step, the dense pool fused, int8
+                pages fused (G 7 on the paged split walk), int4 lock-step
+                (its residual MLP on the int4 tile and stream); every run
+                with exact launches per route (a router pass per attention
+                block, two fused linears a layer), finite logits, pages
+                conserved, each MoE call's ``moe_drop_frac`` beside the
+                host's count from its choices (``MoeWatch``), prefill_s,
+                tok/s, peak memory under the card's; (d) the fp32 CPU ≡
+                CUDA witness at full widths, grok at 2 layers and arctic
+                at 1 (its expert count cut only where the host's
+                MemAvailable cannot hold it, and recorded): 2 × 64 tokens
+                and 4 forced steps, the dense pool on prompts of 40 and 64
+                + 8, ``GateReplay`` over the router decisions and the
+                expert choices, logits ≤ 1e-4·max, argmax, tokens.
 Then the ``kernels`` summary line (``launches`` summed over the main-path
-runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 (their
+runs of phases 5, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (their
 fp32 witness runs included; not phase 16's subprocesses),
 each counted from 0 by the wrappers, which a graph replay does not pass
 through: phase 11's, 12's and 14's replayed launches stand in their own lines,
@@ -389,8 +424,8 @@ and flash attention as
 ``flash_attention_wgmma`` and ``flash_attention_splitkv``, and paged
 attention as ``paged_attention_split`` and ``paged_attention_simt``, and
 the SSD scan as ``ssd_scan_tc`` and ``ssd_scan_simt``, by the route
-counters; the times summed over phase 3's shapes and phase 18's and
-19's shapes of the same routes), and last the contract
+counters; the times summed over phase 3's shapes and phase 18's, 19's
+and 20's shapes of the same routes), and last the contract
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import dataclasses
@@ -595,7 +630,8 @@ def router_call(torch, x, w, what):
 
 def check_router(torch, dev, timer, cfgs, floor):
     """The router at every main-path shape: D of each config (llama2-7b
-    4096, mamba2-2.7b 2560) at T 2048, 453 and 4, bf16 and fp32, each
+    4096, mamba2-2.7b 2560; in phase 20 grok-1-314b 6144, arctic-480b
+    7168) at T 2048, 453 and 4, bf16 and fp32, each
     checked by ``router_call``.  The bf16 kernel is timed beside the plain
     version and beside the two-call torch composite (``x.float() @ w`` and
     ``x.float().square().mean(-1)``: two calls, not one, so not
@@ -738,8 +774,9 @@ def fused_linear_call(torch, x, w, kw, what):
     return rec
 
 
-def check_fused_linear(torch, dev, timer, cfg):
-    """The dense fused linear at the four linears of a llama2-7b block: bf16
+def check_fused_linear(torch, dev, timer, cfg, names=None):
+    """The dense fused linear at the four linears of a llama2-7b block (or
+    those of ``names``): bf16
     at M 2048 on the tensor-core tile and at M 4 on the split-K stream,
     each timed beside its plain version and ``torch.matmul``; the same
     inputs in fp32 on the SIMT kernel (the parity route), checked and
@@ -749,6 +786,8 @@ def check_fused_linear(torch, dev, timer, cfg):
     shapes = {"wgmma": [], "splitk": []}
     for M in (2048, 4):
         for name, K, N, glu, pro, epi in linear_shapes(cfg):
+            if names is not None and name not in names:
+                continue
             F = N // 2 if glu else N
             w = (torch.randn((K, N), generator=g, device=dev)
                  / math.sqrt(K)).to(torch.bfloat16)
@@ -890,8 +929,10 @@ INT4_TOL = ("the plain version summed in the route's order: bit for bit "
             f"difference; Σy² {TOL_SQ} rel; exact dequant {TOL_BFP}·max")
 
 
-def check_fused_linear_int4(torch, dev, timer, cfg, Ms=(2048, 512, 256, 4)):
-    """The int4-BFP fused linear at the four linears of a llama2-7b block:
+def check_fused_linear_int4(torch, dev, timer, cfg, Ms=(2048, 512, 256, 4),
+                            names=None):
+    """The int4-BFP fused linear at the four linears of a llama2-7b block
+    (or those of ``names``):
     M 2048 (lock-step prefill), 512 and 256 (the continuous buckets) on the
     tensor-core tile and M 4 (decode) on the split-K stream, in bf16 and
     fp32 activations, against the plain version in the route's order and,
@@ -904,6 +945,8 @@ def check_fused_linear_int4(torch, dev, timer, cfg, Ms=(2048, 512, 256, 4)):
     shapes = {"tc": [], "stream": []}
     for M in Ms:
         for name, K, N, glu, pro, epi in linear_shapes(cfg):
+            if names is not None and name not in names:
+                continue
             F = N // 2 if glu else N
             codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
             x, kw = linear_inputs(torch, dev, g, M, K, F, glu, pro, epi)
@@ -947,10 +990,11 @@ def check_fused_linear_int4(torch, dev, timer, cfg, Ms=(2048, 512, 256, 4)):
     return shapes
 
 
-def check_int4_matmul(torch, dev, timer, cfg):
+def check_int4_matmul(torch, dev, timer, cfg, Ms=(4, 2048)):
     """The int4 matmul at the lm head (K 4096, N 32000): M 4 (the main
     path's batch) on the split-K stream and, for the record, M 2048 on the
-    tensor-core tile, in bf16 and fp32 activations, against the plain
+    tensor-core tile (``Ms``), in bf16 and fp32 activations, against the
+    plain
     version in the route's order and the exact-dequant oracle; timed
     beside the plain version and the bf16 dense route at the same shape.
     Returns the shape records by route."""
@@ -960,7 +1004,7 @@ def check_int4_matmul(torch, dev, timer, cfg):
     g = torch.Generator(device=dev).manual_seed(18)
     codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
     shapes = {"tc": [], "stream": []}
-    for M in (4, 2048):
+    for M in Ms:
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         errs = {}
         for dt in (torch.bfloat16, torch.float32):
@@ -2214,13 +2258,23 @@ def parity(torch, np, dev, int4=False):
 # Phase 5: full-width llama2-7b served by the lock-step engine
 # ---------------------------------------------------------------------------
 
+# The depth at which phases 5-17 serve llama2-7b (full widths; 16 of its 32
+# layers) and phase 19 stablelm-3b (16 of 32): their eager loops are
+# host-bound, so the whole script's time follows the host's speed, and at
+# full depth a slow host took past the script's 1200 s.
+LLAMA_LAYERS = 16
+STABLE_LAYERS = 16
+
+
 def full_width_model(torch, dev):
-    """llama2-7b at its published widths in bf16, seed-0 random weights,
-    router biases zeroed so routing really skips."""
+    """llama2-7b at its published widths in bf16, cut to LLAMA_LAYERS
+    layers, seed-0 random weights, router biases zeroed so routing really
+    skips."""
     from repro_torch.configs import get_config
     from repro_torch.core.routing import neutral_router_bias
     from repro_torch.models.model import LanguageModel
-    cfg = get_config("llama2-7b")
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              num_layers=LLAMA_LAYERS)
     t = time.perf_counter()
     model = LanguageModel(cfg, device=dev, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
@@ -2262,7 +2316,13 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     prefill (B, T) with C = ``capacity(T, keep_prob)``): the first layer's
     wqkv projects all B·T rows (the dense KV base case), the other 4·L − 1
     linears the B·C gathered rows, and flash packs G·C rows over T keys;
-    decode steps are masked in either mode."""
+    decode steps are masked in either mode.  An MoE FFN (grok-1-314b,
+    arctic-480b) runs on the unfused branch: no fused linear of its own
+    (its experts are ``torch.bmm``) and no Σy² carry, so the next
+    attention block launches router_stats itself (a router pass per
+    attention block after an MoE one), two fused linears a layer (wqkv,
+    wo); Arctic's dense residual MLP is two plain matmuls, or with int4
+    weights two int4 matmuls a layer at the FFN's rows."""
     from repro_torch.core import routing
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_linear as fl
@@ -2296,17 +2356,22 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
     Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     G = cfg.num_heads // Hkv
     gather = transformer.is_gather(cfg)
+    moe = [cfg.is_moe_layer(i) for i in range(L)]
+    n_lin = 4 * L - 2 * sum(moe)        # an MoE FFN runs no fused linear
+    routers = 1 + sum(moe[:-1])         # no carry after an MoE block
+    n_res = 2 * sum(moe) if cfg.dense_residual and int4 else 0
 
-    def prefill_forward(e):     # ({rows: linears}, batch, R, keys)
+    def prefill_forward(e):     # ({rows: linears}, batch, R, keys, FFN rows)
         b, t = e[0], e[1]
         c = routing.capacity(t, cfg.skip.keep_prob) \
             if gather and len(e) == 2 else t
         if c == t:
-            return {b * t: 4 * L}, b, G * t, e[-1]
-        return {b * t: 1, b * c: 4 * L - 1}, b, G * c, e[-1]
+            return {b * t: n_lin}, b, G * t, e[-1], b * t
+        return {b * t: 1, b * c: n_lin - 1}, b, G * c, e[-1], b * c
 
     forwards = [prefill_forward(e) for e in prefills]
-    forwards += [({step_rows: 4 * L}, step_rows, G, MAX_LEN)] * n_st
+    forwards += [({step_rows: n_lin}, step_rows, G, MAX_LEN,
+                  step_rows)] * n_st
     if int4:
         lin = model.params()["blocks"][0]["mixer"]["inner"]["wo"]
         lm = model.params()["lm_head"] if head4 else lin
@@ -2317,13 +2382,15 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
             return fl.plan_int4(rows, D, V, Kw // C, C, False, dt).route
 
     lin4 = "fused_linear_int4" if fuse else "int4_matmul"
-    for i, (rows, b, R, Tk) in enumerate(forwards):
+    for i, (rows, b, R, Tk, ffn_rows) in enumerate(forwards):
         for m, n in rows.items():
             if int4:
                 routes[f"{lin4}_" + int4_route(m)] += n
             elif fuse:
                 routes["fused_linear_" + fl.plan(m, D, D, False,
                                                  dt).route] += n
+        if n_res:
+            routes["int4_matmul_" + int4_route(ffn_rows)] += n_res
         if head4:
             routes["int4_matmul_" + int4_route(b)] += 1
         if i < n_pf or not paged:
@@ -2332,10 +2399,10 @@ def expected_launches(model, prefills, n_st: int, step_rows: int,
         else:       # the route takes q's dtype and G alone
             routes["paged_attention_" + pa.plan(b, Hkv, G, dh, Tk, None,
                                                 dt).route] += L
-    return {"router_stats": fwd if fuse else 0, "ssd_scan": 0,
-            "fused_linear": 4 * L * fwd if fuse and not int4 else 0,
-            "fused_linear_int4": 4 * L * fwd if fuse and int4 else 0,
-            "int4_matmul": (fwd if head4 else 0) + (
+    return {"router_stats": routers * fwd if fuse else 0, "ssd_scan": 0,
+            "fused_linear": n_lin * fwd if fuse and not int4 else 0,
+            "fused_linear_int4": n_lin * fwd if fuse and int4 else 0,
+            "int4_matmul": (fwd if head4 else 0) + n_res * fwd + (
                 4 * L * fwd if int4 and not fuse else 0),
             "flash_attention": L * (n_pf if paged else fwd),
             "paged_attention": L * n_st if paged else 0, **routes}
@@ -4010,7 +4077,7 @@ def serve_int4(torch, np, dev, model, lock_tokens, cont_tokens, prompts,
                on_weights=None):
     """The phase-5 bf16 weights quantized on the card by the port's
     ``quantize_params`` at llama2-7b's QuantConfig (group 128, pow2 scales:
-    every linear of all 32 layers and the lm head), served lock-step (batch
+    every linear of every layer and the lm head), served lock-step (batch
     4 × 512 + 32) and by the continuous engine (the phase-6 requests) in
     the dense pool and in paged bf16 pages, with exact launch counts and
     finite logits.  The share of tokens equal to the bf16 runs is reported
@@ -4703,13 +4770,27 @@ ROBUST = {"faults_injected_total": ("faults_injected", "fault"),
           "snapshots_total": ("snapshots", "snapshot"),
           "resumes_total": ("resumes", "resume")}
 # (c): the launcher's paged fused run, killed at boundary PROC_KILL_AT
-PROC_ARGS = ("--arch", "llama2-7b", "--device", "cuda", "--continuous",
-             "--paged-kv", "--decode-steps", str(FUSED_STEPS), "--batch",
-             str(SLOTS), "--prompt-len", "128", "--new-tokens", "16")
+PROC_ARGS = ("--arch", "llama2-7b", "--num-layers", str(LLAMA_LAYERS),
+             "--device", "cuda", "--continuous", "--paged-kv",
+             "--decode-steps", str(FUSED_STEPS), "--batch", str(SLOTS),
+             "--prompt-len", "128", "--new-tokens", "16")
 PROC_KILL_AT, PROC_SNAPSHOT_EVERY = 4, 2
 # (a)'s OOM: a paged loop admits one prompt an iteration, so by iteration 2
-# two residents stand, and one can be preempted for the other
+# two residents stand, and one can be preempted for the other.  A fused
+# epoch's or a window's headroom spans many steps, so one hide forces a
+# shrink or a preemption; a single step's worst case is L entries, one page
+# at 16 layers, so a resident may still hold that much slack: the
+# single-step loop hides every free page for OOM_WINDOW iterations
 OOM_STEP = 2
+OOM_WINDOW = 4
+
+
+def oom_steps(kw) -> tuple:
+    """The iterations (a)'s OOM hides every free page at, for a paged
+    loop of engine levers ``kw``."""
+    if kw.get("decode_steps", 1) > 1 or kw.get("spec_k"):
+        return (OOM_STEP,)
+    return tuple(range(OOM_STEP, OOM_STEP + OOM_WINDOW))
 
 
 def fault_steps(kw) -> tuple:
@@ -4828,7 +4909,8 @@ def fault_matrix(torch, np, dev, model, prompts, total):
                                      Fault("dispatch_error", step=s)]),
                  ("stall", [Fault("stall", step=d, stall_s=FAULT_STALL_S)])]
         if kw["kv_mode"] == "paged":
-            plans.append(("oom", [Fault("oom", step=OOM_STEP, pages=0)]))
+            plans.append(("oom", [Fault("oom", step=i, pages=0)
+                                  for i in oom_steps(kw)]))
             if kw.get("spec_k"):
                 # reported, not held: bf16 rounding follows the windows
                 # (fault_steps; (e) holds it in fp32)
@@ -5242,14 +5324,17 @@ def faults_witness(torch, np, dev, m32, reqs, new, tokens, logs):
     refs = {"paged": (tokens["fp32_paged"], logs["fp32_paged"]["log"]
                       ["gates"], None),
             "paged_fused": (toks_c, clean_log["gates"], observed(out_c))}
-    # single-step: every resident needs a page at iteration 2; fused: the
-    # first hide halves the epoch down to the step the prefills reserved,
-    # the second finds no step's headroom left; speculation: two retries
-    # amid the admissions, which reshape the windows (fp32 spec ≡ plain)
+    # single-step: (a)'s window of hides (``oom_steps``), in which some
+    # resident needs a page; fused: the first hide halves the epoch down to
+    # the step the prefills reserved, the later ones find no step's
+    # headroom left (at 16 layers a prefill's reserve can cover one more
+    # epoch: four hides); speculation: two retries amid the admissions,
+    # which reshape the windows (fp32 spec ≡ plain)
     for name, loop, kw, faults in (
-            ("oom_paged", "paged", paged, [Fault("oom", step=2, pages=0)]),
+            ("oom_paged", "paged", paged,
+             [Fault("oom", step=i, pages=0) for i in oom_steps(paged)]),
             ("oom_paged_fused", "paged_fused", fused,
-             [Fault("oom", step=i, pages=0) for i in (0, 1)]),
+             [Fault("oom", step=i, pages=0) for i in range(4)]),
             ("retry_paged_spec", "paged", dict(paged, spec_k=SPEC_K),
              [Fault("dispatch_error", step=i) for i in (1, 2)])):
         log = {}
@@ -5631,7 +5716,7 @@ def gather_runs(torch, np, dev, model, prompts, label, fused=True):
 
 
 def gather_witness(torch, np, dev, m32):
-    """(d) fp32 at full width (all 32 layers): keep_prob 1.0 (C = T) and
+    """(d) fp32 at full width (phase 5's depth): keep_prob 1.0 (C = T) and
     every router's keep bias raised by WITNESS_BIAS, so every gate is 1
     (asserted); then gather ≡ masked on 2 prompts of 128 tokens and 4
     teacher-forced steps: equal gate logs and argmax tokens, logits ≤
@@ -6079,33 +6164,72 @@ class GateReplay:
     rounding may flip), every other must agree, and the calls must match
     in number and shape.  The run then takes the recorded decisions, so
     its logits and tokens stay comparable past an excused flip and are
-    held without exception."""
+    held without exception.  An MoE block's expert choices
+    (``moe.top_k_experts``) go through a second log the same way: each
+    token's ordered top K, with the smallest gap between neighbours of its
+    K + 1 largest probabilities as its margin; a replayed token whose
+    choices differ is excused only below GATHER_MARGIN, and the run takes
+    the recorded experts (at its own probabilities)."""
 
     def __init__(self):
         self.log, self.flips, self.calls = [], [], 0
+        self.elog, self.eflips, self.ecalls = [], [], 0
         self._replaying = False
 
     def record(self):
         self._replaying = False
         self.log.clear()
+        self.elog.clear()
         return self
 
     def replay(self):
-        self._replaying, self.calls = True, 0
+        self._replaying, self.calls, self.ecalls = True, 0, 0
         return self
 
     def __enter__(self):
         from repro_torch.core import routing
+        from repro_torch.models import moe
         self._orig = routing.gate_from_logits
+        self._eorig = moe.top_k_experts
         routing.gate_from_logits = self._gate
+        moe.top_k_experts = self._experts
         return self
 
     def __exit__(self, kind, *_):
         from repro_torch.core import routing
+        from repro_torch.models import moe
         routing.gate_from_logits = self._orig
+        moe.top_k_experts = self._eorig
         if self._replaying and kind is None:
             require(self.calls == len(self.log), f"replay: {self.calls} "
                     f"gate calls, the record has {len(self.log)}")
+            require(self.ecalls == len(self.elog), f"replay: {self.ecalls} "
+                    f"expert calls, the record has {len(self.elog)}")
+
+    def _experts(self, probs, k):
+        vals, idx = self._eorig(probs, k)
+        if not self._replaying:
+            top = vals if probs.shape[-1] == k else self._eorig(
+                probs, k + 1)[0]
+            margin = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+            self.elog.append((idx.cpu(), margin.cpu()))
+            return vals, idx
+        require(self.ecalls < len(self.elog), "replay: more expert calls "
+                "than the record")
+        want, rec = self.elog[self.ecalls]
+        own = idx.cpu()
+        require(own.shape == want.shape, f"expert call {self.ecalls}: "
+                f"shape {tuple(own.shape)}, the record {tuple(want.shape)}")
+        differs = (own != want).any(dim=-1)
+        flipped = rec[differs]
+        require(bool((flipped < GATHER_MARGIN).all()),
+                f"expert call {self.ecalls}: a choice differs at a recorded "
+                f"margin of {flipped.max().item() if flipped.numel() else 0}"
+                f" ≥ {GATHER_MARGIN}")
+        self.eflips += [(self.ecalls, m) for m in flipped.tolist()]
+        self.ecalls += 1
+        want = want.to(idx.device)
+        return probs.gather(1, want), want
 
     def _gate(self, logits):
         gate, p_keep = self._orig(logits)
@@ -6129,13 +6253,23 @@ class GateReplay:
         return want.to(gate.device), p_keep
 
     def summary(self) -> dict:
-        return {"gate_calls": len(self.log),
-                "decisions": sum(g.numel() for g, _ in self.log),
-                "min_margin": min(m.min().item() for _, m in self.log),
-                "below_margin": sum(int((m < GATHER_MARGIN).sum())
-                                    for _, m in self.log),
-                "flips_excused": [{"call": c, "margin": m}
-                                  for c, m in self.flips]}
+        out = {"gate_calls": len(self.log),
+               "decisions": sum(g.numel() for g, _ in self.log),
+               "min_margin": min(m.min().item() for _, m in self.log),
+               "below_margin": sum(int((m < GATHER_MARGIN).sum())
+                                   for _, m in self.log),
+               "flips_excused": [{"call": c, "margin": m}
+                                 for c, m in self.flips]}
+        if self.elog:
+            out.update(
+                expert_calls=len(self.elog),
+                expert_choices=sum(e.numel() for e, _ in self.elog),
+                expert_min_margin=min(m.min().item() for _, m in self.elog),
+                expert_below_margin=sum(int((m < GATHER_MARGIN).sum())
+                                        for _, m in self.elog),
+                expert_flips_excused=[{"call": c, "margin": m}
+                                      for c, m in self.eflips])
+        return out
 
 
 def gemma_witness(torch, np, dev, cfg):
@@ -6275,16 +6409,26 @@ STABLE_WITNESS_NEW = 8
 
 
 def ragged_19(torch, dev):
-    """(a) FLASH_RAGGED_19 and PAGED_RAGGED_19 (each paged case in bf16,
-    int8 and int4 pages) in bf16 and fp32 on the routes their plans pick,
-    against the plain versions with phase 3's tolerances
-    (``flash_call``, ``ragged_paged``); not timed.  Every bf16 route and
-    the SIMT kernels must be taken."""
-    g = torch.Generator(device=dev).manual_seed(34)
+    """(a) FLASH_RAGGED_19 and PAGED_RAGGED_19 (``ragged_cases``): every
+    bf16 route and the SIMT kernels must be taken."""
+    return ragged_cases(torch, dev, FLASH_RAGGED_19, PAGED_RAGGED_19, 34,
+                        {("bfloat16", "split"), ("bfloat16", "simt"),
+                         ("float32", "simt")}, "dh 80 / G 7")
+
+
+def ragged_cases(torch, dev, flash_cases, paged_cases, seed, paged_routes,
+                 what):
+    """Ragged flash cases and paged cases (each in bf16, int8 and int4
+    pages) in bf16 and fp32 on the routes their plans pick, against the
+    plain versions with phase 3's tolerances (``flash_call``,
+    ``ragged_paged``), from one generator seeded ``seed``; not timed.
+    Flash must take its two bf16 routes and SIMT, paged attention the
+    routes ``paged_routes`` ({(dtype, route)})."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     flash, paged_recs, worst = {}, {}, {}
     for dt, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
         dname = str(dt).split(".")[-1]
-        for case in FLASH_RAGGED_19:
+        for case in flash_cases:
             B, Tq, Tk, Hq, Hkv, dh, window, kind = case
             args = flash_ragged_inputs(torch, dev, g, dt, B, Tq, Tk, Hq, Hkv,
                                        dh, kind)
@@ -6294,7 +6438,7 @@ def ragged_19(torch, dev):
                                            r["max_abs_err"] / r["max_ref"])
             flash[f"{kind} B={B} Tq={Tq} Tk={Tk} Hq={Hq} Hkv={Hkv} dh={dh} "
                   f"window={window} {dname}"] = r
-        for case in PAGED_RAGGED_19:
+        for case in paged_cases:
             for kd in (None, "int8", "int4"):
                 r = ragged_paged(torch, dev, g, dt, kd, *case)
                 worst["paged_attention"] = max(
@@ -6305,19 +6449,19 @@ def ragged_19(torch, dev):
     routes = {(k.split()[-1], r["route"]) for k, r in flash.items()}
     require(routes == {("bfloat16", "wgmma"), ("bfloat16", "splitkv"),
                        ("float32", "simt")},
-            f"ragged dh 80 / G 7 flash cases took the routes {routes}")
+            f"ragged {what} flash cases took the routes {routes}")
     routes = {(k.split()[-1], r["route"]) for k, r in paged_recs.items()}
-    require(routes == {("bfloat16", "split"), ("bfloat16", "simt"),
-                       ("float32", "simt")},
-            f"ragged dh 80 / G 7 paged cases took the routes {routes}")
+    require(routes == paged_routes,
+            f"ragged {what} paged cases took the routes {routes}")
     return {"max_err_over_max_ref": worst, "flash_attention": flash,
             "paged_attention": paged_recs}
 
 
-def stable_int4_matmul(torch, dev, timer, cfg):
+def stable_int4_matmul(torch, dev, timer, cfg, names=None):
     """(a) The int4 matmul at stablelm-3b's four linears (wqkv 2560→7680,
     wo 2560→2560, gu 2560→13824, down 6912→2560: the unfused path's
-    ``linear_apply`` with int4 leaves), M 2048 (lock-step prefill) on the
+    ``linear_apply`` with int4 leaves; or those of ``names``: phase 20's
+    arctic-480b residual MLP), M 2048 (lock-step prefill) on the
     s8 tile and M 4 (decode) on the code stream, in bf16 and fp32
     activations (``int4_call``: the plain version in the route's order,
     bit for bit; the exact dequant within TOL_BFP), timed beside the plain
@@ -6330,6 +6474,8 @@ def stable_int4_matmul(torch, dev, timer, cfg):
     shapes = {"tc": [], "stream": []}
     for M in (2048, 4):
         for name, K, N, *_ in linear_shapes(cfg):
+            if names is not None and name not in names:
+                continue
             codes, scale, w_exact, w = int4_weight(torch, dev, g, K, N, G)
             x = torch.randn((M, K), generator=g, device=dev).to(
                 torch.bfloat16)
@@ -6393,8 +6539,9 @@ def stable_deepseek_kernels(torch, np, dev, timer, cfg, dcfg, floor):
 
 
 def stable_serve(torch, np, dev, cfg):
-    """(b) stablelm-3b at full width in bf16 (seed-0 weights, neutral
-    router bias, ~5.6 GB) on the unfused path: lock-step 4 × 512 + 32;
+    """(b) stablelm-3b at full width in bf16 at ``cfg``'s depth (seed-0
+    weights, neutral router bias) on the unfused path: lock-step 4 × 512 +
+    32;
     phase 6's 8 requests (seeded anew) in the dense pool single-step and
     in fused 8-step epochs (the same tokens), bf16 pages single-step and
     fused (the same tokens), int8 and int4 pages, chunk 128 (dense pool)
@@ -6642,7 +6789,9 @@ def stable_deepseek_phase(torch, np, dev, timer, floor):
     kernels = stable_deepseek_kernels(torch, np, dev, timer, cfg, dcfg,
                                       floor)
     kernels_s = time.perf_counter() - t
-    serve, launches, derived = stable_serve(torch, np, dev, cfg)
+    serve, launches, derived = stable_serve(
+        torch, np, dev, dataclasses.replace(cfg, num_layers=STABLE_LAYERS))
+    serve["published_layers"] = cfg.num_layers
     serve_s = time.perf_counter() - t - kernels_s
     wit = stable_witness(torch, np, dev, cfg)
     deep, more, more_derived = deepseek_serve(torch, np, dev, dcfg)
@@ -6653,6 +6802,392 @@ def stable_deepseek_phase(torch, np, dev, timer, floor):
             "launch_floor_ms": floor, "kernels": kernels, "stablelm": serve,
             "witness_fp32": wit, "deepseek": deep, "launches": launches,
             "graph_launches_derived": derived}, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: grok-1-314b (top-k MoE, GeGLU experts; 48 query heads over 8 kv
+# heads: G 6) and arctic-480b (128 experts, SwiGLU, the dense residual MLP;
+# G 7), full widths at a cut depth
+# ---------------------------------------------------------------------------
+
+# (a)'s ragged flash cases at G 6: (B, Tq, Tk, Hq, Hkv, dh, window, kind)
+# as FLASH_RAGGED.  6·T rows ending mid-tile (144, 114, 222 under window
+# 8, a verify window's 30, 18 just past the walk), and 6 / 12 rows on the
+# split-KV walk (decode, a 2-token tail, decode over 544 keys), dh 64 too.
+FLASH_RAGGED_20 = ((2, 24, 24, 6, 1, 128, 0, "prefill"),
+                   (1, 19, 19, 6, 1, 128, 0, "prefill"),
+                   (1, 37, 37, 12, 2, 128, 8, "prefill"),
+                   (2, 40, 70, 12, 2, 128, 0, "tail"),
+                   (2, 5, 544, 48, 8, 128, 0, "tail"),
+                   (1, 3, 3, 6, 1, 128, 0, "prefill"),
+                   (3, 1, 50, 12, 2, 128, 0, "decode"),
+                   (2, 2, 300, 12, 2, 128, 0, "tail"),
+                   (2, 1, 544, 48, 8, 128, 0, "short"),
+                   (2, 2, 33, 6, 1, 64, 0, "tail"))
+# (a)'s ragged paged cases: (B, Hkv, G, dh, ps, J, kind) as PAGED_RAGGED.
+# G 6 at grok's decode (4 slots, 8 kv-heads), alone and in groups of 2 and
+# 4 kv-heads (B 16), an odd page, few, front-loaded and empty histories,
+# dh 64; G 7 at arctic's decode shape.
+PAGED_RAGGED_20 = ((4, 8, 6, 128, 16, 64, "random"),
+                   (2, 2, 6, 128, 16, 64, "random"),
+                   (16, 8, 6, 128, 16, 512, "random"),
+                   (16, 3, 6, 128, 16, 128, "random"),
+                   (1, 1, 6, 128, 16, 40, "front"),
+                   (2, 1, 6, 64, 8, 7, "random"),
+                   (1, 3, 6, 128, 5, 9, "random"),
+                   (2, 2, 6, 128, 4, 3, "empty"),
+                   (1, 2, 6, 128, 16, 128, "few"),
+                   (4, 8, 7, 128, 16, 64, "random"))
+
+
+MOE_SERVE = {                    # (b), (c): depth cut, runs
+    "grok-1-314b": dict(
+        layers=4, runs=(("dense", dict(kv_mode="dense")),
+                        ("fused_dense", dict(kv_mode="dense",
+                                             decode_steps=FUSED_STEPS)),
+                        ("fused_paged_bf16", dict(
+                            kv_mode="paged", decode_steps=FUSED_STEPS))),
+        same=("dense", "fused_dense"),
+        int4_runs=(("int4_fused_dense", dict(kv_mode="dense",
+                                             decode_steps=FUSED_STEPS)),)),
+    "arctic-480b": dict(
+        layers=2, runs=(("fused_dense", dict(kv_mode="dense",
+                                             decode_steps=FUSED_STEPS)),
+                        ("fused_paged_int8", dict(
+                            kv_mode="paged", kv_dtype="int8",
+                            decode_steps=FUSED_STEPS))),
+        same=None, int4_runs=()),
+}
+MOE_PAGED_J = 1088    # (a): pages a slot; 64 layers' entries of a 512-token
+#                       keep-0.5 history (~32.5 a token, ~16640) pass 1024·16
+MOE_WITNESS_LAYERS = {"grok-1-314b": 2, "arctic-480b": 1}   # (d)
+MOE_WITNESS_T = 64               # (d): the forced prompts (2 of them)
+MOE_WITNESS_STEPS = 4
+MOE_WITNESS_ENGINE = (40, 64)    # (d): the dense pool's prompts
+MOE_WITNESS_NEW = 8
+MOE_HOST_MARGIN = 1.25           # (d): host memory wanted per fp32 byte
+DROP_TOL = 1e-6                  # a dropped count over N·K in fp32
+
+
+class MoeWatch:
+    """Every MoE call of a run outside a CUDA graph capture: its choices
+    (``moe.positions``' top_e), capacity and ``moe_apply``'s
+    ``moe_drop_frac``.  ``check()`` holds each call's drop fraction to the
+    host's count from its choices (1 − Σ_e min(n_e, C) / (N·K): the cumsum
+    keeps an expert's first C pairs in token order) within DROP_TOL, a
+    call of at most 8 rows (a decode step; C ≥ 8) to 0, and returns the
+    prefills' drop fractions."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._pending = [], []
+        self._pos, self._apply = moe.positions, moe.moe_apply
+
+        def positions(top_e, n_experts, cap):
+            if not self._capturing():
+                self._pending.append((top_e, cap))
+            return self._pos(top_e, n_experts, cap)
+
+        def moe_apply(params, x, cfg):
+            y, aux = self._apply(params, x, cfg)
+            if not self._capturing():
+                top_e, cap = self._pending.pop()
+                self.calls.append((top_e, cap, aux["moe_drop_frac"]))
+            return y, aux
+
+        moe.positions, moe.moe_apply = positions, moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.positions, moe.moe_apply = self._pos, self._apply
+
+    @staticmethod
+    def _capturing():
+        import torch
+        return torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing()
+
+    def check(self, label) -> dict:
+        import numpy as np
+        require(self.calls and not self._pending,
+                f"{label}: no MoE call seen, or a call without its choices")
+        worst, prefill, steps = 0.0, [], 0
+        for top_e, cap, drop in self.calls:
+            te = top_e.cpu().numpy()
+            n, k = te.shape
+            counts = np.bincount(te.reshape(-1))
+            host = 1.0 - np.minimum(counts, cap).sum() / (n * k)
+            dev = float(drop)
+            worst = max(worst, abs(dev - host))
+            require(abs(dev - host) <= DROP_TOL, f"{label}: moe_drop_frac "
+                    f"{dev}, the host's count from the choices {host}")
+            if n <= 8:
+                require(dev == 0.0, f"{label}: a {n}-row call dropped")
+                steps += 1
+            else:
+                prefill.append({"rows": n, "capacity": cap,
+                                "drop_frac": dev})
+        return {"calls": len(self.calls), "step_calls": steps,
+                "prefill_calls": prefill, "max_host_diff": worst,
+                "tol": DROP_TOL}
+
+
+def ragged_20(torch, dev):
+    """(a) FLASH_RAGGED_20 and PAGED_RAGGED_20 (``ragged_cases``): both
+    bf16 flash routes and SIMT, the paged split walk (every case G ≤ 16)
+    and SIMT."""
+    return ragged_cases(torch, dev, FLASH_RAGGED_20, PAGED_RAGGED_20, 35,
+                        {("bfloat16", "split"), ("float32", "simt")},
+                        "G 6 / G 7")
+
+
+def moe_kernels(torch, np, dev, timer, gcfg, acfg, floor):
+    """(a) The kernels at phase 20's shapes: the router at grok-1-314b's D
+    6144 and arctic-480b's 7168 (T 2048, 453 and 4; ``check_router``: an
+    MoE block leaves no Σy² carry, so every attention block launches it);
+    flash at grok's G 6
+    (prefill 4 × 512 on the tile, decode over 544 keys on the split-KV
+    walk, fp32 on the SIMT kernel, beside SDPA in its GQA mode;
+    ``check_flash``); paged attention at G 6 over 512-token histories in
+    bf16, int8 and int4 pages (split walk, SIMT on the same inputs, flash's
+    split walk over the same rows; ``check_paged``); the ragged cases
+    (``ragged_20``); the fused linear's routes at grok's wqkv 6144→8192
+    and wo 6144→6144 beside ``torch.matmul`` (``check_fused_linear``), and
+    its int4 routes there at M 2048 on the tile and M 4 on the stream
+    (``check_fused_linear_int4``: grok's int4 runs); the int4 matmul at
+    grok's head (M 4, K 6144, N 131072;
+    ``check_int4_matmul``) and at arctic-480b's residual MLP (gu
+    7168→2·4864, down 4864→7168, M 2048 on the tile and M 4 on the stream;
+    ``stable_int4_matmul``).  Phase 3's checks and tolerances."""
+    return {"router": check_router(torch, dev, timer, (gcfg, acfg), floor),
+            "flash_g6": check_flash(torch, dev, timer, gcfg),
+            "paged_g6": check_paged(torch, np, dev, timer, gcfg,
+                                    J=MOE_PAGED_J),
+            "ragged": ragged_20(torch, dev),
+            "fused_linear": check_fused_linear(torch, dev, timer, gcfg,
+                                               names=("wqkv", "wo")),
+            "fused_linear_int4": check_fused_linear_int4(
+                torch, dev, timer, gcfg, Ms=(2048, 4), names=("wqkv", "wo")),
+            "int4_head": check_int4_matmul(torch, dev, timer, gcfg,
+                                           Ms=(4,)),
+            "int4_residual": stable_int4_matmul(torch, dev, timer, acfg,
+                                                names=("gu", "down"))}
+
+
+def moe_serve(torch, np, dev, cfg):
+    """(b) grok-1-314b at 4 layers, (c) arctic-480b at 2, full widths in
+    bf16 (seed-0 weights, neutral router bias): lock-step 4 × 512 + 32,
+    the runs of MOE_SERVE (phase 6's 8 requests, seeded anew; grok: the
+    dense pool single-step and fused, the same tokens, and bf16 pages
+    fused; arctic: the dense pool and int8 pages fused, G 7 on the paged
+    split walk), then, the bf16 weights freed, the int4 tree built layer
+    by layer as drawn (the experts and their router stay bf16) lock-step
+    and (grok) fused.  Every run under ``MoeWatch``: exact launches per
+    route, finite logits, pages conserved, each MoE call's drop fraction
+    beside the host's count, prefill_s, tok/s and peak memory under the
+    card's.  Returns (record, launches, the fused runs' derived graph
+    launches)."""
+    spec = MOE_SERVE[cfg.name]
+    cut = dataclasses.replace(cfg, num_layers=spec["layers"])
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.integers(128, 513, 8)]
+    card = torch.cuda.get_device_properties(dev).total_memory
+    total, derived, out = {}, {}, {}
+    short = cfg.name.split("-")[0]
+    for label, int4 in (("bf16", False), ("int4", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, init_s = seeded_model(torch, dev, cut, int4=int4)
+        p = model.params()
+        if int4:
+            from repro_torch.quant import int4_head, int4_linears
+            inner = p["blocks"][0]["ffn"]["inner"]
+            require(int4_linears(p) and int4_head(p)
+                    and inner["w_up"].dtype == torch.bfloat16
+                    and inner["gate"].dtype == torch.bfloat16,
+                    f"{cfg.name} int4: the linears or the head are not "
+                    "int4, or the experts are")
+        with MoeWatch() as watch:
+            lock, launches, _ = serve_full_width(
+                torch, np, dev, model, init_s,
+                phase=f"{short}_{label}_lockstep")
+        lock["moe"] = watch.check(f"{cfg.name} {label} lock-step")
+        _add(total, launches)
+        runs, tokens = [], {}
+        with FiniteLogits(torch, dev) as finite:
+            for run, kw in spec["int4_runs" if int4 else "runs"]:
+                with MoeWatch() as watch:
+                    rec, tokens[run], launches = serve_continuous(
+                        torch, dev, model, finite, f"{short}_{label}_{run}",
+                        prompts, 32, trace=False, **kw)
+                rec["moe"] = watch.check(f"{cfg.name} {run}")
+                runs.append(rec)
+                _add(total, launches)
+                _add(derived, rec.get("graph_launches_derived", {}))
+        if spec["same"] and not int4:
+            a, b = spec["same"]
+            require(all(np.array_equal(x, y) for x, y in zip(
+                tokens[a], tokens[b])), f"{cfg.name}: fused epochs changed "
+                "the dense pool's tokens")
+        peak = max([lock["max_memory_allocated"]]
+                   + [r["max_memory_allocated"] for r in runs])
+        require(peak < card, f"{cfg.name} {label}: peak {peak} of {card}")
+        out[label] = {"init_s": init_s, "weight_bytes": _tree_bytes(p),
+                      "lockstep": lock, "runs": runs,
+                      "peak_memory_allocated": peak}
+        del model, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = ["flash_attention_wgmma", "flash_attention_splitkv",
+            "fused_linear_wgmma", "fused_linear_splitk",
+            "fused_linear_int4_tc", "fused_linear_int4_stream",
+            "int4_matmul_stream", "paged_attention_split", "router_stats"]
+    if cfg.dense_residual:
+        want.append("int4_matmul_tc")
+    for k in want:
+        require(total[k] > 0, f"{cfg.name}: {k} never launched")
+    return {"config": cfg.name, "layers": cut.num_layers,
+            "published_layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "experts": cfg.num_experts, "top_k": cfg.top_k,
+            "mlp_act": cfg.mlp_act, "dense_residual": cfg.dense_residual,
+            "capacity_factor": cfg.moe_capacity_factor, "card_memory": card,
+            "prompt_lens": [len(q) for q in prompts], **out}, total, derived
+
+
+def _mem_available() -> int:
+    """The host's MemAvailable in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def moe_witness(torch, np, dev, cfg):
+    """(d) CPU ≡ CUDA in fp32 at full widths, grok-1-314b cut to 2 layers
+    (~46 GB) and arctic-480b to 1 (~56 GB): the seeded weights (neutral
+    router bias) drawn on the card and copied to the host; 2 prompts of 64
+    tokens and 4 teacher-forced decode steps, then the dense pool (2 slots,
+    single-step) on prompts of 40 and 64 tokens + 8.  Each cuda run replays
+    the cpu run's router decisions and expert choices (``GateReplay``: a
+    difference only where the cpu margin is below GATHER_MARGIN, listed),
+    then its logits are held to ≤ 1e-4·max with equal argmax, and the
+    pool's tokens to the cpu's exactly.  Where the host's MemAvailable
+    cannot hold the fp32 weights MOE_HOST_MARGIN times over, the expert
+    count is cut (a multiple of 8) and the record says to what; widths
+    are never cut."""
+    from repro_torch.core.routing import neutral_router_bias
+    from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    t = time.perf_counter()
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              num_layers=MOE_WITNESS_LAYERS[cfg.name])
+    avail = _mem_available()
+    need = 4 * cfg.param_count()
+    published = experts = cfg.num_experts
+    while MOE_HOST_MARGIN * 4 * dataclasses.replace(
+            cfg, num_experts=experts).param_count() > avail and experts > 8:
+        experts -= 8
+    cfg = dataclasses.replace(cfg, num_experts=experts)
+    params = neutral_router_bias(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(PARITY_SEED), dev))
+    m_gpu = LanguageModel(cfg, params, device=dev)
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    m_cpu = LanguageModel(cfg, to_cpu(params), device="cpu")
+    load_s = time.perf_counter() - t
+    rng = np.random.default_rng(PARITY_SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (2, MOE_WITNESS_T)))
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (2, MOE_WITNESS_STEPS)))
+    forced_gates = GateReplay()
+    with torch.no_grad():
+        with forced_gates.record():
+            lc, _ = _forced_run(m_cpu, toks, forced)
+        with forced_gates.replay():
+            lg, _ = _forced_run(m_gpu, toks.to(dev), forced.to(dev))
+    worst = max((a - b.cpu()).abs().max().item() / a.abs().max().item()
+                for a, b in zip(lc, lg))
+    require(worst <= TOL_LOGITS, f"{cfg.name} fp32 witness: logits differ "
+            f"(cpu/cuda) by {worst} > {TOL_LOGITS}·max")
+    require(all(torch.equal(a.argmax(-1), b.argmax(-1).cpu())
+                for a, b in zip(lc, lg)),
+            f"{cfg.name} fp32 witness: greedy tokens differ (cpu/cuda)")
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in MOE_WITNESS_ENGINE]
+    engine_gates, outs = GateReplay(), []
+    for m, phase in ((m_cpu, engine_gates.record),
+                     (m_gpu, engine_gates.replay)):
+        eng = ContinuousBatchingEngine(
+            m, max_slots=2, max_len=max(MOE_WITNESS_ENGINE)
+            + MOE_WITNESS_NEW)
+        uids = [eng.submit(p, max_new_tokens=MOE_WITNESS_NEW)
+                for p in prompts]
+        with phase():
+            res = eng.run()["results"]
+        outs.append([res[u].tokens for u in uids])
+    require(all(np.array_equal(a, b) for a, b in zip(*outs)),
+            f"{cfg.name} fp32 witness: dense pool tokens differ (cpu/cuda)")
+    del m_gpu, m_cpu, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "experts": experts,
+            "published_experts": published,
+            "experts_cut": experts != published,
+            "host_mem_available": avail, "fp32_weight_bytes_published": need,
+            "fp32_weight_bytes": 4 * cfg.param_count(), "load_s": load_s,
+            "forced": {"prompts": 2, "prompt_len": MOE_WITNESS_T,
+                       "steps": MOE_WITNESS_STEPS,
+                       "gates": forced_gates.summary(),
+                       "logits_max_rel_diff": worst, "tol": TOL_LOGITS,
+                       "argmax_identical": True},
+            "engine": {"prompt_lens": list(MOE_WITNESS_ENGINE),
+                       "new_tokens": MOE_WITNESS_NEW,
+                       "gates": engine_gates.summary(),
+                       "tokens_identical": True},
+            "gather_margin": GATHER_MARGIN,
+            "seconds": time.perf_counter() - t}
+
+
+def moe_phase(torch, np, dev, timer, floor):
+    """Phase 20, grok-1-314b and arctic-480b: (a) the kernels
+    (``moe_kernels``), (b) and (c) served at a cut depth (``moe_serve``),
+    (d) the fp32 witnesses (``moe_witness``), one model at a time.
+    Returns (its line, the launches of its main-path runs)."""
+    from repro_torch.configs import get_config
+    gcfg, acfg = get_config("grok-1-314b"), get_config("arctic-480b")
+    gc.collect()          # the earlier phases' models, before the peaks
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    kernels = moe_kernels(torch, np, dev, timer, gcfg, acfg, floor)
+    kernels_s = time.perf_counter() - t
+    launches, derived, rec, secs = {}, {}, {}, {}
+    for cfg in (gcfg, acfg):
+        t0 = time.perf_counter()
+        served, more, more_derived = moe_serve(torch, np, dev, cfg)
+        _add(launches, more)
+        _add(derived, more_derived)
+        t1 = time.perf_counter()
+        served["witness_fp32"] = moe_witness(torch, np, dev, cfg)
+        rec[cfg.name] = served
+        secs[cfg.name] = {"serve": t1 - t0,
+                          "witness": time.perf_counter() - t1}
+    return {"phase": "moe", "seconds": time.perf_counter() - t,
+            "kernels_seconds": kernels_s, "seconds_by_model": secs,
+            "launch_floor_ms": floor, "kernels": kernels, **rec,
+            "launches": launches, "graph_launches_derived": derived}, \
+        launches
 
 
 def main() -> int:
@@ -6732,6 +7267,8 @@ def main() -> int:
     model, init_s = full_width_model(torch, dev)
     serve, launches, lock_tokens = serve_full_width(torch, np, dev, model,
                                                     init_s)
+    serve.update(layers=LLAMA_LAYERS,
+                 published_layers=get_config("llama2-7b").num_layers)
     emit(serve)
     cont, cont_launches, prompts, tokens, (short, tight) = \
         continuous_full_width(torch, np, dev, model)
@@ -6840,6 +7377,22 @@ def main() -> int:
             ("fused_linear_int4_tc", sk["fused_linear_int4"]["tc"]),
             ("fused_linear_int4_stream", sk["fused_linear_int4"]["stream"])):
         per_kernel[name] = per_kernel[name] + rows
+    moe, moe_launches = moe_phase(torch, np, dev, timer, floor)
+    mk = moe["kernels"]
+    for name, rows in (
+            ("flash_attention_wgmma", mk["flash_g6"]["wgmma"]),
+            ("flash_attention_splitkv", mk["flash_g6"]["splitkv"]),
+            ("paged_attention_split", mk["paged_g6"]["split"]),
+            ("paged_attention_simt", mk["paged_g6"]["simt"]),
+            ("fused_linear_wgmma", mk["fused_linear"]["wgmma"]),
+            ("fused_linear_splitk", mk["fused_linear"]["splitk"]),
+            ("fused_linear_int4_tc", mk["fused_linear_int4"]["tc"]),
+            ("fused_linear_int4_stream", mk["fused_linear_int4"]["stream"]),
+            ("router_stats", mk["router"]),
+            ("int4_matmul_stream", mk["int4_head"]["stream"]
+             + mk["int4_residual"]["stream"]),
+            ("int4_matmul_tc", mk["int4_residual"]["tc"])):
+        per_kernel[name] = per_kernel[name] + rows
 
     par, par_launches = parity_mamba(torch, np, dev)
     emit(par)            # fp32: the SSD scan's SIMT route's launches
@@ -6899,6 +7452,8 @@ def main() -> int:
     _add(launches, gemma_launches)
     emit(stable)
     _add(launches, stable_launches)
+    emit(moe)
+    _add(launches, moe_launches)
     require(all(launches[k] > 0 for k in TPU_KERNELS),
             f"a kernel of the path never launched: {launches}")
 

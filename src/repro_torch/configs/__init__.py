@@ -8,8 +8,10 @@ from repro_torch.configs.base import (  # noqa: F401
     list_configs,
     register,
 )
+from repro_torch.configs import arctic_480b  # noqa: F401
 from repro_torch.configs import deepseek_coder_33b  # noqa: F401
 from repro_torch.configs import gemma3_12b  # noqa: F401
+from repro_torch.configs import grok_1_314b  # noqa: F401
 from repro_torch.configs import llama2_7b  # noqa: F401
 from repro_torch.configs import mamba2_2_7b  # noqa: F401
 from repro_torch.configs import qwen3_8b  # noqa: F401

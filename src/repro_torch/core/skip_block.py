@@ -28,7 +28,13 @@ product and the two-pass (μ, σ²) pair (no router-stats kernel, and no Σy²
 carry: ``stats['res_sq']`` is None), the norm applied to x, the composed
 projections (``linear_apply``: ``x @ w``, or the int4 matmul kernel for a
 quantized leaf) and ``x + y·gate`` (gather mode: ``x +
-scatter_tokens(y·gate)``).
+scatter_tokens(y·gate)``).  An MoE FFN (``layers.mlp_fusable`` false)
+takes the same unfused branch inside a fused RMSNorm stack, as in the
+reference: its router and norm statistics come from the attention block's
+Σy² carry, then the norm on those statistics, ``moe.moe_apply`` and
+``x + y·gate``; it emits no carry (the next attention block launches the
+router-stats kernel itself), and its ``moe_lb_loss`` / ``moe_drop_frac``
+join the block's stats.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from repro_torch.core import kv_reuse, routing
 from repro_torch.kernels import ops as kops
 from repro_torch.kvcache import history
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, ssm as ssm_mod
+from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import Params
 
 Stats = Dict[str, torch.Tensor]
@@ -166,33 +172,51 @@ def routed_attention(p: Params, x: torch.Tensor,
     return x, view, stats
 
 
+def _fuse_mlp(p: Params, cfg: ModelConfig) -> bool:
+    """Whether the FFN runs the fused pipeline: an RMS stack and a dense
+    MLP (the reference's ``fuse_norm_linear(cfg) and mlp_fusable``)."""
+    return layers.fuse_norm_linear(cfg) and layers.mlp_fusable(p["inner"])
+
+
+def _ffn_inner(inner: Params, xn: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Stats]:
+    """The unfused FFN on a normalised x: (y, aux) of the dense
+    ``mlp_apply`` (no aux), or of the MoE block."""
+    if layers.mlp_fusable(inner):
+        return layers.mlp_apply(inner, xn, cfg), {}
+    return moe_mod.moe_apply(inner, xn, cfg)
+
+
 def routed_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                carried_sq: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Stats]:
-    """Dense GLU MLP, fused (``stats['res_sq']`` the Σy²/D carry) or
-    unfused (None), masked or gather routing."""
+    """Dense GLU MLP or MoE, fused (``stats['res_sq']`` the Σy²/D carry)
+    or unfused (None), masked or gather routing.  In gather mode an MoE
+    block dispatches the B·C gathered rows."""
     B, T, D = x.shape
     routed = cfg.skip.enabled and cfg.skip.route_mlp
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
     gate, p_keep = _gate(logits, (B, T), routed, x.device)
+    aux: Stats = {}
     if routed and cfg.skip.mode == "gather":
         idx = _select(logits, T, cfg)
         xg = routing.gather_tokens(x, idx)
         sg, gate_g = _gather_stats(nstats, idx), torch.gather(gate, 1, idx)
-        if layers.fuse_norm_linear(cfg):
+        if _fuse_mlp(p, cfg):
             yg, sq_g = layers.mlp_apply_fused(
                 p["inner"], xg, cfg, norm=p["norm"], stats=sg, residual=xg,
                 gate_mul=gate_g, emit_sq=True)
             x = routing.scatter_set_tokens(x, idx, yg)
             res_sq = routing.scatter_set_tokens(nstats, idx, sq_g / D)
         else:
-            y = layers.mlp_apply(p["inner"], layers.norm_apply(
+            y, aux = _ffn_inner(p["inner"], layers.norm_apply(
                 p["norm"], xg, cfg, stats=sg), cfg)
             x = x + routing.scatter_tokens(_gated(y, gate_g, True), idx, T)
             res_sq = None
     else:
-        x, res_sq = _mlp_out(p, x, nstats, gate, routed, cfg)
+        x, res_sq, aux = _mlp_out(p, x, nstats, gate, routed, cfg)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
+    stats.update(aux)
     stats["res_sq"] = res_sq
     return x, stats
 
@@ -239,18 +263,19 @@ def _attn_out(inner: Params, o: torch.Tensor, x: torch.Tensor,
 
 def _mlp_out(p: Params, x: torch.Tensor, nstats, gate: torch.Tensor,
              routed: bool, cfg: ModelConfig):
-    """The MLP and residual of every row: the fused pipeline with the Σy²/D
-    carry, or norm, ``mlp_apply`` and x + y·gate with no carry (unfused).
-    x: [B, T, D]; gate [B, T].  Returns (x, the carry or None)."""
-    if not layers.fuse_norm_linear(cfg):
-        y = layers.mlp_apply(p["inner"], layers.norm_apply(
+    """The FFN and residual of every row: the fused pipeline with the Σy²/D
+    carry, or norm, the inner FFN (``mlp_apply`` or ``moe_apply``) and x +
+    y·gate with no carry (unfused).  x: [B, T, D]; gate [B, T].  Returns
+    (x, the carry or None, the inner FFN's aux)."""
+    if not _fuse_mlp(p, cfg):
+        y, aux = _ffn_inner(p["inner"], layers.norm_apply(
             p["norm"], x, cfg, stats=nstats), cfg)
-        return x + _gated(y, gate, routed), None
+        return x + _gated(y, gate, routed), None, aux
     x, sq = layers.mlp_apply_fused(p["inner"], x, cfg, norm=p["norm"],
                                    stats=nstats, residual=x,
                                    gate_mul=gate if routed else None,
                                    emit_sq=True)
-    return x, sq / x.shape[-1]
+    return x, sq / x.shape[-1], {}
 
 
 def _decode_output_epilogue(inner: Params, o: torch.Tensor, x: torch.Tensor,
@@ -376,14 +401,17 @@ def routed_attention_decode(p: Params, x: torch.Tensor,
 def routed_mlp_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       carried_sq: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Stats]:
-    """Decode-time MLP routing is the masked path with T = 1."""
+    """Decode-time FFN routing is the masked path with T = 1 (an MoE block
+    dispatches the step's B rows)."""
     B = x.shape[0]
     routed = cfg.skip.enabled and cfg.skip.route_mlp
     logits, nstats = _router_and_stats(p, x, cfg, routed, carried_sq)
     gate, p_keep = _gate(logits[:, 0] if logits is not None else None, (B,),
                          routed, x.device)
     stats = _routed_stats(p_keep, gate, routed, cfg, x.device)
-    x, stats["res_sq"] = _mlp_out(p, x, nstats, gate[:, None], routed, cfg)
+    x, res_sq, aux = _mlp_out(p, x, nstats, gate[:, None], routed, cfg)
+    stats.update(aux)
+    stats["res_sq"] = res_sq
     return x, stats
 
 

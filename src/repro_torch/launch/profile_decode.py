@@ -40,6 +40,10 @@ split into draft, verify and commit.
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch deepseek-coder-33b --decode-steps 8               # on the card
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch grok-1-314b --num-layers 4 --decode-steps 8       # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+      --arch arctic-480b --num-layers 2 --prefill              # on the card
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       --arch llama2-7b --smoke --device cpu [--paged]          # plain versions
 
 ``--arch gemma3-12b`` (LOCAL ring caches) takes every mode but ``--paged``,
@@ -48,6 +52,13 @@ engine's errors for it, as its serving does.  ``--arch stablelm-3b`` (the
 unfused LayerNorm path, head dim 80) and ``--arch deepseek-coder-33b``
 (G 7, ~66.7 GB of bf16) take every mode; the int4 weights are drawn from
 the same seed and quantized layer by layer once the bf16 ones are freed.
+``--num-layers N`` cuts the stack to its first N layers at full widths
+(grok-1-314b at 4 layers, ~42.6 GB of bf16, and arctic-480b at 2, ~55.4
+GB, fit one card).  An MoE stack's eager and prefill lines add, from
+the trace (``_moe_split``), the experts' products (``aten::bmm``), the
+rest of the busy time and the ``aten::`` operators with the most device
+time of their own, which name the dispatch glue; its int4 weights keep
+the experts in bf16 (the rule quantizes 2-D ``w`` leaves only).
 
 Weights are random (seed 0, router biases zeroed so routing skips, as
 ``chip_smoke.py`` serves them).  After a ``--batch`` × ``--prompt-len``
@@ -201,6 +212,9 @@ def _profile_windows(model, step, steps: int, top: int, rec: dict) -> dict:
                    / steps,
                    router_launches_per_step=sum(
                        cnt for _, cnt in router) / steps)
+        if model.cfg.num_experts:
+            rec["moe_per_step"] = _moe_split(
+                prof, rec["device_busy_ms_per_step"] * steps, steps)
     return rec
 
 
@@ -329,6 +343,24 @@ def _device_time_us(avg) -> float:
     return 0.0
 
 
+def _moe_split(prof, busy_ms: float, per: int, top: int = 16) -> dict:
+    """An MoE stack's device time in a profiled window, over ``per`` (its
+    steps, or 1): ``expert_bmm_ms`` (``aten::bmm``, the experts' products:
+    nothing else of the port runs a batched product on the card),
+    ``other_ms`` (the rest of the busy time: attention, the linears, the
+    routers and the dispatch glue) and the ``aten::`` operators with the
+    most device time of their own (the glue's: the expert choice's
+    ``softmax`` and ``sort``, the positions' ``cumsum``, the dispatch's
+    ``index_copy_``, the combine's ``index_select``)."""
+    ops = [(a.key, _device_time_us(a) / 1e3 / per, a.count / per)
+           for a in prof.key_averages() if a.key.startswith("aten::")]
+    bmm = sum(ms for k, ms, _ in ops if k == "aten::bmm")
+    return {"expert_bmm_ms": bmm, "other_ms": busy_ms / per - bmm,
+            "top_ops": [{"op": k, "self_device_ms": ms, "calls": n}
+                        for k, ms, n in sorted(ops, key=lambda o: -o[1])
+                        if ms > 0][:top]}
+
+
 def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
                     new_tokens: int = 32) -> dict:
     """One lock-step prefill of ``batch`` × ``prompt_len`` seeded tokens
@@ -388,6 +420,8 @@ def profile_prefill(model, batch: int, prompt_len: int, top: int = 8,
                              by_name.items(), key=lambda kv: -kv[1][0])[:top]],
             top_ops=[{"op": k, "self_device_ms": us / 1e3, "calls": n}
                      for k, us, n in sorted(ops, key=lambda o: -o[1])[:top]])
+        if cfg.num_experts:
+            rec["moe"] = _moe_split(prof, busy, 1)
     return rec
 
 
@@ -849,6 +883,9 @@ def main(argv=None) -> None:
                          "pages), split into draft, verify and commit")
     ap.add_argument("--draft-keep", type=float, default=None,
                     help="with --spec-k: the draft pass's keep lever")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the stack to its first N layers, widths "
+                         "kept (a model whose weights do not fit one card)")
     args = ap.parse_args(argv)
     if args.spec_k < 0 or (args.spec_k and (args.prefill
                                             or args.decode_steps)):
@@ -885,6 +922,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     model = LanguageModel(cfg, device=args.device, seed=0)
     model = LanguageModel(cfg, neutral_router_bias(model.params()),
                           device=args.device)
@@ -899,10 +938,11 @@ def main(argv=None) -> None:
             args.prefix == "warm")), flush=True)
         return
     if args.prefill:
-        print(json.dumps(
-            profile_prefill_chunks(model, args.prompt_len, args.prefill_chunk)
-            if args.prefill_chunk else
-            profile_prefill(model, args.batch, args.prompt_len)), flush=True)
+        rec = (profile_prefill_chunks(model, args.prompt_len,
+                                      args.prefill_chunk)
+               if args.prefill_chunk else
+               profile_prefill(model, args.batch, args.prompt_len))
+        print(json.dumps(rec), flush=True)
         if args.gather:
             gather = LanguageModel(dataclasses.replace(
                 cfg, skip=dataclasses.replace(cfg.skip, mode="gather")),

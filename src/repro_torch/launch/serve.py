@@ -39,7 +39,14 @@ batching over the dense slot pool or the paged §4.4 KV store.
       --arch deepseek-coder-33b --int4 --continuous  # GQA 7, ~34 GB
 
 ``--arch`` defaults to llama2-7b (also: qwen3-8b, gemma3-12b, stablelm-3b,
-deepseek-coder-33b, mamba2-2.7b).  stablelm-3b (LayerNorm, head dim 80,
+deepseek-coder-33b, grok-1-314b, arctic-480b, mamba2-2.7b).  grok-1-314b
+and arctic-480b are top-2 MoE stacks (8 GeGLU experts; 128 SwiGLU experts
+beside a dense residual MLP), served in every loop llama2-7b is; at their
+published depth (~633 GB and ~954 GB of bf16) neither fits one card, so
+serve them ``--smoke``, or at full widths with ``--num-layers N`` (their
+first N layers: grok-1-314b at 4, ~42.6 GB, and arctic-480b at 2, ~55.4 GB,
+fit one 80 GB card).  ``--int4`` leaves their experts in bf16.
+stablelm-3b (LayerNorm, head dim 80,
 partial rotary) runs the unfused path in every loop llama2-7b runs;
 deepseek-coder-33b (56 query heads over 8 kv heads) is llama-arch at
 ~66.7 GB of bf16 weights.  gemma3-12b (5 sliding-window LOCAL layers a global one,
@@ -146,6 +153,9 @@ def main(argv=None) -> None:
                          "tokens at a time, interleaved with resident "
                          "decode steps (0 = monolithic; requires "
                          "--continuous)")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the stack to its first N layers, widths "
+                         "kept (a model whose weights do not fit one card)")
     ap.add_argument("--int4", action="store_true",
                     help="int4-BFP weights: quantize_params at the config's "
                          "QuantConfig (group size, pow2 scales)")
@@ -239,6 +249,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     if args.gather:
         cfg = dataclasses.replace(
             cfg, skip=dataclasses.replace(cfg.skip, mode="gather"))

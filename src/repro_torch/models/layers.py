@@ -39,7 +39,7 @@ def trunc_normal(gen: torch.Generator, shape, scale: float, dtype,
     """Truncated normal on ±2σ, times ``scale``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 def linear_init(gen, in_dim: int, out_dim: int, cfg: ModelConfig, device,
@@ -66,6 +66,14 @@ def fuse_norm_linear(cfg: ModelConfig) -> bool:
     on the unfused path), as the reference's ``fuse_norm_linear`` with
     ``use_kernels`` and ``fuse_linear`` on."""
     return cfg.norm_type == "rmsnorm"
+
+
+def mlp_fusable(params: Params) -> bool:
+    """Whether the fused pipeline runs this FFN (the reference's
+    ``mlp_fusable``): a dense MLP, whose [gate|up] leaf the port always
+    keeps merged (``gu``).  An MoE block (expert router ``gate``, 3-D
+    expert leaves) keeps its scatter dispatch on the unfused branch."""
+    return "gu" in params
 
 
 def mlp_init(gen, cfg: ModelConfig, device) -> Params:

@@ -51,14 +51,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     equals ``quantize_params`` of the dense tree bit for bit (the draws
     come in the same order), and a model whose dense weights would not fit
     the card beside their codes (deepseek-coder-33b: ~66.7 GB of bf16) is
-    built on it."""
+    built on it.  The rule quantizes 2-D ``w`` leaves only, so an MoE
+    block's 3-D expert leaves and its expert router ``gate`` stay in the
+    model's dtype (attention, Arctic's dense residual and the head go to
+    int4)."""
     transformer.check_supported(cfg)
     quant = (lambda t: t) if not int4 else (
         lambda t: quantize_params(t, cfg.quant.group_size,
                                   cfg.quant.pow2_scales))
     p = {"embed": layers.embedding_init(generator, cfg, device),
-         "blocks": [quant(transformer.block_init(generator, cfg, device))
-                    for _ in range(cfg.num_layers)],
+         "blocks": [quant(transformer.block_init(generator, cfg, device, i))
+                    for i in range(cfg.num_layers)],
          "final_norm": layers.norm_init(cfg.d_model, cfg, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = quant(layers.linear_init(

@@ -8,6 +8,10 @@ in the JAX package's ``models/transformer.py``.  An attention block is
 {"mixer": routed attention, "ffn": routed GLU MLP}; the KV view and the
 Σy²/D carry thread from block to block exactly as they thread through the
 reference's stages.
+An MoE FFN (``cfg.is_moe_layer``) takes the unfused branch and emits no
+Σy²/D carry, so the next attention block launches the router-stats kernel
+itself; its ``moe_lb_loss`` is summed into the stats with ``n_moe``, as
+the reference's stage stats do.
 A LayerNorm stack's blocks run the unfused path and carry no Σy²/D (None
 from block to block, and as the stack's final carry).
 A Mamba block is {"mixer": routed SSM}; it consumes the Σy²/D carry but
@@ -31,7 +35,7 @@ import torch
 from repro_torch.configs.base import ATTN, LOCAL, MAMBA, ModelConfig
 from repro_torch.core import routing, skip_block
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, ssm as ssm_mod
+from repro_torch.models import layers, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.layers import Params
 
 
@@ -41,10 +45,11 @@ def is_ssm_stack(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense stacks that are either attention (global and
-    sliding-window LOCAL layers) with GLU MLPs (qk-norm optional; RMSNorm
-    on the fused pipeline, LayerNorm on the unfused one), or all Mamba-2
-    with no MLP, in masked or gather routing.  Each refusal names the
+    """The port runs stacks that are either attention (global and
+    sliding-window LOCAL layers) with GLU MLPs or top-k MoE FFNs (qk-norm
+    optional; RMSNorm on the fused pipeline, LayerNorm on the unfused one;
+    an MoE FFN on the unfused branch), or all Mamba-2 with no MLP, in
+    masked or gather routing.  Each refusal names the
     ROADMAP queue 1 item that will port it."""
     if is_ssm_stack(cfg):
         if cfg.d_ff:
@@ -58,9 +63,6 @@ def check_supported(cfg: ModelConfig) -> None:
     elif not cfg.d_ff:
         raise NotImplementedError("blocks without an MLP are not ported "
                                   "(ROADMAP queue 1 item 13)")
-    if cfg.num_experts or cfg.moe_every:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP "
-                                  "queue 1 item 13.4)")
     if cfg.frontend != "token":
         raise NotImplementedError("only token frontends are ported (ROADMAP "
                                   "queue 1 item 13.6)")
@@ -75,21 +77,25 @@ def is_gather(cfg: ModelConfig) -> bool:
     return cfg.skip.enabled and cfg.skip.mode == "gather"
 
 
-def block_init(gen, cfg: ModelConfig, device) -> Params:
-    """One layer's parameters, keyed as the reference's ``pos{k}`` leaves."""
+def block_init(gen, cfg: ModelConfig, device, layer: int) -> Params:
+    """Layer ``layer``'s parameters, keyed as the reference's ``pos{k}``
+    leaves: an MoE FFN (``moe.moe_init``) where ``cfg.is_moe_layer``."""
     def routed(inner):
         return {"router": routing.router_init(gen, cfg, device),
                 "norm": layers.norm_init(cfg.d_model, cfg, device),
                 "inner": inner}
     if is_ssm_stack(cfg):
         return {"mixer": routed(ssm_mod.ssm_init(gen, cfg, device))}
-    return {"mixer": routed(attn_mod.attention_init(gen, cfg, device)),
-            "ffn": routed(layers.mlp_init(gen, cfg, device))}
+    mixer = routed(attn_mod.attention_init(gen, cfg, device))
+    ffn = (moe_mod.moe_init(gen, cfg, device) if cfg.is_moe_layer(layer)
+           else layers.mlp_init(gen, cfg, device))
+    return {"mixer": mixer, "ffn": routed(ffn)}
 
 
 def _zero_stats(device) -> Dict[str, torch.Tensor]:
     z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"router_loss": z, "keep_frac_sum": z, "n_routed": z}
+    return {"router_loss": z, "keep_frac_sum": z, "n_routed": z,
+            "moe_lb_loss": z, "n_moe": z}
 
 
 def _acc_stats(acc: Dict, s: Dict, routed_kind: bool) -> Dict:
@@ -98,6 +104,9 @@ def _acc_stats(acc: Dict, s: Dict, routed_kind: bool) -> Dict:
     if routed_kind:
         acc["keep_frac_sum"] = acc["keep_frac_sum"] + s["keep_frac"]
         acc["n_routed"] = acc["n_routed"] + 1.0
+    if "moe_lb_loss" in s:
+        acc["moe_lb_loss"] = acc["moe_lb_loss"] + s["moe_lb_loss"]
+        acc["n_moe"] = acc["n_moe"] + 1.0
     return acc
 
 

@@ -125,6 +125,30 @@ def test_plan_g7_matches_hand_worked_values(name):
     _walk(*_SHAPES_G7[name], 128, _BF, balance=False)
 
 
+# grok-1-314b (48 heads over 8 kv heads: G 6, dh 128): lock-step prefill
+# 4 × 512 (R 3072 over B·Hkv 32: 24 row tiles each, 768 items), decode (R
+# 6: 8 splits wanted, kc = ⌈544 / 8 / 16⌉·16 = 80, so 7 splits), a verify
+# window of 5 columns (R 30), a 2-token prefill (R 12).  By hand as
+# _EXPECTED; the same tiles and splits as G 7's.
+_SHAPES_G6 = {"prefill": (32, 3072, 512), "decode": (32, 6, 544),
+              "verify": (32, 30, 544), "prefill2": (8, 12, 2)}
+_EXPECTED_G6 = {
+    "prefill": ("wgmma", 128, 128, 1, 0, (132, 1)),
+    "decode": ("splitkv", 16, 64, 7, 80, (7, 32)),
+    "verify": ("wgmma", 128, 128, 1, 0, (32, 1)),
+    "prefill2": ("splitkv", 16, 64, 1, 16, (1, 8)),
+}
+
+
+@pytest.mark.parametrize("name", list(_EXPECTED_G6))
+def test_plan_g6_matches_hand_worked_values(name):
+    p = fa.plan(*_SHAPES_G6[name], 128, _BF)
+    assert (p.route, p.tile_r, p.tile_k, p.splits, p.kc, p.grid) == \
+        _EXPECTED_G6[name]
+    assert p.smem == _SMEM[(p.route, 128)]
+    _walk(*_SHAPES_G6[name], 128, _BF, balance=False)
+
+
 # gemma3-12b (16 heads over 8 kv heads, dh 256, window 1024): lock-step
 # prefill 2 × 1536 (R = G·T 3072 over B·Hkv 16), a dense-pool prefill of
 # one 1000-token prompt, decode of 4 slots over a LOCAL layer's ring of
@@ -273,11 +297,12 @@ def _walk(BH, R, Tk, dh, dtype, balance=True):
 
 @pytest.mark.parametrize("dtype", [_BF, _F32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", chip_smoke.FLASH_RAGGED
-                         + chip_smoke.FLASH_RAGGED_19,
+                         + chip_smoke.FLASH_RAGGED_19
+                         + chip_smoke.FLASH_RAGGED_20,
                          ids=lambda c: "-".join(map(str, c)))
 def test_ragged_cases_plan_and_walk(case, dtype):
-    """chip_smoke's ragged flash cases, dh 256, dh 80 and G 7 among them
-    (phases 3 and 19): bf16 takes the
+    """chip_smoke's ragged flash cases, dh 256, dh 80, G 7 and G 6 among
+    them (phases 3, 19 and 20): bf16 takes the
     tile where G·Tq > 16 and the split-KV walk otherwise, fp32 the SIMT
     kernel, and each plan's grid covers every row and key once."""
     B, Tq, Tk, Hq, Hkv, dh, _, _ = case

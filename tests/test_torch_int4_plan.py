@@ -39,6 +39,10 @@ _G = _CFG.quant.group_size
 _LLAMA = [(name, K, N // 2 if glu else N, glu)
           for name, K, N, glu, _, _ in chip_smoke.linear_shapes(_CFG)]
 _LM_HEAD = ("lm_head", _CFG.d_model, _CFG.vocab_size, False)
+# grok-1-314b's int4 attention linears (phase 20; its experts stay bf16)
+_GROK = [("grok_" + name, K, N, glu) for name, K, N, glu, _, _ in
+         chip_smoke.linear_shapes(get_config("grok-1-314b"))
+         if name in ("wqkv", "wo")]
 _BF, _F32 = torch.bfloat16, torch.float32
 
 # (M, linear) -> (route, F, Gq, tile_m, tile_n, group_split, splits, grid,
@@ -84,11 +88,23 @@ _EXPECTED = {
                    65536, 352256),
     (2048, "down"): ("tc", 4096, 128, 128, 128, 0, 0, (16, 32), 22544384,
                      176128, 65536),
+    # grok-1-314b: wqkv K 6144 (C 48), F 8192, 64 column tiles; wo K 6144,
+    # F 6144, 48 tiles.  Stream: max(ceil(48 / 32), ceil(64 · 48 / 1056))
+    # = 3 and max(2, ceil(48 · 48 / 1056)) = 3 groups per split -> 16
+    # splits in 4 blocks; Σy² partials 64 · 4 · 4 and 48 · 4 · 4.  Tile:
+    # (16, tiles) blocks, mantissas 2048 · 48 · 128, steps 48 · 2048.
+    (4, "grok_wqkv"): ("stream", 8192, 128, 8, 128, 3, 16, (4, 64), 0, 0,
+                       1024),
+    (4, "grok_wo"): ("stream", 6144, 128, 8, 128, 3, 16, (4, 48), 0, 0, 768),
+    (2048, "grok_wqkv"): ("tc", 8192, 128, 128, 128, 0, 0, (16, 64),
+                          12582912, 98304, 131072),
+    (2048, "grok_wo"): ("tc", 6144, 128, 128, 128, 0, 0, (16, 48), 12582912,
+                        98304, 98304),
 }
 
 
 def _shape(name):
-    return next(s for s in _LLAMA + [_LM_HEAD] if s[0] == name)
+    return next(s for s in _LLAMA + [_LM_HEAD] + _GROK if s[0] == name)
 
 
 def _plan(M, K, F, G, glu, dtype=_BF):
@@ -106,11 +122,12 @@ def test_plan_int4_matches_hand_worked_values(key):
         assert got == _EXPECTED[key]
 
 
-# (M, K, F, glu, G): the main shapes, the lm head, chip_smoke's ragged
-# fused-linear cases and its ragged int4-matmul cases.
+# (M, K, F, glu, G): the main shapes, the lm head, grok's, chip_smoke's
+# ragged fused-linear cases and its ragged int4-matmul cases.
 _CASES = ([(M, K, F, glu, _G) for M in (4, 256, 512, 2048)
            for _, K, F, glu in _LLAMA]
           + [(4, _LM_HEAD[1], _LM_HEAD[2], False, _G)]
+          + [(M, K, F, glu, _G) for M in (4, 2048) for _, K, F, glu in _GROK]
           + [(M, K, F, glu, G) for M, K, F, glu, G, *_ in
              chip_smoke.INT4_RAGGED]
           + [(1, 200, 33, False, 64), (17, 256, 130, False, 128),

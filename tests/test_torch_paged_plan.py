@@ -153,6 +153,59 @@ def test_ragged_19_cases_plan(case):
     assert pa.row_bytes("int4", 80) == 40 and 40 % 16 == 8
 
 
+# Phase 20's full shapes.  grok-1-314b (B 4 slots, 8 kv-heads, G 6, dh
+# 128, the same 1024-page chain) groups as deepseek's G 7 above: 4 · 2 · 8
+# and 4 · 4 · 8 blocks fall short of 256, so one kv-head a block, S 8,
+# steps of 64 entries, 2 / 3 / 4 stages (73728 / 72192 / 56320 B); fp32 q:
+# the SIMT kernel, 4 query heads a block, so ⌈6 / 4⌉ = 2 blocks a kv-head.
+# arctic-480b's G 7 at the same shape: deepseek's plan.
+_FULL_20 = {"grok": (4, 8, 6, 128, 16384), "arctic": (4, 8, 7, 128, 16384)}
+_EXPECTED_20 = {
+    ("grok", None, _BF): ("split", 16, 1, 8, 64, 2, (8, 32), 73728),
+    ("grok", "int8", _BF): ("split", 16, 1, 8, 64, 3, (8, 32), 72192),
+    ("grok", "int4", _BF): ("split", 16, 1, 8, 64, 4, (8, 32), 56320),
+    ("grok", None, _F32): ("simt", 4, 1, 1, 8, 0, (32, 2), 0),
+    ("arctic", "int8", _BF): ("split", 16, 1, 8, 64, 3, (8, 32), 72192),
+}
+
+
+@pytest.mark.parametrize("key", list(_EXPECTED_20),
+                         ids=lambda k: f"{k[0]}-{k[1]}-{str(k[2])[6:]}")
+def test_plan_phase20_shapes_match_hand_worked_values(key):
+    name, kd, dt = key
+    B, Hkv, G, dh, E = _FULL_20[name]
+    assert _tuple(pa.plan(B, Hkv, G, dh, E, kd, dt)) == _EXPECTED_20[key]
+
+
+# chip_smoke.PAGED_RAGGED_20 in bf16 q, by hand as _EXPECTED_RAGGED:
+# (heads, splits, grid); the ring's stages and shared memory follow the
+# kv-heads a block as above.
+_EXPECTED_RAGGED_20 = [
+    (1, 4, (4, 32)), (1, 4, (4, 4)), (4, 8, (8, 32)), (2, 8, (8, 32)),
+    (1, 3, (3, 1)), (1, 1, (1, 2)), (1, 1, (1, 3)), (1, 1, (1, 4)),
+    (1, 8, (8, 2)), (1, 4, (4, 32)),
+]
+
+
+@pytest.mark.parametrize("case,want", list(zip(chip_smoke.PAGED_RAGGED_20,
+                                               _EXPECTED_RAGGED_20)),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ragged_20_cases_plan(case, want):
+    """chip_smoke's G 6 (and arctic's G 7) ragged paged cases (phase 20):
+    bf16 q on the split walk with the hand-worked groups and splits, fp32
+    on the SIMT kernel with ⌈G / 4⌉ blocks a kv-head; every kv-head in one
+    block group; shared memory within three blocks an SM."""
+    B, Hkv, G, dh, ps, J, _ = case
+    for kd in (None, "int8", "int4"):
+        p = pa.plan(B, Hkv, G, dh, J * ps, kd, _BF)
+        assert p.route == "split" and (p.heads, p.splits, p.grid) == want
+        assert p.grid == (p.splits, B * -(-Hkv // p.heads))
+        assert p.smem <= pa.SPLIT_SMEM and 3 * p.smem <= SMEM_PER_SM
+        f = pa.plan(B, Hkv, G, dh, J * ps, kd, _F32)
+        assert f.route == "simt" and f.grid == (B * Hkv, -(-G // f.rows))
+    assert len(chip_smoke.PAGED_RAGGED_20) == len(_EXPECTED_RAGGED_20)
+
+
 @pytest.mark.parametrize("G", [1, 2, 8, 16, 17, 32])
 def test_routes_by_dtype_and_g(G):
     for kd in (None, "int8", "int4"):

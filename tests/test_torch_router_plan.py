@@ -79,9 +79,12 @@ def _tuple(p):
 # 128·rows; grid min(ceil(T/rows), 264·16 / (4·rows)); smem 96·rows.  T
 # 2048: 4 rows, 512 iterations on 264 blocks of 512 threads.  T 453:
 # ceil(453/4) = 114, ceil(453/2) = 227 < 264 -> 1 row, 453 blocks of 128.
-# T 4: 1 row, a block of 128 threads a row.  fp32 the same.
+# T 4: 1 row, a block of 128 threads a row.  fp32 the same.  D does not
+# enter the plan past vec: llama2-7b's 4096, mamba2-2.7b's 2560 and phase
+# 20's grok-1-314b 6144 and arctic-480b 7168 (an MoE block leaves no Σy²
+# carry, so every attention block launches the router) plan alike.
 _MAIN = [((T, D, dt), want)
-         for dt in (_BF, _F32) for D in (4096, 2560)
+         for dt in (_BF, _F32) for D in (4096, 2560, 6144, 7168)
          for T, want in ((2048, (264, 512, 4, 2, 384)),
                          (453, (453, 128, 1, 2, 96)),
                          (4, (4, 128, 1, 2, 96)))]
